@@ -1,0 +1,12 @@
+"""PyTorch/CUDA port of ``vjf_tpu`` for one NVIDIA H100.
+
+The JAX package ``vjf_tpu`` stays the reference; this package mirrors its
+module layout and names. The main path is the fused filter-then-learn epoch
+(``models.vjf.run_epochs`` -> ``ops.fused_step.run_epoch_fused``), whose two
+kernels are hand-written CUDA in ``csrc/fused_step.cu``. On CPU tensors the
+kernels' plain PyTorch versions run instead.
+"""
+from .config import StepFlags, VJFConfig
+from .types import Gaussian
+
+__all__ = ["StepFlags", "VJFConfig", "Gaussian"]

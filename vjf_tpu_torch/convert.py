@@ -1,0 +1,121 @@
+"""Carry weights and state across from the JAX package and back.
+
+:func:`state_from_numpy` takes the JAX ``TrainState`` after
+``jax.tree.map(np.asarray, state)`` and reads it by attribute, so this module
+imports neither ``jax`` nor ``vjf_tpu``. :func:`state_to_numpy` returns the
+port's state as nested dicts under the JAX package's field names;
+:func:`flatten` turns either side into ``{"a.b.0.c": array}`` for a
+leaf-by-leaf comparison.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from .config import VJFConfig
+from .models.dynamics import DynamicsState
+from .models.likelihoods import GaussianLikParams, PoissonLikParams
+from .models.rbf import RBFParams
+from .models.recognition import Recognition, linear_from
+from .models.regression import NSVBLR
+from .models.vjf import Params, PriorParams, TrainState
+
+
+def _t(a, device, dtype=None) -> torch.Tensor:
+    # copy: a tensor sharing memory with the caller's array would let the
+    # port's updates write through into it
+    return torch.tensor(np.array(a, copy=True), dtype=dtype, device=device)
+
+
+def state_from_numpy(cfg: VJFConfig, tree, device=None) -> TrainState:
+    """The port's ``TrainState`` on ``device`` from a numpy-leaved JAX one."""
+    p = tree.params
+    rec = p.recognition
+    recognition = Recognition(
+        [linear_from(_t(l.w, device), _t(l.b, device)) for l in rec.layers],
+        mean=linear_from(_t(rec.mean.w, device)),
+        logvar=linear_from(_t(rec.logvar.w, device), _t(rec.logvar.b, device)),
+    )
+    if cfg.likelihood == "gaussian":
+        lik = GaussianLikParams(logvar=_t(p.likelihood.logvar, device))
+    else:
+        lik = PoissonLikParams()
+    blr = tree.dynamics.blr
+    if not (hasattr(blr, "precision") and hasattr(blr, "cov")):
+        raise NotImplementedError("only the nsv backend is ported (ROADMAP Queue 1 item 3)")
+    return TrainState(
+        params=Params(
+            recognition=recognition,
+            decoder=linear_from(_t(p.decoder.w, device), _t(p.decoder.b, device)),
+            likelihood=lik,
+            prior=PriorParams(_t(p.prior.mean, device), _t(p.prior.logvar, device)),
+        ),
+        dynamics=DynamicsState(
+            rbf=RBFParams(_t(tree.dynamics.rbf.centroid, device),
+                          _t(tree.dynamics.rbf.logwidth, device)),
+            blr=NSVBLR(_t(blr.w_mean, device), _t(blr.precision, device),
+                       _t(blr.cov, device)),
+            logvar=_t(tree.dynamics.logvar, device),
+            n_sample=_t(tree.dynamics.n_sample, device, torch.int32),
+        ),
+        lik_n_sample=_t(tree.lik_n_sample, device),
+    )
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy().copy()
+
+
+def _linear(lin) -> Dict[str, Any]:
+    return {"w": _np(lin.weight), "b": None if lin.bias is None else _np(lin.bias)}
+
+
+def state_to_numpy(state: TrainState) -> Dict[str, Any]:
+    """The port's state as nested dicts of numpy arrays, keyed by the JAX
+    package's field names (``params.recognition.layers[i].w`` ...)."""
+    p = state.params
+    rec = p.recognition
+    lik = p.likelihood
+    d = state.dynamics
+    return {
+        "params": {
+            "recognition": {
+                "layers": [_linear(l) for l in rec.layers],
+                "mean": _linear(rec.mean),
+                "logvar": _linear(rec.logvar),
+            },
+            "decoder": _linear(p.decoder),
+            "likelihood": ({"logvar": _np(lik.logvar)}
+                           if isinstance(lik, GaussianLikParams) else {"empty": None}),
+            "prior": {"mean": _np(p.prior.mean), "logvar": _np(p.prior.logvar)},
+        },
+        "dynamics": {
+            "rbf": {"centroid": _np(d.rbf.centroid), "logwidth": _np(d.rbf.logwidth)},
+            "blr": {"w_mean": _np(d.blr.w_mean), "precision": _np(d.blr.precision),
+                    "cov": _np(d.blr.cov)},
+            "logvar": _np(d.logvar),
+            "n_sample": _np(d.n_sample),
+        },
+        "lik_n_sample": _np(state.lik_n_sample),
+    }
+
+
+def flatten(tree, prefix: str = "") -> Dict[str, Any]:
+    """``{"params.recognition.layers.0.w": leaf, ...}`` from nested dicts,
+    lists, or NamedTuples (the JAX side); ``None`` leaves are dropped."""
+    if hasattr(tree, "_asdict"):
+        tree = tree._asdict()
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = ((str(i), v) for i, v in enumerate(tree))
+    elif tree is None:
+        return {}
+    else:
+        return {prefix: tree}
+    out = {}
+    for k, v in items:
+        out.update(flatten(v, f"{prefix}.{k}" if prefix else str(k)))
+    return out

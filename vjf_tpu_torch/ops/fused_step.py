@@ -1,0 +1,1201 @@
+"""The whole VJF filter-then-learn step, as two hand-written CUDA kernels and
+their plain PyTorch versions (counterpart of
+``vjf_tpu/ops/pallas/fused_step.py``).
+
+* :func:`step_forward_sums` + :func:`step_apply`, composed by
+  :func:`step_math`, are the step as plain tensor code. They are the
+  specification the kernels are held to, and what runs on CPU tensors.
+* :func:`fused_step_call` runs one step (the exact-inverse prefix) and
+  :func:`mega_epoch_call` runs a whole segment of steps in one launch. On a
+  CUDA tensor each launches its kernel from ``csrc/fused_step.cu`` or
+  raises; on a CPU tensor each runs its plain version.
+* :func:`run_epoch_fused` pads the state once, runs the prefix (per-step
+  kernel plus :func:`exact_v_fallback`) and the mega segment, and unpads.
+
+Numerics follow the JAX package: with ``matmul_dtype='bfloat16'`` the
+activation, gradient and statistics products round their inputs to bf16 and
+accumulate in f32 (:func:`_mm_fn`); the feedback chain (``P w``, every
+Newton-Schulz product, ``V g``, the RBF cross term) stays full f32.
+The trial mask, the channel mask and SGP whitening are not ported yet.
+"""
+from __future__ import annotations
+
+import contextlib
+import ctypes
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from ..config import StepFlags, VJFConfig
+from . import rng as _rng
+
+NS_ITERS = 3
+NS_TAU_THRESHOLD = 0.25
+NS_TAU_MAX = 0.7
+NS_EXTRA_ITERS = 2
+NS_TAU_ESCALATE = 0.05
+NS_ONE_ITER_MIN_BATCH = 64
+
+_MASKS_TODO = "trial and channel masks: ROADMAP Queue 1 item 8"
+_SGP_TODO = "SGP dynamics: ROADMAP Queue 1 item 9"
+
+# kernel launches, one count per launcher; only the CUDA branch of a wrapper
+# adds to its count
+launches = {"fused_step": 0, "mega_epoch": 0}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def epoch_repair_enabled(cfg, n_batch: int) -> bool:
+    """Resolve ``cfg.rls_epoch_repair``: 'auto' repairs small-batch epochs."""
+    mode = cfg.rls_epoch_repair
+    if mode not in ("auto", "on", "off"):
+        raise ValueError(
+            f"rls_epoch_repair must be 'auto', 'on', or 'off' (got {mode!r})"
+        )
+    if mode == "on":
+        return True
+    if mode == "off":
+        return False
+    return n_batch < NS_ONE_ITER_MIN_BATCH
+
+
+def maybe_epoch_repair(cfg, flags, state, n_batch: int):
+    """Epoch-boundary spectral repair of the tracked (P, V) pair, if this
+    epoch is RLS-active and ``cfg.rls_epoch_repair`` resolves enabled. Runs
+    on the UNPADDED state."""
+    do_fallback = flags.update and flags.update_transition and not flags.warm_up
+    if not (do_fallback and epoch_repair_enabled(cfg, n_batch)):
+        return state
+    from ..models import regression as _reg
+
+    return state._replace(
+        dynamics=state.dynamics._replace(
+            blr=_reg.spectral_repair(
+                state.dynamics.blr,
+                only_if_indefinite=cfg.rls_epoch_repair != "on",
+            )
+        )
+    )
+
+
+def _round_up(x: int, m: int = 128) -> int:
+    return ((x + m - 1) // m) * m
+
+
+class FusedCarry(NamedTuple):
+    """Kernel-layout training state (padded, biases 2D, weights pre-split)."""
+
+    w_in_y: torch.Tensor                  # (h0, yd)
+    w_in_u: Optional[torch.Tensor]        # (h0, ud) or None when udim == 0
+    w_in_m: torch.Tensor                  # (h0, xd)
+    w_in_lv: torch.Tensor                 # (h0, xd)
+    w_hidden: Tuple[torch.Tensor, ...]    # each (h_i, h_{i-1}), layers 1..
+    b_hidden: Tuple[torch.Tensor, ...]    # each (1, h_i), layers 0..
+    w_mean: torch.Tensor                  # (xd, h_last)
+    w_logvar: torch.Tensor                # (xd, h_last)
+    b_logvar: torch.Tensor                # (1, xd)
+    w_dec: torch.Tensor                   # (yd, xd)
+    b_dec: torch.Tensor                   # (1, yd)
+    cent_x: torch.Tensor                  # (nfp, xd), pad rows at +1e6
+    cent_u: Optional[torch.Tensor]        # (nfp, ud) or None
+    c2: torch.Tensor                      # (1, nfp) sum of squared centroid coords
+    inv_w2: torch.Tensor                  # (1, nfp) exp(-2 logwidth)
+    w_white: Optional[torch.Tensor]       # SGP only: always None in the port
+    scale2: Optional[torch.Tensor]        # SGP only: always None in the port
+    p_mat: torch.Tensor                   # (nfp, nfp) precision, identity pad block
+    v_mat: torch.Tensor                   # (nfp, nfp) NS-tracked inverse
+    w_dyn: torch.Tensor                   # (nfp, xd), zero pad rows
+    state_logvar: torch.Tensor            # (1, 1) each
+    lik_logvar: torch.Tensor
+    dyn_n: torch.Tensor
+    lik_n: torch.Tensor
+    rng_seed: torch.Tensor                # (1, 1) int32 Philox key
+    rng_count: torch.Tensor               # (1, 1) int32 per-step counter
+
+
+class ScalarPack(NamedTuple):
+    loss: torch.Tensor                    # (1, 1) each
+    recon: torch.Tensor
+    dyn: torch.Tensor
+    ent: torch.Tensor
+    tau: torch.Tensor
+
+
+class StepOut(NamedTuple):
+    carry: FusedCarry
+    qt_mean: torch.Tensor
+    qt_logvar: torch.Tensor
+    g_vec: torch.Tensor                   # (nfp, xd) RLS target
+    xt: torch.Tensor                      # (B, xd)
+    xs: torch.Tensor                      # (B, xd)
+    scal: ScalarPack
+
+
+class FusedSums(NamedTuple):
+    """Everything the step needs from the batch, reduced over trials."""
+
+    g_w_in_y: torch.Tensor
+    g_w_in_u: Optional[torch.Tensor]
+    g_w_in_m: torch.Tensor
+    g_w_in_lv: torch.Tensor
+    g_w_hidden: Tuple[torch.Tensor, ...]
+    g_b_hidden: Tuple[torch.Tensor, ...]
+    g_w_mean: torch.Tensor
+    g_w_logvar: torch.Tensor
+    g_b_logvar: torch.Tensor
+    g_w_dec: torch.Tensor
+    g_b_dec: torch.Tensor
+    g_lik_lv_batch: torch.Tensor
+    recon_batch: torch.Tensor
+    dyn_batch: torch.Tensor
+    ent: torch.Tensor
+    sq_y: torch.Tensor
+    # sum over every gradient entry: non-finite iff any entry is
+    grad_check: torch.Tensor
+    ftf_raw: torch.Tensor
+    fxd_raw: torch.Tensor
+    fvf_sum: torch.Tensor
+    dx_sum: torch.Tensor
+    dx2_sum: torch.Tensor
+
+
+class PerTrial(NamedTuple):
+    qt_m: torch.Tensor
+    qt_lv: torch.Tensor
+    xt: torch.Tensor
+    xs: torch.Tensor
+    feat: torch.Tensor
+    dx: torch.Tensor
+
+
+def _mm_fn(cfg: VJFConfig, dtype: torch.dtype):
+    """Products of activations, gradients and statistics: bf16 inputs with
+    f32 accumulation when ``matmul_dtype='bfloat16'`` (``a.bfloat16() @
+    b.bfloat16()`` would round the RESULT to bf16 too, so the inputs are
+    rounded and brought back to f32 first)."""
+    if cfg.matmul_dtype == "bfloat16" and dtype == torch.float32:
+        def mm(a, b):
+            return a.bfloat16().float() @ b.bfloat16().float()
+        return mm
+    return torch.matmul
+
+
+def _no_masks(mask, cmask) -> None:
+    if mask is not None or cmask is not None:
+        raise NotImplementedError(_MASKS_TODO)
+
+
+def step_forward_sums(
+    cfg: VJFConfig,
+    flags: StepFlags,
+    carry: FusedCarry,
+    qs_m: torch.Tensor,
+    qs_lv: torch.Tensor,
+    y: torch.Tensor,
+    u: Optional[torch.Tensor],
+    eps_s: torch.Tensor,
+    eps_t: torch.Tensor,
+    inv_b,
+    mask: Optional[torch.Tensor] = None,
+    cmask: Optional[torch.Tensor] = None,
+) -> Tuple[FusedSums, PerTrial]:
+    """Per-trial phase of the step: forward pass, hand-written backward and
+    trial-axis reductions."""
+    _no_masks(mask, cmask)
+    if carry.w_white is not None:
+        raise NotImplementedError(_SGP_TODO)
+    f32 = qs_m.dtype
+    slogvar = carry.state_logvar[0, 0]
+    has_u = u is not None and u.shape[-1] > 0
+    mm = _mm_fn(cfg, f32)
+
+    # ---------------- forward ----------------
+    xs = qs_m + eps_s * torch.exp(0.5 * qs_lv)
+    x2 = torch.sum(xs * xs, dim=-1, keepdim=True)             # (B, 1)
+    cross = xs @ carry.cent_x.T                               # full precision
+    if has_u:
+        x2 = x2 + torch.sum(u * u, dim=-1, keepdim=True)
+        cross = cross + u @ carry.cent_u.T
+    d2 = torch.clamp(x2 + carry.c2 - 2.0 * cross, min=0.0)
+    feat = torch.exp(-0.5 * d2 * carry.inv_w2)                # (B, nfp); pad cols 0
+
+    z = mm(feat, carry.v_mat)
+    fvf = torch.clamp(torch.sum(z * feat, dim=-1, keepdim=True), min=1e-30)
+    pt_lv = torch.log(fvf)                                    # (B, 1)
+    pt_m = (1.0 - cfg.leak) * xs + mm(feat, carry.w_dyn)
+
+    a0 = mm(y, carry.w_in_y.T) + mm(qs_m, carry.w_in_m.T) + mm(qs_lv, carry.w_in_lv.T)
+    if has_u:
+        a0 = a0 + mm(u, carry.w_in_u.T)
+    a = torch.tanh(a0 + carry.b_hidden[0])
+    hs = [a]
+    for i, w in enumerate(carry.w_hidden):
+        a = torch.tanh(mm(a, w.T) + carry.b_hidden[i + 1])
+        hs.append(a)
+    h_last = a
+    qt_m = mm(h_last, carry.w_mean.T)
+    raw_qt_lv = mm(h_last, carry.w_logvar.T) + carry.b_logvar
+    qt_lv = torch.clamp(raw_qt_lv, -cfg.logvar_clamp, cfg.logvar_clamp)
+    sig_t = torch.exp(0.5 * qt_lv)
+    xt = qt_m + eps_t * sig_t
+    py = mm(xt, carry.w_dec.T) + carry.b_dec
+
+    # ---------------- ELBO batch sums ----------------
+    zero = torch.zeros((), dtype=f32, device=y.device)
+    if cfg.likelihood == "poisson":
+        pyc = torch.clamp(py, max=cfg.poisson_clamp)
+        exp_pyc = torch.exp(pyc)
+        recon_batch = torch.sum(exp_pyc - y * pyc) * inv_b
+        sq_y = zero
+    else:
+        lik_lv = carry.lik_logvar[0, 0]
+        resid_y = y - py
+        sq_y = torch.sum(resid_y * resid_y)
+        recon_batch = zero
+
+    inv_sv = torch.exp(-slogvar)
+    diff = pt_m - qt_m
+    if cfg.trace_quirk:
+        trace = torch.exp(pt_lv + qt_lv - slogvar)
+    else:
+        trace = torch.exp(pt_lv - slogvar) + torch.exp(qt_lv - slogvar)
+    dyn_batch = torch.sum(diff * diff) * inv_sv * inv_b + torch.sum(trace) * inv_b
+    h_ent = 0.5 * torch.sum(qt_lv) * inv_b
+
+    # ---------------- manual backward (gradient batch-sums) ----------------
+    nh = len(carry.w_hidden)
+    if flags.sgd:
+        if cfg.likelihood == "poisson":
+            g_py = (exp_pyc - y) * (py < cfg.poisson_clamp) * inv_b
+            g_lik_lv_batch = zero
+        else:
+            g_py = -resid_y * torch.exp(-lik_lv) * inv_b
+            g_lik_lv_batch = -0.5 * sq_y * torch.exp(-lik_lv) * inv_b
+
+        g_xt = mm(g_py, carry.w_dec)                           # (B, xd)
+        if flags.train_decoder:
+            g_w_dec = mm(g_py.T, xt)
+            g_b_dec = torch.sum(g_py, dim=0, keepdim=True)
+        else:
+            g_w_dec = torch.zeros_like(carry.w_dec)
+            g_b_dec = torch.zeros_like(carry.b_dec)
+
+        g_qt_m = g_xt
+        g_qt_lv = g_xt * eps_t * (0.5 * sig_t) - (0.5 * inv_b)
+        if not flags.warm_up:
+            g_qt_m = g_qt_m - diff * (inv_sv * inv_b)
+            if cfg.trace_quirk:
+                g_qt_lv = g_qt_lv + 0.5 * trace * inv_b
+            else:
+                g_qt_lv = g_qt_lv + 0.5 * torch.exp(qt_lv - slogvar) * inv_b
+        # nothing flows back through the logvar clip where it binds
+        g_qt_lv = g_qt_lv * (torch.abs(raw_qt_lv) < cfg.logvar_clamp)
+
+        g_wm = mm(g_qt_m.T, h_last)
+        g_wlv = mm(g_qt_lv.T, h_last)
+        g_blv = torch.sum(g_qt_lv, dim=0, keepdim=True)
+        g_h = mm(g_qt_m, carry.w_mean) + mm(g_qt_lv, carry.w_logvar)
+
+        g_w_hidden = [None] * nh
+        g_b_hidden = [None] * (nh + 1)
+        for i in range(nh, 0, -1):                             # layers n..1
+            h_i = hs[i]
+            g_a = g_h * (1.0 - h_i * h_i)
+            g_w_hidden[i - 1] = mm(g_a.T, hs[i - 1])
+            g_b_hidden[i] = torch.sum(g_a, dim=0, keepdim=True)
+            g_h = mm(g_a, carry.w_hidden[i - 1])
+        g_a0 = g_h * (1.0 - hs[0] * hs[0])                     # first layer
+        g_b_hidden[0] = torch.sum(g_a0, dim=0, keepdim=True)
+        g_w_in_u = mm(g_a0.T, u) if has_u else None
+        g_w_in_y = mm(g_a0.T, y)
+        g_w_in_m = mm(g_a0.T, qs_m)
+        g_w_in_lv = mm(g_a0.T, qs_lv)
+    else:
+        g_w_in_y = torch.zeros_like(carry.w_in_y)
+        g_w_in_u = torch.zeros_like(carry.w_in_u) if has_u else None
+        g_w_in_m = torch.zeros_like(carry.w_in_m)
+        g_w_in_lv = torch.zeros_like(carry.w_in_lv)
+        g_w_hidden = [torch.zeros_like(w) for w in carry.w_hidden]
+        g_b_hidden = [torch.zeros_like(bb) for bb in carry.b_hidden]
+        g_wm = torch.zeros_like(carry.w_mean)
+        g_wlv = torch.zeros_like(carry.w_logvar)
+        g_blv = torch.zeros_like(carry.b_logvar)
+        g_w_dec = torch.zeros_like(carry.w_dec)
+        g_b_dec = torch.zeros_like(carry.b_dec)
+        g_lik_lv_batch = zero
+
+    # ---------------- RLS raw statistics ----------------
+    dx = xt - xs
+    if flags.update and flags.update_transition:
+        dx_sum = torch.sum(dx)
+        dx2_sum = torch.sum(dx * dx)
+        fvf_sum = torch.sum(fvf)
+        ftf_raw = mm(feat.T, feat)
+        fxd_raw = mm(feat.T, dx)
+    else:
+        dx_sum = dx2_sum = fvf_sum = zero
+        ftf_raw = torch.zeros_like(carry.p_mat)
+        fxd_raw = torch.zeros_like(carry.w_dyn)
+
+    if flags.sgd:
+        grad_leaves = (
+            [g_w_in_y, g_w_in_m, g_w_in_lv, g_wm, g_wlv, g_blv, g_w_dec,
+             g_b_dec, g_lik_lv_batch]
+            + ([g_w_in_u] if has_u else [])
+            + list(g_w_hidden) + list(g_b_hidden)
+        )
+        grad_check = sum(torch.sum(g) for g in grad_leaves)
+    else:
+        grad_check = zero
+
+    sums = FusedSums(
+        g_w_in_y=g_w_in_y, g_w_in_u=g_w_in_u, g_w_in_m=g_w_in_m,
+        g_w_in_lv=g_w_in_lv,
+        g_w_hidden=tuple(g_w_hidden), g_b_hidden=tuple(g_b_hidden),
+        g_w_mean=g_wm, g_w_logvar=g_wlv, g_b_logvar=g_blv,
+        g_w_dec=g_w_dec, g_b_dec=g_b_dec, g_lik_lv_batch=g_lik_lv_batch,
+        recon_batch=recon_batch, dyn_batch=dyn_batch, ent=h_ent, sq_y=sq_y,
+        grad_check=grad_check,
+        ftf_raw=ftf_raw, fxd_raw=fxd_raw, fvf_sum=fvf_sum,
+        dx_sum=dx_sum, dx2_sum=dx2_sum,
+    )
+    per = PerTrial(qt_m=qt_m, qt_lv=qt_lv, xt=xt, xs=xs, feat=feat, dx=dx)
+    return sums, per
+
+
+def _ns_iter(x: torch.Tensor, p_new: torch.Tensor, eye2: torch.Tensor) -> torch.Tensor:
+    return x @ (eye2 - p_new @ x)
+
+
+def step_apply(
+    cfg: VJFConfig,
+    flags: StepFlags,
+    carry: FusedCarry,
+    sums: FusedSums,
+    lr: torch.Tensor,
+    b_total: int,
+    feat: torch.Tensor,
+    dx: torch.Tensor,
+    ns_extra=None,
+    ns_tau_max: Optional[float] = None,
+    ns_iters: int = NS_ITERS,
+    mask: Optional[torch.Tensor] = None,
+) -> Tuple[FusedCarry, ScalarPack, torch.Tensor]:
+    """Batch-independent phase: reconstruct the ELBO from the sums, apply
+    clipped SGD, then the closed-form updates (obs noise, RLS with
+    Newton-Schulz tracking of V, state noise)."""
+    _no_masks(mask, None)
+    f32 = carry.w_dyn.dtype
+    dev = carry.w_dyn.device
+    b = b_total
+    count = b
+    inv_b = 1.0 / b
+    slogvar = carry.state_logvar[0, 0]
+    mm = _mm_fn(cfg, f32)
+    ydim = carry.w_dec.shape[0]
+    xd = carry.w_dyn.shape[-1]
+
+    # ---------------- ELBO components with their constants ----------------
+    if cfg.likelihood == "poisson":
+        l_recon = sums.recon_batch
+        obs_mse = torch.zeros((), dtype=f32, device=dev)
+    else:
+        lik_lv = carry.lik_logvar[0, 0]
+        l_recon = 0.5 * (sums.sq_y * torch.exp(-lik_lv) * inv_b + ydim * lik_lv)
+        obs_mse = sums.sq_y * inv_b / ydim
+    l_dyn = 0.5 * (sums.dyn_batch + xd * slogvar)
+    h_ent = sums.ent
+
+    # the skip-step gate sees the RAW components; in warm-up the dynamics
+    # term is outside the loss, so it does not gate
+    raw_ok = torch.isfinite(l_recon) & torch.isfinite(h_ent)
+    if not flags.warm_up:
+        raw_ok = raw_ok & torch.isfinite(l_dyn)
+    zero = torch.zeros((), dtype=f32, device=dev)
+    l_recon = torch.where(torch.isfinite(l_recon), l_recon, zero)
+    l_dyn = torch.where(torch.isfinite(l_dyn), l_dyn, zero)
+    h_ent = torch.where(torch.isfinite(h_ent), h_ent, zero)
+    loss = l_recon - h_ent + (0.0 if flags.warm_up else l_dyn)
+
+    # ---------------- clipped SGD ----------------
+    new = carry
+    if flags.sgd:
+        sgd_ok = raw_ok & torch.isfinite(sums.grad_check)
+        clip = cfg.clip
+
+        def upd(p, g):
+            # select, don't scale: 0 * NaN = NaN would poison the params
+            return torch.where(sgd_ok, p - lr * torch.clamp(g, -clip, clip), p)
+
+        if cfg.likelihood == "poisson":
+            lik_logvar_new = carry.lik_logvar
+        else:
+            lik_logvar_new = upd(carry.lik_logvar, sums.g_lik_lv_batch + 0.5 * ydim)
+        if flags.train_decoder:
+            w_dec_new = upd(carry.w_dec, sums.g_w_dec)
+            b_dec_new = upd(carry.b_dec, sums.g_b_dec)
+        else:
+            w_dec_new, b_dec_new = carry.w_dec, carry.b_dec
+        new = new._replace(
+            w_in_y=upd(carry.w_in_y, sums.g_w_in_y),
+            w_in_u=upd(carry.w_in_u, sums.g_w_in_u)
+            if sums.g_w_in_u is not None
+            else carry.w_in_u,
+            w_in_m=upd(carry.w_in_m, sums.g_w_in_m),
+            w_in_lv=upd(carry.w_in_lv, sums.g_w_in_lv),
+            w_hidden=tuple(upd(w, g) for w, g in zip(carry.w_hidden, sums.g_w_hidden)),
+            b_hidden=tuple(upd(bb, g) for bb, g in zip(carry.b_hidden, sums.g_b_hidden)),
+            w_mean=upd(carry.w_mean, sums.g_w_mean),
+            w_logvar=upd(carry.w_logvar, sums.g_w_logvar),
+            b_logvar=upd(carry.b_logvar, sums.g_b_logvar),
+            w_dec=w_dec_new,
+            b_dec=b_dec_new,
+            lik_logvar=lik_logvar_new,
+        )
+
+    # ---------------- non-gradient updates ----------------
+    tau = torch.zeros((), dtype=f32, device=dev)
+    g_vec = torch.zeros_like(carry.w_dyn)
+    if flags.update and cfg.likelihood == "gaussian" and flags.update_likelihood:
+        # running-var overwrite with the POST-SGD logvar
+        lik_n = torch.clamp(new.lik_n[0, 0], max=float(cfg.obs_var_cap))
+        tot = lik_n + count
+        var = (lik_n / tot) * torch.exp(new.lik_logvar[0, 0]) + (count / tot) * obs_mse
+        lik_lv_new = torch.clamp(torch.log(var), -cfg.logvar_clamp, cfg.logvar_clamp)
+        lik_ok = torch.isfinite(var)
+        new = new._replace(
+            lik_logvar=torch.where(lik_ok, lik_lv_new, new.lik_logvar[0, 0]).reshape(1, 1),
+            lik_n=torch.where(lik_ok, tot, new.lik_n[0, 0]).reshape(1, 1),
+        )
+
+    if flags.update and flags.update_transition:
+        dyn_ok = torch.isfinite(sums.dx_sum)
+        w_dyn_new = carry.w_dyn
+        if not flags.warm_up:
+            lam = float(cfg.rls_shrink)
+            jit_c = float(cfg.chol_jitter)
+            inv_sv_u = torch.exp(-slogvar)
+            ftf = sums.ftf_raw * inv_sv_u
+            g_vec = lam * (carry.p_mat @ carry.w_dyn) + sums.fxd_raw * inv_sv_u
+            p_new = lam * carry.p_mat + ftf
+            nfp = carry.p_mat.shape[0]
+            if lam != 1.0 or jit_c != 0.0:
+                # the identity pad block stays EXACTLY identity; the real
+                # block gets the per-step jitter ridge
+                diag = torch.eye(nfp, dtype=f32, device=dev)
+                rows = torch.arange(nfp, device=dev)[:, None]
+                pad_diag = diag * (rows >= cfg.feature_dim).to(f32)
+                p_new = p_new + (1.0 - lam) * pad_diag + jit_c * (diag - pad_diag)
+            # tau = tr(dP V_old), the NS-residual trace bound
+            tau = sums.fvf_sum * inv_sv_u / lam
+            x_ns = carry.v_mat / lam if lam != 1.0 else carry.v_mat
+            eye2 = 2.0 * torch.eye(nfp, dtype=f32, device=dev)
+            for _ in range(ns_iters):
+                x_ns = _ns_iter(x_ns, p_new, eye2)
+            if ns_extra is not None:
+                x_ns = ns_extra(x_ns, p_new, eye2, tau)
+            v_new = 0.5 * (x_ns + x_ns.T)
+            w_dyn_new = v_new @ g_vec
+            ns_ok = torch.isfinite(torch.sum(v_new) + torch.sum(w_dyn_new))
+            if ns_tau_max is not None:
+                ns_ok = ns_ok & (tau < ns_tau_max)
+            upd_ok = dyn_ok & ns_ok
+            w_dyn_new = torch.where(upd_ok, w_dyn_new, carry.w_dyn)
+            # cond-free segment (mega): a skipped V update MUST also skip P;
+            # the per-step segment's exact fallback recomputes V from p_new,
+            # so there P always advances
+            p_keep = upd_ok if ns_tau_max is not None else dyn_ok
+            new = new._replace(
+                p_mat=torch.where(p_keep, p_new, carry.p_mat),
+                v_mat=torch.where(upd_ok, v_new, carry.v_mat),
+                w_dyn=w_dyn_new,
+            )
+            inf = torch.full((), float("inf"), dtype=f32, device=dev)
+            tau = torch.where(dyn_ok, torch.where(ns_ok, tau, inf), zero)
+
+        resid = dx - mm(feat, w_dyn_new)
+        mse_dyn = torch.mean(resid * resid)
+        dyn_n = torch.clamp(new.dyn_n[0, 0], max=float(cfg.state_var_cap))
+        tot_d = dyn_n + count
+        var_d = (dyn_n / tot_d) * torch.exp(slogvar) + (count / tot_d) * mse_dyn
+        slv_new = torch.clamp(torch.log(var_d), -cfg.logvar_clamp, cfg.logvar_clamp)
+        noise_ok = torch.isfinite(var_d)
+        new = new._replace(
+            state_logvar=torch.where(noise_ok, slv_new, slogvar).reshape(1, 1),
+            dyn_n=torch.where(noise_ok, tot_d, new.dyn_n[0, 0]).reshape(1, 1),
+        )
+
+    scal = ScalarPack(
+        loss=loss.reshape(1, 1),
+        recon=(-l_recon).reshape(1, 1),
+        dyn=(-l_dyn).reshape(1, 1),
+        ent=h_ent.reshape(1, 1),
+        tau=tau.reshape(1, 1),
+    )
+    return new, scal, g_vec
+
+
+def step_math(
+    cfg: VJFConfig,
+    flags: StepFlags,
+    carry: FusedCarry,
+    qs_m: torch.Tensor,
+    qs_lv: torch.Tensor,
+    y: torch.Tensor,
+    u: Optional[torch.Tensor],
+    eps_s: torch.Tensor,
+    eps_t: torch.Tensor,
+    lr: torch.Tensor,
+    ns_extra=None,
+    ns_tau_max: Optional[float] = None,
+    ns_iters: int = NS_ITERS,
+    mask: Optional[torch.Tensor] = None,
+    cmask: Optional[torch.Tensor] = None,
+) -> StepOut:
+    """The whole step on padded tensors: :func:`step_forward_sums` composed
+    with :func:`step_apply`. ``ns_extra(x_ns, p_new, eye2, tau)`` optionally
+    escalates Newton-Schulz; ``ns_tau_max`` gates the V/w update for
+    segments without an exact-inverse fallback."""
+    _no_masks(mask, cmask)
+    b = y.shape[0]
+    sums, per = step_forward_sums(
+        cfg, flags, carry, qs_m, qs_lv, y, u, eps_s, eps_t, 1.0 / b,
+    )
+    new, scal, g_vec = step_apply(
+        cfg, flags, carry, sums, lr, b, feat=per.feat, dx=per.dx,
+        ns_extra=ns_extra, ns_tau_max=ns_tau_max, ns_iters=ns_iters,
+    )
+    return StepOut(
+        carry=new, qt_mean=per.qt_m, qt_logvar=per.qt_lv, g_vec=g_vec,
+        xt=per.xt, xs=per.xs, scal=scal,
+    )
+
+
+def _scal_row(s: ScalarPack) -> torch.Tensor:
+    """(1, 8) row: loss, recon, dyn, ent, tau, then zeros."""
+    z = torch.zeros((1, 3), dtype=s.loss.dtype, device=s.loss.device)
+    return torch.cat([s.loss, s.recon, s.dyn, s.ent, s.tau, z], dim=1)
+
+
+def _latents(carry: FusedCarry, b: int, xd: int, dtype, eps_s, eps_t):
+    if eps_s is not None:
+        return eps_s, eps_t
+    return _rng.box_muller_latents(carry.rng_seed, carry.rng_count, b, xd, dtype)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers: the per-step kernel and the mega (grid-over-time) kernel
+# ---------------------------------------------------------------------------
+
+
+class PackedStepOut(NamedTuple):
+    carry: FusedCarry
+    q_pack: torch.Tensor                  # (2, B, xd): qt mean / logvar
+    g_vec: torch.Tensor
+    xt: torch.Tensor
+    xs: torch.Tensor
+    scal: torch.Tensor                    # (1, 8): loss, recon, dyn, ent, tau
+
+
+def fused_step_plain(cfg, flags, carry, qs_m, qs_lv, y, u, eps_s, eps_t, lr
+                     ) -> PackedStepOut:
+    """Plain version of the per-step kernel: ``step_math`` with the fixed
+    ``NS_ITERS`` and no tau ceiling, packed like the kernel's outputs.
+    ``eps_s=None`` draws the noise from the carry's Philox stream."""
+    eps_s, eps_t = _latents(carry, y.shape[0], cfg.xdim, y.dtype, eps_s, eps_t)
+    out = step_math(cfg, flags, carry, qs_m, qs_lv, y, u, eps_s, eps_t, lr)
+    new = out.carry._replace(rng_count=carry.rng_count + 1)
+    return PackedStepOut(new, torch.stack([out.qt_mean, out.qt_logvar]),
+                         out.g_vec, out.xt, out.xs, _scal_row(out.scal))
+
+
+def mega_ns_base_iters(cfg: VJFConfig, n_batch: int) -> int:
+    """Batch-adaptive base Newton-Schulz iterations of the mega segment."""
+    return int(cfg.mega_ns_iters) or (1 if n_batch >= NS_ONE_ITER_MIN_BATCH else 2)
+
+
+def _ns_escalate(x_ns, p_new, eye2, tau):
+    """+1 iteration at tau >= NS_TAU_ESCALATE, +NS_EXTRA_ITERS more at
+    tau >= NS_TAU_THRESHOLD: computed and selected, with no host sync."""
+    x1 = _ns_iter(x_ns, p_new, eye2)
+    x_ns = torch.where(tau >= NS_TAU_ESCALATE, x1, x_ns)
+    x2 = x_ns
+    for _ in range(NS_EXTRA_ITERS):
+        x2 = _ns_iter(x2, p_new, eye2)
+    return torch.where(tau >= NS_TAU_THRESHOLD, x2, x_ns)
+
+
+def mega_epoch_plain(cfg, flags, carry, qs_m, qs_lv, ys, us, eps_s, eps_t, lr):
+    """Plain version of the mega kernel: a loop over the T steps of ``ys``
+    with the base iterations, the escalation and the ``NS_TAU_MAX`` skip.
+    Returns ``(carry, q_pack (T, 2, B, xd), scal (T, 8))``."""
+    t_total, b, _ = ys.shape
+    base = mega_ns_base_iters(cfg, b)
+    qm, qlv = qs_m, qs_lv
+    qs, scals = [], []
+    for t in range(t_total):
+        e_s, e_t = _latents(carry, b, cfg.xdim, ys.dtype,
+                            None if eps_s is None else eps_s[t],
+                            None if eps_t is None else eps_t[t])
+        out = step_math(cfg, flags, carry, qm, qlv, ys[t],
+                        us[t] if us is not None else None, e_s, e_t, lr,
+                        ns_extra=_ns_escalate, ns_tau_max=NS_TAU_MAX, ns_iters=base)
+        carry = out.carry._replace(rng_count=carry.rng_count + 1)
+        qm, qlv = out.qt_mean, out.qt_logvar
+        qs.append(torch.stack([qm, qlv]))
+        scals.append(_scal_row(out.scal))
+    return carry, torch.stack(qs), torch.cat(scals, dim=0)
+
+
+# ---------------------------------------------------------------------------
+# ctypes binding of csrc/fused_step.cu
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_MAX_LAYERS = 3
+_MAX_WIDTH = 64
+
+
+class _Args(ctypes.Structure):
+    """Mirror of ``struct VJFArgs`` in ``csrc/fused_step.cu``."""
+
+    _fields_ = (
+        [(n, _P) for n in ("w_in_y", "w_in_u", "w_in_m", "w_in_lv")]
+        + [("w_hidden", _P * (_MAX_LAYERS - 1)), ("b_hidden", _P * _MAX_LAYERS)]
+        + [(n, _P) for n in (
+            "w_mean", "w_logvar", "b_logvar", "w_dec", "b_dec", "cent_x", "cent_u",
+            "c2", "inv_w2", "p_mat", "v_mat", "w_dyn", "state_logvar", "lik_logvar",
+            "dyn_n", "lik_n", "rng_seed", "rng_count", "qs_m", "qs_lv", "y", "u",
+            "eps_s", "eps_t", "lr", "q_pack", "scal", "g_vec", "xt", "xs", "ws")]
+        + [(n, ctypes.c_int) for n in ("T", "B", "yd", "ud", "xd", "nfp", "nf", "n_layers")]
+        + [("h", ctypes.c_int * _MAX_LAYERS)]
+        + [(n, ctypes.c_int) for n in (
+            "sgd", "update", "warm_up", "train_decoder", "update_likelihood",
+            "update_transition", "poisson", "trace_quirk", "bf16", "mega", "ns_iters")]
+        + [(n, ctypes.c_float) for n in (
+            "leak", "poisson_clamp", "logvar_clamp", "clip", "rls_shrink",
+            "chol_jitter", "obs_var_cap", "state_var_cap")]
+    )
+
+
+def _library():
+    from . import _build
+
+    lib = _build.load_library()
+    if not getattr(lib, "_vjf_bound", False):
+        for name in ("vjf_fused_step", "vjf_mega_epoch"):
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.POINTER(_Args), _P]
+            fn.restype = ctypes.c_int
+        lib.vjf_workspace_floats.argtypes = [ctypes.POINTER(_Args)]
+        lib.vjf_workspace_floats.restype = ctypes.c_size_t
+        lib.vjf_args_size.argtypes = []
+        lib.vjf_args_size.restype = ctypes.c_size_t
+        lib.vjf_philox_normals.argtypes = [ctypes.c_int] * 4 + [_P] * 4
+        lib.vjf_philox_normals.restype = ctypes.c_int
+        if lib.vjf_args_size() != ctypes.sizeof(_Args):
+            raise RuntimeError("VJFArgs layout differs between fused_step.cu and _Args")
+        lib._vjf_bound = True
+    return lib
+
+
+def _ptr(t: Optional[torch.Tensor], name: str, shape=None, dtype=torch.float32,
+         device=None) -> Optional[int]:
+    """Checked device pointer of a tensor the kernel reads or writes."""
+    if t is None:
+        return None
+    if t.device.type != "cuda" or (device is not None and t.device != device):
+        raise ValueError(f"{name}: expected a tensor on {device}, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: the kernel takes contiguous tensors")
+    return t.data_ptr()
+
+
+def _launch(kernel: str, cfg, flags, carry: FusedCarry, qs_m, qs_lv, ys, us, eps_s,
+            eps_t, lr, q_pack, scal, g_vec=None, xt=None, xs=None, ns_iters=0):
+    """Check every operand and launch ``vjf_fused_step`` or ``vjf_mega_epoch``
+    on the current stream. ``ys``/``us``/``eps_*`` carry a leading time axis;
+    ``ns_iters`` is the mega kernel's base Newton-Schulz iterations (each
+    launcher sets its own mode)."""
+    if carry.w_white is not None or carry.scale2 is not None:
+        raise NotImplementedError(_SGP_TODO)
+    dev = carry.p_mat.device
+    t_total, b, yd = ys.shape
+    xd, nfp = cfg.xdim, carry.p_mat.shape[0]
+    ud = 0 if us is None else us.shape[-1]
+    widths = [bb.shape[1] for bb in carry.b_hidden]
+    if not 1 <= len(widths) <= _MAX_LAYERS or max(widths) > _MAX_WIDTH:
+        raise ValueError(f"the kernel takes 1 to {_MAX_LAYERS} hidden layers of width "
+                         f"<= {_MAX_WIDTH}, got {widths}")
+    if (ud > 0) != (carry.w_in_u is not None) or ud != cfg.udim:
+        raise ValueError(f"controls of width {ud} do not match udim={cfg.udim}")
+    if (eps_s is None) != (eps_t is None):
+        raise ValueError("eps_s and eps_t are given together or not at all")
+    h0, hl = widths[0], widths[-1]
+
+    def c(t, name, shape, dtype=torch.float32):
+        return _ptr(t, name, shape, dtype, dev)
+
+    a = _Args()
+    a.w_in_y = c(carry.w_in_y, "w_in_y", (h0, yd))
+    a.w_in_u = c(carry.w_in_u, "w_in_u", (h0, ud))
+    a.w_in_m = c(carry.w_in_m, "w_in_m", (h0, xd))
+    a.w_in_lv = c(carry.w_in_lv, "w_in_lv", (h0, xd))
+    for i, w in enumerate(carry.w_hidden):
+        a.w_hidden[i] = c(w, f"w_hidden[{i}]", (widths[i + 1], widths[i]))
+    for i, bb in enumerate(carry.b_hidden):
+        a.b_hidden[i] = c(bb, f"b_hidden[{i}]", (1, widths[i]))
+    a.w_mean = c(carry.w_mean, "w_mean", (xd, hl))
+    a.w_logvar = c(carry.w_logvar, "w_logvar", (xd, hl))
+    a.b_logvar = c(carry.b_logvar, "b_logvar", (1, xd))
+    a.w_dec = c(carry.w_dec, "w_dec", (yd, xd))
+    a.b_dec = c(carry.b_dec, "b_dec", (1, yd))
+    a.cent_x = c(carry.cent_x, "cent_x", (nfp, xd))
+    a.cent_u = c(carry.cent_u, "cent_u", (nfp, ud))
+    a.c2 = c(carry.c2, "c2", (1, nfp))
+    a.inv_w2 = c(carry.inv_w2, "inv_w2", (1, nfp))
+    a.p_mat = c(carry.p_mat, "p_mat", (nfp, nfp))
+    a.v_mat = c(carry.v_mat, "v_mat", (nfp, nfp))
+    a.w_dyn = c(carry.w_dyn, "w_dyn", (nfp, xd))
+    for n in ("state_logvar", "lik_logvar", "dyn_n", "lik_n"):
+        setattr(a, n, c(getattr(carry, n), n, (1, 1)))
+    a.rng_seed = c(carry.rng_seed, "rng_seed", (1, 1), torch.int32)
+    a.rng_count = c(carry.rng_count, "rng_count", (1, 1), torch.int32)
+    a.qs_m = c(qs_m, "qs_m", (b, xd))
+    a.qs_lv = c(qs_lv, "qs_lv", (b, xd))
+    a.y = c(ys, "ys", (t_total, b, yd))
+    a.u = c(us, "us", (t_total, b, ud))
+    a.eps_s = c(eps_s, "eps_s", (t_total, b, xd))
+    a.eps_t = c(eps_t, "eps_t", (t_total, b, xd))
+    a.lr = c(lr, "lr", ())
+    a.q_pack = c(q_pack, "q_pack", (t_total, 2, b, xd) if q_pack.dim() == 4 else (2, b, xd))
+    a.scal = c(scal, "scal", (t_total, 8))
+    a.g_vec = c(g_vec, "g_vec", (nfp, xd))
+    a.xt = c(xt, "xt", (b, xd))
+    a.xs = c(xs, "xs", (b, xd))
+    a.T, a.B, a.yd, a.ud, a.xd, a.nfp = t_total, b, yd, ud, xd, nfp
+    a.nf, a.n_layers = cfg.feature_dim, len(widths)
+    for i, wd in enumerate(widths):
+        a.h[i] = wd
+    a.sgd, a.update, a.warm_up = int(flags.sgd), int(flags.update), int(flags.warm_up)
+    a.train_decoder = int(flags.train_decoder)
+    a.update_likelihood = int(flags.update_likelihood)
+    a.update_transition = int(flags.update_transition)
+    a.poisson = int(cfg.likelihood == "poisson")
+    a.trace_quirk = int(cfg.trace_quirk)
+    a.bf16 = int(cfg.matmul_dtype == "bfloat16")
+    a.ns_iters = int(ns_iters)
+    a.leak, a.poisson_clamp, a.logvar_clamp = cfg.leak, cfg.poisson_clamp, cfg.logvar_clamp
+    a.clip, a.rls_shrink, a.chol_jitter = cfg.clip, cfg.rls_shrink, cfg.chol_jitter
+    a.obs_var_cap, a.state_var_cap = float(cfg.obs_var_cap), float(cfg.state_var_cap)
+
+    lib = _library()
+    ws = torch.empty(lib.vjf_workspace_floats(ctypes.byref(a)), dtype=torch.float32,
+                     device=dev)
+    a.ws = ws.data_ptr()
+    fn = lib.vjf_fused_step if kernel == "fused_step" else lib.vjf_mega_epoch
+    with torch.cuda.device(dev):
+        rc = fn(ctypes.byref(a), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: cudaError {rc}")
+
+
+def philox_normals_kernel(seed: int, count: int, rows: int, cols: int, device):
+    """The in-kernel sampler alone (``philox_pair`` + Box-Muller of
+    ``csrc/fused_step.cu``): ``(u1, u2, eps)``, each ``(rows, cols)`` f32 on
+    ``device``, for comparison with :mod:`.rng`."""
+    if (rows * cols) % 2:
+        raise ValueError("rows * cols must be even")
+    out = [torch.empty((rows, cols), dtype=torch.float32, device=device) for _ in range(3)]
+    rc = _library().vjf_philox_normals(
+        int(seed), int(count), rows, cols, *(t.data_ptr() for t in out),
+        torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"philox kernel launch failed: cudaError {rc}")
+    return tuple(out)
+
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    return t.device.type == "cuda"
+
+
+def fused_step_call(cfg, flags, carry, qs_m, qs_lv, y, u, eps_s, eps_t, lr
+                    ) -> PackedStepOut:
+    """One fused step. On CUDA tensors: the ``fused_step`` kernel, which
+    updates the carry IN PLACE (the returned carry holds the same tensors);
+    on CPU tensors: :func:`fused_step_plain`. ``eps_s=None`` selects the
+    in-kernel Philox noise."""
+    if not _on_cuda(carry.p_mat):
+        return fused_step_plain(cfg, flags, carry, qs_m, qs_lv, y, u, eps_s, eps_t, lr)
+    b, xd = y.shape[0], cfg.xdim
+    dev, dt = y.device, y.dtype
+    nfp = carry.p_mat.shape[0]
+    q_pack = torch.empty((2, b, xd), dtype=dt, device=dev)
+    g_vec = torch.empty((nfp, xd), dtype=dt, device=dev)
+    xt = torch.empty((b, xd), dtype=dt, device=dev)
+    xs = torch.empty((b, xd), dtype=dt, device=dev)
+    scal = torch.empty((1, 8), dtype=dt, device=dev)
+    _launch(
+        "fused_step", cfg, flags, carry, qs_m, qs_lv, y[None], None if u is None else u[None],
+        None if eps_s is None else eps_s[None], None if eps_t is None else eps_t[None],
+        lr, q_pack, scal, g_vec=g_vec, xt=xt, xs=xs,
+    )
+    launches["fused_step"] += 1
+    return PackedStepOut(carry, q_pack, g_vec, xt, xs, scal)
+
+
+def mega_epoch_call(cfg, flags, carry, qs_m, qs_lv, ys, us, eps_s, eps_t, lr):
+    """``T = ys.shape[0]`` fused steps. On CUDA tensors: ONE launch of the
+    ``mega_epoch`` kernel, which loops over time and updates the carry IN
+    PLACE; on CPU tensors: :func:`mega_epoch_plain`. ``eps_s=None`` selects
+    the in-kernel Philox noise, continuing the carried ``rng_count``.
+    Returns ``(carry, q_pack (T, 2, B, xd), scal (T, 8))``."""
+    if not _on_cuda(carry.p_mat):
+        return mega_epoch_plain(cfg, flags, carry, qs_m, qs_lv, ys, us, eps_s, eps_t, lr)
+    t_total, b, _ = ys.shape
+    dev, dt = ys.device, ys.dtype
+    q_pack = torch.empty((t_total, 2, b, cfg.xdim), dtype=dt, device=dev)
+    scal = torch.empty((t_total, 8), dtype=dt, device=dev)
+    _launch(
+        "mega_epoch", cfg, flags, carry, qs_m, qs_lv, ys, us, eps_s, eps_t, lr,
+        q_pack, scal, ns_iters=mega_ns_base_iters(cfg, b),
+    )
+    launches["mega_epoch"] += 1
+    return carry, q_pack, scal
+
+
+# ---------------------------------------------------------------------------
+# Padding between TrainState and FusedCarry
+# ---------------------------------------------------------------------------
+
+
+def pad_carry(cfg: VJFConfig, state) -> FusedCarry:
+    """TrainState -> FusedCarry, padded once per epoch: centroids +1e6
+    (padded basis responses underflow to exact 0), P/V identity pad block,
+    dynamics weights zero pad. Every leaf is a fresh contiguous tensor."""
+    from ..models.regression import NSVBLR
+
+    if cfg.dynamics != "rbf":
+        raise NotImplementedError(_SGP_TODO)
+    p = state.params
+    blr = state.dynamics.blr
+    if not isinstance(blr, NSVBLR):
+        raise ValueError("the fused step requires the nsv backend")
+    nf = blr.w_mean.shape[0]
+    nfp = _round_up(nf)
+    dtype, dev = blr.w_mean.dtype, blr.w_mean.device
+    xd, ud, yd = cfg.xdim, cfg.udim, cfg.ydim
+
+    def z(*shape):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    rbf = state.dynamics.rbf
+    cent_full = torch.full((nfp, xd + ud), 1e6, dtype=dtype, device=dev)
+    cent_full[:nf] = rbf.centroid
+    inv_w2 = torch.ones((1, nfp), dtype=dtype, device=dev)
+    inv_w2[0, :nf] = torch.exp(-2.0 * rbf.logwidth)
+    c2 = torch.sum(cent_full * cent_full, dim=-1).reshape(1, nfp)
+
+    pad_eye = torch.eye(nfp, dtype=dtype, device=dev)
+    pad_eye[:nf, :nf] = 0.0
+    p_mat = z(nfp, nfp)
+    p_mat[:nf, :nf] = blr.precision
+    v_mat = z(nfp, nfp)
+    v_mat[:nf, :nf] = blr.cov
+    w_dyn = z(nfp, xd)
+    w_dyn[:nf] = blr.w_mean
+
+    rec = p.recognition
+    w0 = rec.layers[0].weight.detach()      # (h0, yd + ud + 2 xd)
+    lik_lv = p.likelihood.logvar if cfg.likelihood == "gaussian" else z()
+
+    def leaf(t):
+        return t.detach().to(dtype).clone().contiguous()
+
+    return FusedCarry(
+        w_in_y=leaf(w0[:, :yd]),
+        w_in_u=leaf(w0[:, yd:yd + ud]) if ud > 0 else None,
+        w_in_m=leaf(w0[:, yd + ud:yd + ud + xd]),
+        w_in_lv=leaf(w0[:, yd + ud + xd:]),
+        w_hidden=tuple(leaf(layer.weight) for layer in rec.layers[1:]),
+        b_hidden=tuple(leaf(layer.bias.reshape(1, -1)) for layer in rec.layers),
+        w_mean=leaf(rec.mean.weight),
+        w_logvar=leaf(rec.logvar.weight),
+        b_logvar=leaf(rec.logvar.bias.reshape(1, -1)),
+        w_dec=leaf(p.decoder.weight),
+        b_dec=leaf(p.decoder.bias.reshape(1, -1)),
+        cent_x=leaf(cent_full[:, :xd]),
+        cent_u=leaf(cent_full[:, xd:]) if ud > 0 else None,
+        c2=c2,
+        inv_w2=inv_w2,
+        w_white=None,
+        scale2=None,
+        p_mat=p_mat + pad_eye,
+        v_mat=v_mat + pad_eye,
+        w_dyn=w_dyn,
+        state_logvar=leaf(state.dynamics.logvar.reshape(1, 1)),
+        lik_logvar=leaf(lik_lv.reshape(1, 1)),
+        dyn_n=leaf(state.dynamics.n_sample.reshape(1, 1)),
+        lik_n=leaf(state.lik_n_sample.reshape(1, 1)),
+        rng_seed=torch.zeros((1, 1), dtype=torch.int32, device=dev),
+        rng_count=torch.zeros((1, 1), dtype=torch.int32, device=dev),
+    )
+
+
+def unpad_carry(cfg: VJFConfig, carry: FusedCarry, state_template):
+    """FusedCarry -> TrainState (slice off padding, restore counters)."""
+    from ..models.dynamics import DynamicsState
+    from ..models.likelihoods import GaussianLikParams
+    from ..models.rbf import RBFParams
+    from ..models.recognition import Recognition, linear_from
+    from ..models.regression import NSVBLR
+    from ..models.vjf import Params, TrainState
+
+    nf = state_template.dynamics.blr.w_mean.shape[0]
+    tmpl_p = state_template.params
+    segs = [carry.w_in_y] + ([carry.w_in_u] if carry.w_in_u is not None else []) + [
+        carry.w_in_m, carry.w_in_lv
+    ]
+    w0 = torch.cat(segs, dim=1)
+    layers = [linear_from(w0, carry.b_hidden[0].reshape(-1))] + [
+        linear_from(w, b.reshape(-1))
+        for w, b in zip(carry.w_hidden, carry.b_hidden[1:])
+    ]
+    rec = Recognition(
+        layers,
+        mean=linear_from(carry.w_mean),
+        logvar=linear_from(carry.w_logvar, carry.b_logvar.reshape(-1)),
+    )
+    if cfg.likelihood == "gaussian":
+        lik = GaussianLikParams(logvar=carry.lik_logvar.reshape(()))
+    else:
+        lik = tmpl_p.likelihood
+    params = Params(
+        recognition=rec,
+        decoder=linear_from(carry.w_dec, carry.b_dec.reshape(-1)),
+        likelihood=lik,
+        prior=tmpl_p.prior,
+    )
+    blr_new = NSVBLR(
+        w_mean=carry.w_dyn[:nf].clone(),
+        precision=carry.p_mat[:nf, :nf].clone(),
+        cov=carry.v_mat[:nf, :nf].clone(),
+    )
+    cent_segs = [carry.cent_x] + ([carry.cent_u] if carry.cent_u is not None else [])
+    centroid = torch.cat(cent_segs, dim=1)[:nf]
+    dynamics = DynamicsState(
+        rbf=RBFParams(centroid, state_template.dynamics.rbf.logwidth),
+        blr=blr_new,
+        logvar=carry.state_logvar.reshape(()),
+        n_sample=carry.dyn_n.reshape(()).to(torch.int32),
+    )
+    return TrainState(
+        params=params,
+        dynamics=dynamics,
+        lik_n_sample=carry.lik_n.reshape(()).to(state_template.lik_n_sample.dtype),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Exact-inverse fallback of the prefix segment
+# ---------------------------------------------------------------------------
+
+
+def _exact_inverse_repair(cfg, c, prev_carry, g_vec, b, mse_fn):
+    """Cholesky inverse of the current precision, refreshed weights, then the
+    state-noise running variance from ``mse_fn(w_new)``. Gated so a failed
+    factorization (``info != 0``), a non-finite result or an overflowing
+    residual is SKIPPED; the gate reads the PRE-clip log-variance."""
+    from .linalg import cholesky_f32, tri_inv_newton
+
+    chol, info = cholesky_f32(c.p_mat)
+    x = tri_inv_newton(chol)
+    v_new = x.T @ x
+    w_new = v_new @ g_vec
+    mse = mse_fn(w_new)
+    dyn_n = torch.clamp(prev_carry.dyn_n[0, 0], max=float(cfg.state_var_cap))
+    tot = dyn_n + b
+    var = (dyn_n / tot) * torch.exp(prev_carry.state_logvar[0, 0]) + (b / tot) * mse
+    slv = torch.clamp(torch.log(var), -cfg.logvar_clamp, cfg.logvar_clamp)
+    ok = (info == 0) & torch.isfinite(torch.sum(v_new) + torch.sum(w_new)) & torch.isfinite(var)
+    return (
+        torch.where(ok, v_new, c.v_mat),
+        torch.where(ok, w_new, c.w_dyn),
+        torch.where(ok, slv, c.state_logvar[0, 0]).reshape(1, 1),
+        torch.where(ok, tot, c.dyn_n[0, 0]).reshape(1, 1),
+    )
+
+
+def exact_v_fallback(cfg: VJFConfig, out, prev_carry: FusedCarry,
+                     u: Optional[torch.Tensor] = None, mask=None):
+    """Replace the NS-tracked V with the exact Cholesky inverse where the
+    step's tau says Newton-Schulz had not contracted (tau >=
+    ``NS_TAU_THRESHOLD``).
+
+    The JAX package branches with ``lax.cond``; here the exact branch is
+    computed every call and selected with ``torch.where`` on the device, so
+    the prefix never syncs with the host. ``prev_carry`` needs only the
+    pre-step ``dyn_n`` and ``state_logvar`` (the per-step kernel updates the
+    carry in place, so the caller snapshots those two).
+    """
+    _no_masks(mask, None)
+    c = out.carry
+    b = out.xt.shape[0]
+
+    def mse_fn(w_new):
+        x2 = torch.sum(out.xs * out.xs, dim=-1, keepdim=True)
+        cross = out.xs @ c.cent_x.T
+        if u is not None and u.shape[-1] > 0:
+            x2 = x2 + torch.sum(u * u, dim=-1, keepdim=True)
+            cross = cross + u @ c.cent_u.T
+        d2 = torch.clamp(x2 + c.c2 - 2.0 * cross, min=0.0)
+        feat = torch.exp(-0.5 * d2 * c.inv_w2)
+        resid = (out.xt - out.xs) - feat @ w_new
+        return torch.mean(resid * resid)
+
+    exact = _exact_inverse_repair(cfg, c, prev_carry, out.g_vec, b, mse_fn)
+    tau = out.scal.tau[0, 0] if isinstance(out, StepOut) else out.scal[0, 4]
+    keep_ = tau < NS_TAU_THRESHOLD
+    v_new, w_new, slv, dn = (
+        torch.where(keep_, k, e)
+        for k, e in zip((c.v_mat, c.w_dyn, c.state_logvar, c.dyn_n), exact)
+    )
+    return out._replace(
+        carry=c._replace(v_mat=v_new, w_dyn=w_new, state_logvar=slv, dyn_n=dn)
+    )
+
+
+# ---------------------------------------------------------------------------
+# Fused epoch runner
+# ---------------------------------------------------------------------------
+
+
+def fused_enabled(cfg: VJFConfig, state, n_batch: Optional[int] = None) -> bool:
+    """Whether ``run_epoch`` takes the fused path. 'auto' means float32 and a
+    state on a CUDA device (the JAX gate asks for a TPU backend)."""
+    from ..models.regression import NSVBLR
+
+    if cfg.fused_step == "off":
+        return False
+    if cfg.dynamics == "sgp":
+        raise NotImplementedError(_SGP_TODO)
+    if cfg.dynamics != "rbf" or not isinstance(state.dynamics.blr, NSVBLR):
+        return False
+    if cfg.dynamics_update != "rls":
+        return False
+    if cfg.recognition_activation != "tanh":
+        return False
+    if cfg.fused_step == "on":
+        return True
+    return cfg.dtype == "float32" and state.dynamics.blr.precision.is_cuda
+
+
+@contextlib.contextmanager
+def full_f32_matmul():
+    """Products on the card in full f32, no TF32, for the duration: the
+    feedback chain (``P w``, Newton-Schulz, ``V g``, the exact fallback)
+    must not lose bits. Restores the caller's settings on exit."""
+    cuda, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = cuda.allow_tf32, cudnn.allow_tf32
+    cuda.allow_tf32 = cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cuda.allow_tf32, cudnn.allow_tf32 = saved
+
+
+def _lr_tensor(lr, dtype, device) -> torch.Tensor:
+    if isinstance(lr, torch.Tensor):
+        return lr.to(dtype=dtype, device=device).reshape(())
+    return torch.full((), float(lr), dtype=dtype, device=device)
+
+
+@full_f32_matmul()
+def run_epoch_fused(cfg, flags, state, ys, us, seed: int, lr, noise=None,
+                    q0=None, mask=None, channel_mask=None):
+    """One epoch through the fused kernels -- same contract as
+    ``models.vjf.run_epoch``.
+
+    Layout (``cfg.fused_epoch``): 'mega' runs the first ``cfg.ns_prefix``
+    RLS-active steps through the per-step kernel plus the exact-inverse
+    fallback, and the rest of the epoch as ONE mega launch (warm-up epochs
+    have no prefix); 'stepwise' runs every step through the per-step path.
+
+    ``seed`` keys the Philox stream of the in-kernel noise (``noise=None``);
+    ``noise=(eps_s, eps_t)``, each (T, B, xd), injects it instead.
+    """
+    from ..models.vjf import EpochResult, Metrics, prior
+
+    _no_masks(mask, channel_mask)
+    t_len, n_batch, _ = ys.shape
+    dtype, dev = ys.dtype, ys.device
+    if q0 is None:
+        q0 = prior(state.params, n_batch)
+    lr = _lr_tensor(lr, dtype, dev)
+    has_u = cfg.udim > 0
+
+    do_fallback = flags.update and flags.update_transition and not flags.warm_up
+    state = maybe_epoch_repair(cfg, flags, state, n_batch)
+    carry = pad_carry(cfg, state)
+    carry = carry._replace(
+        rng_seed=torch.full((1, 1), int(seed), dtype=torch.int32, device=dev)
+    )
+
+    if cfg.fused_epoch == "mega":
+        prefix = min(cfg.ns_prefix, t_len) if do_fallback else 0
+    else:
+        prefix = t_len
+
+    def eps_at(lo, hi):
+        if noise is None:
+            return None, None
+        return noise[0][lo:hi], noise[1][lo:hi]
+
+    qm, qlv = q0.mean.contiguous(), q0.logvar.contiguous()
+    q_segs, scal_segs = [], []
+    for t in range(prefix):
+        u_t = us[t] if has_u else None
+        e_s, e_t = eps_at(t, t + 1)
+        prev = carry._replace(dyn_n=carry.dyn_n.clone(),
+                              state_logvar=carry.state_logvar.clone())
+        out = fused_step_call(cfg, flags, carry, qm, qlv, ys[t], u_t,
+                              None if e_s is None else e_s[0],
+                              None if e_t is None else e_t[0], lr)
+        if do_fallback:
+            out = exact_v_fallback(cfg, out, prev, u_t)
+        carry = out.carry
+        qm, qlv = out.q_pack[0], out.q_pack[1]
+        q_segs.append(out.q_pack[None])
+        scal_segs.append(out.scal)
+    if prefix < t_len:
+        e_s, e_t = eps_at(prefix, t_len)
+        carry, q_seq, scal = mega_epoch_call(
+            cfg, flags, carry, qm, qlv, ys[prefix:],
+            us[prefix:] if has_u else None, e_s, e_t, lr,
+        )
+        q_segs.append(q_seq)
+        scal_segs.append(scal)
+
+    q_seq = torch.cat(q_segs, dim=0)
+    scal_seq = torch.cat(scal_segs, dim=0)
+    metrics = Metrics(
+        loss=scal_seq[:, 0],
+        recon=scal_seq[:, 1],
+        dynamics=scal_seq[:, 2],
+        entropy=scal_seq[:, 3],
+        tau=scal_seq[:, 4],
+    )
+    return EpochResult(
+        state=unpad_carry(cfg, carry, state),
+        q_means=q_seq[:, 0],
+        q_logvars=q_seq[:, 1],
+        metrics=metrics,
+    )
