@@ -60,7 +60,7 @@ def test_chip_smoke_fails_without_a_card():
 
 
 def _state(cfg):
-    return tcore.init_state(0, cfg)
+    return tcore.init_state(0, cfg, device="cpu")
 
 
 def test_run_epoch_refuses_the_unported_xla_step():
@@ -87,7 +87,7 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         TF.fused_enabled(cfg.replace(dynamics="sgp"), st)
     with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        tcore.init_state(0, cfg.replace(rls_backend="precision"))
+        tcore.init_state(0, cfg.replace(rls_backend="precision"), device="cpu")
 
 
 def test_kernel_wrapper_rejects_cpu_tensors():

@@ -59,7 +59,7 @@ def epoch_pair(request):
                                                             jnp.asarray(eps[1])),
                              interpret=True)
     tc = _port_cfg(cfg)
-    tstate = convert.state_from_numpy(tc, jax.tree.map(np.asarray, state))
+    tstate = convert.state_from_numpy(tc, jax.tree.map(np.asarray, state), device="cpu")
     t = torch.tensor
     got = tcore.run_epoch(tc, tcfg.StepFlags(), tstate, t(ys), t(us), 0, lr,
                           noise=(t(eps[0]), t(eps[1])))
@@ -103,7 +103,7 @@ def test_run_epochs_chains_run_epoch():
     """Two epochs in one call == two chained calls with the same seeds (the
     in-kernel Philox noise path, plain version on the CPU)."""
     tc = _port_cfg(_cfg("float32"))
-    state = tcore.init_state(0, tc)
+    state = tcore.init_state(0, tc, device="cpu")
     ys, us, _ = _data("float32", seed=1)
     ys, us = torch.tensor(ys), torch.tensor(us)
     seeds, lrs = [3, 4], [1e-3, 9e-4]
@@ -135,7 +135,8 @@ def test_epoch_runs_without_tf32_and_restores_it():
             assert not torch.backends.cuda.matmul.allow_tf32
             assert not torch.backends.cudnn.allow_tf32
         assert torch.backends.cuda.matmul.allow_tf32
-        tcore.run_epoch(tc, tcfg.StepFlags(warm_up=True), tcore.init_state(0, tc),
+        tcore.run_epoch(tc, tcfg.StepFlags(warm_up=True),
+                        tcore.init_state(0, tc, device="cpu"),
                         torch.tensor(ys[:2]), torch.tensor(us[:2]), 0, 1e-3)
         assert torch.backends.cuda.matmul.allow_tf32
     finally:
@@ -145,7 +146,7 @@ def test_epoch_runs_without_tf32_and_restores_it():
 def test_run_epochs_takes_generators():
     """A generator per epoch is the same as the seed it draws."""
     tc = _port_cfg(_cfg("float32"))
-    state = tcore.init_state(0, tc)
+    state = tcore.init_state(0, tc, device="cpu")
     ys, us, _ = _data("float32", seed=2)
     ys, us = torch.tensor(ys[:12]), torch.tensor(us[:12])
     gens = [torch.Generator().manual_seed(s) for s in (5, 6)]

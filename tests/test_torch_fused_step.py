@@ -63,7 +63,7 @@ def _case(likelihood, dtype, flags, matmul="float32"):
                        jnp.asarray(y), None, jnp.asarray(eps[0]), jnp.asarray(eps[1]),
                        jnp.asarray(lr, dtype))
     tc = _port_cfg(cfg)
-    tstate = convert.state_from_numpy(tc, jax.tree.map(np.asarray, state))
+    tstate = convert.state_from_numpy(tc, jax.tree.map(np.asarray, state), device="cpu")
     tcarry = TF.pad_carry(tc, tstate)
     t = torch.tensor
     got = TF.step_math(tc, _port(flags), tcarry, t(q[0]), t(q[1]), t(y), None, t(eps[0]),
@@ -119,7 +119,7 @@ def test_state_and_carry_round_trip_exactly():
     state = jcore.init_state(jax.random.PRNGKey(1), cfg)
     tree = jax.tree.map(np.asarray, state)
     tc = _port_cfg(cfg)
-    tstate = convert.state_from_numpy(tc, tree)
+    tstate = convert.state_from_numpy(tc, tree, device="cpu")
     a = convert.flatten(tree)
     b = convert.flatten(convert.state_to_numpy(tstate))
     assert a.keys() == b.keys()

@@ -3,7 +3,8 @@
 The JAX package's config module imports ``jax.numpy`` for its dtype map, so
 the port keeps its own copy: same field names, same defaults, same order.
 ``tdtype`` replaces ``jdtype``. The comments on each knob live in the JAX
-file; a test pins the two dataclasses equal.
+file; a test pins the two dataclasses equal. Unlike the JAX package,
+``VJFConfig`` rejects an ``ns_prefix_free`` other than 'auto' or 'off'.
 """
 from __future__ import annotations
 
@@ -92,6 +93,14 @@ class VJFConfig:
     stop_patience: int = 1
     rls_epoch_repair: str = "auto"
     sgp_fused_min_batch: int = 8
+
+    def __post_init__(self):
+        # deliberate deviation: the JAX package reads any value other than
+        # 'off' as 'auto', so a typo passes silently
+        if self.ns_prefix_free not in ("auto", "off"):
+            raise ValueError(
+                f"ns_prefix_free must be 'auto' or 'off' (got {self.ns_prefix_free!r})"
+            )
 
     @property
     def tdtype(self) -> torch.dtype:

@@ -29,8 +29,9 @@ def _t(a, device, dtype=None) -> torch.Tensor:
     return torch.tensor(np.array(a, copy=True), dtype=dtype, device=device)
 
 
-def state_from_numpy(cfg: VJFConfig, tree, device=None) -> TrainState:
-    """The port's ``TrainState`` on ``device`` from a numpy-leaved JAX one."""
+def state_from_numpy(cfg: VJFConfig, tree, device=torch.device("cuda")) -> TrainState:
+    """The port's ``TrainState`` on ``device`` (the card unless the caller
+    asks for ``device="cpu"``) from a numpy-leaved JAX one."""
     p = tree.params
     rec = p.recognition
     recognition = Recognition(

@@ -1,7 +1,8 @@
-// The whole VJF filter-then-learn step as one CUDA device function, with two
-// launchers (and a sampler probe), for Hopper (sm_90a).
+// The whole VJF filter-then-learn step as CUDA device functions (phase 1
+// step_forward_sums, phase 2 step_apply), with three launchers (and a
+// sampler probe), for Hopper (sm_90a).
 //
-// Replaces the two Pallas TPU kernels of vjf_tpu/ops/pallas/fused_step.py:
+// Replaces the three Pallas TPU kernels of vjf_tpu/ops/pallas/fused_step.py:
 //   * vjf_fused_step  <- fused_step_call (:1104, body _make_kernel :1027):
 //     one step, NS_ITERS = 3 Newton-Schulz iterations, no tau ceiling; also
 //     writes g_vec, xt, xs for the exact-inverse fallback that follows it.
@@ -10,6 +11,11 @@
 //     becomes a loop over t inside the block; the base iterations, the
 //     escalation (+1 at tau >= 0.05, +2 more at tau >= 0.25) and the skip at
 //     tau >= 0.7 follow the TPU kernel.
+//   * vjf_forward_sums <- forward_sums_call (:1437, call :1544): phase 1
+//     of the exact-sync sharded step alone, on one rank's trials, every
+//     batch mean scaled by the GLOBAL 1/B. It writes the flat FusedSums
+//     buffer (the layout of ops/fused_step.py:pack_sums, so one all-reduce
+//     sums it across ranks) and the q pack, and updates no carry leaf.
 //   * philox_pair replaces _box_muller/_box_muller_latents (:997, :1013):
 //     a hand-written Philox4x32-10 with the mapping documented in
 //     vjf_tpu_torch/ops/rng.py (the plain version), bit for bit.
@@ -26,6 +32,16 @@
 // it waits on L2 latency; the skinny products (N = xdim = 10 in a 64-wide
 // tile) leave most of each tile idle, and they make the backward pass about
 // 30% of a step.
+//
+// vjf_forward_sums is phase 1 of that step: at the flagship shape about
+// 15 M multiply-adds (F V and F^T F are 8 M of them) on about 0.5 MB of
+// inputs and outputs, so the card could finish it in well under a
+// microsecond; it runs in the same one-block design and product loop, so the
+// same latency bounds it. This first version keeps that design on purpose:
+// it is the same device function the fused kernels run, so the sharded path
+// computes exactly what the single-device one does. Spreading one step over
+// many SMs (a block per tile of F V, F^T F and the first layer, the trial
+// sums reduced in a second pass or by the all-reduce itself) is later work.
 //
 // Carry layout: every carry leaf stays where PyTorch allocated it and is
 // updated in place; per-step intermediates live in one workspace the
@@ -59,6 +75,7 @@
 #define NS_TAU_MAX 0.7f
 #define NS_EXTRA_ITERS 2
 #define NS_TAU_ESCALATE 0.05f
+#define N_SUM_SCALARS 9  // scalar leaves of FusedSums
 
 // Must match vjf_tpu_torch/ops/fused_step.py:_Args field for field.
 struct VJFArgs {
@@ -101,6 +118,7 @@ struct VJFArgs {
   float* g_vec;        // (nfp, xd) or null (workspace)
   float* xt;           // (B, xd) or null (workspace)
   float* xs;
+  float* sums;         // flat FusedSums (vjf_sums_floats() floats) or null
   float* ws;           // vjf_workspace_floats() floats
   // dims
   int T, B, yd, ud, xd, nfp, nf, n_layers;
@@ -108,9 +126,11 @@ struct VJFArgs {
   // flags
   int sgd, update, warm_up, train_decoder, update_likelihood, update_transition;
   int poisson, trace_quirk, bf16, mega, ns_iters;
+  int row0;            // first row of these trials in the whole batch (noise)
   // constants
   float leak, poisson_clamp, logvar_clamp, clip, rls_shrink, chol_jitter;
   float obs_var_cap, state_var_cap;
+  float inv_b;         // phase-1 kernel only: the GLOBAL 1/B
 };
 
 // Workspace carve-up, shared by the host (size) and the device (pointers).
@@ -129,16 +149,17 @@ struct WS {
 struct Carver {
   float* base;
   size_t off;
+  size_t align;  // in floats
   __host__ __device__ float* take(size_t n) {
     float* p = base ? base + off : nullptr;
-    off += (n + 31) / 32 * 32;  // 128-byte aligned buffers
+    off += (n + align - 1) / align * align;
     return p;
   }
 };
 
 __host__ __device__ static WS carve(const VJFArgs& a, float* base) {
   WS w;
-  Carver cv{base, 0};
+  Carver cv{base, 0, 32};  // 128-byte aligned buffers
   const size_t B = a.B, xd = a.xd, nfp = a.nfp, yd = a.yd;
   int hmax = 0;
   for (int i = 0; i < a.n_layers; ++i) hmax = a.h[i] > hmax ? a.h[i] : hmax;
@@ -184,6 +205,30 @@ __host__ __device__ static WS carve(const VJFArgs& a, float* base) {
   w.w_new = cv.take(nfp * xd);
   w.total = cv.off;
   return w;
+}
+
+// Points w's gradient sums and F^T F, F^T dx into the flat FusedSums buffer
+// f, packed in pack_sums's order (ops/fused_step.py: the array leaves in
+// field order, then N_SUM_SCALARS scalars); returns its length in floats.
+// f == nullptr only counts.
+__host__ __device__ static size_t point_sums(const VJFArgs& a, WS& w, float* f) {
+  Carver cv{f, 0, 1};
+  const size_t xd = a.xd, nfp = a.nfp, yd = a.yd, h0 = a.h[0], hl = a.h[a.n_layers - 1];
+  w.g_w_in_y = cv.take(h0 * yd);
+  if (a.ud > 0) w.g_w_in_u = cv.take(h0 * a.ud);
+  w.g_w_in_m = cv.take(h0 * xd);
+  w.g_w_in_lv = cv.take(h0 * xd);
+  for (int i = 0; i + 1 < a.n_layers; ++i) w.g_w_hidden[i] = cv.take((size_t)a.h[i + 1] * a.h[i]);
+  for (int i = 0; i < a.n_layers; ++i) w.g_b_hidden[i] = cv.take(a.h[i]);
+  w.g_wm = cv.take(xd * hl);
+  w.g_wlv = cv.take(xd * hl);
+  w.g_blv = cv.take(xd);
+  w.g_w_dec = cv.take(yd * xd);
+  w.g_b_dec = cv.take(yd);
+  w.ftf = cv.take(nfp * nfp);
+  w.fxd = cv.take(nfp * xd);
+  cv.take(N_SUM_SCALARS);
+  return cv.off;
 }
 
 struct Smem {
@@ -368,50 +413,79 @@ __device__ __forceinline__ void copy(float* dst, const float* src, int n) {
 // One step: step_forward_sums + step_apply (fused_step.py:294, :600)
 // ---------------------------------------------------------------------------
 
-__device__ void vjf_step(const VJFArgs& a, const WS& w, Smem& sm, int t, uint32_t seed,
-                         uint32_t count) {
-  const int tid = threadIdx.x;
-  const int B = a.B, yd = a.yd, ud = a.ud, xd = a.xd, nfp = a.nfp, L = a.n_layers;
-  const int h0 = a.h[0], hl = a.h[L - 1];
-  const float inv_b = 1.0f / (float)B;
-  const bool bf = a.bf16 != 0;
-  const bool rls = a.update && a.update_transition;
-
-  // data and outputs of step t
-  const float* y = a.y + (size_t)t * B * yd;
-  const float* u = ud > 0 ? a.u + (size_t)t * B * ud : nullptr;
-  const float* qs_m = t == 0 ? a.qs_m : a.q_pack + (size_t)(t - 1) * 2 * B * xd;
-  const float* qs_lv = t == 0 ? a.qs_lv : qs_m + (size_t)B * xd;
-  float* qt_m = a.q_pack + (size_t)t * 2 * B * xd;
-  float* qt_lv = qt_m + (size_t)B * xd;
-  float* xs = a.xs ? a.xs : w.xs;
-  float* xt = a.xt ? a.xt : w.xt;
-  float* g_vec = a.g_vec ? a.g_vec : w.g_vec;
-  const float* eps_s;
-  const float* eps_t;
+// Pointers and carry scalars of step t. The scalars are read here, before
+// phase 1's barriers: thread 0 writes lik_logvar and lik_n in step_apply
+// with no barrier between the start of that phase and the write.
+struct StepIO {
+  const float *y, *u, *qs_m, *qs_lv, *eps_s, *eps_t;
+  float *qt_m, *qt_lv, *xs, *xt, *g_vec;
   int eps_ld;
+  float slv, lik_lv, dyn_n0, lik_n0;
+};
+
+// The scalar leaves of FusedSums, in pack_sums's order (N_SUM_SCALARS).
+struct StepSums {
+  float g_lik_lv_batch, recon_batch, dyn_batch, ent, sq_y, grad_check, fvf_sum, dx_sum,
+      dx2_sum;
+};
+
+// Step t's pointers, and its noise drawn into the workspace unless it is
+// given. Rows [a.row0, a.row0 + B) of the whole batch's draw.
+__device__ StepIO step_io(const VJFArgs& a, const WS& w, int t, uint32_t seed,
+                          uint32_t count) {
+  const int B = a.B, yd = a.yd, ud = a.ud, xd = a.xd;
+  StepIO s;
+  s.y = a.y + (size_t)t * B * yd;
+  s.u = ud > 0 ? a.u + (size_t)t * B * ud : nullptr;
+  s.qs_m = t == 0 ? a.qs_m : a.q_pack + (size_t)(t - 1) * 2 * B * xd;
+  s.qs_lv = t == 0 ? a.qs_lv : s.qs_m + (size_t)B * xd;
+  s.qt_m = a.q_pack + (size_t)t * 2 * B * xd;
+  s.qt_lv = s.qt_m + (size_t)B * xd;
+  s.xs = a.xs ? a.xs : w.xs;
+  s.xt = a.xt ? a.xt : w.xt;
+  s.g_vec = a.g_vec ? a.g_vec : w.g_vec;
   if (a.eps_s) {
-    eps_s = a.eps_s + (size_t)t * B * xd;
-    eps_t = a.eps_t + (size_t)t * B * xd;
-    eps_ld = xd;
+    s.eps_s = a.eps_s + (size_t)t * B * xd;
+    s.eps_t = a.eps_t + (size_t)t * B * xd;
+    s.eps_ld = xd;
   } else {
     // the (B, 2 xd) draw: columns [:xd] are eps_s, [xd:] eps_t
-    for (int j = tid; j < B * xd; j += NTHREADS) {
+    const uint32_t j0 = (uint32_t)a.row0 * (uint32_t)xd;
+    for (int j = threadIdx.x; j < B * xd; j += NTHREADS) {
       float u1[2], u2[2];
-      philox_pair(seed, count, (uint32_t)j, u1, u2);
+      philox_pair(seed, count, j0 + (uint32_t)j, u1, u2);
       w.eps[2 * j] = box_muller(u1[0], u2[0]);
       w.eps[2 * j + 1] = box_muller(u1[1], u2[1]);
     }
-    eps_s = w.eps;
-    eps_t = w.eps + xd;
-    eps_ld = 2 * xd;
+    s.eps_s = w.eps;
+    s.eps_t = w.eps + xd;
+    s.eps_ld = 2 * xd;
   }
-  const float slv = a.state_logvar[0];
-  const float lik_lv = a.lik_logvar[0];
-  const float dyn_n0 = a.dyn_n[0];
-  const float lik_n0 = a.lik_n[0];
-  const float lr = a.lr[0];
+  s.slv = a.state_logvar[0];
+  s.lik_lv = a.lik_logvar[0];
+  s.dyn_n0 = a.dyn_n[0];
+  s.lik_n0 = a.lik_n[0];
   __syncthreads();
+  return s;
+}
+
+// Phase 1: forward, ELBO sums, manual backward, RLS raw statistics (F^T F
+// and F^T dx only with `stats`) and the gradient check, every batch mean
+// scaled by `inv_b` (the GLOBAL 1/B in the sharded step). The gradient
+// sums land in w.g_*, F^T F in w.ftf, F^T dx in w.fxd. Updates no carry
+// leaf.
+__device__ StepSums step_forward_sums(const VJFArgs& a, const WS& w, Smem& sm,
+                                      const StepIO& io, float inv_b, bool stats) {
+  const int tid = threadIdx.x;
+  const int B = a.B, yd = a.yd, ud = a.ud, xd = a.xd, nfp = a.nfp, L = a.n_layers;
+  const int h0 = a.h[0], hl = a.h[L - 1];
+  const bool bf = a.bf16 != 0;
+  const bool rls = a.update && a.update_transition;
+  const float *y = io.y, *u = io.u, *qs_m = io.qs_m, *qs_lv = io.qs_lv;
+  const float *eps_s = io.eps_s, *eps_t = io.eps_t;
+  const int eps_ld = io.eps_ld;
+  float *qt_m = io.qt_m, *qt_lv = io.qt_lv, *xs = io.xs, *xt = io.xt;
+  const float slv = io.slv, lik_lv = io.lik_lv;
 
   // ---------------- forward ----------------
   for (int i = tid; i < B * xd; i += NTHREADS) {
@@ -520,12 +594,15 @@ __device__ void vjf_step(const VJFArgs& a, const WS& w, Smem& sm, int t, uint32_
   }
   for (int b = tid; b < B; b += NTHREADS) s[6] += w.fvf[b];
   block_sum<7>(sm, s);
-  const float recon_batch = a.poisson ? s[0] * inv_b : 0.f;
-  const float sq_y = a.poisson ? 0.f : s[0];
-  const float dyn_batch = s[1] * inv_sv * inv_b + s[2] * inv_b;
-  const float h_ent_raw = 0.5f * s[3] * inv_b;
-  const float dx_sum = s[4], fvf_sum = s[6];
-  const float g_lik_lv_batch = a.poisson ? 0.f : -0.5f * sq_y * expf(-lik_lv) * inv_b;
+  StepSums r;
+  r.recon_batch = a.poisson ? s[0] * inv_b : 0.f;
+  r.sq_y = a.poisson ? 0.f : s[0];
+  r.dyn_batch = s[1] * inv_sv * inv_b + s[2] * inv_b;
+  r.ent = 0.5f * s[3] * inv_b;
+  r.dx_sum = rls ? s[4] : 0.f;
+  r.dx2_sum = rls ? s[5] : 0.f;
+  r.fvf_sum = rls ? s[6] : 0.f;
+  r.g_lik_lv_batch = a.sgd && !a.poisson ? -0.5f * r.sq_y * expf(-lik_lv) * inv_b : 0.f;
 
   // ---------------- manual backward (gradient batch-sums) ----------------
   const float* g_py = w.py;
@@ -584,39 +661,56 @@ __device__ void vjf_step(const VJFArgs& a, const WS& w, Smem& sm, int t, uint32_
   }
 
   // ---------------- RLS raw statistics ----------------
-  if (rls && !a.warm_up) {
+  if (stats) {
     gemm(sm, nfp, nfp, B, trans(w.feat, nfp), rowmaj(w.feat, nfp), w.ftf, nfp, 1.f, 0.f, 0.f, bf);
     gemm(sm, nfp, xd, B, trans(w.feat, nfp), rowmaj(w.dx, xd), w.fxd, xd, 1.f, 0.f, 0.f, bf);
   }
 
   // grad_check: the sum of every gradient entry is finite iff each one is
+  float gc[1] = {0.f};
+  if (a.sgd) {
+    float v = sum_of(w.g_w_in_y, h0 * yd) + sum_of(w.g_w_in_m, h0 * xd) +
+              sum_of(w.g_w_in_lv, h0 * xd) + sum_of(w.g_wm, xd * hl) +
+              sum_of(w.g_wlv, xd * hl) + sum_of(w.g_blv, xd);
+    if (a.train_decoder) v += sum_of(w.g_w_dec, yd * xd) + sum_of(w.g_b_dec, yd);
+    if (u) v += sum_of(w.g_w_in_u, h0 * ud);
+    for (int l = 1; l < L; ++l) v += sum_of(w.g_w_hidden[l - 1], a.h[l] * a.h[l - 1]);
+    for (int l = 0; l < L; ++l) v += sum_of(w.g_b_hidden[l], a.h[l]);
+    gc[0] = v;
+  }
+  block_sum<1>(sm, gc);
+  r.grad_check = a.sgd ? gc[0] + r.g_lik_lv_batch : 0.f;
+  return r;
+}
+
+// Phase 2 on one device: the ELBO with its constants, clipped SGD, the
+// obs-noise running variance, RLS with Newton-Schulz tracking of V and the
+// state-noise running variance, all in place; then the scalar row of step t.
+// `inv_b` is 1/B.
+__device__ void step_apply(const VJFArgs& a, const WS& w, Smem& sm, const StepIO& io,
+                           const StepSums& p, int t, float inv_b) {
+  const int tid = threadIdx.x;
+  const int B = a.B, yd = a.yd, ud = a.ud, xd = a.xd, nfp = a.nfp, L = a.n_layers;
+  const int h0 = a.h[0], hl = a.h[L - 1];
+  const bool bf = a.bf16 != 0;
+  const bool rls = a.update && a.update_transition;
+  const float slv = io.slv, lik_lv = io.lik_lv;
+  const float lr = a.lr[0];
+  float* g_vec = io.g_vec;
+
   bool sgd_ok = false;
   float l_recon, l_dyn, h_ent, loss;
   {
-    float gc[1] = {0.f};
-    if (a.sgd) {
-      float v = sum_of(w.g_w_in_y, h0 * yd) + sum_of(w.g_w_in_m, h0 * xd) +
-                sum_of(w.g_w_in_lv, h0 * xd) + sum_of(w.g_wm, xd * hl) +
-                sum_of(w.g_wlv, xd * hl) + sum_of(w.g_blv, xd);
-      if (a.train_decoder) v += sum_of(w.g_w_dec, yd * xd) + sum_of(w.g_b_dec, yd);
-      if (u) v += sum_of(w.g_w_in_u, h0 * ud);
-      for (int l = 1; l < L; ++l) v += sum_of(w.g_w_hidden[l - 1], a.h[l] * a.h[l - 1]);
-      for (int l = 0; l < L; ++l) v += sum_of(w.g_b_hidden[l], a.h[l]);
-      gc[0] = v;
-    }
-    block_sum<1>(sm, gc);
-    const float grad_check = gc[0] + g_lik_lv_batch;
-
     // ---------------- ELBO components with their constants ----------------
     float obs_mse = 0.f;
     if (a.poisson) {
-      l_recon = recon_batch;
+      l_recon = p.recon_batch;
     } else {
-      l_recon = 0.5f * (sq_y * expf(-lik_lv) * inv_b + (float)yd * lik_lv);
-      obs_mse = sq_y * inv_b / (float)yd;
+      l_recon = 0.5f * (p.sq_y * expf(-lik_lv) * inv_b + (float)yd * lik_lv);
+      obs_mse = p.sq_y * inv_b / (float)yd;
     }
-    l_dyn = 0.5f * (dyn_batch + (float)xd * slv);
-    h_ent = h_ent_raw;
+    l_dyn = 0.5f * (p.dyn_batch + (float)xd * slv);
+    h_ent = p.ent;
     bool raw_ok = isfinite(l_recon) && isfinite(h_ent);
     if (!a.warm_up) raw_ok = raw_ok && isfinite(l_dyn);
     l_recon = isfinite(l_recon) ? l_recon : 0.f;
@@ -627,11 +721,11 @@ __device__ void vjf_step(const VJFArgs& a, const WS& w, Smem& sm, int t, uint32_
     // ---------------- clipped SGD ----------------
     float lik_lv_new = lik_lv;
     if (a.sgd) {
-      sgd_ok = raw_ok && isfinite(grad_check);
+      sgd_ok = raw_ok && isfinite(p.grad_check);
       if (sgd_ok) {
         const float c = a.clip;
         sgd_update(a.w_in_y, w.g_w_in_y, h0 * yd, lr, c);
-        if (u) sgd_update(a.w_in_u, w.g_w_in_u, h0 * ud, lr, c);
+        if (io.u) sgd_update(a.w_in_u, w.g_w_in_u, h0 * ud, lr, c);
         sgd_update(a.w_in_m, w.g_w_in_m, h0 * xd, lr, c);
         sgd_update(a.w_in_lv, w.g_w_in_lv, h0 * xd, lr, c);
         for (int l = 1; l < L; ++l)
@@ -645,14 +739,14 @@ __device__ void vjf_step(const VJFArgs& a, const WS& w, Smem& sm, int t, uint32_
           sgd_update(a.b_dec, w.g_b_dec, yd, lr, c);
         }
         if (!a.poisson)
-          lik_lv_new = lik_lv - lr * clampf(g_lik_lv_batch + 0.5f * (float)yd, -c, c);
+          lik_lv_new = lik_lv - lr * clampf(p.g_lik_lv_batch + 0.5f * (float)yd, -c, c);
       }
     }
 
     // ---------------- obs-noise running variance (Gaussian) ----------------
-    float lik_n_new = lik_n0;
+    float lik_n_new = io.lik_n0;
     if (a.update && !a.poisson && a.update_likelihood) {
-      const float n = lik_n0 < a.obs_var_cap ? lik_n0 : a.obs_var_cap;
+      const float n = io.lik_n0 < a.obs_var_cap ? io.lik_n0 : a.obs_var_cap;
       const float tot = n + (float)B;
       const float var = (n / tot) * expf(lik_lv_new) + ((float)B / tot) * obs_mse;
       if (isfinite(var)) {
@@ -669,26 +763,26 @@ __device__ void vjf_step(const VJFArgs& a, const WS& w, Smem& sm, int t, uint32_
   // ---------------- RLS with Newton-Schulz tracking of V ----------------
   float tau = 0.f;
   if (rls) {
-    const bool dyn_ok = isfinite(dx_sum);
+    const bool dyn_ok = isfinite(p.dx_sum);
     if (!a.warm_up) {
       const float lam = a.rls_shrink, jit = a.chol_jitter;
       const float inv_sv_u = expf(-slv);
       for (int i = tid; i < nfp * xd; i += NTHREADS) g_vec[i] = w.fxd[i] * inv_sv_u;
       for (int i = tid; i < nfp * nfp; i += NTHREADS) {
         const int r = i / nfp, c = i % nfp;
-        float p = lam * a.p_mat[i] + w.ftf[i] * inv_sv_u;
+        float pv = lam * a.p_mat[i] + w.ftf[i] * inv_sv_u;
         if (lam != 1.0f || jit != 0.0f) {
           const float dg = r == c ? 1.f : 0.f;
           const float pad = r >= a.nf ? dg : 0.f;
-          p = p + (1.0f - lam) * pad + jit * (dg - pad);
+          pv = pv + (1.0f - lam) * pad + jit * (dg - pad);
         }
-        w.p_new[i] = p;
+        w.p_new[i] = pv;
       }
       __syncthreads();
       // g = lam P w + F^T dx / sv, full f32
       gemm(sm, nfp, xd, nfp, rowmaj(a.p_mat, nfp), rowmaj(a.w_dyn, xd), g_vec, xd, lam, 1.f, 0.f,
            false);
-      tau = fvf_sum * inv_sv_u / lam;
+      tau = p.fvf_sum * inv_sv_u / lam;
       // the mega segment skips the update at tau >= NS_TAU_MAX, so its
       // Newton-Schulz result would be discarded
       bool ns_ok = !(a.mega && !(tau < NS_TAU_MAX));
@@ -745,7 +839,7 @@ __device__ void vjf_step(const VJFArgs& a, const WS& w, Smem& sm, int t, uint32_
     }
     block_sum<1>(sm, ms);
     const float mse = ms[0] / (float)(B * xd);
-    const float n = dyn_n0 < a.state_var_cap ? dyn_n0 : a.state_var_cap;
+    const float n = io.dyn_n0 < a.state_var_cap ? io.dyn_n0 : a.state_var_cap;
     const float tot = n + (float)B;
     const float var = (n / tot) * expf(slv) + ((float)B / tot) * mse;
     if (tid == 0 && isfinite(var)) {
@@ -769,6 +863,15 @@ __device__ void vjf_step(const VJFArgs& a, const WS& w, Smem& sm, int t, uint32_
   __syncthreads();
 }
 
+__device__ void vjf_step(const VJFArgs& a, const WS& w, Smem& sm, int t, uint32_t seed,
+                         uint32_t count) {
+  const float inv_b = 1.0f / (float)a.B;
+  const StepIO io = step_io(a, w, t, seed, count);
+  const bool stats = a.update && a.update_transition && !a.warm_up;
+  const StepSums p = step_forward_sums(a, w, sm, io, inv_b, stats);
+  step_apply(a, w, sm, io, p, t, inv_b);
+}
+
 __global__ void __launch_bounds__(NTHREADS, 1) vjf_kernel(VJFArgs a) {
   __shared__ __align__(16) Smem sm;
   const WS w = carve(a, a.ws);
@@ -776,6 +879,26 @@ __global__ void __launch_bounds__(NTHREADS, 1) vjf_kernel(VJFArgs a) {
   const uint32_t count0 = (uint32_t)a.rng_count[0];
   for (int t = 0; t < a.T; ++t) vjf_step(a, w, sm, t, seed, count0 + (uint32_t)t);
   if (threadIdx.x == 0) a.rng_count[0] = (int)(count0 + (uint32_t)a.T);
+}
+
+// Phase 1 of the sharded step alone (forward_sums_call): the flat FusedSums
+// buffer and the q pack of this rank's B trials, with the caller's global
+// inv_b and row offset of the noise. Reads the carry, writes none of it.
+__global__ void __launch_bounds__(NTHREADS, 1) vjf_sums_kernel(VJFArgs a) {
+  __shared__ __align__(16) Smem sm;
+  WS w = carve(a, a.ws);
+  const size_t n = point_sums(a, w, a.sums);
+  // leaves the flags leave uncomputed (gradients without SGD, the decoder's
+  // when it is frozen, the statistics without RLS) are zero
+  for (size_t i = threadIdx.x; i < n; i += NTHREADS) a.sums[i] = 0.f;
+  const StepIO io = step_io(a, w, 0, (uint32_t)a.rng_seed[0], (uint32_t)a.rng_count[0]);
+  const StepSums p = step_forward_sums(a, w, sm, io, a.inv_b, a.update && a.update_transition);
+  if (threadIdx.x == 0) {
+    float* tail = a.sums + n - N_SUM_SCALARS;
+    const float v[N_SUM_SCALARS] = {p.g_lik_lv_batch, p.recon_batch, p.dyn_batch, p.ent,
+                                    p.sq_y, p.grad_check, p.fvf_sum, p.dx_sum, p.dx2_sum};
+    for (int i = 0; i < N_SUM_SCALARS; ++i) tail[i] = v[i];
+  }
 }
 
 __global__ void philox_kernel(uint32_t seed, uint32_t count, int n_pairs, float* u1,
@@ -801,6 +924,11 @@ size_t vjf_workspace_floats(const VJFArgs* a) { return carve(*a, nullptr).total;
 
 size_t vjf_args_size(void) { return sizeof(VJFArgs); }
 
+size_t vjf_sums_floats(const VJFArgs* a) {
+  WS w;
+  return point_sums(*a, w, nullptr);
+}
+
 // The two launchers are the two modes of vjf_kernel; each sets its own.
 // One step (fused_step_call): NS_ITERS Newton-Schulz iterations, no
 // escalation, no tau ceiling. The caller sets T = 1.
@@ -818,6 +946,13 @@ int vjf_mega_epoch(const VJFArgs* a, void* stream) {
   VJFArgs m = *a;
   m.mega = 1;
   vjf_kernel<<<1, NTHREADS, 0, (cudaStream_t)stream>>>(m);
+  return (int)cudaGetLastError();
+}
+
+// Phase 1 of the sharded step (forward_sums_call): the caller sets T = 1,
+// sums, inv_b and row0.
+int vjf_forward_sums(const VJFArgs* a, void* stream) {
+  vjf_sums_kernel<<<1, NTHREADS, 0, (cudaStream_t)stream>>>(*a);
   return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,12 @@
 """VJF orchestrator: state, epochs (counterpart of ``vjf_tpu/models/vjf.py``).
 
-This slice ports the fused epoch only: ``run_epoch`` routes to
+The port has the fused epoch only: ``run_epoch`` routes to
 ``ops.fused_step.run_epoch_fused`` and raises for the configurations that
-the JAX package sends to its autograd XLA step (not ported yet).
+the JAX package sends to its autograd XLA step (not ported yet). The
+multi-rank route is ``parallel.sharded.run_epoch_fused_sharded``, whose
+phase-1 kernel ``ops.fused_step.forward_sums_call`` is the counterpart of
+the JAX ``forward_sums_call``. ``init_state`` builds the model on the card
+unless the caller asks for ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -18,6 +22,9 @@ from . import dynamics as dyn
 from .decoder import init_decoder
 from .likelihoods import init_gaussian_lik, init_poisson_lik
 from .recognition import Recognition, init_recognition
+
+
+_XLA_TODO = "autograd filter_step: ROADMAP Queue 1 item 4"
 
 
 class PriorParams(NamedTuple):
@@ -64,11 +71,13 @@ def _generator(seed: Union[int, torch.Generator]) -> torch.Generator:
 def init_state(
     seed: Union[int, torch.Generator],
     cfg: VJFConfig,
-    device=None,
+    device=torch.device("cuda"),
     backend: Optional[str] = None,
     batch_hint: Optional[int] = None,
 ) -> TrainState:
-    """Build a fresh model on ``device`` from a seed or a CPU generator."""
+    """Build a fresh model on ``device`` from a seed or a CPU generator. The
+    model goes to the card unless the caller asks for ``device="cpu"``;
+    without CUDA, a call that names no device raises."""
     gen = _generator(seed)
     dtype = cfg.tdtype
     if cfg.likelihood == "gaussian":
@@ -140,7 +149,7 @@ def run_epoch(
     if us.dtype != cfg.tdtype:
         us = us.to(cfg.tdtype)
     if not _fused.fused_enabled(cfg, state, n_batch=ys.shape[1]):
-        raise NotImplementedError("autograd filter_step: ROADMAP Queue 1 item 4")
+        raise NotImplementedError(_XLA_TODO)
     with torch.no_grad():
         return _fused.run_epoch_fused(cfg, flags, state, ys, us, epoch_seed(seed), lr,
                                       noise=noise, q0=q0, mask=mask,
@@ -190,17 +199,27 @@ def run_epochs(
     """``len(seeds)`` consecutive epochs over the same data, one seed (or
     generator) and one learning rate per epoch. With int seeds nothing here
     waits for the device."""
-    t_len, n_batch, _ = ys.shape
     if q0 is None:
-        q0 = prior(state.params, n_batch)
-    qdt = cfg.tdtype
+        q0 = prior(state.params, ys.shape[1])
+
+    def epoch(st, seed, lr):
+        return run_epoch(cfg, flags, st, ys, us, seed, lr, q0=q0)
+
+    return chain_epochs(cfg, epoch, state, ys.shape[0], seeds, lrs)
+
+
+def chain_epochs(cfg: VJFConfig, epoch, state: TrainState, t_len: int, seeds,
+                 lrs) -> EpochsResult:
+    """``epoch(state, seed, lr) -> EpochResult`` once per seed, each from the
+    previous one's state: the epoch means, the tau statistics and the last
+    epoch's posteriors."""
     means, max_taus, hots = [], [], []
     res = None
     for i, seed in enumerate(seeds):
-        res = run_epoch(cfg, flags, state, ys, us, seed, lrs[i], q0=q0)
+        res = epoch(state, seed, lrs[i])
         state = res.state
         means.append(Metrics(*(torch.mean(m) for m in res.metrics)))
-        max_tau, hot = epoch_tau_stats(cfg, res.metrics, t_len, qdt)
+        max_tau, hot = epoch_tau_stats(cfg, res.metrics, t_len, cfg.tdtype)
         max_taus.append(max_tau)
         hots.append(hot)
     mean_metrics = Metrics(*(torch.stack(f) for f in zip(*means)))

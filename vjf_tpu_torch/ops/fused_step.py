@@ -1,4 +1,4 @@
-"""The whole VJF filter-then-learn step, as two hand-written CUDA kernels and
+"""The whole VJF filter-then-learn step, as hand-written CUDA kernels and
 their plain PyTorch versions (counterpart of
 ``vjf_tpu/ops/pallas/fused_step.py``).
 
@@ -6,11 +6,19 @@ their plain PyTorch versions (counterpart of
   :func:`step_math`, are the step as plain tensor code. They are the
   specification the kernels are held to, and what runs on CPU tensors.
 * :func:`fused_step_call` runs one step (the exact-inverse prefix) and
-  :func:`mega_epoch_call` runs a whole segment of steps in one launch. On a
-  CUDA tensor each launches its kernel from ``csrc/fused_step.cu`` or
-  raises; on a CPU tensor each runs its plain version.
+  :func:`mega_epoch_call` runs a whole segment of steps in one launch.
+  :func:`forward_sums_call` runs phase 1 of the sharded step alone (the
+  counterpart of the JAX ``forward_sums_call``): forward, backward and the
+  trial sums into one flat buffer (:func:`pack_sums`) that a single
+  all-reduce adds up across ranks. On a CUDA tensor each launches its kernel
+  from ``csrc/fused_step.cu`` (``vjf_fused_step``, ``vjf_mega_epoch``,
+  ``vjf_forward_sums``) or raises; on a CPU tensor each runs its plain
+  version.
 * :func:`run_epoch_fused` pads the state once, runs the prefix (per-step
   kernel plus :func:`exact_v_fallback`) and the mega segment, and unpads.
+  The sharded epoch, ``parallel.sharded.run_epoch_fused_sharded``, runs
+  :func:`forward_sums_call`, the all-reduce, :func:`step_apply` without
+  per-trial inputs and :func:`exact_v_fallback_sums` per step.
 
 Numerics follow the JAX package: with ``matmul_dtype='bfloat16'`` the
 activation, gradient and statistics products round their inputs to bf16 and
@@ -41,7 +49,7 @@ _SGP_TODO = "SGP dynamics: ROADMAP Queue 1 item 9"
 
 # kernel launches, one count per launcher; only the CUDA branch of a wrapper
 # adds to its count
-launches = {"fused_step": 0, "mega_epoch": 0}
+launches = {"fused_step": 0, "mega_epoch": 0, "forward_sums": 0}
 
 
 def reset_launches() -> None:
@@ -371,6 +379,14 @@ def _ns_iter(x: torch.Tensor, p_new: torch.Tensor, eye2: torch.Tensor) -> torch.
     return x @ (eye2 - p_new @ x)
 
 
+def _stats_mse(sums: FusedSums, w: torch.Tensor, b) -> torch.Tensor:
+    """``mean |dx - F w|^2`` over ``b`` trials from the summed statistics:
+    ``(dx2 - 2 <w, F^T dx> + <w, F^T F w>) / (b xd)``, products in full
+    precision. It cancels in f32 where the residual is small."""
+    quad = torch.sum(w * (sums.ftf_raw @ w))
+    return (sums.dx2_sum - 2.0 * torch.sum(w * sums.fxd_raw) + quad) / (b * w.shape[-1])
+
+
 def step_apply(
     cfg: VJFConfig,
     flags: StepFlags,
@@ -378,8 +394,8 @@ def step_apply(
     sums: FusedSums,
     lr: torch.Tensor,
     b_total: int,
-    feat: torch.Tensor,
-    dx: torch.Tensor,
+    feat: Optional[torch.Tensor] = None,
+    dx: Optional[torch.Tensor] = None,
     ns_extra=None,
     ns_tau_max: Optional[float] = None,
     ns_iters: int = NS_ITERS,
@@ -387,7 +403,12 @@ def step_apply(
 ) -> Tuple[FusedCarry, ScalarPack, torch.Tensor]:
     """Batch-independent phase: reconstruct the ELBO from the sums, apply
     clipped SGD, then the closed-form updates (obs noise, RLS with
-    Newton-Schulz tracking of V, state noise)."""
+    Newton-Schulz tracking of V, state noise).
+
+    ``feat``/``dx`` (per-trial) give the post-update residual directly on
+    one device; without them (the sharded step, whose ``sums`` are
+    all-reduced) its mean square comes from the summed statistics
+    (:func:`_stats_mse`)."""
     _no_masks(mask, None)
     f32 = carry.w_dyn.dtype
     dev = carry.w_dyn.device
@@ -517,8 +538,11 @@ def step_apply(
             inf = torch.full((), float("inf"), dtype=f32, device=dev)
             tau = torch.where(dyn_ok, torch.where(ns_ok, tau, inf), zero)
 
-        resid = dx - mm(feat, w_dyn_new)
-        mse_dyn = torch.mean(resid * resid)
+        if feat is not None:
+            resid = dx - mm(feat, w_dyn_new)
+            mse_dyn = torch.mean(resid * resid)
+        else:
+            mse_dyn = _stats_mse(sums, w_dyn_new, b)
         dyn_n = torch.clamp(new.dyn_n[0, 0], max=float(cfg.state_var_cap))
         tot_d = dyn_n + count
         var_d = (dyn_n / tot_d) * torch.exp(slogvar) + (count / tot_d) * mse_dyn
@@ -581,10 +605,75 @@ def _scal_row(s: ScalarPack) -> torch.Tensor:
     return torch.cat([s.loss, s.recon, s.dyn, s.ent, s.tau, z], dim=1)
 
 
-def _latents(carry: FusedCarry, b: int, xd: int, dtype, eps_s, eps_t):
+def _latents(carry: FusedCarry, b: int, xd: int, dtype, eps_s, eps_t, row0: int = 0):
     if eps_s is not None:
         return eps_s, eps_t
-    return _rng.box_muller_latents(carry.rng_seed, carry.rng_count, b, xd, dtype)
+    return _rng.box_muller_latents(carry.rng_seed, carry.rng_count, b, xd, dtype, row0)
+
+
+# ---------------------------------------------------------------------------
+# Flat FusedSums layout: one buffer, so one all-reduce sums the whole tuple
+# ---------------------------------------------------------------------------
+
+# the array leaves in FusedSums order, each with the carry leaf of its shape;
+# the flat buffer holds these, then _SUM_SCALARS (csrc/fused_step.cu:point_sums
+# writes the same order)
+_SUM_ARRAYS = (
+    ("g_w_in_y", "w_in_y"), ("g_w_in_u", "w_in_u"), ("g_w_in_m", "w_in_m"),
+    ("g_w_in_lv", "w_in_lv"), ("g_w_hidden", "w_hidden"), ("g_b_hidden", "b_hidden"),
+    ("g_w_mean", "w_mean"), ("g_w_logvar", "w_logvar"), ("g_b_logvar", "b_logvar"),
+    ("g_w_dec", "w_dec"), ("g_b_dec", "b_dec"), ("ftf_raw", "p_mat"), ("fxd_raw", "w_dyn"),
+)
+_SUM_SCALARS = ("g_lik_lv_batch", "recon_batch", "dyn_batch", "ent", "sq_y", "grad_check",
+                "fvf_sum", "dx_sum", "dx2_sum")
+
+
+def _array_leaves(tree, names):
+    """The tensors of ``tree``'s fields ``names``, tuples flattened, None dropped."""
+    out = []
+    for n in names:
+        v = getattr(tree, n)
+        out.extend(v if isinstance(v, tuple) else () if v is None else (v,))
+    return out
+
+
+def sums_size(carry: FusedCarry) -> int:
+    """Floats in the flat FusedSums buffer of ``carry``'s shapes."""
+    return sum(t.numel() for t in _array_leaves(carry, [c for _, c in _SUM_ARRAYS])) + len(
+        _SUM_SCALARS)
+
+
+def pack_sums(sums: FusedSums) -> torch.Tensor:
+    """FusedSums -> one contiguous 1-D buffer: the array leaves in field
+    order, then the scalar leaves (``_SUM_SCALARS``)."""
+    arrays = _array_leaves(sums, [n for n, _ in _SUM_ARRAYS])
+    scalars = torch.stack([getattr(sums, n).reshape(()) for n in _SUM_SCALARS])
+    return torch.cat([a.reshape(-1) for a in arrays] + [scalars])
+
+
+def unpack_sums(flat: torch.Tensor, carry: FusedCarry) -> FusedSums:
+    """Inverse of :func:`pack_sums`; each gradient leaf takes its parameter's
+    shape from ``carry``. The leaves are views of ``flat``."""
+    if flat.shape != (sums_size(carry),):
+        raise ValueError(f"flat sums of shape {tuple(flat.shape)}, the carry needs "
+                         f"{sums_size(carry)} floats")
+    off = 0
+
+    def take(like):
+        nonlocal off
+        v = flat[off:off + like.numel()].view(like.shape)
+        off += like.numel()
+        return v
+
+    fields = {}
+    for name, leaf in _SUM_ARRAYS:
+        ref = getattr(carry, leaf)
+        fields[name] = (tuple(take(r) for r in ref) if isinstance(ref, tuple)
+                        else None if ref is None else take(ref))
+    for name in _SUM_SCALARS:
+        fields[name] = flat[off]
+        off += 1
+    return FusedSums(**fields)
 
 
 # ---------------------------------------------------------------------------
@@ -651,6 +740,17 @@ def mega_epoch_plain(cfg, flags, carry, qs_m, qs_lv, ys, us, eps_s, eps_t, lr):
     return carry, torch.stack(qs), torch.cat(scals, dim=0)
 
 
+def forward_sums_plain(cfg, flags, carry, qs_m, qs_lv, y, u, eps_s, eps_t, inv_b,
+                       row0: int = 0):
+    """Plain version of the phase-1 kernel: :func:`step_forward_sums` on this
+    rank's trials with the GLOBAL ``inv_b``. Returns ``(flat sums, q_pack
+    (2, B_local, xd))``; the carry is left as it is. ``eps_s=None`` draws
+    rows ``[row0, row0 + B_local)`` of the whole batch's Philox draw."""
+    eps_s, eps_t = _latents(carry, y.shape[0], cfg.xdim, y.dtype, eps_s, eps_t, row0)
+    sums, per = step_forward_sums(cfg, flags, carry, qs_m, qs_lv, y, u, eps_s, eps_t, inv_b)
+    return pack_sums(sums), torch.stack([per.qt_m, per.qt_lv])
+
+
 # ---------------------------------------------------------------------------
 # ctypes binding of csrc/fused_step.cu
 # ---------------------------------------------------------------------------
@@ -670,15 +770,16 @@ class _Args(ctypes.Structure):
             "w_mean", "w_logvar", "b_logvar", "w_dec", "b_dec", "cent_x", "cent_u",
             "c2", "inv_w2", "p_mat", "v_mat", "w_dyn", "state_logvar", "lik_logvar",
             "dyn_n", "lik_n", "rng_seed", "rng_count", "qs_m", "qs_lv", "y", "u",
-            "eps_s", "eps_t", "lr", "q_pack", "scal", "g_vec", "xt", "xs", "ws")]
+            "eps_s", "eps_t", "lr", "q_pack", "scal", "g_vec", "xt", "xs", "sums", "ws")]
         + [(n, ctypes.c_int) for n in ("T", "B", "yd", "ud", "xd", "nfp", "nf", "n_layers")]
         + [("h", ctypes.c_int * _MAX_LAYERS)]
         + [(n, ctypes.c_int) for n in (
             "sgd", "update", "warm_up", "train_decoder", "update_likelihood",
-            "update_transition", "poisson", "trace_quirk", "bf16", "mega", "ns_iters")]
+            "update_transition", "poisson", "trace_quirk", "bf16", "mega", "ns_iters",
+            "row0")]
         + [(n, ctypes.c_float) for n in (
             "leak", "poisson_clamp", "logvar_clamp", "clip", "rls_shrink",
-            "chol_jitter", "obs_var_cap", "state_var_cap")]
+            "chol_jitter", "obs_var_cap", "state_var_cap", "inv_b")]
     )
 
 
@@ -687,12 +788,14 @@ def _library():
 
     lib = _build.load_library()
     if not getattr(lib, "_vjf_bound", False):
-        for name in ("vjf_fused_step", "vjf_mega_epoch"):
+        for name in ("vjf_fused_step", "vjf_mega_epoch", "vjf_forward_sums"):
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.POINTER(_Args), _P]
             fn.restype = ctypes.c_int
-        lib.vjf_workspace_floats.argtypes = [ctypes.POINTER(_Args)]
-        lib.vjf_workspace_floats.restype = ctypes.c_size_t
+        for name in ("vjf_workspace_floats", "vjf_sums_floats"):
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.POINTER(_Args)]
+            fn.restype = ctypes.c_size_t
         lib.vjf_args_size.argtypes = []
         lib.vjf_args_size.restype = ctypes.c_size_t
         lib.vjf_philox_normals.argtypes = [ctypes.c_int] * 4 + [_P] * 4
@@ -719,12 +822,20 @@ def _ptr(t: Optional[torch.Tensor], name: str, shape=None, dtype=torch.float32,
     return t.data_ptr()
 
 
+_LAUNCHERS = {"fused_step": "vjf_fused_step", "mega_epoch": "vjf_mega_epoch",
+              "forward_sums": "vjf_forward_sums"}
+
+
 def _launch(kernel: str, cfg, flags, carry: FusedCarry, qs_m, qs_lv, ys, us, eps_s,
-            eps_t, lr, q_pack, scal, g_vec=None, xt=None, xs=None, ns_iters=0):
-    """Check every operand and launch ``vjf_fused_step`` or ``vjf_mega_epoch``
-    on the current stream. ``ys``/``us``/``eps_*`` carry a leading time axis;
-    ``ns_iters`` is the mega kernel's base Newton-Schulz iterations (each
-    launcher sets its own mode)."""
+            eps_t, lr, q_pack, scal, g_vec=None, xt=None, xs=None, ns_iters=0,
+            sums=None, inv_b=0.0, row0=0):
+    """Check every operand and launch ``vjf_fused_step``, ``vjf_mega_epoch``
+    or ``vjf_forward_sums`` on the current stream. ``ys``/``us``/``eps_*``
+    carry a leading time axis; ``ns_iters`` is the mega kernel's base
+    Newton-Schulz iterations (each launcher sets its own mode). The phase-1
+    kernel takes ``sums`` (the flat buffer), ``inv_b`` and ``row0`` (the
+    first row of this rank's trials in the whole batch) and no ``lr`` or
+    ``scal``."""
     if carry.w_white is not None or carry.scale2 is not None:
         raise NotImplementedError(_SGP_TODO)
     dev = carry.p_mat.device
@@ -778,6 +889,7 @@ def _launch(kernel: str, cfg, flags, carry: FusedCarry, qs_m, qs_lv, ys, us, eps
     a.lr = c(lr, "lr", ())
     a.q_pack = c(q_pack, "q_pack", (t_total, 2, b, xd) if q_pack.dim() == 4 else (2, b, xd))
     a.scal = c(scal, "scal", (t_total, 8))
+    a.row0, a.inv_b = int(row0), float(inv_b)
     a.g_vec = c(g_vec, "g_vec", (nfp, xd))
     a.xt = c(xt, "xt", (b, xd))
     a.xs = c(xs, "xs", (b, xd))
@@ -798,10 +910,12 @@ def _launch(kernel: str, cfg, flags, carry: FusedCarry, qs_m, qs_lv, ys, us, eps
     a.obs_var_cap, a.state_var_cap = float(cfg.obs_var_cap), float(cfg.state_var_cap)
 
     lib = _library()
+    if sums is not None:
+        a.sums = c(sums, "sums", (lib.vjf_sums_floats(ctypes.byref(a)),))
     ws = torch.empty(lib.vjf_workspace_floats(ctypes.byref(a)), dtype=torch.float32,
                      device=dev)
     a.ws = ws.data_ptr()
-    fn = lib.vjf_fused_step if kernel == "fused_step" else lib.vjf_mega_epoch
+    fn = getattr(lib, _LAUNCHERS[kernel])
     with torch.cuda.device(dev):
         rc = fn(ctypes.byref(a), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
@@ -870,6 +984,30 @@ def mega_epoch_call(cfg, flags, carry, qs_m, qs_lv, ys, us, eps_s, eps_t, lr):
     )
     launches["mega_epoch"] += 1
     return carry, q_pack, scal
+
+
+def forward_sums_call(cfg, flags, carry, qs_m, qs_lv, y, u, eps_s, eps_t, inv_b,
+                      row0: int = 0):
+    """Phase 1 of the sharded step on this rank's ``B_local`` trials, with
+    the GLOBAL ``inv_b``: ``(flat sums, q_pack (2, B_local, xd))``, ready for
+    one all-reduce of the flat buffer. On CUDA tensors: the ``forward_sums``
+    kernel, which writes both outputs and updates NO carry leaf; on CPU
+    tensors: :func:`forward_sums_plain`. ``eps_s=None`` selects the
+    in-kernel Philox noise at row offset ``row0``."""
+    if not _on_cuda(carry.p_mat):
+        return forward_sums_plain(cfg, flags, carry, qs_m, qs_lv, y, u, eps_s, eps_t,
+                                  inv_b, row0)
+    dev, dt = y.device, y.dtype
+    flat = torch.empty(sums_size(carry), dtype=dt, device=dev)
+    q_pack = torch.empty((2, y.shape[0], cfg.xdim), dtype=dt, device=dev)
+    _launch(
+        "forward_sums", cfg, flags, carry, qs_m, qs_lv, y[None],
+        None if u is None else u[None], None if eps_s is None else eps_s[None],
+        None if eps_t is None else eps_t[None], None, q_pack, None,
+        sums=flat, inv_b=inv_b, row0=row0,
+    )
+    launches["forward_sums"] += 1
+    return flat, q_pack
 
 
 # ---------------------------------------------------------------------------
@@ -1063,14 +1201,32 @@ def exact_v_fallback(cfg: VJFConfig, out, prev_carry: FusedCarry,
 
     exact = _exact_inverse_repair(cfg, c, prev_carry, out.g_vec, b, mse_fn)
     tau = out.scal.tau[0, 0] if isinstance(out, StepOut) else out.scal[0, 4]
+    return out._replace(carry=_select_exact(c, exact, tau))
+
+
+def _select_exact(c: FusedCarry, exact, tau: torch.Tensor) -> FusedCarry:
+    """``c`` with the exact-inverse repair's four leaves where ``tau >=
+    NS_TAU_THRESHOLD``, selected on the device."""
     keep_ = tau < NS_TAU_THRESHOLD
     v_new, w_new, slv, dn = (
         torch.where(keep_, k, e)
         for k, e in zip((c.v_mat, c.w_dyn, c.state_logvar, c.dyn_n), exact)
     )
-    return out._replace(
-        carry=c._replace(v_mat=v_new, w_dyn=w_new, state_logvar=slv, dyn_n=dn)
-    )
+    return c._replace(v_mat=v_new, w_dyn=w_new, state_logvar=slv, dyn_n=dn)
+
+
+def exact_v_fallback_sums(cfg: VJFConfig, carry_new: FusedCarry, prev_carry: FusedCarry,
+                          sums: FusedSums, g_vec: torch.Tensor, tau: torch.Tensor,
+                          b_total: int) -> FusedCarry:
+    """The exact-inverse fallback of the sharded step: as
+    :func:`exact_v_fallback`, but the post-update residual comes from the
+    all-reduced statistics (:func:`_stats_mse`), so no per-trial tensor
+    crosses ranks. Computed every call and selected where ``tau >=
+    NS_TAU_THRESHOLD``, with no host sync. ``prev_carry`` is the carry
+    before :func:`step_apply` (its ``dyn_n`` and ``state_logvar``)."""
+    exact = _exact_inverse_repair(cfg, carry_new, prev_carry, g_vec, b_total,
+                                  lambda w: _stats_mse(sums, w, b_total))
+    return _select_exact(carry_new, exact, tau)
 
 
 # ---------------------------------------------------------------------------
@@ -1132,7 +1288,7 @@ def run_epoch_fused(cfg, flags, state, ys, us, seed: int, lr, noise=None,
     ``seed`` keys the Philox stream of the in-kernel noise (``noise=None``);
     ``noise=(eps_s, eps_t)``, each (T, B, xd), injects it instead.
     """
-    from ..models.vjf import EpochResult, Metrics, prior
+    from ..models.vjf import prior
 
     _no_masks(mask, channel_mask)
     t_len, n_batch, _ = ys.shape
@@ -1184,8 +1340,16 @@ def run_epoch_fused(cfg, flags, state, ys, us, seed: int, lr, noise=None,
         q_segs.append(q_seq)
         scal_segs.append(scal)
 
-    q_seq = torch.cat(q_segs, dim=0)
-    scal_seq = torch.cat(scal_segs, dim=0)
+    return epoch_result(cfg, carry, state, torch.cat(q_segs, dim=0),
+                        torch.cat(scal_segs, dim=0))
+
+
+def epoch_result(cfg: VJFConfig, carry: FusedCarry, state, q_seq: torch.Tensor,
+                 scal_seq: torch.Tensor):
+    """An epoch's ``EpochResult`` from its final carry (unpadded against
+    ``state``), its q packs (T, 2, B, xd) and its scalar rows (T, 8)."""
+    from ..models.vjf import EpochResult, Metrics
+
     metrics = Metrics(
         loss=scal_seq[:, 0],
         recon=scal_seq[:, 1],

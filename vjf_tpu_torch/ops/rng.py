@@ -12,7 +12,10 @@ with this mapping, shared bit for bit by the kernel and this module:
   of the output as ``bits1`` and ``bits2``;
 * top 24 bits -> ``u1 = i1 * 2^-24 + 2^-25``, ``u2 = i2 * 2^-24``,
   ``eps = sqrt(-2 ln u1) * cos(2 pi u2)``;
-* columns ``[:xd]`` are ``eps_s`` and ``[xd:]`` are ``eps_t``.
+* columns ``[:xd]`` are ``eps_s`` and ``[xd:]`` are ``eps_t``;
+* a shard of the trials (``row0``: its first row in the whole batch) draws
+  rows ``[row0, row0 + B_local)`` of the whole batch's draw, so a sharded
+  epoch at any world size uses the same noise as one device.
 
 The 32-bit words live in int64 tensors; the 32x32 -> 64 bit product is
 split into 16-bit halves so no intermediate overflows int64.
@@ -57,12 +60,13 @@ def philox4x32_10(ctr, key):
 
 
 def uniforms(rng_seed: torch.Tensor, rng_count: torch.Tensor, n_rows: int,
-             n_cols: int, dtype=torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(u1, u2)``, each ``(n_rows, n_cols)``, for one step of the stream.
-    ``rng_seed``/``rng_count`` are int tensors of one element (any shape),
-    on the device the draws should land on."""
+             n_cols: int, dtype=torch.float32, row0: int = 0
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(u1, u2)``, each ``(n_rows, n_cols)``: rows ``row0`` on of one step
+    of the stream. ``rng_seed``/``rng_count`` are int tensors of one element
+    (any shape), on the device the draws should land on."""
     dev = rng_seed.device
-    i = torch.arange(n_rows * n_cols, dtype=torch.int64, device=dev)
+    i = torch.arange(row0 * n_cols, (row0 + n_rows) * n_cols, dtype=torch.int64, device=dev)
     seed = rng_seed.reshape(()).to(torch.int64)
     count = rng_count.reshape(()).to(torch.int64)
     zero = torch.zeros((), dtype=torch.int64, device=dev)
@@ -76,16 +80,16 @@ def uniforms(rng_seed: torch.Tensor, rng_count: torch.Tensor, n_rows: int,
 
 
 def normals(rng_seed: torch.Tensor, rng_count: torch.Tensor, n_rows: int,
-            n_cols: int, dtype=torch.float32) -> torch.Tensor:
-    """Box-Muller standard normals, ``(n_rows, n_cols)``."""
-    u1, u2 = uniforms(rng_seed, rng_count, n_rows, n_cols, dtype)
+            n_cols: int, dtype=torch.float32, row0: int = 0) -> torch.Tensor:
+    """Box-Muller standard normals, ``(n_rows, n_cols)``, from row ``row0``."""
+    u1, u2 = uniforms(rng_seed, rng_count, n_rows, n_cols, dtype, row0)
     r = torch.sqrt(-2.0 * torch.log(u1))
     return r * torch.cos((2.0 * 3.14159265358979) * u2)
 
 
 def box_muller_latents(rng_seed: torch.Tensor, rng_count: torch.Tensor, b: int,
-                       xd: int, dtype=torch.float32):
-    """``(eps_s, eps_t)``, each ``(B, xd)``: one ``(B, 2*xd)`` draw, split by
-    columns."""
-    eps = normals(rng_seed, rng_count, b, 2 * xd, dtype)
+                       xd: int, dtype=torch.float32, row0: int = 0):
+    """``(eps_s, eps_t)``, each ``(B, xd)``: rows ``[row0, row0 + B)`` of one
+    ``(*, 2*xd)`` draw, split by columns."""
+    eps = normals(rng_seed, rng_count, b, 2 * xd, dtype, row0)
     return eps[:, :xd], eps[:, xd:]
