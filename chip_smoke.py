@@ -4,7 +4,8 @@
 
 Builds the kernels of ``vjf_tpu_torch/csrc`` with nvcc, holds each against
 its plain PyTorch version (and checks that planted faults are rejected by
-the same comparison), drives the main path (the flagship config of
+the same comparison; also that two runs give the same bits, and that a batch
+the cluster does not divide is split right), drives the main path (the flagship config of
 ``bench.py``: one warm-up epoch, then RLS-active epochs at full width,
 T = 2048 per epoch) through the kernels, times each kernel beside its plain
 version, and profiles one RLS epoch. The ``sharded`` phases then drive the
@@ -20,6 +21,7 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import json
+import math
 import subprocess
 import sys
 import time
@@ -46,7 +48,9 @@ WARM_STEPS = 256        # warm-up steps before the step and mega comparisons
 # Each limit sits between the largest reading of the sound kernel and the
 # smallest reading of a planted fault, the other matmul precision: on an
 # H100 these were 1.9e-4 and 4.3e-3 with f32 products, 1.1e-3 and 3.3e-3
-# with bf16 products (PERF.md).
+# with bf16 products for the one-block kernels, and 1.6e-4 and 4.3e-3,
+# 9.4e-4 and 3.3e-3 for the cluster kernels, whose sums run in another
+# order (PERF.md).
 TOL = {"float32": 1e-3, "bfloat16": 2e-3}
 F32_ULP = 2.0 ** -23
 SHARD_T = 512           # steps of the sharded epoch (the prefix region)
@@ -327,6 +331,59 @@ def check_escalation(dev) -> None:
     phase("mega.escalation.bands", steps=60 - esc.ns_prefix, **bands)
 
 
+def check_deterministic(cfg, flags, carry, qm, qlv, ys, lr) -> None:
+    """Two mega launches from clones of one carry (in-kernel noise) give the
+    same bits on every leaf: the cluster's sums are taken in rank order, with
+    no atomics."""
+    runs = [segment(*F.mega_epoch_call(cfg, flags, clone(carry), qm, qlv, ys, None, None, None,
+                                       lr)) for _ in range(2)]
+    differ = [k for k, v in runs[0].items() if not torch.equal(v, runs[1][k])]
+    check(not differ, f"mega.deterministic: leaves differ between two runs: {differ}")
+    phase("mega.deterministic", steps=ys.shape[0], leaves=len(runs[0]), bit_identical=True)
+
+
+def check_ragged(dev) -> None:
+    """The mega kernel and the phase-1 kernel against their plain versions
+    at batch sizes the cluster does not divide (some blocks own fewer
+    trials) and below the cluster's size (some own none): small widths,
+    controls, two hidden layers, f32 products. The state log-variance and
+    its count are set so that tau stays below NS_TAU_MAX on most steps and
+    the Newton-Schulz update runs."""
+    cfg = VJFConfig(ydim=14, xdim=2, udim=2, n_rbf=16, hidden_sizes=(16, 8),
+                    likelihood="gaussian", dtype="float32", rls_backend="nsv",
+                    fused_step="on", matmul_dtype="float32")
+    flags, steps = StepFlags(), 8
+    size = F.cluster_size()
+    for b in (250, 5):
+        check(b % size != 0, f"mega.ragged: {size} blocks divide {b}")
+        g = torch.Generator(device=dev).manual_seed(b)
+        ys = torch.randn((steps, b, cfg.ydim), device=dev, generator=g)
+        us = torch.randn((steps, b, cfg.udim), device=dev, generator=g)
+        eps = torch.randn((2, steps, b, cfg.xdim), device=dev, generator=g)
+        q = 0.3 * torch.randn((2, b, cfg.xdim), device=dev, generator=g)
+        lr = torch.tensor(1e-2, device=dev)
+        carry = F.pad_carry(cfg, core.init_state(0, cfg, device=dev))
+        carry = carry._replace(
+            state_logvar=torch.full_like(carry.state_logvar, math.log(8.0 * b)),
+            dyn_n=torch.full_like(carry.dyn_n, 1e6))
+        start = flatten(carry._asdict())
+        args = (q[0].contiguous(), q[1].contiguous(), ys, us, eps[0], eps[1], lr)
+        ref = F.mega_epoch_plain(cfg, flags, clone(carry), *args)
+        got = F.mega_epoch_call(cfg, flags, clone(carry), *args)
+        tau = got[2][:, 4]
+        check(int((tau < F.NS_TAU_MAX).sum()) >= steps // 2,
+              f"mega.ragged[B={b}]: most steps skipped the update (tau {tau.tolist()})")
+        compare(f"mega.ragged[B={b}]", segment(*ref), segment(*got), TOL["float32"], start)
+        sums_args = (args[0], args[1], ys[0], us[0], eps[0, 0], eps[1, 0], 1.0 / (2 * b), 3)
+        compare(f"mega.ragged[B={b}].forward_sums",
+                sums_leaves(*F.forward_sums_plain(cfg, flags, carry, *sums_args), carry),
+                sums_leaves(*F.forward_sums_call(cfg, flags, carry, *sums_args), carry),
+                SUMS_TOL["float32"], {})
+        phase(f"mega.ragged[B={b}].split", cluster=size,
+              trials_by_block=[len(F.cluster_rows(r, b)) for r in range(size)],
+              updated_steps=int((tau < F.NS_TAU_MAX).sum()), steps=steps)
+
+
 def sums_leaves(flat: torch.Tensor, q_pack: torch.Tensor, carry) -> dict:
     """Every leaf of a flat FusedSums buffer by name, and the q pack."""
     return dict(flatten(F.unpack_sums(flat, carry)._asdict()),
@@ -399,7 +456,7 @@ def check_sharded_epoch(cfg, post_warm, ys, us, lr, qm, qlv, smi) -> int:
     single-device stepwise epoch (same seed, in-kernel noise), and the
     per-step split. The run of ``cfg`` (the flagship's bf16 products) is
     the main path. Planted fault: the other mode's sharded epoch. Returns
-    the phase-1 kernel's launches in the main path."""
+    the phase-1 kernel's launches and timesteps in the main path."""
     dev = ys.device
     torch.cuda.set_device(dev)
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
@@ -419,7 +476,7 @@ def check_sharded_epoch(cfg, post_warm, ys, us, lr, qm, qlv, smi) -> int:
             torch.cuda.synchronize()
             if mm == cfg.matmul_dtype:
                 secs = time.perf_counter() - t0
-                launches = dict(F.launches)
+                launches, timesteps = dict(F.launches), dict(F.steps)
             ref[mm] = core.run_epoch(c.replace(fused_epoch="stepwise"), flags, post_warm, ys_e,
                                      us_e, 21, lr)
         check(launches == {"fused_step": 0, "mega_epoch": 0, "forward_sums": SHARD_T},
@@ -463,7 +520,7 @@ def check_sharded_epoch(cfg, post_warm, ys, us, lr, qm, qlv, smi) -> int:
               steps_per_s=SHARD_T / secs, max_abs_err=errs[cfg.matmul_dtype], fallback_steps=fired,
               loss_first_last=[float(loss[0]), float(loss[-1])], launches=launches,
               split_us_per_step={k: 1e3 * v for k, v in split.items()}, card=smi)
-        return launches["forward_sums"]
+        return launches["forward_sums"], timesteps["forward_sums"]
     finally:
         dist.destroy_process_group()
 
@@ -523,8 +580,9 @@ def main() -> int:
     info = _build.build()
     _build.load_library(info.path)
     F._library()
-    ptxas = [ln.strip() for ln in info.log.splitlines()
-             if "registers" in ln or "spill" in ln]
+    ptxas = [ln.strip().replace("ptxas info    : ", "") for ln in info.log.splitlines()
+             if "registers" in ln or "spill" in ln or "Compiling entry" in ln
+             or "Function properties" in ln]
     phase("build", seconds=round(info.seconds, 2), library=str(info.path), ptxas=ptxas)
 
     check_rng(dev)
@@ -581,8 +639,16 @@ def main() -> int:
     _, (rc, _, _), (kc, _, _) = check_mega("mega[philox]", cfg, flags, seeded, qm, qlv,
                                            ys[lo:hi], None, None, lr, planted=False)
     check(int(kc.rng_count) == int(rc.rng_count) == 5000 + MEGA_STEPS, "mega: rng_count")
+    check_deterministic(cfg, flags, seeded, qm, qlv, ys[lo:hi], lr)
+    # how the fused kernel launches at the flagship shape
+    info = F.cluster_info(cfg, flags, carry, qm, qlv, ys[lo:hi], None, lr)
+    check(info["cluster"] > 1 and info["active_clusters"] >= 1, f"cluster: {info}")
+    phase("cluster", **info, trials_by_block=[len(F.cluster_rows(r, b))
+                                              for r in range(info["cluster"])],
+          spills=[ln for ln in ptxas if "spill" in ln])
 
     check_escalation(dev)
+    check_ragged(dev)
 
     # skip: straight after warm-up tau >= NS_TAU_MAX, so every step skips
     carry = F.pad_carry(cfg, post_warm)
@@ -616,7 +682,7 @@ def main() -> int:
     out = core.run_epochs(cfg, StepFlags(), wu.state, ys, us, [11, 12], lrs)
     loss = float(out.epoch_loss[-1])
     t2 = time.perf_counter()
-    launches = dict(F.launches)
+    launches, steps_by_kernel = dict(F.launches), dict(F.steps)
     max_tau = float(out.max_tau.max())
     hot = float(out.hot_frac.max())
     check(loss == loss and abs(loss) != float("inf") and loss != 0.0, f"degenerate loss {loss}")
@@ -631,7 +697,7 @@ def main() -> int:
           warmup_epoch_s=round(t1 - t0, 3), rls_epochs_s=round(t2 - t1, 3),
           rls_steps_per_s=round(steps / (t2 - t1), 1), epoch_loss=out.epoch_loss.tolist(),
           max_tau=out.max_tau.tolist(), hot_frac=out.hot_frac.tolist(), launches=launches,
-          card=smi)
+          timesteps=steps_by_kernel, card=smi)
 
     # ---------------- times: kernel vs plain at the flagship shape ----------------
     # from the post-prefix state, where the mega segment runs its base
@@ -682,7 +748,7 @@ def main() -> int:
     profile_epoch(cfg, wu.state, ys, us, lrs[0], smi)
 
     # ---------------- sharded: the exact-sync epoch at world size 1 ----------------
-    sums_launches = check_sharded_epoch(cfg, post_warm, ys, us, lr, qm0, qlv0, smi)
+    sums_launches, sums_steps = check_sharded_epoch(cfg, post_warm, ys, us, lr, qm0, qlv0, smi)
 
     # ---------------- bounds: the least time one card could take ----------------
     # each input read once and each output written once; the mega segment's
@@ -708,18 +774,20 @@ def main() -> int:
     # library_ms: no single PyTorch call computes a VJF step or its phase 1
     src = "vjf_tpu_torch/csrc/fused_step.cu"
 
-    def row(name, replaces, launches_, err, ms, plain_ms, bnd):
+    def row(name, replaces, launches_, steps_, err, ms, plain_ms, bnd):
         return {"name": name, "route": "cuda", "source": src,
                 "replaces": f"vjf_tpu/ops/pallas/fused_step.py:{replaces}",
-                "launches": launches_, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
+                "launches": launches_, "steps": steps_, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+                "library_ms": None}
 
     print(json.dumps({"kernels": [
-        row("fused_step", 1104, launches["fused_step"], step_err, step_ms, step_plain_ms,
-            step_bound),
-        row("mega_epoch", 1767, launches["mega_epoch"], mega_err, mega_ms, mega_plain_ms,
-            mega_bound),
-        row("forward_sums", 1437, sums_launches, sums_err, sums_ms, sums_plain_ms, sums_bound),
+        row("fused_step", 1104, launches["fused_step"], steps_by_kernel["fused_step"],
+            step_err, step_ms, step_plain_ms, step_bound),
+        row("mega_epoch", 1767, launches["mega_epoch"], steps_by_kernel["mega_epoch"],
+            mega_err, mega_ms, mega_plain_ms, mega_bound),
+        row("forward_sums", 1437, sums_launches, sums_steps, sums_err, sums_ms, sums_plain_ms,
+            sums_bound),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,0 +1,168 @@
+"""The thread-block cluster's split of a batch, mirrored in Python
+(``cluster_rows``), and what the kernels rely on: phase 1 on the blocks'
+ragged trial slices, each with its row offset and the whole batch's 1/B,
+summed in rank order, is phase 1 on the whole batch. Also what ``_launch``
+refuses without a card. The JAX package's phase 1 is the reference for the
+summed slices."""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from vjf_tpu_torch import config as tcfg
+from vjf_tpu_torch.models import vjf as tcore
+from vjf_tpu_torch.ops import fused_step as TF
+
+torch.set_num_threads(1)
+
+BATCHES = [1, 5, 8, 250, 256]
+XD, YD, UD = 3, 12, 2
+
+
+@pytest.mark.parametrize("size", [4, 8, 16])
+@pytest.mark.parametrize("b", BATCHES)
+def test_cluster_rows_cover_every_trial_once_in_order(b, size):
+    blocks = [TF.cluster_rows(r, b, size) for r in range(size)]
+    assert [i for rows in blocks for i in rows] == list(range(b))
+    per = -(-b // size)
+    assert all(len(rows) <= per for rows in blocks)
+    # the full blocks come first: a short or empty block is followed by empty ones only
+    lengths = [len(rows) for rows in blocks]
+    short = next((i for i, n in enumerate(lengths) if n < per), size)
+    assert all(n == 0 for n in lengths[short + 1:])
+
+
+def test_cluster_rows_default_is_the_built_size():
+    assert TF.cluster_size() == 8
+    assert list(TF.cluster_rows(7, 250)) == list(range(224, 250))
+    assert len(TF.cluster_rows(5, 5)) == 0
+
+
+def _cfg(dtype="float64", likelihood="gaussian", **kw):
+    base = dict(ydim=YD, xdim=XD, udim=UD, n_rbf=10, hidden_sizes=(8, 6), likelihood=likelihood,
+                dtype=dtype, rls_backend="nsv", fused_step="on", matmul_dtype="float32")
+    base.update(kw)
+    return tcfg.VJFConfig(**base)
+
+
+def _operands(cfg, b, seed=0):
+    rng = np.random.default_rng(seed)
+    dt = cfg.tdtype
+    t = lambda a: torch.tensor(a, dtype=dt)   # noqa: E731
+    y = t(rng.poisson(1.0, (b, YD)) if cfg.likelihood == "poisson" else rng.normal(size=(b, YD)))
+    u = t(rng.normal(size=(b, UD)))
+    q = t(0.3 * rng.normal(size=(2, b, XD)))
+    carry = TF.pad_carry(cfg, tcore.init_state(0, cfg, device="cpu"))
+    carry = carry._replace(rng_seed=torch.full((1, 1), 31, dtype=torch.int32),
+                           rng_count=torch.full((1, 1), 4, dtype=torch.int32))
+    return carry, q[0], q[1], y, u
+
+
+@pytest.mark.parametrize("likelihood", ["gaussian", "poisson"])
+@pytest.mark.parametrize("b", BATCHES)
+def test_ragged_slices_in_rank_order_equal_the_whole_batch(b, likelihood):
+    """float64, in-kernel (Philox) noise: the blocks' sums add up to the
+    whole batch's to 1e-12, and their posteriors are the whole batch's to
+    1e-13 (the CPU's matrix product picks its blocking by the batch's size,
+    so the last bit may differ; on the card the kernel's are bit-identical,
+    which ``chip_smoke.py`` checks)."""
+    cfg, flags = _cfg(likelihood=likelihood), tcfg.StepFlags()
+    carry, qm, qlv, y, u = _operands(cfg, b)
+    inv_b = 1.0 / b
+    whole, q_whole = TF.forward_sums_plain(cfg, flags, carry, qm, qlv, y, u, None, None, inv_b)
+    total, q_parts = torch.zeros_like(whole), []
+    for r in range(TF.cluster_size()):
+        rows = TF.cluster_rows(r, b)
+        if len(rows) == 0:
+            continue   # an empty block adds zeros
+        sl = slice(rows.start, rows.stop)
+        part, q = TF.forward_sums_plain(cfg, flags, carry, qm[sl], qlv[sl], y[sl], u[sl], None,
+                                        None, inv_b, row0=rows.start)
+        total = total + part
+        q_parts.append(q)
+    assert float((torch.cat(q_parts, dim=1) - q_whole).abs().max()) <= 1e-13
+    scale = whole.abs().max()
+    assert float((total - whole).abs().max()) <= 1e-12 * float(scale)
+
+
+def test_ragged_slices_draw_the_whole_batchs_philox_rows():
+    from vjf_tpu_torch.ops import rng as trng
+
+    b = 250
+    seed, count = torch.tensor(31), torch.tensor(4)
+    whole = trng.normals(seed, count, b, 2 * XD)
+    parts = [trng.normals(seed, count, len(rows), 2 * XD, row0=rows.start)
+             for rows in (TF.cluster_rows(r, b) for r in range(TF.cluster_size())) if len(rows)]
+    assert torch.equal(torch.cat(parts), whole)
+
+
+def test_ragged_slices_match_the_jax_phase_one():
+    """The summed slices against the JAX package's phase 1 on the whole
+    batch (float32, given noise): the tolerance of the sharded tests, f32
+    sums in another order."""
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from vjf_tpu.config import StepFlags, VJFConfig
+    from vjf_tpu.models import vjf as jcore
+    from vjf_tpu.ops.pallas import fused_step as JF
+    from vjf_tpu_torch import convert
+
+    b = 13
+    tc = _cfg(dtype="float32")
+    jcfg = VJFConfig(**{f.name: getattr(tc, f.name) for f in dataclasses.fields(VJFConfig)})
+    state = jcore.init_state(jax.random.PRNGKey(0), jcfg)
+    rng = np.random.default_rng(3)
+    y = rng.normal(size=(b, YD)).astype(np.float32)
+    u = rng.normal(size=(b, UD)).astype(np.float32)
+    q = (0.3 * rng.normal(size=(2, b, XD))).astype(np.float32)
+    eps = rng.normal(size=(2, b, XD)).astype(np.float32)
+    ref, _, _ = JF.forward_sums_call(jcfg, StepFlags(), JF.pad_carry(jcfg, state),
+                                     *(jnp.asarray(a) for a in (q[0], q[1], y, u, eps[0], eps[1])),
+                                     1.0 / b, interpret=True)
+    carry = TF.pad_carry(tc, convert.state_from_numpy(tc, jax.tree.map(np.asarray, state),
+                                                      device="cpu"))
+    t = torch.tensor
+    total = 0
+    for r in range(TF.cluster_size()):
+        rows = TF.cluster_rows(r, b)
+        sl = slice(rows.start, rows.stop)
+        if len(rows):
+            part, _ = TF.forward_sums_plain(tc, tcfg.StepFlags(), carry, t(q[0][sl]), t(q[1][sl]),
+                                            t(y[sl]), t(u[sl]), t(eps[0][sl]), t(eps[1][sl]),
+                                            1.0 / b, row0=rows.start)
+            total = total + part
+    got = TF.unpack_sums(total, carry)
+    for k in TF.FusedSums._fields:
+        r, g = getattr(ref, k), getattr(got, k)
+        pairs = zip(r, g) if isinstance(r, tuple) else [] if r is None else [(r, g)]
+        for rv, gv in pairs:
+            rv = np.asarray(rv, np.float64)
+            np.testing.assert_allclose(np.asarray(gv, np.float64), rv, rtol=2e-4,
+                                       atol=2e-4 * max(float(np.abs(rv).max()), 1e-3), err_msg=k)
+
+
+def _launch_args(cfg, b=4, steps=2):
+    carry, qm, qlv, y, u = _operands(cfg, b)
+    dt = cfg.tdtype
+    ys, us = y[None].repeat(steps, 1, 1), u[None].repeat(steps, 1, 1)
+    q_pack = torch.empty((steps, 2, b, XD), dtype=dt)
+    scal = torch.empty((steps, 8), dtype=dt)
+    return (cfg, tcfg.StepFlags(), carry, qm, qlv, ys, us, None, None, torch.tensor(1e-3, dtype=dt),
+            q_pack, scal)
+
+
+def test_launch_refuses_a_cpu_tensor():
+    with pytest.raises(ValueError, match="expected a tensor on"):
+        TF._launch("mega_epoch", *_launch_args(_cfg(dtype="float32")))
+
+
+@pytest.mark.parametrize("kw, what", [
+    (dict(hidden_sizes=(8, 8, 8, 8)), "hidden layers"),
+    (dict(hidden_sizes=(96,)), "hidden layers"),
+    (dict(n_rbf=200), "padded features"),
+])
+def test_launch_refuses_a_shape_the_kernel_does_not_take(kw, what):
+    with pytest.raises(ValueError, match=what):
+        TF._launch("mega_epoch", *_launch_args(_cfg(dtype="float32", **kw)))

@@ -8,7 +8,7 @@
 //     writes g_vec, xt, xs for the exact-inverse fallback that follows it.
 //   * vjf_mega_epoch  <- mega_epoch_call (:1767, body _make_mega_kernel
 //     :1632): T steps in one launch. The TPU's sequential grid over time
-//     becomes a loop over t inside the block; the base iterations, the
+//     becomes a loop over t inside the kernel; the base iterations, the
 //     escalation (+1 at tau >= 0.05, +2 more at tau >= 0.25) and the skip at
 //     tau >= 0.7 follow the TPU kernel.
 //   * vjf_forward_sums <- forward_sums_call (:1437, call :1544): phase 1
@@ -20,55 +20,79 @@
 //     a hand-written Philox4x32-10 with the mapping documented in
 //     vjf_tpu_torch/ops/rng.py (the plain version), bit for bit.
 //
-// What bounds it on this card: at the flagship shape (B 256, ydim 200,
-// xdim 10, nfp 128, hidden 32) a step is about 20 M multiply-adds, of which
-// the Newton-Schulz products (2 x 128^3 per iteration), F V and F^T F are
-// most; steps are serial in time. This first version runs the whole segment
-// in ONE persistent thread block of 512 threads, so at best it reaches the
-// FP32 rate of a single SM (about 1/132 of the card). It reaches far less:
-// measured on an H100 SXM at 700 W, a mega step takes about 1.0 ms, and a
-// 128^3 product runs at about 24 of the SM's 128 FMA per clock. The tile
-// loop below loads each 16-deep slice from L2 with no double buffering, so
-// it waits on L2 latency; the skinny products (N = xdim = 10 in a 64-wide
-// tile) leave most of each tile idle, and they make the backward pass about
-// 30% of a step.
+// What bounds it on this card: steps are serial in time and a step is small
+// (about 20 M multiply-adds at the flagship shape: B 256, ydim 200, xdim 10,
+// nfp 128, hidden 32), so a step is a chain of some forty short dependent
+// phases. Neither bytes nor operations bound it but latency and instructions: how
+// long each phase waits for its operands and its barrier, and how many
+// load and convert instructions a block of 16 warps spends per tensor-core
+// product (measured on an H100 at 700 W: a mega step in about 97 us, of
+// which the Newton-Schulz iterations are about 23 and no other phase over 9).
 //
-// vjf_forward_sums is phase 1 of that step: at the flagship shape about
-// 15 M multiply-adds (F V and F^T F are 8 M of them) on about 0.5 MB of
-// inputs and outputs, so the card could finish it in well under a
-// microsecond; it runs in the same one-block design and product loop, so the
-// same latency bounds it. This first version keeps that design on purpose:
-// it is the same device function the fused kernels run, so the sharded path
-// computes exactly what the single-device one does. Spreading one step over
-// many SMs (a block per tile of F V, F^T F and the first layer, the trial
-// sums reduced in a second pass or by the all-reduce itself) is later work.
+// What the design does about it:
+//   * One thread-block cluster of VJF_CLUSTER blocks runs the whole segment.
+//     Block r owns a contiguous block of the trials (cluster_rows in
+//     ops/fused_step.py mirrors the split) and a contiguous panel of the
+//     rows of P, V and w. Phase 1 is per trial except for its batch sums, so
+//     each block runs it on its own trials with the global 1/B.
+//   * A block's activations (y[t], the features, every layer, every xd-wide
+//     leaf, the posterior carried from step to step) live in its shared
+//     memory, with the RBF constants (loaded once) and the biases (loaded
+//     every step). y[t+1], u[t+1] and injected noise are fetched with
+//     cp.async while phase 2 of step t runs. The weights change every step
+//     (SGD) and are read from L2 where they live. The arguments and the
+//     layouts sit in the head of the shared memory, one copy a block: in
+//     the threads' local memory they fell out of L1 and every pointer came
+//     from L2.
+//   * The products that matmul_dtype='bfloat16' marks (activations,
+//     gradients, statistics) run on the tensor cores: mma.sync m16n8k16,
+//     operands rounded to bf16 as they are packed into fragments, four
+//     16-deep slices of loads in flight, f32 accumulation; a skinny product
+//     (N = xdim) pads to 16 columns, not 64. With matmul_dtype='float32' the
+//     same products run an f32 loop.
+//   * Batch sums are deterministic: each block writes its partial gradient
+//     sums in the flat FusedSums order to its own slab in an L2 workspace;
+//     after a cluster barrier, block r adds its slice of every slab in rank
+//     order and owns the update of that slice (the clipped SGD of those
+//     parameters). The scalars that gate a branch are reduced the same way
+//     and read by every block in the same order, so every block takes the
+//     same branches. The RLS statistics F^T F and F^T dx are not summed from
+//     partials (each block's would have all nfp x nfp entries): every block
+//     publishes its trials' features and dx through L2, and block r takes
+//     its rows of both over all the trials. No floating-point atomics.
+//   * The feedback chain stays full f32, no TF32: P w, V g and the
+//     Newton-Schulz products run by row panels. Block r stages the full
+//     right-hand matrix into shared memory with 16-byte cp.async, multiplies
+//     its panel with 4 x 4 register tiles split over K, and publishes its
+//     rows with a cluster barrier (two per iteration). P_new, the iterate and
+//     V_new stay in the block's shared memory; the carry's P, V, w rows are
+//     overwritten once, after the barrier behind the last reader.
+//   * The carry scalars (state and observation log-variance, their counts)
+//     are computed by every block from the same reduced sums, kept in
+//     registers from step to step, and written once at the end by block 0.
 //
-// Carry layout: every carry leaf stays where PyTorch allocated it and is
-// updated in place; per-step intermediates live in one workspace the
-// wrapper allocates (about 1 MB at the flagship shape). Both stay resident
-// in the 50 MB L2. Shared memory holds only the tiles of the product being
-// computed and the reduction scratch; __syncthreads() separates phases.
-// Later work: a thread-block cluster with distributed shared memory holding
-// P and V, a cooperative grid, or wgmma for the 128^3 Newton-Schulz
-// products.
+// wgmma is not used: a block's trials (32 at the flagship) are fewer than
+// its 64 rows, and it has no f32 input type for the feedback chain.
 //
-// Numerics: products marked bf16 (activations, gradients, statistics when
-// matmul_dtype='bfloat16') round their inputs to bf16 with
-// __float2bfloat16 (round to nearest even) and accumulate in f32; the
-// feedback chain (P w, every Newton-Schulz product, V g, the RBF cross
-// term) stays full f32. No fast-math.
+// Numerics: products marked bf16 round their inputs to bf16 (nearest even)
+// and accumulate in f32; the feedback chain (P w, every Newton-Schulz
+// product, V g, the RBF cross term) stays full f32. No fast-math.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
 
+#include "vjf_hopper.cuh"
+
+#ifndef NTHREADS
 #define NTHREADS 512
+#endif
 #define NWARPS (NTHREADS / 32)
-#define BM 64
-#define BN 64
-#define BK 16
+#ifndef VJF_CLUSTER
+#define VJF_CLUSTER 8
+#endif
 #define MAX_LAYERS 3
+#define MAX_SMEM_BYTES 232448  // what one block may use on sm_90
 
 #define NS_ITERS 3
 #define NS_TAU_THRESHOLD 0.25f
@@ -76,6 +100,7 @@
 #define NS_EXTRA_ITERS 2
 #define NS_TAU_ESCALATE 0.05f
 #define N_SUM_SCALARS 9  // scalar leaves of FusedSums
+#define N_SLAB_SCALARS 16
 
 // Must match vjf_tpu_torch/ops/fused_step.py:_Args field for field.
 struct VJFArgs {
@@ -116,7 +141,7 @@ struct VJFArgs {
   float* q_pack;       // (T, 2, B, xd)
   float* scal;         // (T, 8)
   float* g_vec;        // (nfp, xd) or null (workspace)
-  float* xt;           // (B, xd) or null (workspace)
+  float* xt;           // (B, xd) or null (not kept)
   float* xs;
   float* sums;         // flat FusedSums (vjf_sums_floats() floats) or null
   float* ws;           // vjf_workspace_floats() floats
@@ -133,18 +158,26 @@ struct VJFArgs {
   float inv_b;         // phase-1 kernel only: the GLOBAL 1/B
 };
 
-// Workspace carve-up, shared by the host (size) and the device (pointers).
-struct WS {
-  float *eps, *xs, *xt, *x2, *feat, *z, *fvf, *ptlv, *pt_m;
-  float* hs[MAX_LAYERS];
-  float *raw, *py, *g_xt, *g_qm, *g_qlv, *dx, *tmp, *g_h, *g_a;
-  float *g_w_in_y, *g_w_in_u, *g_w_in_m, *g_w_in_lv;
-  float* g_w_hidden[MAX_LAYERS - 1];
-  float* g_b_hidden[MAX_LAYERS];
-  float *g_wm, *g_wlv, *g_blv, *g_w_dec, *g_b_dec;
-  float *ftf, *fxd, *g_vec, *p_new, *ns_a, *ns_b, *ns_t, *w_new;
-  size_t total;
+// ---------------------------------------------------------------------------
+// The split over the cluster, and the three memory layouts
+// ---------------------------------------------------------------------------
+
+struct Blk {
+  int first, n;
 };
+
+__host__ __device__ static inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// Block r's contiguous share of `total` rows: ceil(total / VJF_CLUSTER) each,
+// the last ones fewer or none.
+__host__ __device__ static inline Blk block_of(int total, int r) {
+  const int per = cdiv(total, VJF_CLUSTER);
+  int first = r * per;
+  if (first > total) first = total;
+  int n = total - first;
+  if (n > per) n = per;
+  return Blk{first, n};
+}
 
 struct Carver {
   float* base;
@@ -157,85 +190,194 @@ struct Carver {
   }
 };
 
-__host__ __device__ static WS carve(const VJFArgs& a, float* base) {
-  WS w;
+// Offsets of the leaves of the flat FusedSums buffer, in pack_sums's order
+// (ops/fused_step.py: the array leaves in field order, then N_SUM_SCALARS
+// scalars). A slab is the gradient part of one such buffer (what lies before
+// ftf) followed by N_SLAB_SCALARS raw per-block scalars.
+struct SumsOff {
+  size_t w_in_y, w_in_u, w_in_m, w_in_lv;
+  size_t w_hidden[MAX_LAYERS - 1];
+  size_t b_hidden[MAX_LAYERS];
+  size_t wm, wlv, blv, w_dec, b_dec, ftf, fxd, scalars, total;
+};
+
+__host__ __device__ static SumsOff sums_offsets(const VJFArgs& a) {
+  SumsOff o;
+  size_t off = 0;
+  const size_t xd = a.xd, nfp = a.nfp, yd = a.yd, h0 = a.h[0], hl = a.h[a.n_layers - 1];
+  o.w_in_y = off, off += h0 * yd;
+  o.w_in_u = off, off += a.ud > 0 ? h0 * a.ud : 0;
+  o.w_in_m = off, off += h0 * xd;
+  o.w_in_lv = off, off += h0 * xd;
+  for (int i = 0; i < MAX_LAYERS - 1; ++i)
+    o.w_hidden[i] = off, off += i + 1 < a.n_layers ? (size_t)a.h[i + 1] * a.h[i] : 0;
+  for (int i = 0; i < MAX_LAYERS; ++i) o.b_hidden[i] = off, off += i < a.n_layers ? a.h[i] : 0;
+  o.wm = off, off += xd * hl;
+  o.wlv = off, off += xd * hl;
+  o.blv = off, off += xd;
+  o.w_dec = off, off += yd * xd;
+  o.b_dec = off, off += yd;
+  o.ftf = off, off += nfp * nfp;
+  o.fxd = off, off += nfp * xd;
+  o.scalars = off, off += N_SUM_SCALARS;
+  o.total = off;
+  return o;
+}
+
+// Per-block raw scalars at the end of a slab (from offset ftf).
+enum { SC_ELBO = 0 /* 7 sums */, SC_GRAD = 7, SC_FINITE = 8, SC_RESID = 9 };
+
+// The L2 workspace: one slab per block, the RLS target, the three
+// Newton-Schulz matrices other blocks read rows of, and every trial's
+// features and dx for the RLS statistics.
+struct GWS {
+  float* slab;
+  size_t slab_stride;
+  float *g_vec, *ns_a, *ns_b, *ns_t;
+  float *feat, *dx;  // every trial's features (B, nfp) and x_t - x_s (B, xd)
+  size_t total;
+};
+
+__host__ __device__ static GWS carve_global(const VJFArgs& a, float* base) {
+  GWS g;
   Carver cv{base, 0, 32};  // 128-byte aligned buffers
-  const size_t B = a.B, xd = a.xd, nfp = a.nfp, yd = a.yd;
+  const size_t nfp = a.nfp;
+  g.slab_stride = (sums_offsets(a).ftf + N_SLAB_SCALARS + 31) / 32 * 32;
+  g.slab = cv.take(g.slab_stride * VJF_CLUSTER);
+  g.g_vec = cv.take(nfp * a.xd);
+  g.ns_a = cv.take(nfp * nfp);
+  g.ns_b = cv.take(nfp * nfp);
+  g.ns_t = cv.take(nfp * nfp);
+  g.feat = cv.take((size_t)a.B * nfp);
+  g.dx = cv.take((size_t)a.B * a.xd);
+  g.total = cv.off;
+  return g;
+}
+
+// How many ways a panel product splits K: enough 4 x 4 tiles for every
+// thread, at most 8.
+__host__ __device__ static inline int panel_ksplit(int prow, int nfp) {
+  const int tiles = cdiv(prow, 4) * (nfp / 4);
+  int ks = NTHREADS / (tiles > 0 ? tiles : 1);
+  return ks < 1 ? 1 : (ks > 8 ? 8 : ks);
+}
+
+// A block's shared memory. The first group lives across both phases and
+// from step to step; phase 1's temporaries and phase 2's scratch overlay
+// each other.
+struct SM {
+  float *y, *u, *eps, *q[2][2], *feat, *dx, *tmp, *red, *bc;
+  float *cent_x, *cent_u, *c2, *inv_w2;        // the RBF constants (centroids transposed)
+  float *b_dec, *b_logvar, *b_hid[MAX_LAYERS];  // the biases, loaded every step
+  float *xs, *xt, *x2, *z, *fvf, *ptlv, *pt_m, *raw, *py, *g_xt, *g_qm, *g_qlv, *g_h, *g_a;
+  float* hs[MAX_LAYERS];
+  float *stage, *pan_p, *pan_x, *part, *vnew, *wnew, *gown, *small;
+  int ldy, ldu, ldf, ldg;
+  int ldh[MAX_LAYERS];
+  size_t total;
+};
+
+// The parameter leaves SGD updates, by their place in the flat buffer.
+#define MAX_LEAVES (9 + 2 * MAX_LAYERS)
+struct Leaves {
+  int n;
+  int off[MAX_LEAVES], len[MAX_LEAVES];
+  float* p[MAX_LEAVES];
+  __host__ __device__ void add(float* ptr, size_t o, int l) {
+    p[n] = ptr, off[n] = (int)o, len[n] = l;
+    ++n;
+  }
+};
+
+// What a block knows for the whole launch.
+struct Ctx {
+  SM s;
+  GWS g;
+  SumsOff so;
+  Leaves lv;
+  int rank;
+  Blk tr;       // this block's trials
+  Blk fr;       // this block's rows of P, V, w
+  float* slab;  // this block's slab
+  float lr;
+  uint32_t seed;
+};
+
+// The head of a block's shared memory: the arguments and the context, one
+// copy a block. In a thread's local memory they would not stay in L1 (512
+// threads' copies next to the shared memory a block takes), and every
+// pointer the step loads would come from L2.
+struct Header {
+  VJFArgs a;
+  Ctx c;
+};
+#define HEADER_FLOATS ((sizeof(Header) + 15) / 16 * 4)
+
+__host__ __device__ static SM carve_smem(const VJFArgs& a, float* base) {
+  SM s;
+  Carver cv{base, 0, 4};  // 16-byte aligned buffers
+  cv.take(HEADER_FLOATS);
+  const size_t xd = a.xd, nfp = a.nfp;
+  const size_t rows = cdiv(a.B, VJF_CLUSTER), prow = cdiv(a.nfp, VJF_CLUSTER);
   int hmax = 0;
   for (int i = 0; i < a.n_layers; ++i) hmax = a.h[i] > hmax ? a.h[i] : hmax;
-  const int hl = a.h[a.n_layers - 1];
-  w.eps = cv.take(B * 2 * xd);
-  w.xs = cv.take(B * xd);
-  w.xt = cv.take(B * xd);
-  w.x2 = cv.take(B);
-  w.feat = cv.take(B * nfp);
-  w.z = cv.take(B * nfp);
-  w.fvf = cv.take(B);
-  w.ptlv = cv.take(B);
-  w.pt_m = cv.take(B * xd);
-  for (int i = 0; i < MAX_LAYERS; ++i) w.hs[i] = i < a.n_layers ? cv.take(B * a.h[i]) : nullptr;
-  w.raw = cv.take(B * xd);
-  w.py = cv.take(B * yd);
-  w.g_xt = cv.take(B * xd);
-  w.g_qm = cv.take(B * xd);
-  w.g_qlv = cv.take(B * xd);
-  w.dx = cv.take(B * xd);
-  w.tmp = cv.take(B * xd);
-  w.g_h = cv.take(B * hmax);
-  w.g_a = cv.take(B * hmax);
-  w.g_w_in_y = cv.take((size_t)a.h[0] * yd);
-  w.g_w_in_u = cv.take((size_t)a.h[0] * (a.ud > 0 ? a.ud : 1));
-  w.g_w_in_m = cv.take((size_t)a.h[0] * xd);
-  w.g_w_in_lv = cv.take((size_t)a.h[0] * xd);
-  for (int i = 0; i < MAX_LAYERS - 1; ++i)
-    w.g_w_hidden[i] = i + 1 < a.n_layers ? cv.take((size_t)a.h[i + 1] * a.h[i]) : nullptr;
-  for (int i = 0; i < MAX_LAYERS; ++i) w.g_b_hidden[i] = i < a.n_layers ? cv.take(a.h[i]) : nullptr;
-  w.g_wm = cv.take(xd * hl);
-  w.g_wlv = cv.take(xd * hl);
-  w.g_blv = cv.take(xd);
-  w.g_w_dec = cv.take(yd * xd);
-  w.g_b_dec = cv.take(yd);
-  w.ftf = cv.take(nfp * nfp);
-  w.fxd = cv.take(nfp * xd);
-  w.g_vec = cv.take(nfp * xd);
-  w.p_new = cv.take(nfp * nfp);
-  w.ns_a = cv.take(nfp * nfp);
-  w.ns_b = cv.take(nfp * nfp);
-  w.ns_t = cv.take(nfp * nfp);
-  w.w_new = cv.take(nfp * xd);
-  w.total = cv.off;
-  return w;
+  // leading dimensions: a multiple of 4 floats (16-byte rows) plus 4, so that
+  // the rows of a fragment fall into different banks
+  s.ldy = (a.yd + 3) / 4 * 4 + 4;
+  s.ldu = (a.ud + 3) / 4 * 4 + 4;
+  s.ldf = (a.nfp + 3) / 4 * 4 + 4;
+  s.ldg = (hmax + 3) / 4 * 4 + 4;
+  s.y = cv.take(rows * s.ldy);
+  s.u = a.ud > 0 ? cv.take(rows * s.ldu) : nullptr;
+  s.eps = cv.take(rows * 2 * xd);
+  for (int i = 0; i < 2; ++i)
+    for (int j = 0; j < 2; ++j) s.q[i][j] = cv.take(rows * xd);
+  s.feat = cv.take(rows * s.ldf);
+  s.dx = cv.take(rows * xd);
+  s.tmp = cv.take(rows * xd);
+  s.red = cv.take(8 * NWARPS);
+  s.bc = cv.take(32);
+  s.cent_x = cv.take(nfp * xd);
+  s.cent_u = a.ud > 0 ? cv.take(nfp * a.ud) : nullptr;
+  s.c2 = cv.take(nfp);
+  s.inv_w2 = cv.take(nfp);
+  s.b_dec = cv.take(a.yd);
+  s.b_logvar = cv.take(xd);
+  for (int i = 0; i < MAX_LAYERS; ++i) s.b_hid[i] = i < a.n_layers ? cv.take(a.h[i]) : nullptr;
+  const size_t mark = cv.off;
+  // phase 1
+  s.xs = cv.take(rows * xd);
+  s.xt = cv.take(rows * xd);
+  s.x2 = cv.take(rows);
+  s.z = cv.take(rows * s.ldf);
+  s.fvf = cv.take(rows);
+  s.ptlv = cv.take(rows);
+  s.pt_m = cv.take(rows * xd);
+  s.raw = cv.take(rows * xd);
+  s.py = cv.take(rows * s.ldy);
+  s.g_xt = cv.take(rows * xd);
+  s.g_qm = cv.take(rows * xd);
+  s.g_qlv = cv.take(rows * xd);
+  s.g_h = cv.take(rows * s.ldg);
+  s.g_a = cv.take(rows * s.ldg);
+  for (int i = 0; i < MAX_LAYERS; ++i) {
+    s.ldh[i] = i < a.n_layers ? (a.h[i] + 3) / 4 * 4 + 4 : 0;
+    s.hs[i] = i < a.n_layers ? cv.take(rows * s.ldh[i]) : nullptr;
+  }
+  const size_t end1 = cv.off;
+  // phase 2
+  cv.off = mark;
+  s.stage = cv.take(nfp * nfp);
+  s.pan_p = cv.take(prow * s.ldf);
+  s.pan_x = cv.take(prow * s.ldf);
+  s.part = cv.take((size_t)panel_ksplit((int)prow, a.nfp) * cdiv((int)prow, 4) * 4 * nfp);
+  s.vnew = cv.take(prow * nfp);
+  s.wnew = cv.take(prow * xd);
+  s.gown = cv.take(prow * xd);
+  s.small = cv.take(nfp * xd);
+  s.total = cv.off > end1 ? cv.off : end1;
+  return s;
 }
-
-// Points w's gradient sums and F^T F, F^T dx into the flat FusedSums buffer
-// f, packed in pack_sums's order (ops/fused_step.py: the array leaves in
-// field order, then N_SUM_SCALARS scalars); returns its length in floats.
-// f == nullptr only counts.
-__host__ __device__ static size_t point_sums(const VJFArgs& a, WS& w, float* f) {
-  Carver cv{f, 0, 1};
-  const size_t xd = a.xd, nfp = a.nfp, yd = a.yd, h0 = a.h[0], hl = a.h[a.n_layers - 1];
-  w.g_w_in_y = cv.take(h0 * yd);
-  if (a.ud > 0) w.g_w_in_u = cv.take(h0 * a.ud);
-  w.g_w_in_m = cv.take(h0 * xd);
-  w.g_w_in_lv = cv.take(h0 * xd);
-  for (int i = 0; i + 1 < a.n_layers; ++i) w.g_w_hidden[i] = cv.take((size_t)a.h[i + 1] * a.h[i]);
-  for (int i = 0; i < a.n_layers; ++i) w.g_b_hidden[i] = cv.take(a.h[i]);
-  w.g_wm = cv.take(xd * hl);
-  w.g_wlv = cv.take(xd * hl);
-  w.g_blv = cv.take(xd);
-  w.g_w_dec = cv.take(yd * xd);
-  w.g_b_dec = cv.take(yd);
-  w.ftf = cv.take(nfp * nfp);
-  w.fxd = cv.take(nfp * xd);
-  cv.take(N_SUM_SCALARS);
-  return cv.off;
-}
-
-struct Smem {
-  float As[BK][BM + 4];
-  float Bs[BK][BN + 4];
-  float red[8 * NWARPS];
-};
 
 // ---------------------------------------------------------------------------
 // Philox4x32-10 and Box-Muller
@@ -284,10 +426,6 @@ __device__ __forceinline__ void philox_pair(uint32_t seed, uint32_t count, uint3
 // Block-level building blocks (every thread of the block calls each one)
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
 // NaN-propagating clamps (jnp.clip / torch.clamp semantics)
 __device__ __forceinline__ float clampf(float v, float lo, float hi) {
   return v < lo ? lo : (v > hi ? hi : v);
@@ -301,63 +439,110 @@ struct Mat {
 __device__ __forceinline__ Mat rowmaj(const float* p, int ld) { return Mat{p, ld, 1}; }
 __device__ __forceinline__ Mat trans(const float* p, int ld) { return Mat{p, 1, ld}; }
 
-// C (M x N, row-major, leading dim ldc) = alpha * A B + beta * C + diag * I.
-// Ends with __syncthreads(). C must not alias A or B.
-__device__ void gemm(Smem& sm, int M, int N, int K, Mat A, Mat B, float* C, int ldc,
-                     float alpha, float beta, float diag, bool bf16) {
-  const int tid = threadIdx.x;
-  const int tm = tid % 16, tn = tid / 16;  // 4 rows x 2 cols per thread
-  const int tiles_m = (M + BM - 1) / BM, tiles_n = (N + BN - 1) / BN;
-  for (int tile = 0; tile < tiles_m * tiles_n; ++tile) {
-    const int m0 = (tile / tiles_n) * BM, n0 = (tile % tiles_n) * BN;
-    float acc[4][2] = {{0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}};
-    for (int k0 = 0; k0 < K; k0 += BK) {
-#pragma unroll
-      for (int r = 0; r < (BM * BK) / NTHREADS; ++r) {
-        const int e = tid + r * NTHREADS;
-        int mm, kk;
-        if (A.cs == 1) { mm = e / BK; kk = e % BK; } else { kk = e / BM; mm = e % BM; }
-        const int gi = m0 + mm, gk = k0 + kk;
-        float v = (gi < M && gk < K) ? A.p[(size_t)gi * A.rs + (size_t)gk * A.cs] : 0.f;
-        sm.As[kk][mm] = bf16 ? bf16_round(v) : v;
+// The fragments of one 16-deep slice of K for a warp's 16 x 8 tile: rows pa0
+// and pa1 of A and column pb of B, already offset to this thread's first k;
+// sa and sb are the strides along k. Raw f32 values, packed to bf16 later,
+// so that the loads of several slices can be in flight together.
+struct Frag {
+  float a[8], b[4];
+};
+
+__device__ __forceinline__ void load_frag(Frag& f, const float* pa0, const float* pa1,
+                                          const float* pb, int sa, int sb) {
+  f.a[0] = pa0[0], f.a[1] = pa0[sa], f.a[2] = pa1[0], f.a[3] = pa1[sa];
+  f.a[4] = pa0[8 * sa], f.a[5] = pa0[9 * sa], f.a[6] = pa1[8 * sa], f.a[7] = pa1[9 * sa];
+  f.b[0] = pb[0], f.b[1] = pb[sb], f.b[2] = pb[8 * sb], f.b[3] = pb[9 * sb];
+}
+
+__device__ __forceinline__ void mma_frag(float (&c)[4], const Frag& f) {
+  const uint32_t af[4] = {pack_bf16x2(f.a[0], f.a[1]), pack_bf16x2(f.a[2], f.a[3]),
+                          pack_bf16x2(f.a[4], f.a[5]), pack_bf16x2(f.a[6], f.a[7])};
+  const uint32_t bfr[2] = {pack_bf16x2(f.b[0], f.b[1]), pack_bf16x2(f.b[2], f.b[3])};
+  mma_bf16_16816(c, af, bfr);
+}
+
+// C (M x N, row-major, leading dim ldc) = A B, or C + A B with `acc`. A, B
+// and C may each lie in shared or global memory; C must not alias A or B.
+// With `bf16` the product runs on the tensor cores: each warp takes 16 x 8
+// tiles of C (tile i goes to warp (w0 + i) % NWARPS, so that skinny
+// products started together land on different warps) and walks K in slices
+// of 16, four slices' loads in flight at a time, rounding the operands to
+// bf16 as it packs them. A ragged tile reads a clamped row or column, whose
+// results are not stored; only the ragged end of K reads zeros. Else every
+// thread sums whole elements in f32. An element of C belongs to the same
+// thread in every call with the same M, N and w0, so calls that accumulate
+// into one C need no barrier between them. Ends with __syncthreads() when
+// `sync`.
+__device__ void mm(int M, int N, int K, Mat A, Mat B, float* C, int ldc, bool acc, bool bf16,
+                   bool sync, int w0 = 0) {
+  if (bf16) {
+    const int lane = threadIdx.x & 31;
+    const int warp = ((threadIdx.x >> 5) + NWARPS - w0 % NWARPS) % NWARPS;
+    const int g = lane >> 2, tg = lane & 3;
+    const int tn = cdiv(N, 8), tiles = cdiv(M, 16) * tn;
+    const int sa = A.cs, sb = B.rs;
+    const int kfull = K & ~15;
+    for (int tile = warp; tile < tiles; tile += NWARPS) {
+      const int r0 = (tile / tn) * 16 + g, r1 = r0 + 8;  // rows of A and C
+      const int cb = (tile % tn) * 8 + g;                // column of B
+      const int c0 = (tile % tn) * 8 + 2 * tg;           // columns c0, c0 + 1 of C
+      float c[4] = {0.f, 0.f, 0.f, 0.f};
+      if (acc) {
+        if (r0 < M && c0 < N) c[0] = C[(size_t)r0 * ldc + c0];
+        if (r0 < M && c0 + 1 < N) c[1] = C[(size_t)r0 * ldc + c0 + 1];
+        if (r1 < M && c0 < N) c[2] = C[(size_t)r1 * ldc + c0];
+        if (r1 < M && c0 + 1 < N) c[3] = C[(size_t)r1 * ldc + c0 + 1];
       }
+      const float* pa0 = A.p + (size_t)(r0 < M ? r0 : M - 1) * A.rs + (size_t)(2 * tg) * sa;
+      const float* pa1 = A.p + (size_t)(r1 < M ? r1 : M - 1) * A.rs + (size_t)(2 * tg) * sa;
+      const float* pb = B.p + (size_t)(cb < N ? cb : N - 1) * B.cs + (size_t)(2 * tg) * sb;
+      int k0 = 0;
+      for (; k0 + 64 <= kfull; k0 += 64) {
+        Frag f[4];
 #pragma unroll
-      for (int r = 0; r < (BN * BK) / NTHREADS; ++r) {
-        const int e = tid + r * NTHREADS;
-        int nn, kk;
-        if (B.cs == 1) { kk = e / BN; nn = e % BN; } else { nn = e / BK; kk = e % BK; }
-        const int gj = n0 + nn, gk = k0 + kk;
-        float v = (gj < N && gk < K) ? B.p[(size_t)gk * B.rs + (size_t)gj * B.cs] : 0.f;
-        sm.Bs[kk][nn] = bf16 ? bf16_round(v) : v;
+        for (int i = 0; i < 4; ++i)
+          load_frag(f[i], pa0 + (k0 + 16 * i) * sa, pa1 + (k0 + 16 * i) * sa,
+                    pb + (k0 + 16 * i) * sb, sa, sb);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) mma_frag(c, f[i]);
       }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        const float4 av = *reinterpret_cast<const float4*>(&sm.As[kk][tm * 4]);
-        const float2 bv = *reinterpret_cast<const float2*>(&sm.Bs[kk][tn * 2]);
-        acc[0][0] += av.x * bv.x; acc[0][1] += av.x * bv.y;
-        acc[1][0] += av.y * bv.x; acc[1][1] += av.y * bv.y;
-        acc[2][0] += av.z * bv.x; acc[2][1] += av.z * bv.y;
-        acc[3][0] += av.w * bv.x; acc[3][1] += av.w * bv.y;
+      for (; k0 < kfull; k0 += 16) {
+        Frag f;
+        load_frag(f, pa0 + k0 * sa, pa1 + k0 * sa, pb + k0 * sb, sa, sb);
+        mma_frag(c, f);
       }
-      __syncthreads();
-    }
+      if (k0 < K) {  // the ragged end of K
+        const int k = k0 + 2 * tg;
+        const int dk[4] = {0, 1, 8, 9};
+        Frag f;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int gi = m0 + tm * 4 + i, gj = n0 + tn * 2 + j;
-        if (gi < M && gj < N) {
-          float* c = C + (size_t)gi * ldc + gj;
-          float v = alpha * acc[i][j];
-          if (beta != 0.f) v += beta * *c;
-          if (gi == gj) v += diag;
-          *c = v;
+        for (int i = 0; i < 4; ++i) {
+          const bool in = k + dk[i] < K;
+          const int off = k0 + dk[i];
+          f.a[(i & 1) + 4 * (i >> 1)] = in ? pa0[off * sa] : 0.f;
+          f.a[(i & 1) + 4 * (i >> 1) + 2] = in ? pa1[off * sa] : 0.f;
+          f.b[i] = in ? pb[off * sb] : 0.f;
         }
+        mma_frag(c, f);
       }
+      if (r0 < M && c0 < N) C[(size_t)r0 * ldc + c0] = c[0];
+      if (r0 < M && c0 + 1 < N) C[(size_t)r0 * ldc + c0 + 1] = c[1];
+      if (r1 < M && c0 < N) C[(size_t)r1 * ldc + c0] = c[2];
+      if (r1 < M && c0 + 1 < N) C[(size_t)r1 * ldc + c0 + 1] = c[3];
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < M * N; idx += NTHREADS) {
+      const int i = idx / N, j = idx % N;
+      const float* ap = A.p + (size_t)i * A.rs;
+      const float* bp = B.p + (size_t)j * B.cs;
+      float s = 0.f;
+#pragma unroll 8
+      for (int k = 0; k < K; ++k) s += ap[(size_t)k * A.cs] * bp[(size_t)k * B.rs];
+      float* c = C + (size_t)i * ldc + j;
+      *c = acc ? *c + s : s;
     }
   }
-  __syncthreads();
+  if (sync) __syncthreads();
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -368,59 +553,45 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // Sums N per-thread values over the block; every thread gets the totals.
 template <int N>
-__device__ void block_sum(Smem& sm, float (&v)[N]) {
+__device__ void block_sum(float* red, float (&v)[N]) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
   for (int i = 0; i < N; ++i) {
     const float s = warp_sum(v[i]);
-    if (lane == 0) sm.red[i * NWARPS + warp] = s;
+    if (lane == 0) red[i * NWARPS + warp] = s;
   }
   __syncthreads();
 #pragma unroll
   for (int i = 0; i < N; ++i) {
     float s = 0.f;
-    for (int w = 0; w < NWARPS; ++w) s += sm.red[i * NWARPS + w];
+    for (int w = 0; w < NWARPS; ++w) s += red[i * NWARPS + w];
     v[i] = s;
   }
   __syncthreads();
 }
 
-// Column sums of an (rows x cols) row-major matrix into out (cols).
-__device__ void col_sum(const float* x, int rows, int cols, float* out) {
+// Column sums of the first `rows` rows of x (leading dim ld) into out (cols).
+__device__ void col_sum(const float* x, int ld, int rows, int cols, float* out) {
   for (int j = threadIdx.x; j < cols; j += NTHREADS) {
     float s = 0.f;
-    for (int r = 0; r < rows; ++r) s += x[(size_t)r * cols + j];
+    for (int r = 0; r < rows; ++r) s += x[(size_t)r * ld + j];
     out[j] = s;
   }
 }
 
-__device__ __forceinline__ float sum_of(const float* x, int n) {
+__device__ __forceinline__ float sum_of(const float* x, size_t n) {
   float s = 0.f;
-  for (int i = threadIdx.x; i < n; i += NTHREADS) s += x[i];
+  for (size_t i = threadIdx.x; i < n; i += NTHREADS) s += x[i];
   return s;
-}
-
-__device__ __forceinline__ void sgd_update(float* p, const float* g, int n, float lr,
-                                           float clip) {
-  for (int i = threadIdx.x; i < n; i += NTHREADS) p[i] = p[i] - lr * clampf(g[i], -clip, clip);
-}
-
-__device__ __forceinline__ void copy(float* dst, const float* src, int n) {
-  for (int i = threadIdx.x; i < n; i += NTHREADS) dst[i] = src[i];
 }
 
 // ---------------------------------------------------------------------------
 // One step: step_forward_sums + step_apply (fused_step.py:294, :600)
 // ---------------------------------------------------------------------------
 
-// Pointers and carry scalars of step t. The scalars are read here, before
-// phase 1's barriers: thread 0 writes lik_logvar and lik_n in step_apply
-// with no barrier between the start of that phase and the write.
-struct StepIO {
-  const float *y, *u, *qs_m, *qs_lv, *eps_s, *eps_t;
-  float *qt_m, *qt_lv, *xs, *xt, *g_vec;
-  int eps_ld;
-  float slv, lik_lv, dyn_n0, lik_n0;
+// The carry scalars, the same in every thread of the cluster.
+struct CarryScalars {
+  float slv, lik_lv, dyn_n, lik_n;
 };
 
 // The scalar leaves of FusedSums, in pack_sums's order (N_SUM_SCALARS).
@@ -429,274 +600,466 @@ struct StepSums {
       dx2_sum;
 };
 
-// Step t's pointers, and its noise drawn into the workspace unless it is
-// given. Rows [a.row0, a.row0 + B) of the whole batch's draw.
-__device__ StepIO step_io(const VJFArgs& a, const WS& w, int t, uint32_t seed,
-                          uint32_t count) {
-  const int B = a.B, yd = a.yd, ud = a.ud, xd = a.xd;
-  StepIO s;
-  s.y = a.y + (size_t)t * B * yd;
-  s.u = ud > 0 ? a.u + (size_t)t * B * ud : nullptr;
-  s.qs_m = t == 0 ? a.qs_m : a.q_pack + (size_t)(t - 1) * 2 * B * xd;
-  s.qs_lv = t == 0 ? a.qs_lv : s.qs_m + (size_t)B * xd;
-  s.qt_m = a.q_pack + (size_t)t * 2 * B * xd;
-  s.qt_lv = s.qt_m + (size_t)B * xd;
-  s.xs = a.xs ? a.xs : w.xs;
-  s.xt = a.xt ? a.xt : w.xt;
-  s.g_vec = a.g_vec ? a.g_vec : w.g_vec;
-  if (a.eps_s) {
-    s.eps_s = a.eps_s + (size_t)t * B * xd;
-    s.eps_t = a.eps_t + (size_t)t * B * xd;
-    s.eps_ld = xd;
-  } else {
-    // the (B, 2 xd) draw: columns [:xd] are eps_s, [xd:] eps_t
-    const uint32_t j0 = (uint32_t)a.row0 * (uint32_t)xd;
-    for (int j = threadIdx.x; j < B * xd; j += NTHREADS) {
-      float u1[2], u2[2];
-      philox_pair(seed, count, j0 + (uint32_t)j, u1, u2);
-      w.eps[2 * j] = box_muller(u1[0], u2[0]);
-      w.eps[2 * j + 1] = box_muller(u1[1], u2[1]);
-    }
-    s.eps_s = w.eps;
-    s.eps_t = w.eps + xd;
-    s.eps_ld = 2 * xd;
-  }
-  s.slv = a.state_logvar[0];
-  s.lik_lv = a.lik_logvar[0];
-  s.dyn_n0 = a.dyn_n[0];
-  s.lik_n0 = a.lik_n[0];
-  __syncthreads();
+// Element `off` of the flat buffer summed over the blocks' slabs, in rank
+// order.
+__device__ __forceinline__ float rank_sum(const Ctx& c, size_t off) {
+  float s = c.g.slab[off];
+  for (int r = 1; r < VJF_CLUSTER; ++r) s += c.g.slab[(size_t)r * c.g.slab_stride + off];
   return s;
 }
 
-// Phase 1: forward, ELBO sums, manual backward, RLS raw statistics (F^T F
-// and F^T dx only with `stats`) and the gradient check, every batch mean
-// scaled by `inv_b` (the GLOBAL 1/B in the sharded step). The gradient
-// sums land in w.g_*, F^T F in w.ftf, F^T dx in w.fxd. Updates no carry
-// leaf.
-__device__ StepSums step_forward_sums(const VJFArgs& a, const WS& w, Smem& sm,
-                                      const StepIO& io, float inv_b, bool stats) {
+// Starts the copy of step t's y, u and injected noise for this block's
+// trials into shared memory.
+__device__ __forceinline__ void fetch_inputs(const VJFArgs& a, const Ctx& c, int t) {
+  const int nb = c.tr.n, yd = a.yd, ud = a.ud, xd = a.xd;
+  const size_t row = (size_t)t * a.B + c.tr.first;
+  const float* ysrc = a.y + row * yd;
+  if (yd % 4 == 0 && ((uintptr_t)ysrc & 15) == 0) {
+    const int q = yd / 4;
+    for (int i = threadIdx.x; i < nb * q; i += NTHREADS) {
+      const int r = i / q, cc = (i % q) * 4;
+      cp_async16(c.s.y + (size_t)r * c.s.ldy + cc, ysrc + (size_t)r * yd + cc);
+    }
+  } else {
+    for (int i = threadIdx.x; i < nb * yd; i += NTHREADS)
+      cp_async4(c.s.y + (size_t)(i / yd) * c.s.ldy + i % yd, ysrc + i);
+  }
+  if (ud > 0) {
+    const float* usrc = a.u + row * ud;
+    for (int i = threadIdx.x; i < nb * ud; i += NTHREADS)
+      cp_async4(c.s.u + (size_t)(i / ud) * c.s.ldu + i % ud, usrc + i);
+  }
+  if (a.eps_s) {
+    // the (rows, 2 xd) noise: columns [:xd] are eps_s, [xd:] eps_t
+    for (int i = threadIdx.x; i < nb * xd; i += NTHREADS) {
+      float* dst = c.s.eps + (size_t)(i / xd) * 2 * xd + i % xd;
+      cp_async4(dst, a.eps_s + row * xd + i);
+      cp_async4(dst + xd, a.eps_t + row * xd + i);
+    }
+  }
+  cp_async_commit();
+}
+
+// Waits for step t's inputs; loads the posterior entering step 0; draws the
+// noise unless it is given: rows [row0 + first, ...) of the whole batch's
+// draw, at counter `count`. `cur` is the buffer that holds the posterior
+// entering the step.
+__device__ __forceinline__ void step_begin(const VJFArgs& a, const Ctx& c, int t, int cur,
+                                           uint32_t count) {
+  const int nb = c.tr.n, xd = a.xd;
+  cp_async_wait_all();
+  if (t == 0) {
+    for (int i = threadIdx.x; i < nb * xd; i += NTHREADS) {
+      c.s.q[cur][0][i] = a.qs_m[(size_t)c.tr.first * xd + i];
+      c.s.q[cur][1][i] = a.qs_lv[(size_t)c.tr.first * xd + i];
+    }
+  }
+  // the biases as the last step's SGD left them
+  for (int i = threadIdx.x; i < a.yd; i += NTHREADS) c.s.b_dec[i] = a.b_dec[i];
+  for (int i = threadIdx.x; i < xd; i += NTHREADS) c.s.b_logvar[i] = a.b_logvar[i];
+  for (int l = 0; l < a.n_layers; ++l)
+    for (int i = threadIdx.x; i < a.h[l]; i += NTHREADS) c.s.b_hid[l][i] = a.b_hidden[l][i];
+  if (!a.eps_s) {
+    const uint32_t j0 = (uint32_t)(a.row0 + c.tr.first) * (uint32_t)xd;
+    for (int j = threadIdx.x; j < nb * xd; j += NTHREADS) {
+      float u1[2], u2[2];
+      philox_pair(c.seed, count, j0 + (uint32_t)j, u1, u2);
+      c.s.eps[2 * j] = box_muller(u1[0], u2[0]);
+      c.s.eps[2 * j + 1] = box_muller(u1[1], u2[1]);
+    }
+  }
+  __syncthreads();
+}
+
+// Phase 1 on this block's trials: forward, ELBO sums, manual backward, every
+// batch mean scaled by `inv_b` (1 / the whole batch). The gradient sums land
+// in this block's slab in the flat order, its raw scalar sums behind them;
+// with `stats` every trial's features and dx go to the workspace, for
+// stat_rows. Writes the posterior (shared memory buffer 1 - cur, and
+// q_pack) and xs, xt where asked; updates no carry leaf. Ends with the
+// prefetch of step t + 1 and a cluster barrier that publishes the slabs.
+__device__ __forceinline__ void step_forward_sums(const VJFArgs& a, const Ctx& c,
+                                                  const CarryScalars& cs, int t, int cur,
+                                                  float inv_b, bool stats) {
   const int tid = threadIdx.x;
-  const int B = a.B, yd = a.yd, ud = a.ud, xd = a.xd, nfp = a.nfp, L = a.n_layers;
+  const SM& s = c.s;
+  const int nb = c.tr.n, first = c.tr.first;
+  const int yd = a.yd, ud = a.ud, xd = a.xd, nfp = a.nfp, L = a.n_layers;
   const int h0 = a.h[0], hl = a.h[L - 1];
   const bool bf = a.bf16 != 0;
-  const bool rls = a.update && a.update_transition;
-  const float *y = io.y, *u = io.u, *qs_m = io.qs_m, *qs_lv = io.qs_lv;
-  const float *eps_s = io.eps_s, *eps_t = io.eps_t;
-  const int eps_ld = io.eps_ld;
-  float *qt_m = io.qt_m, *qt_lv = io.qt_lv, *xs = io.xs, *xt = io.xt;
-  const float slv = io.slv, lik_lv = io.lik_lv;
+  const float *y = s.y, *u = ud > 0 ? s.u : nullptr;
+  const float *qs_m = s.q[cur][0], *qs_lv = s.q[cur][1];
+  float *qt_m = s.q[1 - cur][0], *qt_lv = s.q[1 - cur][1];
+  const float *eps_s = s.eps, *eps_t = s.eps + xd;
+  const int eps_ld = 2 * xd;
+  const float slv = cs.slv, lik_lv = cs.lik_lv;
+  float* slab = c.slab;
 
   // ---------------- forward ----------------
-  for (int i = tid; i < B * xd; i += NTHREADS) {
+  for (int i = tid; i < nb * xd; i += NTHREADS) {
     const int b = i / xd, k = i % xd;
-    xs[i] = qs_m[i] + eps_s[b * eps_ld + k] * expf(0.5f * qs_lv[i]);
+    const float v = qs_m[i] + eps_s[b * eps_ld + k] * expf(0.5f * qs_lv[i]);
+    s.xs[i] = v;
+    if (a.xs) a.xs[(size_t)first * xd + i] = v;
   }
   __syncthreads();
-  for (int b = tid; b < B; b += NTHREADS) {
-    float s = 0.f;
-    for (int k = 0; k < xd; ++k) s += xs[b * xd + k] * xs[b * xd + k];
+  for (int b = tid; b < nb; b += NTHREADS) {
+    float v = 0.f;
+    for (int k = 0; k < xd; ++k) v += s.xs[b * xd + k] * s.xs[b * xd + k];
     if (u) {
       float su = 0.f;
-      for (int k = 0; k < ud; ++k) su += u[b * ud + k] * u[b * ud + k];
-      s += su;
+      for (int k = 0; k < ud; ++k) su += u[b * s.ldu + k] * u[b * s.ldu + k];
+      v += su;
     }
-    w.x2[b] = s;
+    s.x2[b] = v;
   }
   __syncthreads();
-  // RBF features, cross term in full f32; pad centroids give exact 0
-  for (int i = tid; i < B * nfp; i += NTHREADS) {
-    const int b = i / nfp, j = i % nfp;
-    float cross = 0.f;
-    for (int k = 0; k < xd; ++k) cross += xs[b * xd + k] * a.cent_x[j * xd + k];
-    if (u) {
-      float cu = 0.f;
-      for (int k = 0; k < ud; ++k) cu += u[b * ud + k] * a.cent_u[j * ud + k];
-      cross += cu;
+  // RBF features, cross term in full f32; pad centroids give exact 0. A warp
+  // per trial, a lane per feature (the centroids lie transposed).
+  for (int b = tid >> 5; b < nb; b += NWARPS) {
+    for (int j = tid & 31; j < nfp; j += 32) {
+      float cross = 0.f;
+      for (int k = 0; k < xd; ++k) cross += s.xs[b * xd + k] * s.cent_x[k * nfp + j];
+      if (u) {
+        float cu = 0.f;
+        for (int k = 0; k < ud; ++k) cu += u[b * s.ldu + k] * s.cent_u[k * nfp + j];
+        cross += cu;
+      }
+      float d2 = s.x2[b] + s.c2[j] - 2.0f * cross;
+      d2 = d2 < 0.f ? 0.f : d2;
+      const float f = expf(-0.5f * d2 * s.inv_w2[j]);
+      s.feat[(size_t)b * s.ldf + j] = f;
+      if (stats) c.g.feat[(size_t)(first + b) * nfp + j] = f;
     }
-    float d2 = w.x2[b] + a.c2[j] - 2.0f * cross;
-    d2 = d2 < 0.f ? 0.f : d2;
-    w.feat[i] = expf(-0.5f * d2 * a.inv_w2[j]);
   }
   __syncthreads();
-  gemm(sm, B, nfp, nfp, rowmaj(w.feat, nfp), rowmaj(a.v_mat, nfp), w.z, nfp, 1.f, 0.f, 0.f, bf);
-  gemm(sm, B, xd, nfp, rowmaj(w.feat, nfp), rowmaj(a.w_dyn, xd), w.pt_m, xd, 1.f, 0.f, 0.f, bf);
-  // first layer, weights split by input segment
-  gemm(sm, B, h0, yd, rowmaj(y, yd), trans(a.w_in_y, yd), w.hs[0], h0, 1.f, 0.f, 0.f, bf);
-  gemm(sm, B, h0, xd, rowmaj(qs_m, xd), trans(a.w_in_m, xd), w.hs[0], h0, 1.f, 1.f, 0.f, bf);
-  gemm(sm, B, h0, xd, rowmaj(qs_lv, xd), trans(a.w_in_lv, xd), w.hs[0], h0, 1.f, 1.f, 0.f, bf);
-  if (u) gemm(sm, B, h0, ud, rowmaj(u, ud), trans(a.w_in_u, ud), w.hs[0], h0, 1.f, 1.f, 0.f, bf);
-  for (int b = tid; b < B; b += NTHREADS) {
-    float s = 0.f;
-    for (int j = 0; j < nfp; ++j) s += w.z[b * nfp + j] * w.feat[b * nfp + j];
-    s = s < 1e-30f ? 1e-30f : s;
-    w.fvf[b] = s;
-    w.ptlv[b] = logf(s);
+  const Mat feat = rowmaj(s.feat, s.ldf);
+  mm(nb, nfp, nfp, feat, rowmaj(a.v_mat, nfp), s.z, s.ldf, false, bf, false);
+  mm(nb, xd, nfp, feat, rowmaj(a.w_dyn, xd), s.pt_m, xd, false, bf, false);
+  // first layer, weights split by input segment; its tiles start behind F w's
+  const int wf = cdiv(nb, 16) * cdiv(xd, 8);
+  mm(nb, h0, yd, rowmaj(y, s.ldy), trans(a.w_in_y, yd), s.hs[0], s.ldh[0], false, bf, false, wf);
+  mm(nb, h0, xd, rowmaj(qs_m, xd), trans(a.w_in_m, xd), s.hs[0], s.ldh[0], true, bf, false, wf);
+  mm(nb, h0, xd, rowmaj(qs_lv, xd), trans(a.w_in_lv, xd), s.hs[0], s.ldh[0], true, bf, false,
+     wf);
+  if (u)
+    mm(nb, h0, ud, rowmaj(u, s.ldu), trans(a.w_in_u, ud), s.hs[0], s.ldh[0], true, bf, false, wf);
+  __syncthreads();
+  for (int b = tid >> 5; b < nb; b += NWARPS) {  // a warp per trial
+    float v = 0.f;
+    for (int j = tid & 31; j < nfp; j += 32)
+      v += s.z[(size_t)b * s.ldf + j] * s.feat[(size_t)b * s.ldf + j];
+    v = warp_sum(v);
+    v = v < 1e-30f ? 1e-30f : v;
+    if ((tid & 31) == 0) {
+      s.fvf[b] = v;
+      s.ptlv[b] = logf(v);
+    }
   }
-  for (int i = tid; i < B * h0; i += NTHREADS)
-    w.hs[0][i] = tanhf(w.hs[0][i] + a.b_hidden[0][i % h0]);
+  for (int b = tid >> 5; b < nb; b += NWARPS) {
+    for (int j = tid & 31; j < h0; j += 32) {
+      float* hp = s.hs[0] + (size_t)b * s.ldh[0] + j;
+      *hp = tanhf(*hp + s.b_hid[0][j]);
+    }
+  }
   __syncthreads();
   for (int l = 1; l < L; ++l) {
     const int hi = a.h[l], hp = a.h[l - 1];
-    gemm(sm, B, hi, hp, rowmaj(w.hs[l - 1], hp), trans(a.w_hidden[l - 1], hp), w.hs[l], hi,
-         1.f, 0.f, 0.f, bf);
-    for (int i = tid; i < B * hi; i += NTHREADS)
-      w.hs[l][i] = tanhf(w.hs[l][i] + a.b_hidden[l][i % hi]);
+    mm(nb, hi, hp, rowmaj(s.hs[l - 1], s.ldh[l - 1]), trans(a.w_hidden[l - 1], hp), s.hs[l],
+       s.ldh[l], false, bf, true);
+    for (int b = tid >> 5; b < nb; b += NWARPS) {
+      for (int j = tid & 31; j < hi; j += 32) {
+        float* p = s.hs[l] + (size_t)b * s.ldh[l] + j;
+        *p = tanhf(*p + s.b_hid[l][j]);
+      }
+    }
     __syncthreads();
   }
-  const float* h_last = w.hs[L - 1];
-  gemm(sm, B, xd, hl, rowmaj(h_last, hl), trans(a.w_mean, hl), qt_m, xd, 1.f, 0.f, 0.f, bf);
-  gemm(sm, B, xd, hl, rowmaj(h_last, hl), trans(a.w_logvar, hl), w.raw, xd, 1.f, 0.f, 0.f, bf);
-  for (int i = tid; i < B * xd; i += NTHREADS) {
-    const int b = i / xd, k = i % xd;
-    const float raw = w.raw[i] + a.b_logvar[k];
-    w.raw[i] = raw;
-    const float lv = clampf(raw, -a.logvar_clamp, a.logvar_clamp);
-    qt_lv[i] = lv;
-    xt[i] = qt_m[i] + eps_t[b * eps_ld + k] * expf(0.5f * lv);
-    w.pt_m[i] = (1.0f - a.leak) * xs[i] + w.pt_m[i];
+  const Mat h_last = rowmaj(s.hs[L - 1], s.ldh[L - 1]);
+  mm(nb, xd, hl, h_last, trans(a.w_mean, hl), qt_m, xd, false, bf, false);
+  mm(nb, xd, hl, h_last, trans(a.w_logvar, hl), s.raw, xd, false, bf, true, wf);
+  {
+    float* qp = a.q_pack + (size_t)t * 2 * a.B * xd + (size_t)first * xd;
+    for (int i = tid; i < nb * xd; i += NTHREADS) {
+      const int b = i / xd, k = i % xd;
+      const float raw = s.raw[i] + s.b_logvar[k];
+      s.raw[i] = raw;
+      const float lv = clampf(raw, -a.logvar_clamp, a.logvar_clamp);
+      qt_lv[i] = lv;
+      const float xt = qt_m[i] + eps_t[b * eps_ld + k] * expf(0.5f * lv);
+      s.xt[i] = xt;
+      s.pt_m[i] = (1.0f - a.leak) * s.xs[i] + s.pt_m[i];
+      qp[i] = qt_m[i];
+      qp[(size_t)a.B * xd + i] = lv;
+      if (a.xt) a.xt[(size_t)first * xd + i] = xt;
+    }
   }
   __syncthreads();
-  gemm(sm, B, yd, xd, rowmaj(xt, xd), trans(a.w_dec, xd), w.py, yd, 1.f, 0.f, 0.f, bf);
-  for (int i = tid; i < B * yd; i += NTHREADS) w.py[i] += a.b_dec[i % yd];
-  __syncthreads();
+  mm(nb, yd, xd, rowmaj(s.xt, xd), trans(a.w_dec, xd), s.py, s.ldy, false, bf, true);
 
   // ---------------- ELBO batch sums (+ the likelihood gradient) ----------------
   // sums: 0 nll or squared residual, 1 diff^2, 2 trace, 3 qt_lv, 4 dx, 5 dx^2, 6 fvf
-  float s[7] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  float e[7] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   const float inv_sv = expf(-slv);
-  for (int i = tid; i < B * yd; i += NTHREADS) {
-    const float py = w.py[i], yv = y[i];
-    float g;
-    if (a.poisson) {
-      const float pyc = py > a.poisson_clamp ? a.poisson_clamp : py;
-      const float e = expf(pyc);
-      s[0] += e - yv * pyc;
-      g = (e - yv) * (py < a.poisson_clamp ? 1.f : 0.f) * inv_b;
-    } else {
-      const float r = yv - py;
-      s[0] += r * r;
-      g = -r * expf(-lik_lv) * inv_b;
+  const float inv_lik = expf(-lik_lv);
+  for (int b = tid >> 5; b < nb; b += NWARPS) {
+    float* row = s.py + (size_t)b * s.ldy;
+    const float* yrow = y + (size_t)b * s.ldy;
+    for (int j = tid & 31; j < yd; j += 32) {
+      const float py = row[j] + s.b_dec[j], yv = yrow[j];
+      float g;
+      if (a.poisson) {
+        const float pyc = py > a.poisson_clamp ? a.poisson_clamp : py;
+        const float ex = expf(pyc);
+        e[0] += ex - yv * pyc;
+        g = (ex - yv) * (py < a.poisson_clamp ? 1.f : 0.f) * inv_b;
+      } else {
+        const float r = yv - py;
+        e[0] += r * r;
+        g = -r * inv_lik * inv_b;
+      }
+      row[j] = g;  // py becomes g_py
     }
-    if (a.sgd) w.py[i] = g;  // py becomes g_py
   }
-  for (int i = tid; i < B * xd; i += NTHREADS) {
+  for (int i = tid; i < nb * xd; i += NTHREADS) {
     const int b = i / xd;
-    const float diff = w.pt_m[i] - qt_m[i];
-    s[1] += diff * diff;
-    s[2] += a.trace_quirk ? expf(w.ptlv[b] + qt_lv[i] - slv)
-                          : expf(w.ptlv[b] - slv) + expf(qt_lv[i] - slv);
-    s[3] += qt_lv[i];
-    const float dx = xt[i] - xs[i];
-    w.dx[i] = dx;
-    s[4] += dx;
-    s[5] += dx * dx;
+    const float diff = s.pt_m[i] - qt_m[i];
+    e[1] += diff * diff;
+    e[2] += a.trace_quirk ? expf(s.ptlv[b] + qt_lv[i] - slv)
+                          : expf(s.ptlv[b] - slv) + expf(qt_lv[i] - slv);
+    e[3] += qt_lv[i];
+    const float dx = s.xt[i] - s.xs[i];
+    s.dx[i] = dx;
+    if (stats) c.g.dx[(size_t)first * xd + i] = dx;
+    e[4] += dx;
+    e[5] += dx * dx;
   }
-  for (int b = tid; b < B; b += NTHREADS) s[6] += w.fvf[b];
-  block_sum<7>(sm, s);
-  StepSums r;
-  r.recon_batch = a.poisson ? s[0] * inv_b : 0.f;
-  r.sq_y = a.poisson ? 0.f : s[0];
-  r.dyn_batch = s[1] * inv_sv * inv_b + s[2] * inv_b;
-  r.ent = 0.5f * s[3] * inv_b;
-  r.dx_sum = rls ? s[4] : 0.f;
-  r.dx2_sum = rls ? s[5] : 0.f;
-  r.fvf_sum = rls ? s[6] : 0.f;
-  r.g_lik_lv_batch = a.sgd && !a.poisson ? -0.5f * r.sq_y * expf(-lik_lv) * inv_b : 0.f;
+  for (int b = tid; b < nb; b += NTHREADS) e[6] += s.fvf[b];
+  block_sum<7>(s.red, e);
 
   // ---------------- manual backward (gradient batch-sums) ----------------
-  const float* g_py = w.py;
+  // every product that contracts over the trials writes this block's
+  // partial sum straight into its slab
+  const Mat g_py = rowmaj(s.py, s.ldy);
   if (a.sgd) {
-    gemm(sm, B, xd, yd, rowmaj(g_py, yd), rowmaj(a.w_dec, xd), w.g_xt, xd, 1.f, 0.f, 0.f, bf);
+    mm(nb, xd, yd, g_py, rowmaj(a.w_dec, xd), s.g_xt, xd, false, bf, false);
     if (a.train_decoder) {
-      gemm(sm, yd, xd, B, trans(g_py, yd), rowmaj(xt, xd), w.g_w_dec, xd, 1.f, 0.f, 0.f, bf);
-      col_sum(g_py, B, yd, w.g_b_dec);
+      mm(yd, xd, nb, trans(s.py, s.ldy), rowmaj(s.xt, xd), slab + c.so.w_dec, xd, false, bf,
+         false, wf);
+      col_sum(s.py, s.ldy, nb, yd, slab + c.so.b_dec);
     }
-    for (int i = tid; i < B * xd; i += NTHREADS) {
+    __syncthreads();
+    for (int i = tid; i < nb * xd; i += NTHREADS) {
       const int b = i / xd, k = i % xd;
       const float lv = qt_lv[i];
-      const float gx = w.g_xt[i];
+      const float gx = s.g_xt[i];
       float gm = gx;
       float glv = gx * eps_t[b * eps_ld + k] * (0.5f * expf(0.5f * lv)) - 0.5f * inv_b;
       if (!a.warm_up) {
-        gm = gm - (w.pt_m[i] - qt_m[i]) * (inv_sv * inv_b);
+        gm = gm - (s.pt_m[i] - qt_m[i]) * (inv_sv * inv_b);
         if (a.trace_quirk)
-          glv = glv + 0.5f * expf(w.ptlv[b] + lv - slv) * inv_b;
+          glv = glv + 0.5f * expf(s.ptlv[b] + lv - slv) * inv_b;
         else
           glv = glv + 0.5f * expf(lv - slv) * inv_b;
       }
-      glv = glv * (fabsf(w.raw[i]) < a.logvar_clamp ? 1.f : 0.f);
-      w.g_qm[i] = gm;
-      w.g_qlv[i] = glv;
+      glv = glv * (fabsf(s.raw[i]) < a.logvar_clamp ? 1.f : 0.f);
+      s.g_qm[i] = gm;
+      s.g_qlv[i] = glv;
     }
     __syncthreads();
-    gemm(sm, xd, hl, B, trans(w.g_qm, xd), rowmaj(h_last, hl), w.g_wm, hl, 1.f, 0.f, 0.f, bf);
-    gemm(sm, xd, hl, B, trans(w.g_qlv, xd), rowmaj(h_last, hl), w.g_wlv, hl, 1.f, 0.f, 0.f, bf);
-    gemm(sm, B, hl, xd, rowmaj(w.g_qm, xd), rowmaj(a.w_mean, hl), w.g_h, hl, 1.f, 0.f, 0.f, bf);
-    gemm(sm, B, hl, xd, rowmaj(w.g_qlv, xd), rowmaj(a.w_logvar, hl), w.g_h, hl, 1.f, 1.f, 0.f, bf);
-    col_sum(w.g_qlv, B, xd, w.g_blv);
+    const int wh = cdiv(xd, 16) * cdiv(hl, 8);
+    mm(xd, hl, nb, trans(s.g_qm, xd), h_last, slab + c.so.wm, hl, false, bf, false);
+    mm(xd, hl, nb, trans(s.g_qlv, xd), h_last, slab + c.so.wlv, hl, false, bf, false, wh);
+    mm(nb, hl, xd, rowmaj(s.g_qm, xd), rowmaj(a.w_mean, hl), s.g_h, s.ldg, false, bf, false,
+       2 * wh);
+    mm(nb, hl, xd, rowmaj(s.g_qlv, xd), rowmaj(a.w_logvar, hl), s.g_h, s.ldg, true, bf, false,
+       2 * wh);
+    col_sum(s.g_qlv, xd, nb, xd, slab + c.so.blv);
+    __syncthreads();
     for (int l = L - 1; l >= 1; --l) {  // layers n..1
       const int hi = a.h[l], hp = a.h[l - 1];
-      for (int i = tid; i < B * hi; i += NTHREADS) {
-        const float hv = w.hs[l][i];
-        w.g_a[i] = w.g_h[i] * (1.0f - hv * hv);
+      for (int i = tid; i < nb * hi; i += NTHREADS) {
+        const int b = i / hi, j = i % hi;
+        const float hv = s.hs[l][(size_t)b * s.ldh[l] + j];
+        s.g_a[(size_t)b * s.ldg + j] = s.g_h[(size_t)b * s.ldg + j] * (1.0f - hv * hv);
       }
       __syncthreads();
-      gemm(sm, hi, hp, B, trans(w.g_a, hi), rowmaj(w.hs[l - 1], hp), w.g_w_hidden[l - 1], hp,
-           1.f, 0.f, 0.f, bf);
-      col_sum(w.g_a, B, hi, w.g_b_hidden[l]);
-      gemm(sm, B, hp, hi, rowmaj(w.g_a, hi), rowmaj(a.w_hidden[l - 1], hp), w.g_h, hp, 1.f, 0.f,
-           0.f, bf);
+      mm(hi, hp, nb, trans(s.g_a, s.ldg), rowmaj(s.hs[l - 1], s.ldh[l - 1]),
+         slab + c.so.w_hidden[l - 1], hp, false, bf, false);
+      col_sum(s.g_a, s.ldg, nb, hi, slab + c.so.b_hidden[l]);
+      mm(nb, hp, hi, rowmaj(s.g_a, s.ldg), rowmaj(a.w_hidden[l - 1], hp), s.g_h, s.ldg, false,
+         bf, true);
     }
-    for (int i = tid; i < B * h0; i += NTHREADS) {
-      const float hv = w.hs[0][i];
-      w.g_a[i] = w.g_h[i] * (1.0f - hv * hv);
+    for (int i = tid; i < nb * h0; i += NTHREADS) {
+      const int b = i / h0, j = i % h0;
+      const float hv = s.hs[0][(size_t)b * s.ldh[0] + j];
+      s.g_a[(size_t)b * s.ldg + j] = s.g_h[(size_t)b * s.ldg + j] * (1.0f - hv * hv);
     }
     __syncthreads();
-    col_sum(w.g_a, B, h0, w.g_b_hidden[0]);
-    if (u) gemm(sm, h0, ud, B, trans(w.g_a, h0), rowmaj(u, ud), w.g_w_in_u, ud, 1.f, 0.f, 0.f, bf);
-    gemm(sm, h0, yd, B, trans(w.g_a, h0), rowmaj(y, yd), w.g_w_in_y, yd, 1.f, 0.f, 0.f, bf);
-    gemm(sm, h0, xd, B, trans(w.g_a, h0), rowmaj(qs_m, xd), w.g_w_in_m, xd, 1.f, 0.f, 0.f, bf);
-    gemm(sm, h0, xd, B, trans(w.g_a, h0), rowmaj(qs_lv, xd), w.g_w_in_lv, xd, 1.f, 0.f, 0.f, bf);
+    const Mat g_at = trans(s.g_a, s.ldg);
+    col_sum(s.g_a, s.ldg, nb, h0, slab + c.so.b_hidden[0]);
+    if (u) mm(h0, ud, nb, g_at, rowmaj(u, s.ldu), slab + c.so.w_in_u, ud, false, bf, false);
+    mm(h0, yd, nb, g_at, rowmaj(y, s.ldy), slab + c.so.w_in_y, yd, false, bf, false);
+    mm(h0, xd, nb, g_at, rowmaj(qs_m, xd), slab + c.so.w_in_m, xd, false, bf, false);
+    mm(h0, xd, nb, g_at, rowmaj(qs_lv, xd), slab + c.so.w_in_lv, xd, false, bf, false);
   }
 
-  // ---------------- RLS raw statistics ----------------
-  if (stats) {
-    gemm(sm, nfp, nfp, B, trans(w.feat, nfp), rowmaj(w.feat, nfp), w.ftf, nfp, 1.f, 0.f, 0.f, bf);
-    gemm(sm, nfp, xd, B, trans(w.feat, nfp), rowmaj(w.dx, xd), w.fxd, xd, 1.f, 0.f, 0.f, bf);
-  }
+  // the RLS raw statistics F^T F and F^T dx are taken in phase 2 by rows, each
+  // block over every trial (stat_rows), from the features and dx published
+  // above: as a partial sum, each block's would have all nfp x nfp entries
+  __syncthreads();
 
   // grad_check: the sum of every gradient entry is finite iff each one is
-  float gc[1] = {0.f};
-  if (a.sgd) {
-    float v = sum_of(w.g_w_in_y, h0 * yd) + sum_of(w.g_w_in_m, h0 * xd) +
-              sum_of(w.g_w_in_lv, h0 * xd) + sum_of(w.g_wm, xd * hl) +
-              sum_of(w.g_wlv, xd * hl) + sum_of(w.g_blv, xd);
-    if (a.train_decoder) v += sum_of(w.g_w_dec, yd * xd) + sum_of(w.g_b_dec, yd);
-    if (u) v += sum_of(w.g_w_in_u, h0 * ud);
-    for (int l = 1; l < L; ++l) v += sum_of(w.g_w_hidden[l - 1], a.h[l] * a.h[l - 1]);
-    for (int l = 0; l < L; ++l) v += sum_of(w.g_b_hidden[l], a.h[l]);
-    gc[0] = v;
+  // (the leaves the flags leave uncomputed are 0 in the slab)
+  float gc[1] = {a.sgd ? sum_of(slab, c.so.ftf) : 0.f};
+  block_sum<1>(s.red, gc);
+  if (tid == 0) {
+    float* sc = slab + c.so.ftf;
+    for (int i = 0; i < 7; ++i) sc[SC_ELBO + i] = e[i];
+    sc[SC_GRAD] = gc[0];
   }
-  block_sum<1>(sm, gc);
-  r.grad_check = a.sgd ? gc[0] + r.g_lik_lv_batch : 0.f;
+  if (t + 1 < a.T) fetch_inputs(a, c, t + 1);
+  cluster_sync();
+}
+
+// The batch scalars from every block's raw sums, in rank order: the same
+// bits in every thread of the cluster.
+__device__ __forceinline__ StepSums reduce_scalars(const VJFArgs& a, const Ctx& c,
+                                                   const CarryScalars& cs, float inv_b) {
+  const bool rls = a.update && a.update_transition;
+  if (threadIdx.x < 8) c.s.bc[threadIdx.x] = rank_sum(c, c.so.ftf + threadIdx.x);
+  __syncthreads();
+  float e[8];
+  for (int i = 0; i < 8; ++i) e[i] = c.s.bc[i];
+  __syncthreads();
+  StepSums r;
+  r.recon_batch = a.poisson ? e[0] * inv_b : 0.f;
+  r.sq_y = a.poisson ? 0.f : e[0];
+  r.dyn_batch = e[1] * expf(-cs.slv) * inv_b + e[2] * inv_b;
+  r.ent = 0.5f * e[3] * inv_b;
+  r.dx_sum = rls ? e[4] : 0.f;
+  r.dx2_sum = rls ? e[5] : 0.f;
+  r.fvf_sum = rls ? e[6] : 0.f;
+  r.g_lik_lv_batch = a.sgd && !a.poisson ? -0.5f * r.sq_y * expf(-cs.lik_lv) * inv_b : 0.f;
+  r.grad_check = a.sgd ? e[SC_GRAD] + r.g_lik_lv_batch : 0.f;
   return r;
 }
 
-// Phase 2 on one device: the ELBO with its constants, clipped SGD, the
-// obs-noise running variance, RLS with Newton-Schulz tracking of V and the
-// state-noise running variance, all in place; then the scalar row of step t.
-// `inv_b` is 1/B.
-__device__ void step_apply(const VJFArgs& a, const WS& w, Smem& sm, const StepIO& io,
-                           const StepSums& p, int t, float inv_b) {
+// Clipped SGD of this block's contiguous share of the gradient part of the
+// flat buffer: p -= lr * clip(sum over the slabs), whatever leaf an element
+// belongs to, so that every load of a thread's elements is in flight at once.
+__device__ __forceinline__ void sgd_slice(const VJFArgs& a, const Ctx& c) {
+  const Leaves& lv = c.lv;
+  const Blk b = block_of((int)c.so.ftf, c.rank);
+  for (int i = b.first + threadIdx.x; i < b.first + b.n; i += NTHREADS) {
+    for (int l = 0; l < lv.n; ++l) {
+      if (i >= lv.off[l] && i < lv.off[l] + lv.len[l]) {
+        float* p = lv.p[l] + (i - lv.off[l]);
+        *p = *p - c.lr * clampf(rank_sum(c, (size_t)i), -a.clip, a.clip);
+        break;
+      }
+    }
+  }
+}
+
+// out rows [fr.first, fr.first + fr.n) of alpha * A B + diag * I, all in
+// full f32: A is this block's row panel in shared memory (fr.n x nfp,
+// leading dim lda), B the whole nfp x nfp matrix in global memory. B is
+// staged into shared memory with 16-byte cp.async; each thread takes a 4 x 4
+// tile of the panel over one of `ks` slices of K, and the slices are added
+// in order. The rows go to out_g (global, leading dim nfp) and, if given, to
+// out_s (shared, leading dim lda; may be A itself). Ends with
+// __syncthreads(); the caller publishes out_g with a cluster barrier.
+__device__ __forceinline__ void panel_product(const Ctx& c, int nfp, const float* A, int lda,
+                                              const float* B, float alpha, float diag,
+                                              float* out_g, float* out_s) {
+  const SM& s = c.s;
+  const int n = c.fr.n, prow = cdiv(nfp, VJF_CLUSTER);
+  for (int i = threadIdx.x; i < nfp * nfp / 4; i += NTHREADS)
+    cp_async16(s.stage + 4 * (size_t)i, B + 4 * (size_t)i);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  const int tiles_c = nfp / 4, tiles = cdiv(prow, 4) * tiles_c;
+  const int ks = panel_ksplit(prow, nfp);
+  const int kchunk = cdiv(cdiv(nfp, ks), 4) * 4;
+  const size_t pstride = (size_t)cdiv(prow, 4) * 4 * nfp;
+  for (int item = threadIdx.x; item < tiles * ks; item += NTHREADS) {
+    const int slice = item / tiles, tile = item % tiles;
+    const int r0 = (tile / tiles_c) * 4, c0 = (tile % tiles_c) * 4;
+    const int kb = slice * kchunk, ke = kb + kchunk < nfp ? kb + kchunk : nfp;
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int k = kb; k < ke; k += 4) {
+      float av[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 v = r0 + i < n
+                             ? *reinterpret_cast<const float4*>(A + (size_t)(r0 + i) * lda + k)
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+        av[i][0] = v.x, av[i][1] = v.y, av[i][2] = v.z, av[i][3] = v.w;
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float4 bv = *reinterpret_cast<const float4*>(s.stage + (size_t)(k + kk) * nfp + c0);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc[i][0] += av[i][kk] * bv.x;
+          acc[i][1] += av[i][kk] * bv.y;
+          acc[i][2] += av[i][kk] * bv.z;
+          acc[i][3] += av[i][kk] * bv.w;
+        }
+      }
+    }
+    float* p = s.part + slice * pstride + (size_t)r0 * nfp + c0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      *reinterpret_cast<float4*>(p + (size_t)i * nfp) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < n * nfp; idx += NTHREADS) {
+    const int il = idx / nfp, col = idx % nfp;
+    float v = s.part[idx];
+    for (int slice = 1; slice < ks; ++slice) v += s.part[slice * pstride + idx];
+    v = alpha * v;
+    if (c.fr.first + il == col) v += diag;
+    out_g[(size_t)(c.fr.first + il) * nfp + col] = v;
+    if (out_s) out_s[(size_t)il * lda + col] = v;
+  }
+  __syncthreads();
+}
+
+// This block's rows of the RLS raw statistics over every trial of the launch,
+// behind the barrier that ends phase 1: ftf (fr.n x nfp, leading dim ldf) =
+// rows of F^T F and fxd (fr.n x xd) = rows of F^T dx.
+__device__ __forceinline__ void stat_rows(const VJFArgs& a, const Ctx& c, float* ftf, int ldf,
+                                          float* fxd) {
+  const Mat ft = Mat{c.g.feat + c.fr.first, 1, a.nfp};  // rows of F^T
+  const bool bf = a.bf16 != 0;
+  mm(c.fr.n, a.nfp, a.B, ft, rowmaj(c.g.feat, a.nfp), ftf, ldf, false, bf, false);
+  mm(c.fr.n, a.xd, a.B, ft, rowmaj(c.g.dx, a.xd), fxd, a.xd, false, bf, true,
+     cdiv(c.fr.n, 16) * cdiv(a.nfp, 8));
+}
+
+// Phase 2 across the cluster: the ELBO with its constants, clipped SGD,
+// the obs-noise running variance, RLS with Newton-Schulz tracking of V and
+// the state-noise running variance, all in place; then the scalar row of
+// step t. Every block has passed the barrier that ends phase 1. Ends behind
+// a cluster barrier: every carry leaf is published for the next step.
+__device__ __forceinline__ void step_apply(const VJFArgs& a, const Ctx& c, CarryScalars& cs,
+                                           const StepSums& p, int t, float inv_b) {
   const int tid = threadIdx.x;
-  const int B = a.B, yd = a.yd, ud = a.ud, xd = a.xd, nfp = a.nfp, L = a.n_layers;
-  const int h0 = a.h[0], hl = a.h[L - 1];
+  const SM& s = c.s;
+  const int B = a.B, yd = a.yd, xd = a.xd, nfp = a.nfp;
   const bool bf = a.bf16 != 0;
   const bool rls = a.update && a.update_transition;
-  const float slv = io.slv, lik_lv = io.lik_lv;
-  const float lr = a.lr[0];
-  float* g_vec = io.g_vec;
+  const float slv = cs.slv, lik_lv = cs.lik_lv;
+  const int fr0 = c.fr.first, frn = c.fr.n;
+  float* g_vec = a.g_vec ? a.g_vec : c.g.g_vec;
 
   bool sgd_ok = false;
   float l_recon, l_dyn, h_ent, loss;
@@ -718,46 +1081,29 @@ __device__ void step_apply(const VJFArgs& a, const WS& w, Smem& sm, const StepIO
     h_ent = isfinite(h_ent) ? h_ent : 0.f;
     loss = l_recon - h_ent + (a.warm_up ? 0.f : l_dyn);
 
-    // ---------------- clipped SGD ----------------
+    // ---------------- clipped SGD, each block its slice of each leaf ----------------
     float lik_lv_new = lik_lv;
     if (a.sgd) {
       sgd_ok = raw_ok && isfinite(p.grad_check);
       if (sgd_ok) {
-        const float c = a.clip;
-        sgd_update(a.w_in_y, w.g_w_in_y, h0 * yd, lr, c);
-        if (io.u) sgd_update(a.w_in_u, w.g_w_in_u, h0 * ud, lr, c);
-        sgd_update(a.w_in_m, w.g_w_in_m, h0 * xd, lr, c);
-        sgd_update(a.w_in_lv, w.g_w_in_lv, h0 * xd, lr, c);
-        for (int l = 1; l < L; ++l)
-          sgd_update(a.w_hidden[l - 1], w.g_w_hidden[l - 1], a.h[l] * a.h[l - 1], lr, c);
-        for (int l = 0; l < L; ++l) sgd_update(a.b_hidden[l], w.g_b_hidden[l], a.h[l], lr, c);
-        sgd_update(a.w_mean, w.g_wm, xd * hl, lr, c);
-        sgd_update(a.w_logvar, w.g_wlv, xd * hl, lr, c);
-        sgd_update(a.b_logvar, w.g_blv, xd, lr, c);
-        if (a.train_decoder) {
-          sgd_update(a.w_dec, w.g_w_dec, yd * xd, lr, c);
-          sgd_update(a.b_dec, w.g_b_dec, yd, lr, c);
-        }
+        sgd_slice(a, c);
         if (!a.poisson)
-          lik_lv_new = lik_lv - lr * clampf(p.g_lik_lv_batch + 0.5f * (float)yd, -c, c);
+          lik_lv_new = lik_lv - c.lr * clampf(p.g_lik_lv_batch + 0.5f * (float)yd, -a.clip,
+                                              a.clip);
       }
     }
 
     // ---------------- obs-noise running variance (Gaussian) ----------------
-    float lik_n_new = io.lik_n0;
     if (a.update && !a.poisson && a.update_likelihood) {
-      const float n = io.lik_n0 < a.obs_var_cap ? io.lik_n0 : a.obs_var_cap;
+      const float n = cs.lik_n < a.obs_var_cap ? cs.lik_n : a.obs_var_cap;
       const float tot = n + (float)B;
       const float var = (n / tot) * expf(lik_lv_new) + ((float)B / tot) * obs_mse;
       if (isfinite(var)) {
         lik_lv_new = clampf(logf(var), -a.logvar_clamp, a.logvar_clamp);
-        lik_n_new = tot;
+        cs.lik_n = tot;
       }
     }
-    if (tid == 0) {
-      a.lik_logvar[0] = lik_lv_new;
-      a.lik_n[0] = lik_n_new;
-    }
+    cs.lik_lv = lik_lv_new;
   }
 
   // ---------------- RLS with Newton-Schulz tracking of V ----------------
@@ -767,32 +1113,37 @@ __device__ void step_apply(const VJFArgs& a, const WS& w, Smem& sm, const StepIO
     if (!a.warm_up) {
       const float lam = a.rls_shrink, jit = a.chol_jitter;
       const float inv_sv_u = expf(-slv);
-      for (int i = tid; i < nfp * xd; i += NTHREADS) g_vec[i] = w.fxd[i] * inv_sv_u;
-      for (int i = tid; i < nfp * nfp; i += NTHREADS) {
-        const int r = i / nfp, c = i % nfp;
-        float pv = lam * a.p_mat[i] + w.ftf[i] * inv_sv_u;
+      // this block's rows of P_new, of F^T dx / sv, and of the iterate V / lam
+      stat_rows(a, c, s.part, nfp, s.gown);
+      for (int idx = tid; idx < frn * nfp; idx += NTHREADS) {
+        const int il = idx / nfp, col = idx % nfp, r = fr0 + il;
+        const size_t gi = (size_t)r * nfp + col;
+        float pv = lam * a.p_mat[gi] + s.part[idx] * inv_sv_u;
         if (lam != 1.0f || jit != 0.0f) {
-          const float dg = r == c ? 1.f : 0.f;
+          const float dg = r == col ? 1.f : 0.f;
           const float pad = r >= a.nf ? dg : 0.f;
           pv = pv + (1.0f - lam) * pad + jit * (dg - pad);
         }
-        w.p_new[i] = pv;
+        s.pan_p[(size_t)il * s.ldf + col] = pv;
+        s.vnew[idx] = a.p_mat[gi];  // the old rows, for P w
+        const float x = lam != 1.0f ? a.v_mat[gi] / lam : a.v_mat[gi];
+        s.pan_x[(size_t)il * s.ldf + col] = x;
+        if (lam != 1.0f) c.g.ns_a[gi] = x;
       }
+      for (int i = tid; i < frn * xd; i += NTHREADS) s.gown[i] = s.gown[i] * inv_sv_u;
+      for (int i = tid; i < nfp * xd; i += NTHREADS) s.small[i] = a.w_dyn[i];
       __syncthreads();
       // g = lam P w + F^T dx / sv, full f32
-      gemm(sm, nfp, xd, nfp, rowmaj(a.p_mat, nfp), rowmaj(a.w_dyn, xd), g_vec, xd, lam, 1.f, 0.f,
-           false);
+      mm(frn, xd, nfp, rowmaj(s.vnew, nfp), rowmaj(s.small, xd), s.wnew, xd, false, false, true);
+      for (int i = tid; i < frn * xd; i += NTHREADS)
+        g_vec[(size_t)fr0 * xd + i] = lam * s.wnew[i] + s.gown[i];
       tau = p.fvf_sum * inv_sv_u / lam;
       // the mega segment skips the update at tau >= NS_TAU_MAX, so its
       // Newton-Schulz result would be discarded
       bool ns_ok = !(a.mega && !(tau < NS_TAU_MAX));
+      cluster_sync();  // g_vec and the scaled iterate are whole
       if (ns_ok) {
-        const float* x = a.v_mat;
-        if (lam != 1.0f) {
-          for (int i = tid; i < nfp * nfp; i += NTHREADS) w.ns_a[i] = a.v_mat[i] / lam;
-          __syncthreads();
-          x = w.ns_a;
-        }
+        const float* x = lam != 1.0f ? c.g.ns_a : a.v_mat;
         int iters = a.ns_iters;
         if (a.mega) {
           if (tau >= NS_TAU_ESCALATE) iters += 1;
@@ -800,58 +1151,69 @@ __device__ void step_apply(const VJFArgs& a, const WS& w, Smem& sm, const StepIO
         }
         for (int it = 0; it < iters; ++it) {
           // X <- X (2I - P X), every product full f32
-          gemm(sm, nfp, nfp, nfp, rowmaj(w.p_new, nfp), rowmaj(x, nfp), w.ns_t, nfp, -1.f, 0.f,
-               2.f, false);
-          float* nx = (x == w.ns_a) ? w.ns_b : w.ns_a;
-          gemm(sm, nfp, nfp, nfp, rowmaj(x, nfp), rowmaj(w.ns_t, nfp), nx, nfp, 1.f, 0.f, 0.f,
-               false);
+          panel_product(c, nfp, s.pan_p, s.ldf, x, -1.f, 2.f, c.g.ns_t, nullptr);
+          cluster_sync();
+          float* nx = (x == c.g.ns_a) ? c.g.ns_b : c.g.ns_a;
+          panel_product(c, nfp, s.pan_x, s.ldf, c.g.ns_t, 1.f, 0.f, nx, s.pan_x);
+          cluster_sync();
           x = nx;
         }
-        float* v_new = w.ns_t;
-        for (int i = tid; i < nfp * nfp; i += NTHREADS) {
-          const int r = i / nfp, c = i % nfp;
-          v_new[i] = 0.5f * (x[i] + x[c * nfp + r]);
+        // this block's rows of V_new = (X + X^T) / 2 and of w_new = V_new g
+        for (int idx = tid; idx < frn * nfp; idx += NTHREADS) {
+          const int il = idx / nfp, col = idx % nfp;
+          s.vnew[idx] =
+              0.5f * (s.pan_x[(size_t)il * s.ldf + col] + x[(size_t)col * nfp + fr0 + il]);
         }
+        for (int i = tid; i < nfp * xd; i += NTHREADS) s.small[i] = g_vec[i];
         __syncthreads();
-        gemm(sm, nfp, xd, nfp, rowmaj(v_new, nfp), rowmaj(g_vec, xd), w.w_new, xd, 1.f, 0.f, 0.f,
-             false);
-        float fs[1] = {sum_of(v_new, nfp * nfp) + sum_of(w.w_new, nfp * xd)};
-        block_sum<1>(sm, fs);
-        ns_ok = isfinite(fs[0]);
+        mm(frn, xd, nfp, rowmaj(s.vnew, nfp), rowmaj(s.small, xd), s.wnew, xd, false, false, true);
+        float fs[1] = {sum_of(s.vnew, (size_t)frn * nfp) + sum_of(s.wnew, (size_t)frn * xd)};
+        block_sum<1>(s.red, fs);
+        if (tid == 0) c.slab[c.so.ftf + SC_FINITE] = fs[0];
+        cluster_sync();
+        ns_ok = isfinite(rank_sum(c, c.so.ftf + SC_FINITE));
         if (a.mega) ns_ok = ns_ok && (tau < NS_TAU_MAX);
       }
+      // every block is past its last read of V and w: overwrite our rows
       const bool upd_ok = dyn_ok && ns_ok;
       const bool p_keep = a.mega ? upd_ok : dyn_ok;
-      if (p_keep) copy(a.p_mat, w.p_new, nfp * nfp);
-      if (upd_ok) {
-        copy(a.v_mat, w.ns_t, nfp * nfp);
-        copy(a.w_dyn, w.w_new, nfp * xd);
+      for (int idx = tid; idx < frn * nfp; idx += NTHREADS) {
+        const size_t gi = (size_t)fr0 * nfp + idx;
+        if (p_keep) a.p_mat[gi] = s.pan_p[(size_t)(idx / nfp) * s.ldf + idx % nfp];
+        if (upd_ok) a.v_mat[gi] = s.vnew[idx];
       }
+      if (upd_ok)
+        for (int i = tid; i < frn * xd; i += NTHREADS) a.w_dyn[(size_t)fr0 * xd + i] = s.wnew[i];
       tau = dyn_ok ? (ns_ok ? tau : __int_as_float(0x7f800000)) : 0.f;
-      __syncthreads();
+      cluster_sync();  // the new w is whole
     }
     // state-noise running variance from the post-update residual
-    gemm(sm, B, xd, nfp, rowmaj(w.feat, nfp), rowmaj(a.w_dyn, xd), w.tmp, xd, 1.f, 0.f, 0.f, bf);
+    mm(c.tr.n, xd, nfp, rowmaj(s.feat, s.ldf), rowmaj(a.w_dyn, xd), s.tmp, xd, false, bf, true);
     float ms[1] = {0.f};
-    for (int i = tid; i < B * xd; i += NTHREADS) {
-      const float r = w.dx[i] - w.tmp[i];
+    for (int i = tid; i < c.tr.n * xd; i += NTHREADS) {
+      const float r = s.dx[i] - s.tmp[i];
       ms[0] += r * r;
     }
-    block_sum<1>(sm, ms);
-    const float mse = ms[0] / (float)(B * xd);
-    const float n = io.dyn_n0 < a.state_var_cap ? io.dyn_n0 : a.state_var_cap;
+    block_sum<1>(s.red, ms);
+    if (tid == 0) c.slab[c.so.ftf + SC_RESID] = ms[0];
+    cluster_sync();
+    const float mse = rank_sum(c, c.so.ftf + SC_RESID) / (float)(B * xd);
+    const float n = cs.dyn_n < a.state_var_cap ? cs.dyn_n : a.state_var_cap;
     const float tot = n + (float)B;
     const float var = (n / tot) * expf(slv) + ((float)B / tot) * mse;
-    if (tid == 0 && isfinite(var)) {
-      a.state_logvar[0] = clampf(logf(var), -a.logvar_clamp, a.logvar_clamp);
-      a.dyn_n[0] = tot;
+    if (isfinite(var)) {
+      cs.slv = clampf(logf(var), -a.logvar_clamp, a.logvar_clamp);
+      cs.dyn_n = tot;
     }
+  } else {
+    cluster_sync();  // the SGD updates are whole
   }
   if (!(rls && !a.warm_up)) {
-    for (int i = tid; i < nfp * xd; i += NTHREADS) g_vec[i] = 0.f;  // no RLS target
+    // no RLS target
+    for (int i = tid; i < frn * xd; i += NTHREADS) g_vec[(size_t)fr0 * xd + i] = 0.f;
   }
 
-  if (tid == 0) {
+  if (c.rank == 0 && tid == 0) {
     float* row = a.scal + (size_t)t * 8;
     row[0] = loss;
     row[1] = -l_recon;
@@ -860,45 +1222,131 @@ __device__ void step_apply(const VJFArgs& a, const WS& w, Smem& sm, const StepIO
     row[4] = tau;
     row[5] = row[6] = row[7] = 0.f;
   }
+}
+
+// What every kernel sets up: the arguments and the context in the head of
+// the block's shared memory (thread 0 writes them), this block's slab
+// zeroed (a leaf the flags leave uncomputed stays 0), the RBF constants.
+__device__ const Header& make_header(const VJFArgs& args, float* smem) {
+  Header* h = reinterpret_cast<Header*>(smem);
+  if (threadIdx.x == 0) {
+    h->a = args;
+    const VJFArgs& a = h->a;
+    Ctx& c = h->c;
+    c.s = carve_smem(a, smem);
+    c.g = carve_global(a, a.ws);
+    c.so = sums_offsets(a);
+    c.rank = cluster_rank();
+    c.tr = block_of(a.B, c.rank);
+    c.fr = block_of(a.nfp, c.rank);
+    c.slab = c.g.slab + (size_t)c.rank * c.g.slab_stride;
+    c.lr = a.lr ? a.lr[0] : 0.f;
+    c.seed = (uint32_t)a.rng_seed[0];
+    const int L = a.n_layers, h0 = a.h[0], hl = a.h[L - 1];
+    Leaves& lv = c.lv;
+    lv.n = 0;
+    lv.add(a.w_in_y, c.so.w_in_y, h0 * a.yd);
+    if (a.ud > 0) lv.add(a.w_in_u, c.so.w_in_u, h0 * a.ud);
+    lv.add(a.w_in_m, c.so.w_in_m, h0 * a.xd);
+    lv.add(a.w_in_lv, c.so.w_in_lv, h0 * a.xd);
+    for (int l = 1; l < L; ++l)
+      lv.add(a.w_hidden[l - 1], c.so.w_hidden[l - 1], a.h[l] * a.h[l - 1]);
+    for (int l = 0; l < L; ++l) lv.add(a.b_hidden[l], c.so.b_hidden[l], a.h[l]);
+    lv.add(a.w_mean, c.so.wm, a.xd * hl);
+    lv.add(a.w_logvar, c.so.wlv, a.xd * hl);
+    lv.add(a.b_logvar, c.so.blv, a.xd);
+    if (a.train_decoder) {
+      lv.add(a.w_dec, c.so.w_dec, a.yd * a.xd);
+      lv.add(a.b_dec, c.so.b_dec, a.yd);
+    }
+  }
   __syncthreads();
+  const VJFArgs& a = h->a;
+  const Ctx& c = h->c;
+  for (size_t i = threadIdx.x; i < c.so.ftf; i += NTHREADS) c.slab[i] = 0.f;
+  // the centroids transposed: (xd, nfp) and (ud, nfp)
+  for (int i = threadIdx.x; i < a.nfp * a.xd; i += NTHREADS)
+    c.s.cent_x[(i % a.xd) * a.nfp + i / a.xd] = a.cent_x[i];
+  for (int i = threadIdx.x; i < a.nfp * a.ud; i += NTHREADS)
+    c.s.cent_u[(i % a.ud) * a.nfp + i / a.ud] = a.cent_u[i];
+  for (int i = threadIdx.x; i < a.nfp; i += NTHREADS) {
+    c.s.c2[i] = a.c2[i];
+    c.s.inv_w2[i] = a.inv_w2[i];
+  }
+  __syncthreads();
+  return *h;
 }
 
-__device__ void vjf_step(const VJFArgs& a, const WS& w, Smem& sm, int t, uint32_t seed,
-                         uint32_t count) {
-  const float inv_b = 1.0f / (float)a.B;
-  const StepIO io = step_io(a, w, t, seed, count);
-  const bool stats = a.update && a.update_transition && !a.warm_up;
-  const StepSums p = step_forward_sums(a, w, sm, io, inv_b, stats);
-  step_apply(a, w, sm, io, p, t, inv_b);
-}
-
-__global__ void __launch_bounds__(NTHREADS, 1) vjf_kernel(VJFArgs a) {
-  __shared__ __align__(16) Smem sm;
-  const WS w = carve(a, a.ws);
-  const uint32_t seed = (uint32_t)a.rng_seed[0];
+// The fused kernels' body: T steps, the carry updated in place.
+__device__ __forceinline__ void vjf_steps(const VJFArgs& args, float* smem) {
+  const Header& h = make_header(args, smem);
+  const VJFArgs& a = h.a;
+  const Ctx& c = h.c;
+  CarryScalars cs{a.state_logvar[0], a.lik_logvar[0], a.dyn_n[0], a.lik_n[0]};
   const uint32_t count0 = (uint32_t)a.rng_count[0];
-  for (int t = 0; t < a.T; ++t) vjf_step(a, w, sm, t, seed, count0 + (uint32_t)t);
-  if (threadIdx.x == 0) a.rng_count[0] = (int)(count0 + (uint32_t)a.T);
+  const float inv_b = 1.0f / (float)a.B;
+  const bool stats = a.update && a.update_transition && !a.warm_up;
+  fetch_inputs(a, c, 0);
+  for (int t = 0; t < a.T; ++t) {
+    const int cur = t & 1;
+    step_begin(a, c, t, cur, count0 + (uint32_t)t);
+    step_forward_sums(a, c, cs, t, cur, inv_b, stats);
+    const StepSums p = reduce_scalars(a, c, cs, inv_b);
+    step_apply(a, c, cs, p, t, inv_b);
+  }
+  // every block read these at its start, before the first barrier
+  if (c.rank == 0 && threadIdx.x == 0) {
+    a.state_logvar[0] = cs.slv;
+    a.lik_logvar[0] = cs.lik_lv;
+    a.dyn_n[0] = cs.dyn_n;
+    a.lik_n[0] = cs.lik_n;
+    a.rng_count[0] = (int)(count0 + (uint32_t)a.T);
+  }
 }
 
 // Phase 1 of the sharded step alone (forward_sums_call): the flat FusedSums
 // buffer and the q pack of this rank's B trials, with the caller's global
 // inv_b and row offset of the noise. Reads the carry, writes none of it.
-__global__ void __launch_bounds__(NTHREADS, 1) vjf_sums_kernel(VJFArgs a) {
-  __shared__ __align__(16) Smem sm;
-  WS w = carve(a, a.ws);
-  const size_t n = point_sums(a, w, a.sums);
-  // leaves the flags leave uncomputed (gradients without SGD, the decoder's
-  // when it is frozen, the statistics without RLS) are zero
-  for (size_t i = threadIdx.x; i < n; i += NTHREADS) a.sums[i] = 0.f;
-  const StepIO io = step_io(a, w, 0, (uint32_t)a.rng_seed[0], (uint32_t)a.rng_count[0]);
-  const StepSums p = step_forward_sums(a, w, sm, io, a.inv_b, a.update && a.update_transition);
-  if (threadIdx.x == 0) {
-    float* tail = a.sums + n - N_SUM_SCALARS;
+__device__ __forceinline__ void vjf_sums(const VJFArgs& args, float* smem) {
+  const Header& h = make_header(args, smem);
+  const VJFArgs& a = h.a;
+  const Ctx& c = h.c;
+  const CarryScalars cs{a.state_logvar[0], a.lik_logvar[0], a.dyn_n[0], a.lik_n[0]};
+  fetch_inputs(a, c, 0);
+  step_begin(a, c, 0, 0, (uint32_t)a.rng_count[0]);
+  step_forward_sums(a, c, cs, 0, 0, a.inv_b, a.update && a.update_transition);
+  const StepSums p = reduce_scalars(a, c, cs, a.inv_b);
+  const Blk b = block_of((int)c.so.ftf, c.rank);
+  for (int i = b.first + threadIdx.x; i < b.first + b.n; i += NTHREADS)
+    a.sums[i] = rank_sum(c, i);
+  float* ftf = a.sums + c.so.ftf + (size_t)c.fr.first * a.nfp;
+  float* fxd = a.sums + c.so.fxd + (size_t)c.fr.first * a.xd;
+  if (a.update && a.update_transition) {
+    stat_rows(a, c, ftf, a.nfp, fxd);
+  } else {
+    for (int i = threadIdx.x; i < c.fr.n * a.nfp; i += NTHREADS) ftf[i] = 0.f;
+    for (int i = threadIdx.x; i < c.fr.n * a.xd; i += NTHREADS) fxd[i] = 0.f;
+  }
+  if (c.rank == 0 && threadIdx.x == 0) {
+    float* tail = a.sums + c.so.scalars;
     const float v[N_SUM_SCALARS] = {p.g_lik_lv_batch, p.recon_batch, p.dyn_batch, p.ent,
                                     p.sq_y, p.grad_check, p.fvf_sum, p.dx_sum, p.dx2_sum};
     for (int i = 0; i < N_SUM_SCALARS; ++i) tail[i] = v[i];
   }
+}
+
+// ---------------------------------------------------------------------------
+// Kernels and the C interface (ctypes)
+// ---------------------------------------------------------------------------
+
+extern __shared__ float4 vjf_smem[];
+
+__global__ void __launch_bounds__(NTHREADS, 1) vjf_kernel(VJFArgs a) {
+  vjf_steps(a, reinterpret_cast<float*>(vjf_smem));
+}
+
+__global__ void __launch_bounds__(NTHREADS, 1) vjf_sums_kernel(VJFArgs a) {
+  vjf_sums(a, reinterpret_cast<float*>(vjf_smem));
 }
 
 __global__ void philox_kernel(uint32_t seed, uint32_t count, int n_pairs, float* u1,
@@ -914,19 +1362,82 @@ __global__ void philox_kernel(uint32_t seed, uint32_t count, int n_pairs, float*
   }
 }
 
-// ---------------------------------------------------------------------------
-// C interface (ctypes)
-// ---------------------------------------------------------------------------
+typedef void (*vjf_kernel_t)(VJFArgs);
+
+// One cluster of VJF_CLUSTER blocks with the dynamic shared memory the
+// shapes ask for.
+static cudaError_t launch_config(vjf_kernel_t kernel, const VJFArgs& a, cudaStream_t stream,
+                                 cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
+  const size_t smem = carve_smem(a, nullptr).total * sizeof(float);
+  if (smem > MAX_SMEM_BYTES || a.nfp % 4 != 0) return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute((const void*)kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       MAX_SMEM_BYTES);
+  if (e != cudaSuccess) return e;
+  if (VJF_CLUSTER > 8) {
+    e = cudaFuncSetAttribute((const void*)kernel, cudaFuncAttributeNonPortableClusterSizeAllowed,
+                             1);
+    if (e != cudaSuccess) return e;
+  }
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(VJF_CLUSTER, 1, 1);
+  cfg->blockDim = dim3(NTHREADS, 1, 1);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = VJF_CLUSTER;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+static int launch(vjf_kernel_t kernel, const VJFArgs& a, void* stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t e = launch_config(kernel, a, (cudaStream_t)stream, &cfg, &attr);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaLaunchKernelEx(&cfg, kernel, a);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
 
 extern "C" {
 
-size_t vjf_workspace_floats(const VJFArgs* a) { return carve(*a, nullptr).total; }
+size_t vjf_workspace_floats(const VJFArgs* a) { return carve_global(*a, nullptr).total; }
 
 size_t vjf_args_size(void) { return sizeof(VJFArgs); }
 
-size_t vjf_sums_floats(const VJFArgs* a) {
-  WS w;
-  return point_sums(*a, w, nullptr);
+size_t vjf_sums_floats(const VJFArgs* a) { return sums_offsets(*a).total; }
+
+// Bytes of dynamic shared memory a block needs at these shapes; a launch is
+// refused above vjf_smem_limit().
+size_t vjf_smem_bytes(const VJFArgs* a) { return carve_smem(*a, nullptr).total * sizeof(float); }
+
+size_t vjf_smem_limit(void) { return MAX_SMEM_BYTES; }
+
+// How the fused kernel launches at these shapes: out[0] blocks in the
+// cluster, [1] threads per block, [2] dynamic shared memory bytes, [3]
+// clusters the card can hold at once, [4] registers per thread, [5] bytes of
+// local memory per thread (spills). Returns a cudaError.
+int vjf_cluster_info(const VJFArgs* a, int* out) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t e = launch_config(vjf_kernel, *a, nullptr, &cfg, &attr);
+  if (e != cudaSuccess) return (int)e;
+  int clusters = 0;
+  e = cudaOccupancyMaxActiveClusters(&clusters, (const void*)vjf_kernel, &cfg);
+  if (e != cudaSuccess) return (int)e;
+  cudaFuncAttributes fa;
+  e = cudaFuncGetAttributes(&fa, (const void*)vjf_kernel);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = VJF_CLUSTER;
+  out[1] = NTHREADS;
+  out[2] = (int)cfg.dynamicSmemBytes;
+  out[3] = clusters;
+  out[4] = fa.numRegs;
+  out[5] = (int)fa.localSizeBytes;
+  return 0;
 }
 
 // The two launchers are the two modes of vjf_kernel; each sets its own.
@@ -936,8 +1447,7 @@ int vjf_fused_step(const VJFArgs* a, void* stream) {
   VJFArgs s = *a;
   s.mega = 0;
   s.ns_iters = NS_ITERS;
-  vjf_kernel<<<1, NTHREADS, 0, (cudaStream_t)stream>>>(s);
-  return (int)cudaGetLastError();
+  return launch(vjf_kernel, s, stream);
 }
 
 // T steps in one launch (mega_epoch_call): the caller's base iterations
@@ -945,15 +1455,13 @@ int vjf_fused_step(const VJFArgs* a, void* stream) {
 int vjf_mega_epoch(const VJFArgs* a, void* stream) {
   VJFArgs m = *a;
   m.mega = 1;
-  vjf_kernel<<<1, NTHREADS, 0, (cudaStream_t)stream>>>(m);
-  return (int)cudaGetLastError();
+  return launch(vjf_kernel, m, stream);
 }
 
 // Phase 1 of the sharded step (forward_sums_call): the caller sets T = 1,
 // sums, inv_b and row0.
 int vjf_forward_sums(const VJFArgs* a, void* stream) {
-  vjf_sums_kernel<<<1, NTHREADS, 0, (cudaStream_t)stream>>>(*a);
-  return (int)cudaGetLastError();
+  return launch(vjf_sums_kernel, *a, stream);
 }
 
 // The in-kernel sampler alone: (rows, cols) uniforms and normals of one

@@ -21,8 +21,12 @@ from typing import NamedTuple, Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "vjf_tpu_torch"
+# Blocks in the kernels' thread-block cluster, a compile-time constant of
+# csrc/fused_step.cu. 8 is the largest portable size; the environment
+# variable VJF_CLUSTER builds another (4 or 16) to compare.
+CLUSTER = int(os.environ.get("VJF_CLUSTER", "8"))
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", f"-DVJF_CLUSTER={CLUSTER}"]
 
 
 class BuildInfo(NamedTuple):

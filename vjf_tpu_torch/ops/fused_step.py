@@ -13,7 +13,8 @@ their plain PyTorch versions (counterpart of
   all-reduce adds up across ranks. On a CUDA tensor each launches its kernel
   from ``csrc/fused_step.cu`` (``vjf_fused_step``, ``vjf_mega_epoch``,
   ``vjf_forward_sums``) or raises; on a CPU tensor each runs its plain
-  version.
+  version. Each kernel runs as one thread-block cluster that splits the
+  trials and the rows of P, V and w (:func:`cluster_rows` mirrors the split).
 * :func:`run_epoch_fused` pads the state once, runs the prefix (per-step
   kernel plus :func:`exact_v_fallback`) and the mega segment, and unpads.
   The sharded epoch, ``parallel.sharded.run_epoch_fused_sharded``, runs
@@ -50,11 +51,13 @@ _SGP_TODO = "SGP dynamics: ROADMAP Queue 1 item 9"
 # kernel launches, one count per launcher; only the CUDA branch of a wrapper
 # adds to its count
 launches = {"fused_step": 0, "mega_epoch": 0, "forward_sums": 0}
+# timesteps those launches ran (a mega launch runs a whole segment)
+steps = {"fused_step": 0, "mega_epoch": 0, "forward_sums": 0}
 
 
 def reset_launches() -> None:
     for k in launches:
-        launches[k] = 0
+        launches[k] = steps[k] = 0
 
 
 def epoch_repair_enabled(cfg, n_batch: int) -> bool:
@@ -758,6 +761,26 @@ def forward_sums_plain(cfg, flags, carry, qs_m, qs_lv, y, u, eps_s, eps_t, inv_b
 _P = ctypes.c_void_p
 _MAX_LAYERS = 3
 _MAX_WIDTH = 64
+_MAX_FEATURES = 128     # a block stages the whole (nfp, nfp) iterate in shared memory
+
+
+def cluster_size() -> int:
+    """Blocks in the kernels' thread-block cluster (``VJF_CLUSTER`` of
+    ``csrc/fused_step.cu``, a compile-time constant of the build)."""
+    from . import _build
+
+    return _build.CLUSTER
+
+
+def cluster_rows(rank: int, total: int, size: Optional[int] = None) -> range:
+    """The contiguous rows block ``rank`` of the cluster owns out of
+    ``total`` (trials, or rows of P, V and w): ``ceil(total / size)`` each,
+    the last blocks fewer or none. Mirrors ``block_of`` in
+    ``csrc/fused_step.cu``."""
+    size = cluster_size() if size is None else size
+    per = -(-total // size)
+    first = min(rank * per, total)
+    return range(first, first + min(per, total - first))
 
 
 class _Args(ctypes.Structure):
@@ -792,12 +815,16 @@ def _library():
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.POINTER(_Args), _P]
             fn.restype = ctypes.c_int
-        for name in ("vjf_workspace_floats", "vjf_sums_floats"):
+        for name in ("vjf_workspace_floats", "vjf_sums_floats", "vjf_smem_bytes"):
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.POINTER(_Args)]
             fn.restype = ctypes.c_size_t
-        lib.vjf_args_size.argtypes = []
-        lib.vjf_args_size.restype = ctypes.c_size_t
+        for name in ("vjf_args_size", "vjf_smem_limit"):
+            fn = getattr(lib, name)
+            fn.argtypes = []
+            fn.restype = ctypes.c_size_t
+        lib.vjf_cluster_info.argtypes = [ctypes.POINTER(_Args), ctypes.POINTER(ctypes.c_int)]
+        lib.vjf_cluster_info.restype = ctypes.c_int
         lib.vjf_philox_normals.argtypes = [ctypes.c_int] * 4 + [_P] * 4
         lib.vjf_philox_normals.restype = ctypes.c_int
         if lib.vjf_args_size() != ctypes.sizeof(_Args):
@@ -830,12 +857,15 @@ def _launch(kernel: str, cfg, flags, carry: FusedCarry, qs_m, qs_lv, ys, us, eps
             eps_t, lr, q_pack, scal, g_vec=None, xt=None, xs=None, ns_iters=0,
             sums=None, inv_b=0.0, row0=0):
     """Check every operand and launch ``vjf_fused_step``, ``vjf_mega_epoch``
-    or ``vjf_forward_sums`` on the current stream. ``ys``/``us``/``eps_*``
-    carry a leading time axis; ``ns_iters`` is the mega kernel's base
-    Newton-Schulz iterations (each launcher sets its own mode). The phase-1
-    kernel takes ``sums`` (the flat buffer), ``inv_b`` and ``row0`` (the
-    first row of this rank's trials in the whole batch) and no ``lr`` or
-    ``scal``."""
+    or ``vjf_forward_sums`` on the current stream, or, with
+    ``kernel="info"``, launch nothing and return :func:`cluster_info`'s
+    numbers. ``ys``/``us``/``eps_*`` carry a leading time axis; ``ns_iters``
+    is the mega kernel's base Newton-Schulz iterations (each launcher sets
+    its own mode). The phase-1 kernel takes ``sums`` (the flat buffer),
+    ``inv_b`` and ``row0`` (the first row of this rank's trials in the whole
+    batch) and no ``lr`` or ``scal``. Raises ``ValueError`` for a tensor
+    that does not lie on the card and for a shape the kernel does not take:
+    nothing falls back to the plain version."""
     if carry.w_white is not None or carry.scale2 is not None:
         raise NotImplementedError(_SGP_TODO)
     dev = carry.p_mat.device
@@ -846,6 +876,9 @@ def _launch(kernel: str, cfg, flags, carry: FusedCarry, qs_m, qs_lv, ys, us, eps
     if not 1 <= len(widths) <= _MAX_LAYERS or max(widths) > _MAX_WIDTH:
         raise ValueError(f"the kernel takes 1 to {_MAX_LAYERS} hidden layers of width "
                          f"<= {_MAX_WIDTH}, got {widths}")
+    if nfp % 4 or nfp > _MAX_FEATURES:
+        raise ValueError(f"the kernel takes at most {_MAX_FEATURES} padded features, a "
+                         f"multiple of 4, got {nfp}")
     if (ud > 0) != (carry.w_in_u is not None) or ud != cfg.udim:
         raise ValueError(f"controls of width {ud} do not match udim={cfg.udim}")
     if (eps_s is None) != (eps_t is None):
@@ -910,6 +943,18 @@ def _launch(kernel: str, cfg, flags, carry: FusedCarry, qs_m, qs_lv, ys, us, eps
     a.obs_var_cap, a.state_var_cap = float(cfg.obs_var_cap), float(cfg.state_var_cap)
 
     lib = _library()
+    need, limit = lib.vjf_smem_bytes(ctypes.byref(a)), lib.vjf_smem_limit()
+    if need > limit:
+        raise ValueError(
+            f"{b} trials over {cluster_size()} blocks at these widths need {need} bytes of "
+            f"shared memory a block, over the card's {limit}")
+    if kernel == "info":
+        out = (ctypes.c_int * 6)()
+        rc = lib.vjf_cluster_info(ctypes.byref(a), out)
+        if rc != 0:
+            raise RuntimeError(f"vjf_cluster_info failed: cudaError {rc}")
+        return dict(zip(("cluster", "threads", "smem_bytes", "active_clusters", "registers",
+                         "local_bytes"), out))
     if sums is not None:
         a.sums = c(sums, "sums", (lib.vjf_sums_floats(ctypes.byref(a)),))
     ws = torch.empty(lib.vjf_workspace_floats(ctypes.byref(a)), dtype=torch.float32,
@@ -920,6 +965,18 @@ def _launch(kernel: str, cfg, flags, carry: FusedCarry, qs_m, qs_lv, ys, us, eps
         rc = fn(ctypes.byref(a), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: cudaError {rc}")
+
+
+def cluster_info(cfg, flags, carry: FusedCarry, qs_m, qs_lv, ys, us, lr) -> dict:
+    """How the fused kernel would launch on these operands, without
+    launching it: blocks in the cluster, threads a block, bytes of dynamic
+    shared memory a block, clusters the card holds at once, registers a
+    thread, and bytes of local memory a thread (register spills)."""
+    t_total, b, _ = ys.shape
+    q_pack = torch.empty((t_total, 2, b, cfg.xdim), dtype=ys.dtype, device=ys.device)
+    scal = torch.empty((t_total, 8), dtype=ys.dtype, device=ys.device)
+    return _launch("info", cfg, flags, carry, qs_m, qs_lv, ys, us, None, None, lr, q_pack,
+                   scal)
 
 
 def philox_normals_kernel(seed: int, count: int, rows: int, cols: int, device):
@@ -963,6 +1020,7 @@ def fused_step_call(cfg, flags, carry, qs_m, qs_lv, y, u, eps_s, eps_t, lr
         lr, q_pack, scal, g_vec=g_vec, xt=xt, xs=xs,
     )
     launches["fused_step"] += 1
+    steps["fused_step"] += 1
     return PackedStepOut(carry, q_pack, g_vec, xt, xs, scal)
 
 
@@ -983,6 +1041,7 @@ def mega_epoch_call(cfg, flags, carry, qs_m, qs_lv, ys, us, eps_s, eps_t, lr):
         q_pack, scal, ns_iters=mega_ns_base_iters(cfg, b),
     )
     launches["mega_epoch"] += 1
+    steps["mega_epoch"] += t_total
     return carry, q_pack, scal
 
 
@@ -1007,6 +1066,7 @@ def forward_sums_call(cfg, flags, carry, qs_m, qs_lv, y, u, eps_s, eps_t, inv_b,
         sums=flat, inv_b=inv_b, row0=row0,
     )
     launches["forward_sums"] += 1
+    steps["forward_sums"] += 1
     return flat, q_pack
 
 
