@@ -10,7 +10,13 @@ the cluster does not divide is split right), drives the main path (the flagship 
 T = 2048 per epoch) through the kernels, times each kernel beside its plain
 version, and profiles one RLS epoch. The ``sharded`` phases then drive the
 exact-sync sharded epoch (``parallel.sharded``) at world size 1 over NCCL
-through its phase-1 kernel and hold it against the single-device epoch.
+through its phase-1 kernel and hold it against the single-device epoch. The
+last phases hold the autograd epoch (``fused_step='off'``, the route a
+demoted epoch takes) against the stepwise kernel epoch, and drive the
+training entry point ``fit``: blocked at the flagship width with
+``bench_all.py``'s forgetting (prefix-free continuation), per epoch with a
+forced demotion and re-probe, and ``bench_all.py``'s Van der Pol fit, whose
+forecast must beat persistence.
 Phases print one line each; any failed check raises and the script exits
 non-zero. The last line is the result:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -18,6 +24,7 @@ Imports nothing of JAX. Needs one CUDA device and nvcc.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import json
@@ -26,15 +33,18 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
+from vjf_tpu_torch import datasets
 from vjf_tpu_torch.config import StepFlags, VJFConfig
-from vjf_tpu_torch.convert import flatten
+from vjf_tpu_torch.convert import flatten, state_to_numpy
 from vjf_tpu_torch.models import vjf as core
 from vjf_tpu_torch.ops import _build, rng
 from vjf_tpu_torch.ops import fused_step as F
 from vjf_tpu_torch.parallel import make_dp_group, run_epoch_fused_sharded
+from vjf_tpu_torch.utils.evaluation import forecast_rmse, latent_r2
 
 B = 256                 # trials, as in bench.py
 T_EPOCH = 2048          # steps per main-path epoch
@@ -84,6 +94,21 @@ EPOCH_TOL = {
     "bfloat16": {"loss": 2e-5, "q_means": 4e-3, "w_mean": 1.5e-4, "cov": 1.3e-4,
                  "state_logvar": 4e-5},
 }
+XLA_STEPS = 64          # steps of the autograd epoch against the stepwise kernel epoch
+# The autograd epoch (fused_step='off') and the stepwise kernel epoch run
+# the same math in f32 with sums in other orders; each leaf's normalised
+# error (see compare) must stay under the f32 kernel limit. The planted
+# faults (SGD off, decoder update off) leave a trained leaf where it was and
+# read about 1.
+XLA_TOL = TOL["float32"]
+FIT_EPOCHS = 8          # fit.flagship: 2 warm-up epochs, then 3 RLS blocks of 2
+# Without forgetting, the flagship's RLS diverges in the 4th to 7th RLS
+# epoch after fit's bootstrap, with the prefix or without, kernels and plain
+# versions alike (scripts/torch_fit_stability.py); fit.flagship takes
+# bench_all.py's.
+FIT_FORGET = dict(rls_shrink=0.999, chol_jitter=1e-3)
+DEMOTE_T = 64           # fit.demote: steps per epoch
+VDP_EPOCHS = 60         # fit.vdp: bench_all.py's max_iter for config #1
 # one card's published peaks (H100 SXM data sheet, dense): HBM bytes/s,
 # FP32 outside the tensor cores, bf16 in them
 PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
@@ -525,6 +550,244 @@ def check_sharded_epoch(cfg, post_warm, ys, us, lr, qm, qlv, smi) -> int:
         dist.destroy_process_group()
 
 
+def state_leaves(state) -> dict:
+    """A state's leaves as CPU copies, by name."""
+    return {k: torch.as_tensor(v).clone() for k, v in flatten(state_to_numpy(state)).items()}
+
+
+def trained_leaves(state) -> dict:
+    """The state leaves each update moves: RLS, state noise, first layer,
+    decoder."""
+    p, d = state.params, state.dynamics
+    return {"w_mean": d.blr.w_mean, "cov": d.blr.cov, "state_logvar": d.logvar,
+            "w_in": p.recognition.layers[0].weight, "w_dec": p.decoder.weight}
+
+
+def xla_leaves(res) -> dict:
+    """The leaves the autograd-vs-kernel check holds: outputs and
+    :func:`trained_leaves`."""
+    return {"loss": res.metrics.loss, "q_means": res.q_means, **trained_leaves(res.state)}
+
+
+def synced(fn):
+    """``fn()`` and its seconds on the host clock, the device synchronised."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def check_xla(cfg, post_warm, ys, us, lr, smi, steps: int = XLA_STEPS) -> None:
+    """The autograd epoch (``fused_step='off'``: ``filter_step`` per step,
+    products in full f32) against the stepwise kernel epoch
+    (``fused_epoch='stepwise'``: the per-step kernel with NS_ITERS and the
+    exact fallback at tau >= 0.25, the same math) from the post-warm-up
+    state, injected noise, f32 products; the planted faults (the autograd
+    epoch with SGD off, with the decoder update off) must be rejected."""
+    dev = ys.device
+    g = torch.Generator(device=dev).manual_seed(4)
+    eps = torch.randn((2, steps, ys.shape[1], cfg.xdim), device=dev, generator=g)
+    ys, us, flags = ys[:steps], us[:steps], StepFlags()
+
+    def epoch(c, fl):
+        return synced(lambda: core.run_epoch(c, fl, post_warm, ys, us, 0, lr,
+                                             noise=(eps[0], eps[1])))
+
+    kernel, k_s = epoch(cfg.replace(fused_epoch="stepwise"), flags)
+    auto = cfg.replace(fused_step="off")
+    xla, x_s = epoch(auto, flags)
+    check(kernel.metrics.tau is not None and xla.metrics.tau is None,
+          "xla.vs_kernel: the routes were not the kernel and the autograd step")
+    fired = int((kernel.metrics.tau >= F.NS_TAU_THRESHOLD).sum())
+    ref, start = xla_leaves(kernel), trained_leaves(post_warm)
+    err = compare("xla.vs_kernel", ref, xla_leaves(xla), XLA_TOL, start)
+    for fault, fl in {"no_sgd": dataclasses.replace(flags, sgd=False),
+                      "no_decoder_update": dataclasses.replace(flags, train_decoder=False)
+                      }.items():
+        compare(f"xla.vs_kernel.fault.{fault}", ref, xla_leaves(epoch(auto, fl)[0]), XLA_TOL,
+                start, reject=True)
+    phase("xla.vs_kernel.times", steps=steps, tol=XLA_TOL, max_abs_err=err,
+          fallback_steps=fired, autograd_us_per_step=1e6 * x_s / steps,
+          stepwise_kernel_us_per_step=1e6 * k_s / steps, card=smi)
+
+
+@contextlib.contextmanager
+def watched(name: str):
+    """``core.<name>`` (``run_epoch`` or ``run_epochs``) wrapped for the
+    duration: each call is timed with the device synchronised and logged
+    with its route, its prefix, its phase and whether the state it was
+    given is bit-identical afterwards. Yields the log."""
+    real = getattr(core, name)
+    log = []
+
+    def call(cfg, flags, state, *args, **kw):
+        before = state_leaves(state)
+        res, secs = synced(lambda: real(cfg, flags, state, *args, **kw))
+        after = state_leaves(state)
+        fused = F.fused_enabled(cfg, state, n_batch=args[0].shape[1])
+        entry = {"route": "fused" if fused else "autograd",
+                 "ns_prefix": cfg.ns_prefix, "warm_up": flags.warm_up, "seconds": secs,
+                 "input_intact": all(torch.equal(before[k], after[k]) for k in before),
+                 "input": before}
+        if name == "run_epochs":
+            entry.update(epochs=len(args[2]), loss=res.epoch_loss.tolist(),
+                         max_tau=float(res.max_tau.max()), hot_frac=float(res.hot_frac.max()))
+        log.append(entry)
+        return res
+
+    setattr(core, name, call)
+    try:
+        yield log
+    finally:
+        setattr(core, name, real)
+
+
+@contextlib.contextmanager
+def timed(name: str):
+    """``core.<name>`` wrapped for the duration: each call's seconds, the
+    device synchronised. Yields the list."""
+    real = getattr(core, name)
+    secs = []
+
+    def call(*args, **kw):
+        out, s = synced(lambda: real(*args, **kw))
+        secs.append(s)
+        return out
+
+    setattr(core, name, call)
+    try:
+        yield secs
+    finally:
+        setattr(core, name, real)
+
+
+def blocks_summary(log, t_len: int) -> list:
+    return [{k: v for k, v in e.items() if k != "input"}
+            | {"steps_per_s": e["epochs"] * t_len / e["seconds"]} for e in log]
+
+
+def check_fit_flagship(cfg, ys, smi, max_iter: int = FIT_EPOCHS) -> dict:
+    """``fit`` at the flagship width in blocked mode (2 epochs a dispatch,
+    warm-up forced to end after 2 epochs) with ``bench_all.py``'s forgetting
+    (``FIT_FORGET``): the blocks' times with and without the exact-inverse
+    prefix, where prefix-free continuation engaged, bench.py's asserts, and
+    both fused kernels launched. Returns the launches."""
+    cfg = cfg.replace(warmup_max=2, **FIT_FORGET)
+    state = core.init_state(0, cfg, device=ys.device)
+    with watched("run_epochs") as log, timed("_bootstrap_dynamics") as boot:
+        F.reset_launches()
+        res, secs = synced(lambda: core.fit(cfg, state, ys, seed=7, max_iter=max_iter,
+                                            epochs_per_dispatch=2))
+        launches = dict(F.launches)
+    t_len = ys.shape[0]
+    blocks = blocks_summary(log, t_len)
+    rls = [b for b in blocks if not b["warm_up"]]
+    check(all(b["input_intact"] for b in blocks), "fit.flagship: a block wrote its input state")
+    check(math.isfinite(res.loss), f"fit.flagship: loss {res.loss}")
+    check(not res.warm_up and rls, "fit.flagship: warm-up never ended")
+    max_tau = max(b["max_tau"] for b in rls)
+    hot = max(b["hot_frac"] for b in rls)
+    check(max_tau < 0.7, f"fit.flagship: Newton-Schulz never contracted (tau={max_tau})")
+    check(hot < 0.01, f"fit.flagship: dropped {100 * hot:.1f}% of RLS updates")
+    check(launches["fused_step"] > 0 and launches["mega_epoch"] > 0,
+          f"fit.flagship: launches {launches}")
+    with_prefix = [b for b in rls if b["ns_prefix"] > 0]
+    free = [i for i, b in enumerate(blocks) if not b["warm_up"] and b["ns_prefix"] == 0]
+    phase("fit.flagship", config="bench.py flagship, B %d, T %d, 2 epochs a block, "
+          "rls_shrink 0.999, chol_jitter 1e-3" % (ys.shape[1], t_len), seconds=secs,
+          epochs_run=res.epochs_run,
+          warm_up_epochs=sum(b["epochs"] for b in blocks if b["warm_up"]),
+          prefix_free_from_block=free[0] if free else None,
+          rls_steps_per_s_with_prefix=[b["steps_per_s"] for b in with_prefix],
+          rls_steps_per_s_prefix_free=[blocks[i]["steps_per_s"] for i in free],
+          bootstrap_s=boot, loss=res.loss, max_tau=max_tau, hot_frac=hot, launches=launches,
+          blocks=blocks,
+          card=smi)
+    return launches
+
+
+def check_fit_demote(cfg, ys, smi, t_len: int = DEMOTE_T) -> None:
+    """A per-epoch ``fit`` (flagship widths, short epochs) whose hot-tau
+    threshold lies below 0: the first RLS epoch demotes and re-runs on the
+    autograd route from its backup, which must be the intact pre-epoch
+    state; ``repromote_after`` epochs later the mega layout is probed again
+    (and demotes again)."""
+    cfg = cfg.replace(demote_hot_frac=-1.0, ns_prefix=16, warmup_max=2, repromote_after=2)
+    state = core.init_state(1, cfg, device=ys.device)
+    with watched("run_epoch") as log:
+        res, secs = synced(lambda: core.fit(cfg, state, ys[:t_len], seed=8, max_iter=5))
+    routes = [("warm-up " if e["warm_up"] else "") + e["route"] for e in log]
+    want = ["warm-up fused", "warm-up fused", "fused", "autograd", "autograd", "fused",
+            "autograd"]
+    check(routes == want, f"fit.demote: routes {routes}, expected {want}")
+    check(all(e["input_intact"] for e in log), "fit.demote: an epoch wrote its input state")
+    for i in (3, 6):   # each demoted re-run starts from the demoted epoch's input
+        a, b = log[i - 1]["input"], log[i]["input"]
+        check(all(torch.equal(a[k], b[k]) for k in a), f"fit.demote: backup {i} differs")
+    check(math.isfinite(res.loss), f"fit.demote: loss {res.loss}")
+    auto = [e["seconds"] for e in log if e["route"] == "autograd"]
+    phase("fit.demote", steps_per_epoch=t_len, routes=routes, backup_intact=True, seconds=secs,
+          autograd_us_per_step=[1e6 * s / t_len for s in auto],
+          fused_epoch_s=[e["seconds"] for e in log if e["route"] == "fused"], card=smi)
+
+
+def quality_problem(name: str):
+    """``bench_all.py``'s config #1 (``van_der_pol``) or #2 (``lorenz``):
+    ``(cfg, y (T, ydim) float32, x_true (T, xdim))``."""
+    if name == "van_der_pol":
+        x = datasets.van_der_pol(T=1200)
+        x = (x - x.mean(0)) / x.std(0)
+        r = np.random.default_rng(1)
+        c = r.normal(size=(2, 20))
+        y = x @ c + r.normal(size=(20,)) + 0.1 * r.normal(size=(1200, 20))
+        cfg = VJFConfig(ydim=20, xdim=2, udim=0, n_rbf=100, hidden_sizes=(20,),
+                        likelihood="gaussian", dtype="float32", rls_backend="nsv",
+                        lr=3e-3, rtol=2e-3, rls_shrink=0.999, chol_jitter=1e-3)
+        return cfg, y.astype(np.float32), x
+    x = datasets.lorenz(T=1500)
+    x = (x - x.mean(0)) / x.std(0)
+    r = np.random.default_rng(2)
+    c = r.normal(size=(3, 50)) * 0.4
+    y = r.poisson(np.exp(np.clip(x @ c + 0.5, -4, 3))).astype(np.float32)
+    cfg = VJFConfig(ydim=50, xdim=3, udim=0, n_rbf=100, hidden_sizes=(32,),
+                    likelihood="poisson", dtype="float32", rls_backend="nsv",
+                    lr=2e-3, rtol=2e-3, rls_shrink=0.999, chol_jitter=1e-3)
+    return cfg, y, x
+
+
+def fit_quality(cfg, y, x_true, dev, max_iter: int, seed: int = 0, horizon: int = 20) -> dict:
+    """``bench_all.py:_fit_throughput`` through the port: ``fit`` in blocks
+    of 5 epochs, then latent R^2 and the 20-step forecast RMSE beside
+    persistence, and each dispatch's route, prefix and time."""
+    state = core.init_state(seed, cfg, device=dev)
+    with watched("run_epochs") as log:
+        res, wall = synced(lambda: core.fit(cfg, state, y, seed=seed, max_iter=max_iter,
+                                            epochs_per_dispatch=5))
+    mu = res.mu[:, 0, :]
+    m_rmse, p_rmse = forecast_rmse(cfg, res.state, mu, y, seed, horizon=horizon)
+    blocks = blocks_summary(log, y.shape[0])
+    free = [i for i, b in enumerate(blocks) if not b["warm_up"] and b["ns_prefix"] == 0]
+    return {"wall_s": wall, "epochs_run": res.epochs_run,
+            "steps_per_s": y.shape[0] * res.epochs_run / wall, "final_loss": res.loss,
+            "latent_r2": latent_r2(mu, x_true), "forecast_rmse": m_rmse,
+            "persistence_rmse": p_rmse,
+            "demoted_blocks": sum(b["route"] == "autograd" for b in blocks),
+            "prefix_free_from_block": free[0] if free else None, "blocks": blocks}
+
+
+def check_fit_vdp(dev, smi, max_iter: int = VDP_EPOCHS) -> None:
+    """``bench_all.py``'s Van der Pol fit (B 1, Gaussian) through the port's
+    ``fit``: its forecast must beat persistence."""
+    cfg, y, x = quality_problem("van_der_pol")
+    out = fit_quality(cfg, y, x, dev, max_iter)
+    check(out["forecast_rmse"] < out["persistence_rmse"],
+          f"fit.vdp: forecast RMSE {out['forecast_rmse']} >= persistence "
+          f"{out['persistence_rmse']}")
+    phase("fit.vdp", config="bench_all.py #1 van_der_pol_gaussian, T 1200, B 1",
+          max_iter=max_iter, **out, card=smi)
+
+
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
@@ -749,6 +1012,12 @@ def main() -> int:
 
     # ---------------- sharded: the exact-sync epoch at world size 1 ----------------
     sums_launches, sums_steps = check_sharded_epoch(cfg, post_warm, ys, us, lr, qm0, qlv0, smi)
+
+    # ---------------- the autograd epoch and the fit loop ----------------
+    check_xla(flagship("float32"), post_warm, ys, us, lr, smi)
+    check_fit_flagship(cfg, ys, smi)
+    check_fit_demote(cfg, ys, smi)
+    check_fit_vdp(dev, smi)
 
     # ---------------- bounds: the least time one card could take ----------------
     # each input read once and each output written once; the mega segment's

@@ -64,16 +64,54 @@ def _state(cfg):
 
 
 def test_run_epoch_refuses_the_unported_xla_step():
+    """The JAX package's XLA step is the port's autograd route: a CPU state
+    with ``fused_step='auto'`` (not the fused path) takes it and returns
+    finite losses and no tau stream."""
     cfg = tcfg.VJFConfig(ydim=4, xdim=2, n_rbf=5, hidden_sizes=(3,), rls_backend="nsv",
-                         fused_step="off")
-    ys = torch.zeros(3, 2, 4)
-    us = torch.zeros(3, 2, 0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tcore.run_epoch(cfg, tcfg.StepFlags(), _state(cfg), ys, us, 0, 1e-3)
-    # 'auto' on a CPU state is not the fused path either
-    auto = cfg.replace(fused_step="auto")
-    assert not TF.fused_enabled(auto, _state(auto))
-    assert TF.fused_enabled(cfg.replace(fused_step="on"), _state(cfg))
+                         fused_step="auto")
+    state = _state(cfg)
+    assert not TF.fused_enabled(cfg, state)
+    assert TF.fused_enabled(cfg.replace(fused_step="on"), state)
+    g = torch.Generator().manual_seed(0)
+    ys, us = torch.randn(3, 2, 4, generator=g), torch.zeros(3, 2, 0)
+    res = tcore.run_epoch(cfg, tcfg.StepFlags(), state, ys, us, 0, 1e-3)
+    assert res.metrics.tau is None
+    assert torch.isfinite(res.metrics.loss).all() and res.q_means.shape == (3, 2, 2)
+
+
+_DEFERRED = {
+    "mesh": (dict(mesh=object()), "item 13"),
+    "mask": (dict(mask=torch.ones(6, 2)), "item 8"),
+    "channel_mask": (dict(channel_mask=torch.ones(6, 2, 4)), "item 8"),
+    "checkpoint_path": (dict(checkpoint_path="fit.ckpt", checkpoint_every=1), "item 10"),
+    "resume_from": (dict(resume_from="fit.ckpt"), "item 10"),
+    "multistep_refine": (dict(cfg=dict(multistep_refine=2)), "item 7"),
+    "sgp": (dict(cfg=dict(dynamics="sgp")), "item 9"),
+    "kalman": (dict(cfg=dict(dynamics_update="kalman")), "item 3"),
+    "warm_gate": (None, "item 11"),
+    "precision_backend": (None, "item 3"),
+    "covariance_backend": (None, "item 3"),
+}
+
+
+@pytest.mark.parametrize("branch", list(_DEFERRED))
+def test_deferred_branches_name_their_roadmap_item(branch):
+    """Each branch this slice leaves out raises NotImplementedError naming
+    the ROADMAP Queue 1 item that will port it."""
+    cfg = tcfg.VJFConfig(ydim=4, xdim=2, n_rbf=5, hidden_sizes=(3,), rls_backend="nsv")
+    state = _state(cfg)
+    ys = torch.zeros(6, 2, 4)
+    kw, item = _DEFERRED[branch]
+    with pytest.raises(NotImplementedError, match=f"Queue 1 {item}$|Queue 1 {item}[^0-9]"):
+        if branch == "warm_gate":
+            tcore.run_epoch(cfg, tcfg.StepFlags(), state, ys, torch.zeros(6, 2, 0), 0, 1e-3,
+                            warm_gate=torch.tensor(1.0))
+        elif branch.endswith("_backend"):
+            tcore.init_state(0, cfg.replace(rls_backend=branch.split("_")[0]), device="cpu")
+        else:
+            kw = dict(kw)
+            fit_cfg = cfg.replace(**kw.pop("cfg", {}))
+            tcore.fit(fit_cfg, state, ys, seed=0, max_iter=1, **kw)
 
 
 def test_unported_options_raise():

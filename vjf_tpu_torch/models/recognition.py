@@ -2,15 +2,17 @@
 (counterpart of ``vjf_tpu/models/recognition.py``).
 
 An MLP over ``concat(y, u, q_prev.mean, q_prev.logvar)`` with Tanh
-activations and two heads: ``mean`` (no bias) and ``logvar`` (bias). The
-layers are ``nn.Linear`` in torch's ``(out, in)`` layout, which is also the
-JAX package's layout. Parameters carry no autograd: the fused step trains
-them with its hand-written backward.
+activations (the fused kernels' only one) and two heads: ``mean`` (no bias)
+and ``logvar`` (bias). The layers are ``nn.Linear`` in torch's ``(out,
+in)`` layout, which is also the JAX package's layout. Parameters carry no
+autograd: the fused step trains them with its hand-written backward, and
+the autograd step (``models.vjf.filter_step``) differentiates a copy made
+by :func:`map_linears` and builds new modules from the updated tensors.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 from torch import nn
@@ -19,12 +21,14 @@ from ..types import Gaussian
 from .rbf import uniform
 
 
-def linear_from(w: torch.Tensor, b: Optional[torch.Tensor] = None) -> nn.Linear:
-    """An ``nn.Linear`` whose weight (and bias) ARE the given tensors."""
+def linear_from(w: torch.Tensor, b: Optional[torch.Tensor] = None,
+                requires_grad: bool = False) -> nn.Linear:
+    """An ``nn.Linear`` whose weight (and bias) share the given tensors'
+    storage; with ``requires_grad`` they are fresh autograd leaves."""
     lin = nn.Linear(w.shape[1], w.shape[0], bias=b is not None, device="meta")
-    lin.weight = nn.Parameter(w, requires_grad=False)
+    lin.weight = nn.Parameter(w, requires_grad=requires_grad)
     if b is not None:
-        lin.bias = nn.Parameter(b, requires_grad=False)
+        lin.bias = nn.Parameter(b, requires_grad=requires_grad)
     return lin
 
 
@@ -48,13 +52,30 @@ class Recognition(nn.Module):
         self.mean = mean
         self.logvar = logvar
 
-    def forward(self, y: torch.Tensor, qs: Gaussian,
-                u: Optional[torch.Tensor] = None) -> Gaussian:
+    def forward(self, y: torch.Tensor, qs: Gaussian, u: Optional[torch.Tensor] = None,
+                activation: str = "tanh") -> Gaussian:
+        act = ACTIVATIONS[activation]
         parts = [y] + ([u] if u is not None and u.shape[-1] > 0 else [])
         h = torch.cat(parts + [qs.mean, qs.logvar], dim=-1)
         for layer in self.layers:
-            h = torch.tanh(layer(h))
+            h = act(layer(h))
         return Gaussian(self.mean(h), self.logvar(h))
+
+
+# the JAX package's menu (vjf_tpu/models/recognition.py:ACTIVATIONS); the
+# fused kernels run tanh only, the autograd step any of them
+ACTIVATIONS = {
+    "tanh": torch.tanh,
+    "relu": torch.relu,
+    "sigmoid": torch.sigmoid,
+    "softplus": torch.nn.functional.softplus,
+    "identity": lambda x: x,
+}
+
+
+def map_linears(rec: Recognition, fn: Callable[[nn.Linear], nn.Linear]) -> Recognition:
+    """A new ``Recognition`` with ``fn(layer)`` in place of each layer."""
+    return Recognition([fn(l) for l in rec.layers], fn(rec.mean), fn(rec.logvar))
 
 
 def init_recognition(

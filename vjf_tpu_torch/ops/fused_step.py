@@ -60,6 +60,19 @@ def reset_launches() -> None:
         launches[k] = steps[k] = 0
 
 
+def prefix_free_next(current: bool, hot_max: float, tau_max: float) -> bool:
+    """Next dispatch's prefix-free decision from a watched block's tau
+    statistics (``cfg.ns_prefix_free``): engage below the in-kernel
+    escalation threshold, where the per-step and mega kernels compute alike;
+    revoke on any hot step or on a tau in the exact-fallback band; hold in
+    between, where the escalation handles it."""
+    if hot_max > 0 or tau_max >= NS_TAU_THRESHOLD:
+        return False
+    if tau_max < NS_TAU_ESCALATE:
+        return True
+    return current
+
+
 def epoch_repair_enabled(cfg, n_batch: int) -> bool:
     """Resolve ``cfg.rls_epoch_repair``: 'auto' repairs small-batch epochs."""
     mode = cfg.rls_epoch_repair

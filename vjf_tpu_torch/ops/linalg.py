@@ -1,5 +1,6 @@
 """Linear-algebra helpers (counterpart of ``vjf_tpu/ops/linalg.py``): the
-parts the fused epoch needs. Every product here runs in the input dtype at
+parts the fused epoch, the RLS update and the rollout need. Every product
+here runs in the input dtype at
 full precision (TF32 stays off on the card, see ``fused_step``)."""
 from __future__ import annotations
 
@@ -21,6 +22,31 @@ def eigh_floor_inv_pair(a: torch.Tensor, rel_floor: float = 1e-5):
     lam_max = torch.clamp(lam[..., -1], min=torch.finfo(a.dtype).tiny)
     lam_f = torch.maximum(lam, rel_floor * lam_max)
     return (u * lam_f) @ u.T, (u / lam_f) @ u.T
+
+
+def positivize(a: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:
+    """Eigenvalue-clamped PSD projection: eigenvalues below ``eps`` raised
+    to it."""
+    w, v = torch.linalg.eigh(a)
+    root = v * torch.sqrt(torch.clamp(w, min=eps))[..., None, :]
+    return root @ root.transpose(-1, -2)
+
+
+def safe_cholesky(a: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:
+    """Lower Cholesky factor, repaired where it fails: where ``info != 0``
+    or the factor is not finite, the factor of ``positivize(a, eps)``.
+
+    The branch is taken on the host (one sync), as the JAX package's
+    ``lax.cond`` takes it: the callers (the rollout's weight square root)
+    run once per rollout, and ``eigh`` raises on a non-finite input, so the
+    repair is not computed on every call. A non-finite ``a`` gives NaN, as
+    the JAX repair does."""
+    chol, info = torch.linalg.cholesky_ex(a)
+    if bool(info != 0) or not bool(torch.isfinite(chol).all()):
+        if not bool(torch.isfinite(a).all()):
+            return torch.full_like(a, float("nan"))
+        chol, _ = torch.linalg.cholesky_ex(positivize(a, eps))
+    return chol
 
 
 def cholesky_f32(a: torch.Tensor):

@@ -178,9 +178,12 @@ def run_epochs_fused_sharded(
     return core.chain_epochs(cfg, epoch, state, ys.shape[0], seeds, lrs)
 
 
+_XLA_TODO = "the sharded autograd epoch: ROADMAP Queue 1 item 4 (its multi-rank route)"
+
+
 def _fused_or_raise(cfg: VJFConfig, state, n_batch: int) -> None:
     if not F.fused_enabled(cfg, state, n_batch=n_batch):
-        raise NotImplementedError(core._XLA_TODO)
+        raise NotImplementedError(_XLA_TODO)
 
 
 def make_sharded_epoch(cfg: VJFConfig, flags: StepFlags, group):
