@@ -16,7 +16,14 @@ demoted epoch takes) against the stepwise kernel epoch, and drive the
 training entry point ``fit``: blocked at the flagship width with
 ``bench_all.py``'s forgetting (prefix-free continuation), per epoch with a
 forced demotion and re-probe, and ``bench_all.py``'s Van der Pol fit, whose
-forecast must beat persistence.
+forecast must beat persistence. The ``sgp`` phases do the same for sparse-GP
+dynamics at the flagship widths (``n_inducing`` 100): the three launchers
+against their plain versions with the whitening and the DTC correction
+(each of the two faults planted must be rejected), a sharded SGP epoch,
+the main path (``run_epochs``: warm-up, bootstrap, two RLS epochs) and a
+blocked ``fit`` with hyperparameter adaptation. ``route`` drives a
+configuration past the kernels' limits: the autograd epoch under
+``fused_step='auto'``, ``ValueError`` under ``'on'``.
 Phases print one line each; any failed check raises and the script exits
 non-zero. The last line is the result:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -28,6 +35,7 @@ import contextlib
 import dataclasses
 import datetime
 import json
+import logging
 import math
 import subprocess
 import sys
@@ -40,6 +48,7 @@ import torch.distributed as dist
 from vjf_tpu_torch import datasets
 from vjf_tpu_torch.config import StepFlags, VJFConfig
 from vjf_tpu_torch.convert import flatten, state_to_numpy
+from vjf_tpu_torch.gp import sgp
 from vjf_tpu_torch.models import vjf as core
 from vjf_tpu_torch.ops import _build, rng
 from vjf_tpu_torch.ops import fused_step as F
@@ -109,6 +118,9 @@ FIT_EPOCHS = 8          # fit.flagship: 2 warm-up epochs, then 3 RLS blocks of 2
 FIT_FORGET = dict(rls_shrink=0.999, chol_jitter=1e-3)
 DEMOTE_T = 64           # fit.demote: steps per epoch
 VDP_EPOCHS = 60         # fit.vdp: bench_all.py's max_iter for config #1
+SGP_TAU0 = 0.5          # the SGP check state's first-step tau (sgp_check_state)
+SGP_SHARD_T = 64        # steps of the sharded SGP epoch
+SGP_FIT_EPOCHS, SGP_FIT_T = 6, 1024   # fit.sgp: epochs of T steps, blocks of 2
 # one card's published peaks (H100 SXM data sheet, dense): HBM bytes/s,
 # FP32 outside the tensor cores, bf16 in them
 PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
@@ -475,13 +487,16 @@ def epoch_leaves(res) -> dict:
             "cov": blr.cov, "state_logvar": res.state.dynamics.logvar}
 
 
-def check_sharded_epoch(cfg, post_warm, ys, us, lr, qm, qlv, smi) -> int:
+def check_sharded_epoch(cfg, post_warm, ys, us, lr, qm, qlv, smi, sgp_args) -> tuple:
     """The sharded epoch at world size 1 over NCCL: SHARD_T RLS-active steps
     from the post-warm-up state in both matmul modes, each held against the
     single-device stepwise epoch (same seed, in-kernel noise), and the
     per-step split. The run of ``cfg`` (the flagship's bf16 products) is
     the main path. Planted fault: the other mode's sharded epoch. Returns
-    the phase-1 kernel's launches and timesteps in the main path."""
+    the phase-1 kernel's launches and timesteps in the main path. Then, in
+    the same group, SGP_SHARD_T sharded SGP steps from ``sgp_args`` (its
+    config and :func:`sgp_check_state`) against the single-device stepwise
+    epoch: the phase-1 kernel's launches on the SGP path."""
     dev = ys.device
     torch.cuda.set_device(dev)
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
@@ -545,7 +560,30 @@ def check_sharded_epoch(cfg, post_warm, ys, us, lr, qm, qlv, smi) -> int:
               steps_per_s=SHARD_T / secs, max_abs_err=errs[cfg.matmul_dtype], fallback_steps=fired,
               loss_first_last=[float(loss[0]), float(loss[-1])], launches=launches,
               split_us_per_step={k: 1e3 * v for k, v in split.items()}, card=smi)
-        return launches["forward_sums"], timesteps["forward_sums"]
+
+        s_cfg, s_state = sgp_args
+        ys_s, us_s = ys[:SGP_SHARD_T], us[:SGP_SHARD_T]
+        torch.cuda.synchronize()
+        F.reset_launches()
+        s_got, s_secs = synced(lambda: run_epoch_fused_sharded(s_cfg, flags, s_state, ys_s, us_s,
+                                                               31, lr, group))
+        s_launches = dict(F.launches)
+        s_ref = core.run_epoch(s_cfg.replace(fused_epoch="stepwise"), flags, s_state, ys_s, us_s,
+                               31, lr)
+        check(s_launches == {"fused_step": 0, "mega_epoch": 0, "forward_sums": SGP_SHARD_T},
+              f"sgp.sharded: launches {s_launches}")
+        blr = s_state.dynamics.blr
+        s_err = compare("sgp.sharded.epoch", epoch_leaves(s_ref), epoch_leaves(s_got),
+                        EPOCH_TOL[s_cfg.matmul_dtype],
+                        {"w_mean": blr.w_mean, "cov": blr.cov,
+                         "state_logvar": s_state.dynamics.logvar})
+        check(torch.equal(s_got.state.dynamics.whiten, s_state.dynamics.whiten),
+              "sgp.sharded: the whitener moved")
+        phase("sgp.sharded.times", steps=SGP_SHARD_T, seconds=s_secs,
+              steps_per_s=SGP_SHARD_T / s_secs, launches=s_launches, max_abs_err=s_err,
+              fallback_steps=int((s_ref.metrics.tau >= F.NS_TAU_THRESHOLD).sum()), card=smi)
+        return (launches["forward_sums"], timesteps["forward_sums"], s_launches["forward_sums"],
+                SGP_SHARD_T)
     finally:
         dist.destroy_process_group()
 
@@ -626,7 +664,7 @@ def watched(name: str):
         res, secs = synced(lambda: real(cfg, flags, state, *args, **kw))
         after = state_leaves(state)
         fused = F.fused_enabled(cfg, state, n_batch=args[0].shape[1])
-        entry = {"route": "fused" if fused else "autograd",
+        entry = {"route": "fused" if fused else "autograd", "fused_step": cfg.fused_step,
                  "ns_prefix": cfg.ns_prefix, "warm_up": flags.warm_up, "seconds": secs,
                  "input_intact": all(torch.equal(before[k], after[k]) for k in before),
                  "input": before}
@@ -732,9 +770,20 @@ def check_fit_demote(cfg, ys, smi, t_len: int = DEMOTE_T) -> None:
           fused_epoch_s=[e["seconds"] for e in log if e["route"] == "fused"], card=smi)
 
 
-def quality_problem(name: str):
-    """``bench_all.py``'s config #1 (``van_der_pol``) or #2 (``lorenz``):
-    ``(cfg, y (T, ydim) float32, x_true (T, xdim))``."""
+def quality_problem(name: str, draw: int = 1):
+    """``bench_all.py``'s config #1 (``van_der_pol``), #2 (``lorenz``) or
+    #3 (``sgp_ring``: sparse-GP dynamics on the ring attractor, z-scored
+    Gaussian observations of observation draw ``draw``; the reference fits
+    draws 1 and 7): ``(cfg, y (T, ydim) float32, x_true (T, xdim))``."""
+    if name == "sgp_ring":
+        x = datasets.ring_attractor(T=1000)
+        y, _, _ = datasets.linear_gaussian_observations(x, 20, obs_noise=0.1, seed=draw)
+        y = (y - y.mean(0)) / y.std(0)
+        cfg = VJFConfig(ydim=20, xdim=2, udim=0, dynamics="sgp", n_inducing=50,
+                        sgp_scale=1.0, sgp_lengthscale=1.0, likelihood="gaussian",
+                        dtype="float32", lr=1e-3, rtol=2e-3, warmup_max=30,
+                        rls_shrink=0.999, chol_jitter=1e-3)
+        return cfg, y.astype(np.float32), x
     if name == "van_der_pol":
         x = datasets.van_der_pol(T=1200)
         x = (x - x.mean(0)) / x.std(0)
@@ -772,7 +821,7 @@ def fit_quality(cfg, y, x_true, dev, max_iter: int, seed: int = 0, horizon: int 
             "steps_per_s": y.shape[0] * res.epochs_run / wall, "final_loss": res.loss,
             "latent_r2": latent_r2(mu, x_true), "forecast_rmse": m_rmse,
             "persistence_rmse": p_rmse,
-            "demoted_blocks": sum(b["route"] == "autograd" for b in blocks),
+            "demoted_blocks": sum(b["fused_step"] == "off" for b in blocks),
             "prefix_free_from_block": free[0] if free else None, "blocks": blocks}
 
 
@@ -788,13 +837,258 @@ def check_fit_vdp(dev, smi, max_iter: int = VDP_EPOCHS) -> None:
           max_iter=max_iter, **out, card=smi)
 
 
+def sgp_flagship(matmul_dtype: str = "bfloat16") -> VJFConfig:
+    """The flagship widths with sparse-GP dynamics: 100 inducing points
+    (padded to 128, as n_rbf) and an SE lengthscale of sqrt(10), the scale
+    of the 10-dimensional latents."""
+    return flagship(matmul_dtype).replace(dynamics="sgp", n_inducing=100,
+                                          sgp_lengthscale=math.sqrt(10.0))
+
+
+def sgp_check_state(cfg, ys, us, lr):
+    """The state the SGP kernels are held against their plain versions
+    from: a 256-step warm-up epoch, the bootstrap
+    (``gp.sgp.dynamics_initialize``: inducing points over the visited
+    latents, re-whitened, the state noise from the pooled residual), then
+    the weight posterior replaced by N(0, I / c) with c = B / (SGP_TAU0 sv),
+    so that the first step's tau is about SGP_TAU0 and the per-step kernel
+    reaches the exact fallback. The bootstrap's own posterior is not used:
+    its precision sits at the floor of its eigh (condition number 1e5),
+    where 64 steps of w are not determined to f32 (the plain version in f32
+    and in f64 differ by about 1 in w's normalised error, as the kernel and
+    the plain version do; scripts/torch_sgp_conditioning.py). Returns the
+    state and the posterior entering the next step."""
+    warm = core.run_epoch(cfg, StepFlags(warm_up=True), core.init_state(0, cfg, device=ys.device),
+                          ys[:WARM_STEPS], us[:WARM_STEPS], 5, lr)
+    boot = core._bootstrap_dynamics(cfg, warm.state, warm.q_means, us[:WARM_STEPS],
+                                    torch.Generator().manual_seed(3))
+    d = boot.dynamics
+    c = ys.shape[1] / (SGP_TAU0 * float(torch.exp(d.logvar)))
+    eye = torch.eye(cfg.n_inducing, device=ys.device)
+    blr = d.blr._replace(w_mean=torch.zeros_like(d.blr.w_mean), precision=c * eye,
+                         cov=eye / c)
+    return (boot._replace(dynamics=d._replace(blr=blr)), warm.q_means[-1].contiguous(),
+            warm.q_logvars[-1].contiguous())
+
+
+def sgp_faults(carry, nf: int) -> dict:
+    """The SGP carries of the two planted faults: the whitening skipped
+    (``w_white`` the identity on the ``nf`` real features) and the DTC
+    correction dropped (``scale2`` 0)."""
+    ident = torch.zeros_like(carry.w_white)
+    ident[:nf, :nf] = torch.eye(nf, device=ident.device)
+    return {"no_whitening": carry._replace(w_white=ident),
+            "no_dtc": carry._replace(scale2=torch.zeros_like(carry.scale2))}
+
+
+def unplant(c, sound):
+    """``c`` with the planted leaves given back their sound values, so that
+    a fault counts through what the kernel computed, not through its input."""
+    return c._replace(w_white=sound.w_white, scale2=sound.scale2)
+
+
+def check_sgp_kernels(state, qm, qlv, ys, eps, lr, smi) -> dict:
+    """The three launchers on the SGP flagship carry against their plain
+    versions, in both matmul modes, from :func:`sgp_check_state`: one
+    per-step launch with the exact fallback, 64 mega steps, one phase-1
+    launch; each planted SGP fault must be rejected. Then each kernel's time
+    beside its plain version's (bf16 products, the main path's). Returns
+    the largest max abs diff and the times by kernel."""
+    flags, errs = StepFlags(), {"fused_step": 0.0, "mega_epoch": 0.0, "forward_sums": 0.0}
+    b = ys.shape[1]
+    y0, e_s, e_t = ys[-1], eps[0, 0], eps[1, 0]
+    lo, hi = WARM_STEPS, WARM_STEPS + MEGA_STEPS
+    for mm in ("float32", "bfloat16"):
+        cfg = sgp_flagship(mm)
+        carry = F.pad_carry(cfg, state)
+        start, tol = flatten(carry._asdict()), TOL[mm]
+        args = (qm, qlv, y0, e_s, e_t, lr)
+        ref = prefix_step(F.fused_step_plain, cfg, flags, clone(carry), *args)
+        got = prefix_step(F.fused_step_call, cfg, flags, clone(carry), *args)
+        tau = float(ref.scal[0, 4])
+        check(tau >= F.NS_TAU_THRESHOLD, f"sgp.step: tau {tau} does not reach the fallback")
+        errs["fused_step"] = max(errs["fused_step"], compare(
+            f"sgp.step[{mm}]", packed(ref), packed(got), tol, start))
+        margs = (qm, qlv, ys[lo:hi], None, eps[0, lo:hi], eps[1, lo:hi], lr)
+        m_ref = F.mega_epoch_plain(cfg, flags, clone(carry), *margs)
+        m_got = F.mega_epoch_call(cfg, flags, clone(carry), *margs)
+        errs["mega_epoch"] = max(errs["mega_epoch"], compare(
+            f"sgp.mega[{mm}]", segment(*m_ref), segment(*m_got), tol, start))
+        sargs = (qm, qlv, y0, None, e_s, e_t, 1.0 / b)
+        s_ref = sums_leaves(*F.forward_sums_plain(cfg, flags, carry, *sargs), carry)
+        errs["forward_sums"] = max(errs["forward_sums"], compare(
+            f"sgp.forward_sums[{mm}]", s_ref,
+            sums_leaves(*F.forward_sums_call(cfg, flags, carry, *sargs), carry), tol, {}))
+        for fault, bad in sgp_faults(carry, cfg.n_inducing).items():
+            out = prefix_step(F.fused_step_call, cfg, flags, clone(bad), *args)
+            compare(f"sgp.step[{mm}].fault.{fault}", packed(ref),
+                    packed(out._replace(carry=unplant(out.carry, carry))), tol, start,
+                    reject=True)
+            m_bad = F.mega_epoch_call(cfg, flags, clone(bad), *margs)
+            compare(f"sgp.mega[{mm}].fault.{fault}", segment(*m_ref),
+                    segment(unplant(m_bad[0], carry), *m_bad[1:]), tol, start, reject=True)
+            compare(f"sgp.forward_sums[{mm}].fault.{fault}", s_ref,
+                    sums_leaves(*F.forward_sums_call(cfg, flags, bad, *sargs), carry), tol, {},
+                    reject=True)
+        mega_tau = m_got[2][:, 4]
+        phase(f"sgp.mega[{mm}].tau", first=float(m_ref[2][0, 4]),
+              plain_max=float(m_ref[2][:, 4].max()), kernel_max=float(m_got[2][:, 4].max()),
+              step_tau=tau)
+    cfg = sgp_flagship()
+    d = state.dynamics
+    phi = sgp.features(d, qm)
+    phase("sgp.features", what="|phi|^2 / scale^2 at the check state's posterior means",
+          median=float(torch.median(torch.sum(phi * phi, dim=-1)) / torch.exp(2 * d.log_scale)),
+          n_inducing=cfg.n_inducing, lengthscale=float(torch.exp(d.log_lengthscale)))
+    # times from the check state (bf16 products): the kernels update their
+    # carry in place, so each side keeps its own copy
+    carry = F.pad_carry(cfg, state)
+    c_step, c_mega, c_plain = clone(carry), clone(carry), clone(carry)
+
+    def k_step():
+        return F.fused_step_call(cfg, flags, c_step, qm, qlv, y0, None, e_s, e_t, lr)
+
+    def p_step():
+        F.fused_step_plain(cfg, flags, c_plain, qm, qlv, y0, None, e_s, e_t, lr)
+
+    def k_mega():
+        F.mega_epoch_call(cfg, flags, c_mega, qm, qlv, ys[lo:hi], None, eps[0, lo:hi],
+                          eps[1, lo:hi], lr)
+
+    def p_mega():
+        F.mega_epoch_plain(cfg, flags, c_plain, qm, qlv, ys[lo:hi], None, eps[0, lo:hi],
+                           eps[1, lo:hi], lr)
+
+    def k_sums():
+        return F.forward_sums_call(cfg, flags, carry, qm, qlv, y0, None, e_s, e_t, 1.0 / b)
+
+    def p_sums():
+        F.forward_sums_plain(cfg, flags, carry, qm, qlv, y0, None, e_s, e_t, 1.0 / b)
+
+    ms = {}
+    for name, k, p_ in (("fused_step", k_step, p_step), ("forward_sums", k_sums, p_sums)):
+        p1, k1, k2, p2 = cuda_ms(p_, 20), cuda_ms(k, 20), cuda_ms(k, 20), cuda_ms(p_, 20)
+        ms[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
+    p1, k1, k2, p2 = cuda_ms(p_mega, 1), cuda_ms(k_mega, 3), cuda_ms(k_mega, 3), cuda_ms(p_mega, 1)
+    ms["mega_epoch"] = ((k1 + k2) / 2 / MEGA_STEPS, (p1 + p2) / 2 / MEGA_STEPS)
+    phase("sgp.times", unit="us per timestep", card=smi,
+          **{f"{k}{suffix}": 1e3 * v[i] for k, v in ms.items()
+             for i, suffix in ((0, ""), (1, "_plain"))})
+    return {"errs": errs, "ms": ms, "stepped": k_step(), "carry": carry, "flat": k_sums(),
+            "mega_tau": mega_tau}
+
+
+def check_sgp_main(ys, us, smi) -> dict:
+    """The SGP main path at the flagship widths: ``run_epochs`` for one
+    warm-up epoch, the bootstrap, then two RLS epochs (T 2048 each; the
+    first ``cfg.ns_prefix`` steps of each through the per-step kernel and
+    the exact fallback, the rest in one mega launch). Returns the launches
+    and steps by kernel, counted from 0 over this run."""
+    cfg, dev, b = sgp_flagship(), ys.device, ys.shape[1]
+    state = core.init_state(0, cfg, device=dev)
+    lrs = [cfg.lr * cfg.lr_decay ** i for i in range(2)]
+
+    def warm_and_bootstrap():
+        wu = core.run_epochs(cfg, StepFlags(warm_up=True), state, ys, us, [20], lrs[:1])
+        return core._bootstrap_dynamics(cfg, wu.state, wu.q_means, us,
+                                        torch.Generator().manual_seed(21))
+
+    F.reset_launches()
+    boot, t_warm = synced(warm_and_bootstrap)
+    out, t_rls = synced(lambda: core.run_epochs(cfg, StepFlags(), boot, ys, us, [22, 23], lrs))
+    launches, timesteps = dict(F.launches), dict(F.steps)
+    check(bool(torch.isfinite(out.epoch_loss).all()), "sgp.main: epoch losses not finite")
+    check(tuple(out.q_means.shape) == (ys.shape[0], b, cfg.xdim)
+          and bool(torch.isfinite(out.q_means).all()), "sgp.main: posterior not finite")
+    check(launches["fused_step"] > 0 and launches["mega_epoch"] > 0,
+          f"sgp.main: launches {launches}")
+    phase("sgp.main", config="flagship widths, sgp, n_inducing 100, B %d, T %d/epoch"
+          % (b, ys.shape[0]), warmup_and_bootstrap_s=t_warm, rls_epochs_s=t_rls,
+          rls_steps_per_s=2 * ys.shape[0] / t_rls, epoch_loss=out.epoch_loss.tolist(),
+          max_tau=out.max_tau.tolist(), hot_frac=out.hot_frac.tolist(), launches=launches,
+          timesteps=timesteps, card=smi)
+    return {"launches": launches, "steps": timesteps}
+
+
+def check_fit_sgp(ys, smi) -> None:
+    """A blocked ``fit`` on the SGP flagship (2 epochs a block, warm-up
+    forced to end after 2) with ``bench_all.py``'s forgetting and
+    ``sgp_adapt_lr`` 0.05: fails on a non-finite loss or state, or on a
+    dispatch that writes its input; reports demotions, prefix-free
+    engagement and the adaptation steps."""
+    cfg = sgp_flagship().replace(warmup_max=2, sgp_adapt_lr=0.05, **FIT_FORGET)
+    ys = ys[:SGP_FIT_T]
+    state = core.init_state(0, cfg, device=ys.device)
+    with watched("run_epochs") as log, timed("_sgp_adapt_step") as adapts:
+        F.reset_launches()
+        res, secs = synced(lambda: core.fit(cfg, state, ys, seed=7, max_iter=SGP_FIT_EPOCHS,
+                                            epochs_per_dispatch=2))
+        launches = dict(F.launches)
+    blocks = blocks_summary(log, ys.shape[0])
+    check(all(b["input_intact"] for b in blocks), "fit.sgp: a block wrote its input state")
+    check(math.isfinite(res.loss), f"fit.sgp: loss {res.loss}")
+    leaves = state_leaves(res.state)
+    bad = [k for k, v in leaves.items() if v.is_floating_point() and not torch.isfinite(v).all()]
+    check(not bad, f"fit.sgp: non-finite state leaves {bad}")
+    free = [i for i, b in enumerate(blocks) if not b["warm_up"] and b["ns_prefix"] == 0]
+    d = res.state.dynamics
+    phase("fit.sgp", config="sgp flagship, B %d, T %d, 2 epochs a block, rls_shrink 0.999, "
+          "chol_jitter 1e-3, sgp_adapt_lr 0.05" % (ys.shape[1], ys.shape[0]), seconds=secs,
+          epochs_run=res.epochs_run, loss=res.loss, warm_up=res.warm_up,
+          demoted_blocks=sum(b["fused_step"] == "off" for b in blocks),
+          prefix_free_from_block=free[0] if free else None, adapt_steps=len(adapts),
+          adapt_s=adapts, log_scale=float(d.log_scale),
+          log_lengthscale=float(d.log_lengthscale), launches=launches, blocks=blocks,
+          card=smi)
+
+
+def check_route(ys, us, lr) -> None:
+    """A configuration past the kernels' limits (n_rbf 200 pads to 256
+    features): under ``fused_step='auto'`` 8 steps take the autograd epoch,
+    with one warning naming the limit and no launch; under ``'on'`` the
+    launch raises ValueError."""
+    cfg = flagship().replace(n_rbf=200)
+    state = core.init_state(0, cfg, device=ys.device)
+    reason = F.kernel_limits(cfg, ys.shape[1])
+    check(reason is not None, "route: n_rbf 200 is within the kernels' limits")
+    seen = []
+    handler = logging.Handler()
+    handler.emit = lambda rec: seen.append(rec.getMessage())
+    F.logger.addHandler(handler)
+    F._routed_away.discard(reason)
+    try:
+        F.reset_launches()
+        res, secs = synced(lambda: core.run_epoch(cfg, StepFlags(), state, ys[:8], us[:8], 3,
+                                                  lr))
+        res2 = core.run_epoch(cfg, StepFlags(), state, ys[:8], us[:8], 3, lr)
+    finally:
+        F.logger.removeHandler(handler)
+    check(res.metrics.tau is None and sum(F.launches.values()) == 0,
+          f"route: not the autograd epoch (launches {F.launches})")
+    check(bool(torch.isfinite(res.metrics.loss).all()) and torch.equal(res.q_means,
+                                                                       res2.q_means),
+          "route: the autograd epoch is not finite or not repeatable")
+    warned = [m for m in seen if reason in m]
+    check(len(warned) == 1, f"route: {len(warned)} warnings naming the limit: {seen}")
+    try:
+        core.run_epoch(cfg.replace(fused_step="on"), StepFlags(), state, ys[:8], us[:8], 3, lr)
+    except ValueError as e:
+        raised = str(e)
+    else:
+        raised = None
+    check(raised is not None and reason in raised, f"route: 'on' did not raise ({raised})")
+    phase("route", config="flagship, n_rbf 200", limit=reason, auto="autograd, 8 steps",
+          autograd_us_per_step=1e6 * secs / 8, warnings=len(warned), on_raised=raised)
+
+
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
 def carry_bytes(carry, written: bool = False) -> int:
     """Bytes of the carry's leaves; ``written``: only those a step updates."""
-    fixed = ("cent_x", "cent_u", "c2", "inv_w2", "rng_seed") if written else ()
+    fixed = (("cent_x", "cent_u", "c2", "inv_w2", "w_white", "scale2", "rng_seed") if written
+             else ())
     return nbytes(*(v for k, v in flatten(carry._asdict()).items()
                     if k.split(".")[0] not in fixed))
 
@@ -802,8 +1096,9 @@ def carry_bytes(carry, written: bool = False) -> int:
 def step_ops(cfg, b: int, nfp: int, ns_iters=None):
     """Operations (2 per multiply-add) of the products of one step at the
     main path's flags (SGD, decoder trained, RLS on): (full-f32 products,
-    products of ``_mm_fn``, bf16 inputs when matmul_dtype='bfloat16').
-    ``ns_iters=None``: phase 1 alone. Elementwise work is not counted."""
+    products of ``_mm_fn``, bf16 inputs when matmul_dtype='bfloat16'). With
+    SGP dynamics the whitening product counts as f32. ``ns_iters=None``:
+    phase 1 alone. Elementwise work is not counted."""
     xd, yd, ud, h = cfg.xdim, cfg.ydim, cfg.udim, list(cfg.hidden_sizes)
     hidden = sum(h[i] * h[i - 1] for i in range(1, len(h)))
     first = h[0] * (yd + ud + 2 * xd)
@@ -811,6 +1106,8 @@ def step_ops(cfg, b: int, nfp: int, ns_iters=None):
     mm += b * (2 * xd * yd + 4 * xd * h[-1] + 2 * hidden + first)               # backward
     mm += b * nfp * (nfp + xd)                                                 # F^T F, F^T dx
     f32 = b * nfp * (xd + ud)                                                  # RBF cross term
+    if cfg.dynamics == "sgp":
+        f32 += b * nfp * nfp                                                   # whitening
     if ns_iters is not None:
         f32 += 2 * nfp * nfp * xd + ns_iters * 2 * nfp ** 3   # P w, V g, Newton-Schulz
         mm += b * nfp * xd                                    # state-noise residual
@@ -1010,14 +1307,25 @@ def main() -> int:
 
     profile_epoch(cfg, wu.state, ys, us, lrs[0], smi)
 
+    # ---------------- sgp: the SGP kernels against their plain versions ----------------
+    sgp_cfg = sgp_flagship()
+    sgp_state, sgp_qm, sgp_qlv = sgp_check_state(sgp_cfg, ys, us, lr)
+    sgp_k = check_sgp_kernels(sgp_state, sgp_qm, sgp_qlv, ys, eps, lr, smi)
+
     # ---------------- sharded: the exact-sync epoch at world size 1 ----------------
-    sums_launches, sums_steps = check_sharded_epoch(cfg, post_warm, ys, us, lr, qm0, qlv0, smi)
+    sums_launches, sums_steps, sgp_sums_launches, sgp_sums_steps = check_sharded_epoch(
+        cfg, post_warm, ys, us, lr, qm0, qlv0, smi, (sgp_cfg, sgp_state))
 
     # ---------------- the autograd epoch and the fit loop ----------------
     check_xla(flagship("float32"), post_warm, ys, us, lr, smi)
     check_fit_flagship(cfg, ys, smi)
     check_fit_demote(cfg, ys, smi)
     check_fit_vdp(dev, smi)
+
+    # ---------------- sgp: the main path, fit, and the routing of refused shapes ------------
+    sgp_main = check_sgp_main(ys, us, smi)
+    check_fit_sgp(ys, smi)
+    check_route(ys, us, lr)
 
     # ---------------- bounds: the least time one card could take ----------------
     # each input read once and each output written once; the mega segment's
@@ -1040,6 +1348,24 @@ def main() -> int:
     sums_bound = bound(cfg, read - nbytes(carry_t.p_mat, lr) + data + nbytes(flat, q_pack),
                        step_ops(cfg, b, nfp))
 
+    # the SGP carry: the same reads and writes plus w_white and scale2, the
+    # whitening product among the f32 operations
+    s_carry, s_stepped = sgp_k["carry"], sgp_k["stepped"]
+    s_read, s_written = carry_bytes(s_carry), carry_bytes(s_carry, written=True)
+    sgp_step_bound = bound(sgp_cfg, s_read + s_written + data + nbytes(
+        s_stepped.q_pack, s_stepped.g_vec, s_stepped.xt, s_stepped.xs, s_stepped.scal),
+        step_ops(sgp_cfg, b, nfp, F.NS_ITERS))
+    s_tau = sgp_k["mega_tau"]
+    s_iters = torch.where(s_tau < F.NS_TAU_MAX, F.mega_ns_base_iters(sgp_cfg, b)
+                          + (s_tau >= F.NS_TAU_ESCALATE).int()
+                          + F.NS_EXTRA_ITERS * (s_tau >= F.NS_TAU_THRESHOLD).int(), 0)
+    sgp_mega_bound = bound(sgp_cfg, (s_read + s_written + nbytes(qm_t, qlv_t)) / MEGA_STEPS
+                           + nbytes(y0, e_s, e_t) + nbytes(s_stepped.q_pack) + 4 * 8,
+                           step_ops(sgp_cfg, b, nfp, float(s_iters.float().mean())))
+    s_flat, s_q = sgp_k["flat"]
+    sgp_sums_bound = bound(sgp_cfg, s_read - nbytes(s_carry.p_mat, lr) + data
+                           + nbytes(s_flat, s_q), step_ops(sgp_cfg, b, nfp))
+
     # library_ms: no single PyTorch call computes a VJF step or its phase 1
     src = "vjf_tpu_torch/csrc/fused_step.cu"
 
@@ -1057,6 +1383,14 @@ def main() -> int:
             mega_err, mega_ms, mega_plain_ms, mega_bound),
         row("forward_sums", 1437, sums_launches, sums_steps, sums_err, sums_ms, sums_plain_ms,
             sums_bound),
+        row("fused_step.sgp", 1104, sgp_main["launches"]["fused_step"],
+            sgp_main["steps"]["fused_step"], sgp_k["errs"]["fused_step"],
+            *sgp_k["ms"]["fused_step"], sgp_step_bound),
+        row("mega_epoch.sgp", 1767, sgp_main["launches"]["mega_epoch"],
+            sgp_main["steps"]["mega_epoch"], sgp_k["errs"]["mega_epoch"],
+            *sgp_k["ms"]["mega_epoch"], sgp_mega_bound),
+        row("forward_sums.sgp", 1437, sgp_sums_launches, sgp_sums_steps,
+            sgp_k["errs"]["forward_sums"], *sgp_k["ms"]["forward_sums"], sgp_sums_bound),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

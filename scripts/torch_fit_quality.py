@@ -1,9 +1,12 @@
-"""Fit quality of the port on the card: ``bench_all.py``'s Van der Pol and
-Lorenz configurations (its ``bench_vdp`` and ``bench_lorenz``) through
-``vjf_tpu_torch``'s ``fit``.
+"""Fit quality of the port on the card: ``bench_all.py``'s Van der Pol,
+Lorenz and sparse-GP ring-attractor configurations (its ``bench_vdp``,
+``bench_lorenz`` and ``bench_sgp_ring``) through ``vjf_tpu_torch``'s ``fit``.
 
-    python3 scripts/torch_fit_quality.py [van_der_pol lorenz] [--max-iter N]
+    python3 scripts/torch_fit_quality.py [van_der_pol lorenz sgp_ring] [--max-iter N]
 
+``sgp_ring`` fits both of the reference's observation draws (1 and 7); at
+B 1 its epochs take the autograd route (below ``sgp_fused_min_batch``), as
+in the reference.
 Each system is fitted as ``bench_all.py:_fit_throughput`` does it (blocks of
 5 epochs, at most 60), then scored: latent R^2 against the generating
 latents, and the 20-step forecast RMSE from 50 starts beside the
@@ -35,14 +38,16 @@ def main(argv) -> int:
     if "--max-iter" in argv:
         max_iter = int(argv[argv.index("--max-iter") + 1])
         del argv[argv.index("--max-iter"):argv.index("--max-iter") + 2]
-    names = argv or ["van_der_pol", "lorenz"]
+    names = argv or ["van_der_pol", "lorenz", "sgp_ring"]
     _build.load_library()
     smi = cs.smi_line()
     for name in names:
-        cfg, y, x = cs.quality_problem(name)
-        out = cs.fit_quality(cfg, y, x, torch.device("cuda:0"), max_iter)
-        print(json.dumps({"config": name, "max_iter": max_iter, **out, "card": smi}),
-              flush=True)
+        for draw in ((1, 7) if name == "sgp_ring" else (1,)):
+            cfg, y, x = cs.quality_problem(name, draw)
+            out = cs.fit_quality(cfg, y, x, torch.device("cuda:0"), max_iter)
+            tag = {"obs_draw": draw} if name == "sgp_ring" else {}
+            print(json.dumps({"config": name, **tag, "max_iter": max_iter, **out, "card": smi}),
+                  flush=True)
     return 0
 
 

@@ -86,7 +86,6 @@ _DEFERRED = {
     "checkpoint_path": (dict(checkpoint_path="fit.ckpt", checkpoint_every=1), "item 10"),
     "resume_from": (dict(resume_from="fit.ckpt"), "item 10"),
     "multistep_refine": (dict(cfg=dict(multistep_refine=2)), "item 7"),
-    "sgp": (dict(cfg=dict(dynamics="sgp")), "item 9"),
     "kalman": (dict(cfg=dict(dynamics_update="kalman")), "item 3"),
     "warm_gate": (None, "item 11"),
     "precision_backend": (None, "item 3"),
@@ -122,8 +121,6 @@ def test_unported_options_raise():
     us = torch.zeros(3, 2, 0)
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         tcore.run_epoch(cfg, tcfg.StepFlags(), st, ys, us, 0, 1e-3, mask=torch.ones(3, 2))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        TF.fused_enabled(cfg.replace(dynamics="sgp"), st)
     with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
         tcore.init_state(0, cfg.replace(rls_backend="precision"), device="cpu")
 

@@ -4,9 +4,10 @@ The JAX package ``vjf_tpu`` stays the reference; this package mirrors its
 module layout and names. The main path is the fused filter-then-learn epoch
 (``models.vjf.run_epochs`` -> ``ops.fused_step.run_epoch_fused``); the
 exact-sync sharded epoch (``parallel.sharded``) splits its trials over the
-ranks of a ``torch.distributed`` group. The three kernels are hand-written
-CUDA in ``csrc/fused_step.cu``. On CPU tensors the kernels' plain PyTorch
-versions run instead.
+ranks of a ``torch.distributed`` group. The dynamics are the RBF system
+(``models.dynamics``) or the sparse GP (``gp.sgp``). The three kernels are
+hand-written CUDA in ``csrc/fused_step.cu``. On CPU tensors the kernels'
+plain PyTorch versions run instead.
 """
 from .config import StepFlags, VJFConfig
 from .types import Gaussian

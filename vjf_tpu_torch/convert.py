@@ -5,7 +5,8 @@
 imports neither ``jax`` nor ``vjf_tpu``. :func:`state_to_numpy` returns the
 port's state as nested dicts under the JAX package's field names;
 :func:`flatten` turns either side into ``{"a.b.0.c": array}`` for a
-leaf-by-leaf comparison.
+leaf-by-leaf comparison. Both directions carry the RBF dynamics and the
+sparse-GP dynamics (``cfg.dynamics='sgp'``).
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 
 from .config import VJFConfig
+from .gp.sgp import SGPDynamicsState
 from .models.dynamics import DynamicsState
 from .models.likelihoods import GaussianLikParams, PoissonLikParams
 from .models.rbf import RBFParams
@@ -46,6 +48,18 @@ def state_from_numpy(cfg: VJFConfig, tree, device=torch.device("cuda")) -> Train
     blr = tree.dynamics.blr
     if not (hasattr(blr, "precision") and hasattr(blr, "cov")):
         raise NotImplementedError("only the nsv backend is ported (ROADMAP Queue 1 item 3)")
+    d = tree.dynamics
+    blr = NSVBLR(_t(blr.w_mean, device), _t(blr.precision, device), _t(blr.cov, device))
+    noise = dict(logvar=_t(d.logvar, device), n_sample=_t(d.n_sample, device, torch.int32))
+    if cfg.dynamics == "sgp":
+        dynamics = SGPDynamicsState(
+            inducing=_t(d.inducing, device), whiten=_t(d.whiten, device),
+            whiten_inv=_t(d.whiten_inv, device), log_scale=_t(d.log_scale, device),
+            log_lengthscale=_t(d.log_lengthscale, device), blr=blr, **noise)
+    else:
+        dynamics = DynamicsState(
+            rbf=RBFParams(_t(d.rbf.centroid, device), _t(d.rbf.logwidth, device)),
+            blr=blr, **noise)
     return TrainState(
         params=Params(
             recognition=recognition,
@@ -53,14 +67,7 @@ def state_from_numpy(cfg: VJFConfig, tree, device=torch.device("cuda")) -> Train
             likelihood=lik,
             prior=PriorParams(_t(p.prior.mean, device), _t(p.prior.logvar, device)),
         ),
-        dynamics=DynamicsState(
-            rbf=RBFParams(_t(tree.dynamics.rbf.centroid, device),
-                          _t(tree.dynamics.rbf.logwidth, device)),
-            blr=NSVBLR(_t(blr.w_mean, device), _t(blr.precision, device),
-                       _t(blr.cov, device)),
-            logvar=_t(tree.dynamics.logvar, device),
-            n_sample=_t(tree.dynamics.n_sample, device, torch.int32),
-        ),
+        dynamics=dynamics,
         lik_n_sample=_t(tree.lik_n_sample, device),
     )
 
@@ -71,6 +78,18 @@ def _np(t: torch.Tensor) -> np.ndarray:
 
 def _linear(lin) -> Dict[str, Any]:
     return {"w": _np(lin.weight), "b": None if lin.bias is None else _np(lin.bias)}
+
+
+def _dynamics(d) -> Dict[str, Any]:
+    """The dynamics state under the JAX field names, in the JAX field order."""
+    blr = {"w_mean": _np(d.blr.w_mean), "precision": _np(d.blr.precision),
+           "cov": _np(d.blr.cov)}
+    if isinstance(d, SGPDynamicsState):
+        head = {k: _np(getattr(d, k)) for k in ("inducing", "whiten", "whiten_inv",
+                                                 "log_scale", "log_lengthscale")}
+    else:
+        head = {"rbf": {"centroid": _np(d.rbf.centroid), "logwidth": _np(d.rbf.logwidth)}}
+    return {**head, "blr": blr, "logvar": _np(d.logvar), "n_sample": _np(d.n_sample)}
 
 
 def state_to_numpy(state: TrainState) -> Dict[str, Any]:
@@ -92,13 +111,7 @@ def state_to_numpy(state: TrainState) -> Dict[str, Any]:
                            if isinstance(lik, GaussianLikParams) else {"empty": None}),
             "prior": {"mean": _np(p.prior.mean), "logvar": _np(p.prior.logvar)},
         },
-        "dynamics": {
-            "rbf": {"centroid": _np(d.rbf.centroid), "logwidth": _np(d.rbf.logwidth)},
-            "blr": {"w_mean": _np(d.blr.w_mean), "precision": _np(d.blr.precision),
-                    "cov": _np(d.blr.cov)},
-            "logvar": _np(d.logvar),
-            "n_sample": _np(d.n_sample),
-        },
+        "dynamics": _dynamics(d),
         "lik_n_sample": _np(state.lik_n_sample),
     }
 

@@ -74,9 +74,23 @@
 // wgmma is not used: a block's trials (32 at the flagship) are fewer than
 // its 64 rows, and it has no f32 input type for the feedback chain.
 //
+// Sparse-GP dynamics (cfg.dynamics='sgp', the TPU kernels' FusedCarry.w_white
+// and scale2, fused_step.py:172-179, :375-392): the same launchers with two
+// more operands. The block's unit SE responses at the inducing points are
+// multiplied by w_white = scale^2 W (nfp x nfp, read from L2: at 64 KB it
+// does not fit beside the block's shared memory) in full f32, through s.z,
+// before they feed F V, F w, the RLS statistics and the state-noise
+// residual; the predictive log-variance adds the DTC correction
+// max(scale^2 - |phi|^2, 0). The whitening adds B nfp^2 multiply-adds a
+// step, about as many as F V, and is bound by the latency of its L2 loads
+// (whiten_features keeps 16 in flight; measured on an H100 at 700 W, a mega
+// step of the SGP flagship takes 105 us against 96 for RBF; loading one row
+// of w_white at a time, 158). With w_white null (RBF) nothing changes.
+//
 // Numerics: products marked bf16 round their inputs to bf16 (nearest even)
 // and accumulate in f32; the feedback chain (P w, every Newton-Schulz
-// product, V g, the RBF cross term) stays full f32. No fast-math.
+// product, V g, the RBF cross term) and the SGP whitening stay full f32.
+// No fast-math.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -120,6 +134,8 @@ struct VJFArgs {
   float* cent_u;
   float* c2;
   float* inv_w2;
+  const float* w_white;  // SGP: (nfp, nfp) scale^2 W, zero pad; null for RBF
+  const float* scale2;   // SGP: (1,) scale^2; null for RBF
   float* p_mat;
   float* v_mat;
   float* w_dyn;
@@ -300,6 +316,7 @@ struct Ctx {
   Blk fr;       // this block's rows of P, V, w
   float* slab;  // this block's slab
   float lr;
+  float scale2;  // SGP: scale^2 (0 for RBF)
   uint32_t seed;
 };
 
@@ -671,6 +688,70 @@ __device__ __forceinline__ void step_begin(const VJFArgs& a, const Ctx& c, int t
   __syncthreads();
 }
 
+// SGP whitening of this block's features: s.feat (nb x nfp) times w_white
+// (nfp x nfp, row-major, in L2) in full f32, through s.z (free until F V),
+// back into s.feat and, with `stats`, into the workspace that the RLS
+// statistics read. A thread owns one column and up to 8 rows of a pass, so
+// a block loads each entry of w_white once a pass and a warp reads a row of
+// w_white coalesced; the features are broadcast from shared memory, 16-byte
+// loads at a time. WHITEN_K rows of w_white are loaded into registers before
+// their products, so that their L2 latency overlaps; each sum still runs over
+// k in order.
+#define WHITEN_K 16
+__device__ __forceinline__ void whiten_features(const VJFArgs& a, const Ctx& c, bool stats) {
+  const SM& s = c.s;
+  const int nb = c.tr.n, nfp = a.nfp;
+  const int groups = NTHREADS >= nfp ? NTHREADS / nfp : 1;
+  const int kfull = nfp - nfp % WHITEN_K;
+  for (int idx = threadIdx.x; idx < nfp * groups; idx += NTHREADS) {
+    const int j = idx % nfp, g = idx / nfp;
+    for (int b0 = g; b0 < nb; b0 += 8 * groups) {
+      float acc[8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) acc[r] = 0.f;
+      for (int k0 = 0; k0 < kfull; k0 += WHITEN_K) {
+        float w[WHITEN_K];
+#pragma unroll
+        for (int kk = 0; kk < WHITEN_K; ++kk) w[kk] = a.w_white[(size_t)(k0 + kk) * nfp + j];
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          if (b0 + r * groups < nb) {
+            const float4* f =
+                reinterpret_cast<const float4*>(s.feat + (size_t)(b0 + r * groups) * s.ldf + k0);
+#pragma unroll
+            for (int q = 0; q < WHITEN_K / 4; ++q) {
+              const float4 v = f[q];
+              acc[r] += v.x * w[4 * q];
+              acc[r] += v.y * w[4 * q + 1];
+              acc[r] += v.z * w[4 * q + 2];
+              acc[r] += v.w * w[4 * q + 3];
+            }
+          }
+        }
+      }
+      for (int k = kfull; k < nfp; ++k) {  // the ragged end of K (nfp % WHITEN_K)
+        const float w = a.w_white[(size_t)k * nfp + j];
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+          if (b0 + r * groups < nb) acc[r] += s.feat[(size_t)(b0 + r * groups) * s.ldf + k] * w;
+      }
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const int b = b0 + r * groups;
+        if (b < nb) s.z[(size_t)b * s.ldf + j] = acc[r];
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < nb * nfp; i += NTHREADS) {
+    const int b = i / nfp, j = i % nfp;
+    const float v = s.z[(size_t)b * s.ldf + j];
+    s.feat[(size_t)b * s.ldf + j] = v;
+    if (stats) c.g.feat[(size_t)(c.tr.first + b) * nfp + j] = v;
+  }
+  __syncthreads();
+}
+
 // Phase 1 on this block's trials: forward, ELBO sums, manual backward, every
 // batch mean scaled by `inv_b` (1 / the whole batch). The gradient sums land
 // in this block's slab in the flat order, its raw scalar sums behind them;
@@ -729,10 +810,11 @@ __device__ __forceinline__ void step_forward_sums(const VJFArgs& a, const Ctx& c
       d2 = d2 < 0.f ? 0.f : d2;
       const float f = expf(-0.5f * d2 * s.inv_w2[j]);
       s.feat[(size_t)b * s.ldf + j] = f;
-      if (stats) c.g.feat[(size_t)(first + b) * nfp + j] = f;
+      if (stats && !a.w_white) c.g.feat[(size_t)(first + b) * nfp + j] = f;
     }
   }
   __syncthreads();
+  if (a.w_white) whiten_features(a, c, stats);
   const Mat feat = rowmaj(s.feat, s.ldf);
   mm(nb, nfp, nfp, feat, rowmaj(a.v_mat, nfp), s.z, s.ldf, false, bf, false);
   mm(nb, xd, nfp, feat, rowmaj(a.w_dyn, xd), s.pt_m, xd, false, bf, false);
@@ -746,14 +828,23 @@ __device__ __forceinline__ void step_forward_sums(const VJFArgs& a, const Ctx& c
     mm(nb, h0, ud, rowmaj(u, s.ldu), trans(a.w_in_u, ud), s.hs[0], s.ldh[0], true, bf, false, wf);
   __syncthreads();
   for (int b = tid >> 5; b < nb; b += NWARPS) {  // a warp per trial
-    float v = 0.f;
-    for (int j = tid & 31; j < nfp; j += 32)
-      v += s.z[(size_t)b * s.ldf + j] * s.feat[(size_t)b * s.ldf + j];
+    float v = 0.f, ff = 0.f;
+    for (int j = tid & 31; j < nfp; j += 32) {
+      const float f = s.feat[(size_t)b * s.ldf + j];
+      v += s.z[(size_t)b * s.ldf + j] * f;
+      ff += f * f;
+    }
     v = warp_sum(v);
     v = v < 1e-30f ? 1e-30f : v;
+    if (a.w_white) ff = warp_sum(ff);
     if ((tid & 31) == 0) {
-      s.fvf[b] = v;
-      s.ptlv[b] = logf(v);
+      s.fvf[b] = v;  // feeds tau through fvf_sum without the DTC term
+      if (a.w_white) {
+        const float dtc = c.scale2 - ff;
+        s.ptlv[b] = logf(v + (dtc > 0.f ? dtc : 0.f) + 1e-30f);
+      } else {
+        s.ptlv[b] = logf(v);
+      }
     }
   }
   for (int b = tid >> 5; b < nb; b += NWARPS) {
@@ -1241,6 +1332,7 @@ __device__ const Header& make_header(const VJFArgs& args, float* smem) {
     c.fr = block_of(a.nfp, c.rank);
     c.slab = c.g.slab + (size_t)c.rank * c.g.slab_stride;
     c.lr = a.lr ? a.lr[0] : 0.f;
+    c.scale2 = a.scale2 ? a.scale2[0] : 0.f;
     c.seed = (uint32_t)a.rng_seed[0];
     const int L = a.n_layers, h0 = a.h[0], hl = a.h[L - 1];
     Leaves& lv = c.lv;

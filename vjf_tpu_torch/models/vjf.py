@@ -9,7 +9,10 @@ with torch autograd, one Python call per timestep. The multi-rank route is
 training loop: warm-up, the plateau that freezes the decoder and
 bootstraps the dynamics, RLS epochs, hot-tau demotion to the autograd
 epoch, convergence, ``select='forecast'``, and in blocked mode
-(:func:`_fit_blocked`) prefix-free continuation. ``init_state`` builds the
+(:func:`_fit_blocked`) prefix-free continuation, and with SGP dynamics the
+epoch-granular kernel hyperparameter step. The dynamics are the RBF system
+(``models.dynamics``) or the sparse GP (``gp.sgp``), one transition
+interface picked by :func:`_transition`. ``init_state`` builds the
 model on the card unless the caller asks for ``device="cpu"``; the other
 entry points run wherever the state lives. Where the JAX package takes a
 PRNG key, the port takes an int seed or a CPU ``torch.Generator``.
@@ -26,8 +29,15 @@ import torch
 from torch import nn
 
 from ..config import StepFlags, VJFConfig
+from ..gp import sgp as _sgp
 from ..ops import fused_step as _fused
-from ..ops.functional import finite_or_zero, gaussian_entropy, reparametrize
+from ..ops.functional import (
+    all_finite,
+    finite_or_zero,
+    gaussian_entropy,
+    reparametrize,
+    tree_where,
+)
 from ..types import Gaussian
 from . import dynamics as dyn
 from .decoder import decode, init_decoder
@@ -69,7 +79,7 @@ class TrainState(NamedTuple):
     """Everything that evolves during training."""
 
     params: Params
-    dynamics: dyn.DynamicsState
+    dynamics: object              # dyn.DynamicsState | gp.sgp.SGPDynamicsState
     lik_n_sample: torch.Tensor    # float counter
 
 
@@ -109,8 +119,6 @@ def init_state(
         lik = init_poisson_lik()
     else:
         raise ValueError(f"unknown likelihood: {cfg.likelihood}")
-    if cfg.dynamics != "rbf":
-        raise NotImplementedError(_fused._SGP_TODO)
     params = Params(
         recognition=init_recognition(gen, cfg.ydim, cfg.xdim, cfg.udim,
                                      cfg.hidden_sizes, dtype=dtype, device=device),
@@ -122,7 +130,10 @@ def init_state(
         ),
     )
     backend = backend or dyn.resolve_backend(cfg, batch_hint=batch_hint)
-    dynamics = dyn.init_dynamics(gen, cfg, backend=backend, device=device)
+    if cfg.dynamics == "sgp":
+        dynamics = _sgp.init_sgp_dynamics(gen, cfg, backend=backend, device=device)
+    else:
+        dynamics = dyn.init_dynamics(gen, cfg, backend=backend, device=device)
     return TrainState(params=params, dynamics=dynamics,
                       lik_n_sample=torch.zeros((), dtype=dtype, device=device))
 
@@ -145,24 +156,29 @@ def _likelihood_loss(cfg: VJFConfig, lik_params, py: torch.Tensor,
     return poisson_nll(py, y, clamp=cfg.poisson_clamp)
 
 
-def elbo_terms(cfg: VJFConfig, params: Params, dynamics: dyn.DynamicsState, qs: Gaussian,
+def _transition(cfg: VJFConfig):
+    """The dynamics module of ``cfg.dynamics``: ``gp.sgp`` or
+    ``models.dynamics``, which share one interface."""
+    return _sgp if cfg.dynamics == "sgp" else dyn
+
+
+def elbo_terms(cfg: VJFConfig, params: Params, dynamics, qs: Gaussian,
                y: torch.Tensor, u: Optional[torch.Tensor], eps_s: torch.Tensor,
                eps_t: torch.Tensor):
     """Forward pass and the three ELBO terms with injected sampling noise
     (``eps_s`` for x[t-1] ~ q[t-1], ``eps_t`` for x[t] ~ q[t]). Returns
     ``((l_recon, l_dyn, h), (qt, xt, xs, py, feat))``; a non-finite term
     counts as 0."""
-    if cfg.dynamics != "rbf":
-        raise NotImplementedError(_fused._SGP_TODO)
+    tr = _transition(cfg)
     xs = reparametrize(qs, eps_s)
-    feat = dyn.features(dynamics, xs, u)
-    pt = dyn.predict_from_features(dynamics, xs, feat, cfg.leak)
+    feat = tr.features(dynamics, xs, u)
+    pt = tr.predict_from_features(dynamics, xs, feat, cfg.leak)
     qt = params.recognition(y, qs, u, activation=cfg.recognition_activation)
     qt = Gaussian(qt.mean, torch.clamp(qt.logvar, -cfg.logvar_clamp, cfg.logvar_clamp))
     xt = reparametrize(qt, eps_t)
     py = decode(params.decoder, xt)
     l_recon = finite_or_zero(_likelihood_loss(cfg, params.likelihood, py, y))
-    l_dyn = finite_or_zero(dyn.dynamics_loss(dynamics, pt, qt, trace_quirk=cfg.trace_quirk))
+    l_dyn = finite_or_zero(tr.dynamics_loss(dynamics, pt, qt, trace_quirk=cfg.trace_quirk))
     h = finite_or_zero(gaussian_entropy(qt))
     return (l_recon, l_dyn, h), (qt, xt, xs, py, feat)
 
@@ -186,18 +202,6 @@ def _trained_leaves(cfg: VJFConfig, params: Params):
     if cfg.likelihood == "gaussian":
         leaves.append(params.likelihood.logvar)
     return leaves
-
-
-def _tree_leaves(tree):
-    if isinstance(tree, tuple):
-        return [x for c in tree for x in _tree_leaves(c)]
-    return [tree]
-
-
-def _tree_where(ok: torch.Tensor, new, old):
-    if isinstance(new, tuple):
-        return type(new)(*(_tree_where(ok, a, b) for a, b in zip(new, old)))
-    return torch.where(ok, new, old)
 
 
 def filter_step(cfg: VJFConfig, flags: StepFlags, state: TrainState, qs: Gaussian,
@@ -264,10 +268,10 @@ def filter_step(cfg: VJFConfig, flags: StepFlags, state: TrainState, qs: Gaussia
             new_params = new_params._replace(likelihood=lik)
         dynamics = state.dynamics
         if flags.update and flags.update_transition:
-            upd = dyn.update_from_features(cfg, dynamics, xt, xs, feat, warm_up=flags.warm_up)
-            checks = [xt, xs] + [v for v in _tree_leaves(upd) if v.is_floating_point()]
-            upd_ok = torch.stack([torch.isfinite(v).all() for v in checks]).all()
-            dynamics = _tree_where(upd_ok, upd, dynamics)
+            upd = _transition(cfg).update_from_features(cfg, dynamics, xt, xs, feat,
+                                                        warm_up=flags.warm_up)
+            upd_ok = all_finite((xt, xs, upd))
+            dynamics = tree_where(upd_ok, upd, dynamics)
     return TrainState(new_params, dynamics, lik_n), qt, metrics
 
 
@@ -492,8 +496,6 @@ def _refuse_unported(cfg: VJFConfig, state: TrainState, mask, channel_mask, mesh
         raise NotImplementedError(_SNAPSHOT_TODO)
     if cfg.multistep_refine > 0:
         raise NotImplementedError(_MULTISTEP_TODO)
-    if cfg.dynamics != "rbf":
-        raise NotImplementedError(_fused._SGP_TODO)
     if cfg.dynamics_update != "rls":
         raise NotImplementedError(dyn._KALMAN_TODO)
     if not isinstance(state.dynamics.blr, regression.NSVBLR):
@@ -508,8 +510,18 @@ def _bootstrap_dynamics(cfg: VJFConfig, state: TrainState, q_means: torch.Tensor
     xt = q_means[1:].reshape(-1, cfg.xdim)
     xs = q_means[:-1].reshape(-1, cfg.xdim)
     u_init = us[1:].reshape(-1, cfg.udim) if cfg.udim > 0 else None
-    return state._replace(
-        dynamics=dyn.dynamics_initialize(cfg, generator, state.dynamics, xt, xs, u_init))
+    return state._replace(dynamics=_transition(cfg).dynamics_initialize(
+        cfg, generator, state.dynamics, xt, xs, u_init))
+
+
+def _sgp_adapt_step(cfg: VJFConfig, state: TrainState, q_means: torch.Tensor,
+                    us: torch.Tensor) -> TrainState:
+    """The slow-timescale SGP hyperparameter step on the pooled posterior
+    means (``gp.sgp.adapt_hyperparams``), shared by both fit loops."""
+    u = us[1:].reshape(-1, cfg.udim) if cfg.udim > 0 else None
+    return state._replace(dynamics=_sgp.adapt_hyperparams(
+        cfg, state.dynamics, q_means[1:].reshape(-1, cfg.xdim),
+        q_means[:-1].reshape(-1, cfg.xdim), u))
 
 
 def _draw_generator(gen: torch.Generator) -> torch.Generator:
@@ -593,9 +605,12 @@ def fit(
 
     ``noise_hook(epoch) -> (eps_s, eps_t)`` injects each epoch's sampling
     noise; ``callback(epoch, loss, result)`` runs after each epoch.
-    ``epochs_per_dispatch > 1`` runs :func:`_fit_blocked`. ``mesh``, the
-    masks, ``checkpoint_path``/``resume_from``, ``multistep_refine``, SGP,
-    the kalman learner and backends other than nsv raise
+    ``epochs_per_dispatch > 1`` runs :func:`_fit_blocked`. With SGP
+    dynamics and ``cfg.sgp_adapt_lr > 0`` each RLS epoch that does not end
+    the fit is followed by one hyperparameter step
+    (``gp.sgp.adapt_hyperparams``) on its posterior means. ``mesh``, the
+    masks, ``checkpoint_path``/``resume_from``, ``multistep_refine``, the
+    kalman learner and backends other than nsv raise
     ``NotImplementedError`` naming their ROADMAP item.
     """
     del checkpoint_every
@@ -692,11 +707,14 @@ def fit(
                 logger.info("Warm up stopped at epoch %d.", epoch)
                 state = _bootstrap_dynamics(cfg, state, result.q_means, us,
                                             _draw_generator(gen))
-        elif _isclose(epoch_loss, running_loss, rtol):
-            plateau_hits += 1
-            converged_now = plateau_hits >= cfg.stop_patience
         else:
-            plateau_hits = 0
+            if _isclose(epoch_loss, running_loss, rtol):
+                plateau_hits += 1
+                converged_now = plateau_hits >= cfg.stop_patience
+            else:
+                plateau_hits = 0
+            if not converged_now and cfg.dynamics == "sgp" and cfg.sgp_adapt_lr > 0:
+                state = _sgp_adapt_step(cfg, state, result.q_means, us)
 
         if select_on and not warm_up:
             sel = float(rollout_rmse(cfg, state, result.q_means, y, us,
@@ -850,6 +868,9 @@ def _fit_blocked(cfg: VJFConfig, state: TrainState, y, u=None, *,
             warm_up = False
             running_loss = epoch_loss
             state = _bootstrap_dynamics(cfg, state, res.q_means, us, _draw_generator(gen))
+        elif (not warm_up and not converged and cfg.dynamics == "sgp"
+              and cfg.sgp_adapt_lr > 0):
+            state = _sgp_adapt_step(cfg, state, res.q_means, us)
         if select_on and not warm_up:
             sel = float(rollout_rmse(cfg, state, res.q_means, y, us,
                                      _select_generator(sel_base, epoch - 1)))
@@ -885,8 +906,8 @@ def forecast(cfg: VJFConfig, state: TrainState, x0: torch.Tensor,
     if u is not None and u.shape[0] != n_step:
         raise ValueError(f"u must have length n_step={n_step} if present, got {u.shape[0]}")
     gen = None if draws is not None else _generator(seed)
-    x = dyn.forecast(state.dynamics, x0, gen, n_step, u=u, noise=noise, leak=cfg.leak,
-                     draws=draws)
+    x = _transition(cfg).forecast(state.dynamics, x0, gen, n_step, u=u, noise=noise,
+                                  leak=cfg.leak, draws=draws)
     return x, decode(state.params.decoder, x)
 
 

@@ -95,3 +95,24 @@ def nonecat(a: torch.Tensor, u: Optional[torch.Tensor]) -> torch.Tensor:
 def finite_or_zero(x: torch.Tensor) -> torch.Tensor:
     """A non-finite scalar loss term replaced by 0."""
     return torch.where(torch.isfinite(x), x, torch.zeros_like(x))
+
+
+def tree_leaves(tree) -> list:
+    """The tensors of a tree of (named) tuples, depth first."""
+    if isinstance(tree, tuple):
+        return [x for c in tree for x in tree_leaves(c)]
+    return [tree]
+
+
+def tree_where(ok: torch.Tensor, new, old):
+    """``new`` where the scalar ``ok`` holds, else ``old``, leaf by leaf,
+    selected on the device."""
+    if isinstance(new, tuple):
+        return type(new)(*(tree_where(ok, a, b) for a, b in zip(new, old)))
+    return torch.where(ok, new, old)
+
+
+def all_finite(tree) -> torch.Tensor:
+    """True where every floating leaf of ``tree`` is finite (on the device)."""
+    return torch.stack([torch.isfinite(t).all() for t in tree_leaves(tree)
+                        if t.is_floating_point()]).all()

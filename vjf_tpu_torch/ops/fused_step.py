@@ -24,13 +24,24 @@ their plain PyTorch versions (counterpart of
 Numerics follow the JAX package: with ``matmul_dtype='bfloat16'`` the
 activation, gradient and statistics products round their inputs to bf16 and
 accumulate in f32 (:func:`_mm_fn`); the feedback chain (``P w``, every
-Newton-Schulz product, ``V g``, the RBF cross term) stays full f32.
-The trial mask, the channel mask and SGP whitening are not ported yet.
+Newton-Schulz product, ``V g``, the RBF cross term) stays full f32, and so
+does the SGP whitening product (``feat @ w_white``).
+
+With SGP dynamics (``cfg.dynamics='sgp'``) the carry holds the whitener
+``w_white = scale^2 W`` and ``scale2``: the unit SE response at the inducing
+points is whitened before it feeds the prediction and the RLS statistics,
+and the predictive log-variance adds the DTC correction ``max(scale^2 -
+|phi|^2, 0)``. The kernels take at most ``_MAX_FEATURES`` padded features,
+1 to ``_MAX_LAYERS`` hidden layers of width at most ``_MAX_WIDTH``, and a
+block within the card's shared memory (:func:`kernel_limits`); under
+``fused_step='auto'`` a configuration past a limit takes the autograd
+epoch. The trial mask and the channel mask are not ported yet.
 """
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import logging
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -46,7 +57,8 @@ NS_TAU_ESCALATE = 0.05
 NS_ONE_ITER_MIN_BATCH = 64
 
 _MASKS_TODO = "trial and channel masks: ROADMAP Queue 1 item 8"
-_SGP_TODO = "SGP dynamics: ROADMAP Queue 1 item 9"
+
+logger = logging.getLogger(__name__)
 
 # kernel launches, one count per launcher; only the CUDA branch of a wrapper
 # adds to its count
@@ -128,8 +140,8 @@ class FusedCarry(NamedTuple):
     cent_u: Optional[torch.Tensor]        # (nfp, ud) or None
     c2: torch.Tensor                      # (1, nfp) sum of squared centroid coords
     inv_w2: torch.Tensor                  # (1, nfp) exp(-2 logwidth)
-    w_white: Optional[torch.Tensor]       # SGP only: always None in the port
-    scale2: Optional[torch.Tensor]        # SGP only: always None in the port
+    w_white: Optional[torch.Tensor]       # SGP: (nfp, nfp) scale^2 W, zero pad; rbf: None
+    scale2: Optional[torch.Tensor]        # SGP: (1, 1) scale^2; rbf: None
     p_mat: torch.Tensor                   # (nfp, nfp) precision, identity pad block
     v_mat: torch.Tensor                   # (nfp, nfp) NS-tracked inverse
     w_dyn: torch.Tensor                   # (nfp, xd), zero pad rows
@@ -228,10 +240,9 @@ def step_forward_sums(
     cmask: Optional[torch.Tensor] = None,
 ) -> Tuple[FusedSums, PerTrial]:
     """Per-trial phase of the step: forward pass, hand-written backward and
-    trial-axis reductions."""
+    trial-axis reductions. With SGP the features are whitened (full f32)
+    and the predictive log-variance carries the DTC correction."""
     _no_masks(mask, cmask)
-    if carry.w_white is not None:
-        raise NotImplementedError(_SGP_TODO)
     f32 = qs_m.dtype
     slogvar = carry.state_logvar[0, 0]
     has_u = u is not None and u.shape[-1] > 0
@@ -246,10 +257,18 @@ def step_forward_sums(
         cross = cross + u @ carry.cent_u.T
     d2 = torch.clamp(x2 + carry.c2 - 2.0 * cross, min=0.0)
     feat = torch.exp(-0.5 * d2 * carry.inv_w2)                # (B, nfp); pad cols 0
+    if carry.w_white is not None:
+        # SGP whitening in full f32: these features feed the RLS feedback chain
+        feat = feat @ carry.w_white
 
     z = mm(feat, carry.v_mat)
     fvf = torch.clamp(torch.sum(z * feat, dim=-1, keepdim=True), min=1e-30)
-    pt_lv = torch.log(fvf)                                    # (B, 1)
+    if carry.w_white is not None:
+        dtc = torch.clamp(carry.scale2[0, 0] - torch.sum(feat * feat, dim=-1, keepdim=True),
+                          min=0.0)
+        pt_lv = torch.log(fvf + dtc + 1e-30)                  # (B, 1)
+    else:
+        pt_lv = torch.log(fvf)                                # (B, 1)
     pt_m = (1.0 - cfg.leak) * xs + mm(feat, carry.w_dyn)
 
     a0 = mm(y, carry.w_in_y.T) + mm(qs_m, carry.w_in_m.T) + mm(qs_lv, carry.w_in_lv.T)
@@ -804,8 +823,8 @@ class _Args(ctypes.Structure):
         + [("w_hidden", _P * (_MAX_LAYERS - 1)), ("b_hidden", _P * _MAX_LAYERS)]
         + [(n, _P) for n in (
             "w_mean", "w_logvar", "b_logvar", "w_dec", "b_dec", "cent_x", "cent_u",
-            "c2", "inv_w2", "p_mat", "v_mat", "w_dyn", "state_logvar", "lik_logvar",
-            "dyn_n", "lik_n", "rng_seed", "rng_count", "qs_m", "qs_lv", "y", "u",
+            "c2", "inv_w2", "w_white", "scale2", "p_mat", "v_mat", "w_dyn", "state_logvar",
+            "lik_logvar", "dyn_n", "lik_n", "rng_seed", "rng_count", "qs_m", "qs_lv", "y", "u",
             "eps_s", "eps_t", "lr", "q_pack", "scal", "g_vec", "xt", "xs", "sums", "ws")]
         + [(n, ctypes.c_int) for n in ("T", "B", "yd", "ud", "xd", "nfp", "nf", "n_layers")]
         + [("h", ctypes.c_int * _MAX_LAYERS)]
@@ -846,6 +865,43 @@ def _library():
     return lib
 
 
+def _dims(cfg: VJFConfig, n_batch: int, t_total: int = 1) -> _Args:
+    """An ``_Args`` with the dimensions of ``cfg`` at ``n_batch`` trials and
+    no operands: enough for the library's size queries."""
+    a = _Args()
+    a.T, a.B, a.yd, a.ud, a.xd = t_total, n_batch, cfg.ydim, cfg.udim, cfg.xdim
+    a.nfp, a.nf = _round_up(cfg.feature_dim), cfg.feature_dim
+    a.n_layers = len(cfg.hidden_sizes)
+    for i, wd in enumerate(cfg.hidden_sizes[:_MAX_LAYERS]):
+        a.h[i] = wd
+    return a
+
+
+def kernel_limits(cfg: VJFConfig, n_batch: int, on_card: bool = True) -> Optional[str]:
+    """The first limit of the kernels that ``cfg`` at ``n_batch`` trials
+    exceeds, as a message, or None: at most ``_MAX_FEATURES`` padded
+    features, 1 to ``_MAX_LAYERS`` hidden layers, widths of at most
+    ``_MAX_WIDTH``, and with ``on_card`` a block's shared memory within the
+    card's (``vjf_smem_bytes`` against ``vjf_smem_limit``, which builds the
+    library). :func:`_launch` raises on it, and :func:`fused_enabled` routes
+    away from it under ``fused_step='auto'``."""
+    nfp, widths = _round_up(cfg.feature_dim), list(cfg.hidden_sizes)
+    if nfp > _MAX_FEATURES:
+        return (f"{cfg.feature_dim} features pad to {nfp}, over the {_MAX_FEATURES} "
+                "padded features the kernels take")
+    if not 1 <= len(widths) <= _MAX_LAYERS:
+        return f"{len(widths)} hidden layers, the kernels take 1 to {_MAX_LAYERS}"
+    if max(widths) > _MAX_WIDTH:
+        return f"hidden layers of widths {widths}, the kernels take widths of at most {_MAX_WIDTH}"
+    if on_card:
+        lib = _library()
+        need, limit = lib.vjf_smem_bytes(ctypes.byref(_dims(cfg, n_batch))), lib.vjf_smem_limit()
+        if need > limit:
+            return (f"{n_batch} trials over {cluster_size()} blocks at these widths need "
+                    f"{need} bytes of shared memory a block, over the card's {limit}")
+    return None
+
+
 def _ptr(t: Optional[torch.Tensor], name: str, shape=None, dtype=torch.float32,
          device=None) -> Optional[int]:
     """Checked device pointer of a tensor the kernel reads or writes."""
@@ -878,20 +934,22 @@ def _launch(kernel: str, cfg, flags, carry: FusedCarry, qs_m, qs_lv, ys, us, eps
     ``inv_b`` and ``row0`` (the first row of this rank's trials in the whole
     batch) and no ``lr`` or ``scal``. Raises ``ValueError`` for a tensor
     that does not lie on the card and for a shape the kernel does not take:
-    nothing falls back to the plain version."""
-    if carry.w_white is not None or carry.scale2 is not None:
-        raise NotImplementedError(_SGP_TODO)
+    nothing falls back to the plain version. The limits are those of
+    :func:`kernel_limits`."""
     dev = carry.p_mat.device
     t_total, b, yd = ys.shape
-    xd, nfp = cfg.xdim, carry.p_mat.shape[0]
+    reason = kernel_limits(cfg, b, on_card=False)
+    if reason is not None:
+        raise ValueError(f"the kernels do not take this configuration: {reason}")
+    xd, nfp = cfg.xdim, _round_up(cfg.feature_dim)
     ud = 0 if us is None else us.shape[-1]
-    widths = [bb.shape[1] for bb in carry.b_hidden]
-    if not 1 <= len(widths) <= _MAX_LAYERS or max(widths) > _MAX_WIDTH:
-        raise ValueError(f"the kernel takes 1 to {_MAX_LAYERS} hidden layers of width "
-                         f"<= {_MAX_WIDTH}, got {widths}")
-    if nfp % 4 or nfp > _MAX_FEATURES:
-        raise ValueError(f"the kernel takes at most {_MAX_FEATURES} padded features, a "
-                         f"multiple of 4, got {nfp}")
+    widths = list(cfg.hidden_sizes)
+    if len(carry.b_hidden) != len(widths):
+        raise ValueError(f"a carry of {len(carry.b_hidden)} hidden layers, cfg has {widths}")
+    sgp = cfg.dynamics == "sgp"
+    if (carry.w_white is not None, carry.scale2 is not None) != (sgp, sgp):
+        raise ValueError(f"dynamics={cfg.dynamics!r}: w_white and scale2 are given "
+                         "exactly for SGP")
     if (ud > 0) != (carry.w_in_u is not None) or ud != cfg.udim:
         raise ValueError(f"controls of width {ud} do not match udim={cfg.udim}")
     if (eps_s is None) != (eps_t is None):
@@ -901,7 +959,7 @@ def _launch(kernel: str, cfg, flags, carry: FusedCarry, qs_m, qs_lv, ys, us, eps
     def c(t, name, shape, dtype=torch.float32):
         return _ptr(t, name, shape, dtype, dev)
 
-    a = _Args()
+    a = _dims(cfg, b, t_total)
     a.w_in_y = c(carry.w_in_y, "w_in_y", (h0, yd))
     a.w_in_u = c(carry.w_in_u, "w_in_u", (h0, ud))
     a.w_in_m = c(carry.w_in_m, "w_in_m", (h0, xd))
@@ -919,6 +977,8 @@ def _launch(kernel: str, cfg, flags, carry: FusedCarry, qs_m, qs_lv, ys, us, eps
     a.cent_u = c(carry.cent_u, "cent_u", (nfp, ud))
     a.c2 = c(carry.c2, "c2", (1, nfp))
     a.inv_w2 = c(carry.inv_w2, "inv_w2", (1, nfp))
+    a.w_white = c(carry.w_white, "w_white", (nfp, nfp))
+    a.scale2 = c(carry.scale2, "scale2", (1, 1))
     a.p_mat = c(carry.p_mat, "p_mat", (nfp, nfp))
     a.v_mat = c(carry.v_mat, "v_mat", (nfp, nfp))
     a.w_dyn = c(carry.w_dyn, "w_dyn", (nfp, xd))
@@ -939,10 +999,6 @@ def _launch(kernel: str, cfg, flags, carry: FusedCarry, qs_m, qs_lv, ys, us, eps
     a.g_vec = c(g_vec, "g_vec", (nfp, xd))
     a.xt = c(xt, "xt", (b, xd))
     a.xs = c(xs, "xs", (b, xd))
-    a.T, a.B, a.yd, a.ud, a.xd, a.nfp = t_total, b, yd, ud, xd, nfp
-    a.nf, a.n_layers = cfg.feature_dim, len(widths)
-    for i, wd in enumerate(widths):
-        a.h[i] = wd
     a.sgd, a.update, a.warm_up = int(flags.sgd), int(flags.update), int(flags.warm_up)
     a.train_decoder = int(flags.train_decoder)
     a.update_likelihood = int(flags.update_likelihood)
@@ -956,11 +1012,9 @@ def _launch(kernel: str, cfg, flags, carry: FusedCarry, qs_m, qs_lv, ys, us, eps
     a.obs_var_cap, a.state_var_cap = float(cfg.obs_var_cap), float(cfg.state_var_cap)
 
     lib = _library()
-    need, limit = lib.vjf_smem_bytes(ctypes.byref(a)), lib.vjf_smem_limit()
-    if need > limit:
-        raise ValueError(
-            f"{b} trials over {cluster_size()} blocks at these widths need {need} bytes of "
-            f"shared memory a block, over the card's {limit}")
+    reason = kernel_limits(cfg, b)
+    if reason is not None:
+        raise ValueError(f"the kernels do not take this configuration: {reason}")
     if kernel == "info":
         out = (ctypes.c_int * 6)()
         rc = lib.vjf_cluster_info(ctypes.byref(a), out)
@@ -1091,11 +1145,12 @@ def forward_sums_call(cfg, flags, carry, qs_m, qs_lv, y, u, eps_s, eps_t, inv_b,
 def pad_carry(cfg: VJFConfig, state) -> FusedCarry:
     """TrainState -> FusedCarry, padded once per epoch: centroids +1e6
     (padded basis responses underflow to exact 0), P/V identity pad block,
-    dynamics weights zero pad. Every leaf is a fresh contiguous tensor."""
+    dynamics weights zero pad. With SGP the inducing points are the
+    centroids, ``inv_w2`` the uniform ``exp(-2 log_lengthscale)``,
+    ``w_white = scale^2 W`` zero-padded and ``scale2`` (1, 1). Every leaf is
+    a fresh contiguous tensor."""
     from ..models.regression import NSVBLR
 
-    if cfg.dynamics != "rbf":
-        raise NotImplementedError(_SGP_TODO)
     p = state.params
     blr = state.dynamics.blr
     if not isinstance(blr, NSVBLR):
@@ -1108,11 +1163,20 @@ def pad_carry(cfg: VJFConfig, state) -> FusedCarry:
     def z(*shape):
         return torch.zeros(shape, dtype=dtype, device=dev)
 
-    rbf = state.dynamics.rbf
+    d = state.dynamics
     cent_full = torch.full((nfp, xd + ud), 1e6, dtype=dtype, device=dev)
-    cent_full[:nf] = rbf.centroid
-    inv_w2 = torch.ones((1, nfp), dtype=dtype, device=dev)
-    inv_w2[0, :nf] = torch.exp(-2.0 * rbf.logwidth)
+    w_white = scale2 = None
+    if cfg.dynamics == "sgp":
+        cent_full[:nf] = d.inducing
+        # a uniform lengthscale; the pad columns still underflow to exact 0
+        inv_w2 = torch.exp(-2.0 * d.log_lengthscale).expand(1, nfp).to(dtype).contiguous()
+        scale2 = torch.exp(2.0 * d.log_scale).to(dtype).reshape(1, 1)
+        w_white = z(nfp, nfp)
+        w_white[:nf, :nf] = scale2 * d.whiten
+    else:
+        cent_full[:nf] = d.rbf.centroid
+        inv_w2 = torch.ones((1, nfp), dtype=dtype, device=dev)
+        inv_w2[0, :nf] = torch.exp(-2.0 * d.rbf.logwidth)
     c2 = torch.sum(cent_full * cent_full, dim=-1).reshape(1, nfp)
 
     pad_eye = torch.eye(nfp, dtype=dtype, device=dev)
@@ -1147,8 +1211,8 @@ def pad_carry(cfg: VJFConfig, state) -> FusedCarry:
         cent_u=leaf(cent_full[:, xd:]) if ud > 0 else None,
         c2=c2,
         inv_w2=inv_w2,
-        w_white=None,
-        scale2=None,
+        w_white=w_white,
+        scale2=scale2,
         p_mat=p_mat + pad_eye,
         v_mat=v_mat + pad_eye,
         w_dyn=w_dyn,
@@ -1162,7 +1226,9 @@ def pad_carry(cfg: VJFConfig, state) -> FusedCarry:
 
 
 def unpad_carry(cfg: VJFConfig, carry: FusedCarry, state_template):
-    """FusedCarry -> TrainState (slice off padding, restore counters)."""
+    """FusedCarry -> TrainState (slice off padding, restore counters). The
+    SGP's inducing points, hyperparameters and whitener only move between
+    epochs: they come from ``state_template``."""
     from ..models.dynamics import DynamicsState
     from ..models.likelihoods import GaussianLikParams
     from ..models.rbf import RBFParams
@@ -1200,14 +1266,16 @@ def unpad_carry(cfg: VJFConfig, carry: FusedCarry, state_template):
         precision=carry.p_mat[:nf, :nf].clone(),
         cov=carry.v_mat[:nf, :nf].clone(),
     )
-    cent_segs = [carry.cent_x] + ([carry.cent_u] if carry.cent_u is not None else [])
-    centroid = torch.cat(cent_segs, dim=1)[:nf]
-    dynamics = DynamicsState(
-        rbf=RBFParams(centroid, state_template.dynamics.rbf.logwidth),
-        blr=blr_new,
-        logvar=carry.state_logvar.reshape(()),
-        n_sample=carry.dyn_n.reshape(()).to(torch.int32),
-    )
+    noise = dict(logvar=carry.state_logvar.reshape(()),
+                 n_sample=carry.dyn_n.reshape(()).to(torch.int32))
+    if cfg.dynamics == "sgp":
+        dynamics = state_template.dynamics._replace(blr=blr_new, **noise)
+    else:
+        cent_segs = [carry.cent_x] + ([carry.cent_u] if carry.cent_u is not None else [])
+        centroid = torch.cat(cent_segs, dim=1)[:nf]
+        dynamics = DynamicsState(
+            rbf=RBFParams(centroid, state_template.dynamics.rbf.logwidth),
+            blr=blr_new, **noise)
     return TrainState(
         params=params,
         dynamics=dynamics,
@@ -1269,6 +1337,8 @@ def exact_v_fallback(cfg: VJFConfig, out, prev_carry: FusedCarry,
             cross = cross + u @ c.cent_u.T
         d2 = torch.clamp(x2 + c.c2 - 2.0 * cross, min=0.0)
         feat = torch.exp(-0.5 * d2 * c.inv_w2)
+        if c.w_white is not None:
+            feat = feat @ c.w_white          # SGP whitening
         resid = (out.xt - out.xs) - feat @ w_new
         return torch.mean(resid * resid)
 
@@ -1307,16 +1377,30 @@ def exact_v_fallback_sums(cfg: VJFConfig, carry_new: FusedCarry, prev_carry: Fus
 # ---------------------------------------------------------------------------
 
 
+# the kernel limits already logged by fused_enabled, so each warns once
+_routed_away = set()
+
+
 def fused_enabled(cfg: VJFConfig, state, n_batch: Optional[int] = None) -> bool:
-    """Whether ``run_epoch`` takes the fused path. 'auto' means float32 and a
-    state on a CUDA device (the JAX gate asks for a TPU backend)."""
+    """Whether ``run_epoch`` takes the fused path. 'auto' means float32, a
+    state on a CUDA device (the JAX gate asks for a TPU backend) and a
+    configuration within :func:`kernel_limits` at ``n_batch`` trials.
+
+    Deliberate deviation from the JAX package, whose TPU kernels take any
+    of these shapes: under 'auto' a configuration past a kernel limit takes
+    the autograd epoch, with one warning that names the limit; under 'on'
+    the launch raises ``ValueError``. As in the JAX package, SGP below
+    ``cfg.sgp_fused_min_batch`` trials takes the autograd epoch under
+    'auto': a tiny batch keeps the Newton-Schulz trace bound hot, and that
+    route has the per-step exact-inverse fallback."""
     from ..models.regression import NSVBLR
 
     if cfg.fused_step == "off":
         return False
-    if cfg.dynamics == "sgp":
-        raise NotImplementedError(_SGP_TODO)
-    if cfg.dynamics != "rbf" or not isinstance(state.dynamics.blr, NSVBLR):
+    if cfg.dynamics not in ("rbf", "sgp") or not isinstance(state.dynamics.blr, NSVBLR):
+        return False
+    if (cfg.dynamics == "sgp" and cfg.fused_step != "on" and n_batch is not None
+            and n_batch < cfg.sgp_fused_min_batch):
         return False
     if cfg.dynamics_update != "rls":
         return False
@@ -1324,7 +1408,16 @@ def fused_enabled(cfg: VJFConfig, state, n_batch: Optional[int] = None) -> bool:
         return False
     if cfg.fused_step == "on":
         return True
-    return cfg.dtype == "float32" and state.dynamics.blr.precision.is_cuda
+    if not (cfg.dtype == "float32" and _on_cuda(state.dynamics.blr.precision)):
+        return False
+    reason = kernel_limits(cfg, n_batch, on_card=n_batch is not None)
+    if reason is not None:
+        if reason not in _routed_away:
+            _routed_away.add(reason)
+            logger.warning("fused_step='auto': %s; this configuration takes the autograd "
+                           "epoch.", reason)
+        return False
+    return True
 
 
 @contextlib.contextmanager
