@@ -23,7 +23,13 @@ against their plain versions with the whitening and the DTC correction
 the main path (``run_epochs``: warm-up, bootstrap, two RLS epochs) and a
 blocked ``fit`` with hyperparameter adaptation. ``route`` drives a
 configuration past the kernels' limits: the autograd epoch under
-``fused_step='auto'``, ``ValueError`` under ``'on'``.
+``fused_step='auto'``, ``ValueError`` under ``'on'``. The ``mask`` phases
+run ragged trials and missing channels at the flagship widths (trial
+lengths in [T/2, T], 10% of y dropped, 8 channels dead over a quarter of the
+epoch, NaN at every masked entry): the three launchers with either mask and
+both against their plain versions and the planted mask faults, NaN
+invariance, the masked main path, a masked sharded epoch and a blocked
+``fit`` on the ragged data.
 Phases print one line each; any failed check raises and the script exits
 non-zero. The last line is the result:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -32,6 +38,7 @@ Imports nothing of JAX. Needs one CUDA device and nvcc.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import datetime
 import json
@@ -121,6 +128,11 @@ VDP_EPOCHS = 60         # fit.vdp: bench_all.py's max_iter for config #1
 SGP_TAU0 = 0.5          # the SGP check state's first-step tau (sgp_check_state)
 SGP_SHARD_T = 64        # steps of the sharded SGP epoch
 SGP_FIT_EPOCHS, SGP_FIT_T = 6, 1024   # fit.sgp: epochs of T steps, blocks of 2
+MASK_T = 1024           # steps of the masked data (mask.*, fit.ragged, sharded.mask)
+MASK_DROP = 0.10        # the share of y's entries dropped at random
+MASK_DEAD = 8           # channels dead over a contiguous quarter of the masked data
+MASK_SHARD_T = 64       # sharded.mask: the masked data's steps around MASK_T * 3 / 4
+MASK_FIT_EPOCHS = 6     # fit.ragged: 2 warm-up epochs, then 2 RLS blocks of 2
 # one card's published peaks (H100 SXM data sheet, dense): HBM bytes/s,
 # FP32 outside the tensor cores, bf16 in them
 PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
@@ -421,9 +433,10 @@ def check_ragged(dev) -> None:
               updated_steps=int((tau < F.NS_TAU_MAX).sum()), steps=steps)
 
 
-def sums_leaves(flat: torch.Tensor, q_pack: torch.Tensor, carry) -> dict:
-    """Every leaf of a flat FusedSums buffer by name, and the q pack."""
-    return dict(flatten(F.unpack_sums(flat, carry)._asdict()),
+def sums_leaves(flat: torch.Tensor, q_pack: torch.Tensor, carry, has_cm: bool = False) -> dict:
+    """Every leaf of a flat FusedSums buffer by name (``cm_sum`` with a
+    channel mask), and the q pack."""
+    return dict(flatten(F.unpack_sums(flat, carry, has_cm)._asdict()),
                 q_mean=q_pack[0], q_logvar=q_pack[1])
 
 
@@ -487,7 +500,8 @@ def epoch_leaves(res) -> dict:
             "cov": blr.cov, "state_logvar": res.state.dynamics.logvar}
 
 
-def check_sharded_epoch(cfg, post_warm, ys, us, lr, qm, qlv, smi, sgp_args) -> tuple:
+def check_sharded_epoch(cfg, post_warm, ys, us, lr, qm, qlv, smi, sgp_args,
+                        mask_data) -> tuple:
     """The sharded epoch at world size 1 over NCCL: SHARD_T RLS-active steps
     from the post-warm-up state in both matmul modes, each held against the
     single-device stepwise epoch (same seed, in-kernel noise), and the
@@ -496,7 +510,11 @@ def check_sharded_epoch(cfg, post_warm, ys, us, lr, qm, qlv, smi, sgp_args) -> t
     the phase-1 kernel's launches and timesteps in the main path. Then, in
     the same group, SGP_SHARD_T sharded SGP steps from ``sgp_args`` (its
     config and :func:`sgp_check_state`) against the single-device stepwise
-    epoch: the phase-1 kernel's launches on the SGP path."""
+    epoch: the phase-1 kernel's launches on the SGP path. Then ``sharded.mask``:
+    MASK_SHARD_T steps of the masked data (:func:`masked_data`, both masks,
+    NaN padding) around 3/4 of it, where about half the trials have ended,
+    sharded against the masked single-device stepwise epoch: the phase-1
+    kernel's launches on the masked path."""
     dev = ys.device
     torch.cuda.set_device(dev)
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
@@ -582,8 +600,32 @@ def check_sharded_epoch(cfg, post_warm, ys, us, lr, qm, qlv, smi, sgp_args) -> t
         phase("sgp.sharded.times", steps=SGP_SHARD_T, seconds=s_secs,
               steps_per_s=SGP_SHARD_T / s_secs, launches=s_launches, max_abs_err=s_err,
               fallback_steps=int((s_ref.metrics.tau >= F.NS_TAU_THRESHOLD).sum()), card=smi)
+
+        m_ys, _, m_mask, m_cm, _ = mask_data
+        mid = 3 * m_ys.shape[0] // 4
+        rows = slice(mid - MASK_SHARD_T // 2, mid + MASK_SHARD_T // 2)
+        m_args = (m_ys[rows], us[:MASK_SHARD_T], 41, lr)
+        m_kw = dict(mask=m_mask[rows], channel_mask=m_cm[rows])
+        torch.cuda.synchronize()
+        F.reset_launches()
+        m_got, m_secs = synced(lambda: run_epoch_fused_sharded(cfg, flags, post_warm, *m_args,
+                                                               group, **m_kw))
+        m_launches = dict(F.launches)
+        m_ref = core.run_epoch(cfg.replace(fused_epoch="stepwise"), flags, post_warm, *m_args,
+                               **m_kw)
+        check(m_launches == {"fused_step": 0, "mega_epoch": 0, "forward_sums": MASK_SHARD_T},
+              f"sharded.mask: launches {m_launches}")
+        blr = post_warm.dynamics.blr
+        m_err = compare("sharded.mask", epoch_leaves(m_ref), epoch_leaves(m_got),
+                        EPOCH_TOL[cfg.matmul_dtype],
+                        {"w_mean": blr.w_mean, "cov": blr.cov,
+                         "state_logvar": post_warm.dynamics.logvar})
+        phase("sharded.mask.times", steps=MASK_SHARD_T, seconds=m_secs,
+              steps_per_s=MASK_SHARD_T / m_secs, launches=m_launches, max_abs_err=m_err,
+              valid_share=float(m_mask[rows].mean()),
+              fallback_steps=int((m_ref.metrics.tau >= F.NS_TAU_THRESHOLD).sum()), card=smi)
         return (launches["forward_sums"], timesteps["forward_sums"], s_launches["forward_sums"],
-                SGP_SHARD_T)
+                SGP_SHARD_T, m_launches["forward_sums"], MASK_SHARD_T)
     finally:
         dist.destroy_process_group()
 
@@ -1081,6 +1123,381 @@ def check_route(ys, us, lr) -> None:
           autograd_us_per_step=1e6 * secs / 8, warnings=len(warned), on_raised=raised)
 
 
+# ---------------------------------------------------------------------------
+# Ragged trials and missing channels: the masks through the three kernels
+# ---------------------------------------------------------------------------
+
+
+def masked_data(ys: torch.Tensor, seed: int):
+    """The flagship data made ragged: trial lengths drawn from [T/2, T],
+    NaN after each trial's end; MASK_DROP of y's entries dropped at random
+    and MASK_DEAD channels dead over a contiguous quarter of the epoch, NaN
+    there too. Returns ``(ys with NaN, ys with 0 at the same entries, mask
+    (T, B), channel mask (T, B, ydim), ys)``."""
+    t, b, yd = ys.shape
+    dev = ys.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lengths = torch.randint(t // 2, t + 1, (b,), generator=g, device=dev)
+    mask = (torch.arange(t, device=dev)[:, None] < lengths[None, :]).float()
+    cmask = (torch.rand((t, b, yd), generator=g, device=dev) >= MASK_DROP).float()
+    dead = torch.randperm(yd, generator=g, device=dev)[:MASK_DEAD]
+    start = int(torch.randint(0, t - t // 4 + 1, (1,), generator=g, device=dev))
+    cmask[start:start + t // 4, :, dead] = 0.0
+    return (holes(ys, mask, cmask), holes(ys, mask, cmask, 0.0), mask, cmask, ys)
+
+
+def holes(ys, mask=None, cmask=None, fill=float("nan")):
+    """``ys`` with ``fill`` at every entry the given masks hide."""
+    hole = torch.zeros_like(ys, dtype=torch.bool)
+    if cmask is not None:
+        hole |= cmask == 0
+    if mask is not None:
+        hole |= (mask == 0)[..., None]
+    return torch.where(hole, torch.full_like(ys, fill), ys)
+
+
+MASK_VARIANTS = ("mask", "cmask", "both")
+
+
+def variant(name, mask, cmask) -> dict:
+    """The keyword arguments of a launcher for one mask variant."""
+    return {"mask": mask if name in ("mask", "both") else None,
+            "cmask": cmask if name in ("cmask", "both") else None}
+
+
+def masked_prefix_step(step_fn, cfg, flags, carry, qm, qlv, y, e_s, e_t, lr, mask=None,
+                       cmask=None):
+    """One exact-inverse prefix step with masks: a fused step, then the
+    fallback over the valid rows."""
+    prev = carry._replace(dyn_n=carry.dyn_n.clone(), state_logvar=carry.state_logvar.clone())
+    out = step_fn(cfg, flags, carry, qm, qlv, y, None, e_s, e_t, lr, mask=mask, cmask=cmask)
+    return F.exact_v_fallback(cfg, out, prev, None, mask=mask)
+
+
+def check_mask_kernels(post_warm, qm, qlv, post_prefix, data, eps, lr, smi) -> dict:
+    """The three launchers with the trial mask alone, the channel mask alone
+    and both, in both matmul modes, against their plain versions (``compare``
+    at TOL): one per-step launch and the exact fallback at a step where
+    about half the trials have ended (from the post-warm-up state, where the
+    fallback fires), 64 mega steps from the post-prefix state with one step
+    of no valid trial, and one phase-1 launch with the global 1/count. The
+    frozen rows are their input bit for bit; the empty step reports loss and
+    tau 0 and leaves P, V and w. Planted faults, each of which must be
+    rejected: the kernel given an all-ones trial mask, or an all-ones
+    channel mask, against the plain version given the real one, and the
+    kernel given the empty step made valid against the plain version that
+    freezes it (finite padding there, so that the difference is numeric).
+    Then NaN invariance (NaN padding against 0 padding: the same bits, here
+    and with controls at ``check_ragged``'s widths) and two masked mega runs
+    bit for bit. Returns the largest max abs diff by kernel."""
+    _, _, mask, cmask, ys = data
+    flags = StepFlags()
+    errs = dict.fromkeys(("fused_step", "mega_epoch", "forward_sums"), 0.0)
+    carry_p, qm_p, qlv_p = post_prefix
+    lo = flagship().ns_prefix
+    hi = lo + MEGA_STEPS
+    empty = 5                                  # the segment's step with no valid trial
+    seg_mask = mask[lo:hi].clone()
+    seg_mask[empty] = 0.0
+    e_s, e_t = eps[0, 0], eps[1, 0]
+    t1 = 3 * ys.shape[0] // 4                  # about half the trials have ended
+    frozen = mask[t1] == 0
+    check(bool(frozen.any()) and bool((~frozen).any()), "mask: no ragged step to check")
+    taus = {}
+    for mm in ("float32", "bfloat16"):
+        cfg = flagship(mm)
+        tol = TOL[mm]
+        carry = F.pad_carry(cfg, post_warm)
+        start = flatten(carry._asdict())
+        m_start = flatten(carry_p._asdict())
+        for name in MASK_VARIANTS:
+            kw = variant(name, mask[t1], cmask[t1])
+            # NaN where this variant's masks hide an entry, 0 for the faults
+            ys_nan = holes(ys, **variant(name, mask, cmask))
+            ys_zero = holes(ys, **variant(name, mask, cmask), fill=0.0)
+            args = (qm, qlv, ys_nan[t1], e_s, e_t, lr)
+            ref = masked_prefix_step(F.fused_step_plain, cfg, flags, clone(carry), *args, **kw)
+            got = masked_prefix_step(F.fused_step_call, cfg, flags, clone(carry), *args, **kw)
+            taus[f"{name}[{mm}]"] = [float(ref.scal[0, 4]), float(got.scal[0, 4])]
+            errs["fused_step"] = max(errs["fused_step"], compare(
+                f"mask.step[{name}][{mm}]", packed(ref), packed(got), tol, start))
+            if kw["mask"] is not None:
+                check(torch.equal(got.q_pack[0][frozen], qm[frozen])
+                      and torch.equal(got.q_pack[1][frozen], qlv[frozen]),
+                      f"mask.step[{name}][{mm}]: a frozen row moved")
+            mkw = variant(name, seg_mask, cmask[lo:hi])
+            margs = (qm_p, qlv_p, ys_nan[lo:hi], None, eps[0, lo:hi], eps[1, lo:hi], lr)
+            m_ref = F.mega_epoch_plain(cfg, flags, clone(carry_p), *margs, **mkw)
+            m_got = F.mega_epoch_call(cfg, flags, clone(carry_p), *margs, **mkw)
+            errs["mega_epoch"] = max(errs["mega_epoch"], compare(
+                f"mask.mega[{name}][{mm}]", segment(*m_ref), segment(*m_got), tol, m_start))
+            if mkw["mask"] is not None:
+                ks = m_got[2]
+                check(float(ks[empty, 0]) == 0.0 and float(ks[empty, 4]) == 0.0,
+                      f"mask.mega[{name}][{mm}]: the empty step reports loss "
+                      f"{float(ks[empty, 0])}, tau {float(ks[empty, 4])}")
+            skw = variant(name, mask[t1], cmask[t1])
+            n_valid = float(mask[t1].sum()) if skw["mask"] is not None else ys.shape[1]
+            sargs = (qm, qlv, ys_nan[t1], None, e_s, e_t, 1.0 / max(n_valid, 1.0))
+            s_ref = sums_leaves(*F.forward_sums_plain(cfg, flags, carry, *sargs, **skw), carry,
+                                skw["cmask"] is not None)
+            s_got = sums_leaves(*F.forward_sums_call(cfg, flags, carry, *sargs, **skw), carry,
+                                skw["cmask"] is not None)
+            errs["forward_sums"] = max(errs["forward_sums"], compare(
+                f"mask.forward_sums[{name}][{mm}]", s_ref, s_got, tol, {}))
+
+            # planted faults, on the finite padding
+            zargs = (qm, qlv, ys_zero[t1], e_s, e_t, lr)
+            zm = (qm_p, qlv_p, ys_zero[lo:hi], None, eps[0, lo:hi], eps[1, lo:hi], lr)
+            for fault, key in (("all_ones_mask", "mask"), ("all_ones_cmask", "cmask")):
+                if kw[key] is None:
+                    continue
+                bad = dict(kw, **{key: torch.ones_like(kw[key])})
+                out = masked_prefix_step(F.fused_step_call, cfg, flags, clone(carry), *zargs,
+                                         **bad)
+                compare(f"mask.step[{name}][{mm}].fault.{fault}", packed(ref), packed(out),
+                        tol, start, reject=True)
+                bad_m = dict(mkw, **{key: torch.ones_like(mkw[key])})
+                m_bad = F.mega_epoch_call(cfg, flags, clone(carry_p), *zm, **bad_m)
+                compare(f"mask.mega[{name}][{mm}].fault.{fault}", segment(*m_ref),
+                        segment(*m_bad), tol, m_start, reject=True)
+                bad_s = dict(skw, **{key: torch.ones_like(skw[key])})
+                s_bad = sums_leaves(*F.forward_sums_call(cfg, flags, carry, qm, qlv,
+                                                         ys_zero[t1], None, e_s, e_t,
+                                                         sargs[-1], **bad_s),
+                                    carry, skw["cmask"] is not None)
+                compare(f"mask.forward_sums[{name}][{mm}].fault.{fault}", s_ref, s_bad, tol,
+                        {}, reject=True)
+            if mkw["mask"] is not None:
+                woke = seg_mask.clone()
+                woke[empty] = 1.0
+                m_bad = F.mega_epoch_call(cfg, flags, clone(carry_p), *zm,
+                                          **dict(mkw, mask=woke))
+                compare(f"mask.mega[{name}][{mm}].fault.empty_step_made_valid",
+                        segment(*m_ref), segment(*m_bad), tol, m_start, reject=True)
+
+    check(any(v[0] >= F.NS_TAU_THRESHOLD for v in taus.values()),
+          f"mask.step: no variant reaches the exact fallback (tau {taus})")
+    phase("mask.step.tau", plain_kernel=taus, threshold=F.NS_TAU_THRESHOLD)
+
+    # a step with no valid trial through the per-step kernel
+    ys_nan, ys_zero = data[0], data[1]
+    cfg = flagship()
+    carry = F.pad_carry(cfg, post_warm)
+    none = torch.zeros_like(mask[t1])
+    got = masked_prefix_step(F.fused_step_call, cfg, flags, clone(carry), qm, qlv, ys_nan[t1],
+                             e_s, e_t, lr, mask=none, cmask=cmask[t1])
+    # the counters keep their count, clamped at their caps as in every step
+    moved = [k for k in ("p_mat", "v_mat", "w_dyn", "w_in_y", "w_dec")
+             if not torch.equal(getattr(got.carry, k), getattr(carry, k))]
+    unchanged = moved + [k for k, cap in (("dyn_n", cfg.state_var_cap), ("lik_n", cfg.obs_var_cap))
+                         if not torch.equal(getattr(got.carry, k),
+                                            torch.clamp(getattr(carry, k), max=float(cap)))]
+    check(not unchanged and torch.equal(got.q_pack[0], qm) and torch.equal(got.q_pack[1], qlv)
+          and float(got.scal[0, 0]) == 0.0 and float(got.scal[0, 4]) == 0.0,
+          f"mask.step.empty: moved {unchanged}, loss {float(got.scal[0, 0])}")
+
+    # NaN invariance: the same bits from NaN and from 0 at the masked entries
+    mkw = variant("both", seg_mask, cmask[lo:hi])
+    runs = [segment(*F.mega_epoch_call(cfg, flags, clone(carry_p), qm_p, qlv_p, y[lo:hi], None,
+                                       eps[0, lo:hi], eps[1, lo:hi], lr, **mkw))
+            for y in (ys_nan, ys_zero)]
+    differ = [k for k in runs[0] if not torch.equal(runs[0][k], runs[1][k])]
+    check(not differ, f"mask.nan_invariance: leaves differ {differ}")
+    finite = all(bool(torch.isfinite(v).all()) for k, v in runs[0].items()
+                 if v.is_floating_point() and k != "tau")
+    check(finite, "mask.nan_invariance: a NaN reached the state")
+    check_mask_controls(ys_nan.device)
+    phase("mask.nan_invariance", steps=MEGA_STEPS, leaves=len(runs[0]), bit_identical=True,
+          with_controls="mask.controls")
+
+    # two masked mega runs, in-kernel noise: the same bits
+    runs = [segment(*F.mega_epoch_call(cfg, flags, clone(carry_p), qm_p, qlv_p, ys_nan[lo:hi],
+                                       None, None, None, lr, **mkw)) for _ in range(2)]
+    differ = [k for k, v in runs[0].items() if not torch.equal(v, runs[1][k])]
+    check(not differ, f"mask.deterministic: leaves differ {differ}")
+    phase("mask.deterministic", steps=MEGA_STEPS, leaves=len(runs[0]), bit_identical=True)
+    return errs
+
+
+def check_mask_controls(dev) -> None:
+    """NaN invariance with controls: ``check_ragged``'s widths (udim 2, B
+    250), both masks with NaN or 0 at every masked entry of y and u, through
+    the per-step kernel and the mega kernel: the same bits."""
+    cfg = VJFConfig(ydim=14, xdim=2, udim=2, n_rbf=16, hidden_sizes=(16, 8),
+                    likelihood="gaussian", dtype="float32", rls_backend="nsv",
+                    fused_step="on", matmul_dtype="float32")
+    steps, b = 8, 250
+    g = torch.Generator(device=dev).manual_seed(41)
+    ys = torch.randn((steps, b, cfg.ydim), device=dev, generator=g)
+    us = torch.randn((steps, b, cfg.udim), device=dev, generator=g)
+    eps = torch.randn((2, steps, b, cfg.xdim), device=dev, generator=g)
+    q = 0.3 * torch.randn((2, b, cfg.xdim), device=dev, generator=g)
+    mask = (torch.rand((steps, b), device=dev, generator=g) > 0.3).float()
+    cmask = (torch.rand((steps, b, cfg.ydim), device=dev, generator=g) > 0.2).float()
+    carry = F.pad_carry(cfg, core.init_state(0, cfg, device=dev))
+    lr = torch.tensor(1e-2, device=dev)
+
+    def fill(v):
+        y = torch.where((cmask == 0) | (mask == 0)[:, :, None], torch.full_like(ys, v), ys)
+        return y, torch.where((mask == 0)[:, :, None], torch.full_like(us, v), us)
+
+    outs = []
+    for v in (float("nan"), 0.0):
+        y, u = fill(v)
+        c = clone(carry)
+        st = F.fused_step_call(cfg, StepFlags(), c, q[0], q[1], y[0], u[0], eps[0, 0], eps[1, 0],
+                               lr, mask=mask[0], cmask=cmask[0])
+        st = F.exact_v_fallback(cfg, st, carry, u[0], mask=mask[0])
+        res = F.mega_epoch_call(cfg, StepFlags(), clone(carry), q[0], q[1], y, u, eps[0], eps[1],
+                                lr, mask=mask, cmask=cmask)
+        outs.append(dict(packed(st), **{f"mega.{k}": v for k, v in segment(*res).items()}))
+    differ = [k for k in outs[0] if not torch.equal(outs[0][k], outs[1][k])]
+    check(not differ, f"mask.controls: leaves differ {differ}")
+    phase("mask.controls", batch=b, udim=cfg.udim, steps=steps, bit_identical=True)
+
+
+def mask_times(post_prefix, data, eps, lr, smi) -> dict:
+    """Microseconds per step of each masked launcher beside the unmasked one
+    and the plain version, in one run (bf16 products, from the post-prefix
+    state, the masks of the mega check): the mega kernel with the trial
+    mask, the channel mask and both; the other two with both. Returns
+    ``{kernel: (ms, plain_ms)}`` with both masks, and the times by variant."""
+    _, _, mask, cmask, ys = data
+    cfg, flags = flagship(), StepFlags()
+    carry_p, qm, qlv = post_prefix
+    lo = cfg.ns_prefix
+    hi = lo + MEGA_STEPS
+    t1 = 3 * ys.shape[0] // 4
+    e_s, e_t = eps[0, 0], eps[1, 0]
+    b = ys.shape[1]
+    inv_b = 1.0 / max(float(mask[t1].sum()), 1.0)
+    seg = {n: variant(n, mask[lo:hi], cmask[lo:hi]) for n in MASK_VARIANTS}
+    seg["none"] = variant("none", None, None)
+    one = {n: variant(n, mask[t1], cmask[t1]) for n in ("both", "none")}
+    pc = clone(carry_p)
+
+    # each variant's data holds NaN where its own masks hide an entry
+    def mega(fn, kw, c):
+        y = holes(ys[lo:hi], **kw)
+        return lambda: fn(cfg, flags, c, qm, qlv, y, None, eps[0, lo:hi], eps[1, lo:hi], lr,
+                          **kw)
+
+    def step(fn, kw, c):
+        y = holes(ys[t1], **kw)
+        return lambda: fn(cfg, flags, c, qm, qlv, y, None, e_s, e_t, lr, **kw)
+
+    def sums(fn, kw):
+        y = holes(ys[t1], **kw)
+        return lambda: fn(cfg, flags, carry_p, qm, qlv, y, None, e_s, e_t,
+                          inv_b if kw["mask"] is not None else 1.0 / b, **kw)
+
+    us = {}
+    for n, kw in seg.items():
+        kc = clone(carry_p)             # each variant from the same carry
+        k1, k2 = cuda_ms(mega(F.mega_epoch_call, kw, kc), 3), cuda_ms(mega(F.mega_epoch_call, kw,
+                                                                           kc), 3)
+        us[f"mega_epoch.{n}"] = 1e3 * (k1 + k2) / 2 / MEGA_STEPS
+    p1, p2 = cuda_ms(mega(F.mega_epoch_plain, seg["both"], pc), 1), cuda_ms(
+        mega(F.mega_epoch_plain, seg["both"], pc), 1)
+    us["mega_epoch.both_plain"] = 1e3 * (p1 + p2) / 2 / MEGA_STEPS
+    for n, kw in one.items():
+        kc = clone(carry_p)
+        us[f"fused_step.{n}"] = 1e3 * (cuda_ms(step(F.fused_step_call, kw, kc), 20)
+                                       + cuda_ms(step(F.fused_step_call, kw, kc), 20)) / 2
+        us[f"forward_sums.{n}"] = 1e3 * (cuda_ms(sums(F.forward_sums_call, kw), 20)
+                                         + cuda_ms(sums(F.forward_sums_call, kw), 20)) / 2
+    us["fused_step.both_plain"] = 1e3 * cuda_ms(step(F.fused_step_plain, one["both"], pc), 20)
+    us["forward_sums.both_plain"] = 1e3 * cuda_ms(sums(F.forward_sums_plain, one["both"]), 20)
+    lib = F._library()
+    smem = {n: lib.vjf_smem_bytes(ctypes.byref(F._dims(cfg, b, mask=m, cmask=cm)))
+            for n, m, cm in (("none", False, False), ("mask", True, False),
+                             ("cmask", False, True), ("both", True, True))}
+    phase("mask.times", unit="us per timestep", card=smi, smem_bytes_a_block=smem, **us)
+    return {k: (us[f"{k}.both"] / 1e3, us[f"{k}.both_plain"] / 1e3)
+            for k in ("fused_step", "mega_epoch", "forward_sums")}
+
+
+def check_mask_main(data, smi) -> dict:
+    """The masked main path through ``run_epochs``: one warm-up epoch, then
+    two RLS epochs (T = MASK_T, B 256, both masks, NaN padding) through the
+    kernels. Fails on a non-finite loss or state leaf, and unless a trial
+    that has ended keeps its last valid posterior bit for bit. Returns the
+    launches and steps by kernel, counted from 0 over this run."""
+    ys_nan, _, mask, cmask, _ = data
+    cfg, dev, b = flagship(), ys_nan.device, ys_nan.shape[1]
+    us = torch.zeros((ys_nan.shape[0], b, 0), device=dev)
+    state = core.init_state(0, cfg, device=dev)
+    lrs = [cfg.lr * cfg.lr_decay ** i for i in range(2)]
+    masks = dict(mask=mask, channel_mask=cmask)
+    F.reset_launches()
+    wu, t_warm = synced(lambda: core.run_epochs(cfg, StepFlags(warm_up=True), state, ys_nan, us,
+                                                [50], lrs[:1], **masks))
+    out, t_rls = synced(lambda: core.run_epochs(cfg, StepFlags(), wu.state, ys_nan, us, [51, 52],
+                                                lrs, **masks))
+    launches, timesteps = dict(F.launches), dict(F.steps)
+    check(launches["fused_step"] > 0 and launches["mega_epoch"] > 0,
+          f"mask.main: launches {launches}")
+    check(bool(torch.isfinite(out.epoch_loss).all()), "mask.main: epoch losses not finite")
+    leaves = state_leaves(out.state)
+    bad = [k for k, v in leaves.items() if v.is_floating_point() and not torch.isfinite(v).all()]
+    check(not bad, f"mask.main: non-finite state leaves {bad}")
+    check(bool(torch.isfinite(out.q_means).all()), "mask.main: posterior not finite")
+    lengths = mask.sum(dim=0).long()
+    short = int(torch.argmin(lengths))
+    n = int(lengths[short])
+    last = out.q_means[n - 1, short]
+    check(torch.equal(out.q_means[n:, short], last.expand(ys_nan.shape[0] - n, -1)),
+          "mask.main: an ended trial's posterior moved")
+    phase("mask.main", config="bench.py flagship, B %d, T %d/epoch, both masks" % (
+              b, ys_nan.shape[0]), warmup_epoch_s=t_warm, rls_epochs_s=t_rls,
+          rls_steps_per_s=2 * ys_nan.shape[0] / t_rls, epoch_loss=out.epoch_loss.tolist(),
+          max_tau=out.max_tau.tolist(), hot_frac=out.hot_frac.tolist(), launches=launches,
+          timesteps=timesteps, valid_share=float(mask.mean()),
+          observed_share=float((cmask * mask[:, :, None]).mean()), frozen_trial=short,
+          frozen_after_step=n - 1, card=smi)
+    return {"launches": launches, "steps": timesteps}
+
+
+def check_fit_ragged(data, smi) -> None:
+    """A blocked ``fit`` on the masked flagship data (2 epochs a block,
+    warm-up forced to end after 2, ``bench_all.py``'s forgetting), 6 epochs:
+    seconds per block with and without the prefix, a finite bootstrap and a
+    finite result, no dispatch writing its input, the kernels launched."""
+    ys_nan, _, mask, cmask, _ = data
+    cfg = flagship().replace(warmup_max=2, **FIT_FORGET)
+    state = core.init_state(0, cfg, device=ys_nan.device)
+    with watched("run_epochs") as log, timed("_bootstrap_dynamics") as boot:
+        F.reset_launches()
+        res, secs = synced(lambda: core.fit(cfg, state, ys_nan, seed=9,
+                                            max_iter=MASK_FIT_EPOCHS, epochs_per_dispatch=2,
+                                            mask=mask, channel_mask=cmask))
+        launches = dict(F.launches)
+    blocks = blocks_summary(log, ys_nan.shape[0])
+    check(all(b["input_intact"] for b in blocks), "fit.ragged: a block wrote its input state")
+    check(math.isfinite(res.loss), f"fit.ragged: loss {res.loss}")
+    # the bootstrap's state is the input of the first RLS block
+    first_rls = [e["input"] for e in log if not e["warm_up"]]
+    check(len(boot) == 1 and len(first_rls) > 0, f"fit.ragged: {len(boot)} bootstraps")
+    for name, leaves in (("bootstrap", first_rls[0]), ("final", state_leaves(res.state))):
+        bad = [k for k, v in leaves.items()
+               if v.is_floating_point() and not torch.isfinite(v).all()]
+        check(not bad, f"fit.ragged: non-finite {name} state leaves {bad}")
+    check(launches["fused_step"] > 0 and launches["mega_epoch"] > 0,
+          f"fit.ragged: launches {launches}")
+    rls = [b for b in blocks if not b["warm_up"]]
+    free = [i for i, b in enumerate(blocks) if not b["warm_up"] and b["ns_prefix"] == 0]
+    phase("fit.ragged", config="flagship, B %d, T %d, both masks, 2 epochs a block, "
+          "rls_shrink 0.999, chol_jitter 1e-3" % (ys_nan.shape[1], ys_nan.shape[0]),
+          seconds=secs, epochs_run=res.epochs_run, loss=res.loss, warm_up=res.warm_up,
+          bootstrap_s=boot[0], bootstrap_finite=True,
+          block_s_with_prefix=[b["seconds"] for b in rls if b["ns_prefix"] > 0],
+          block_s_prefix_free=[blocks[i]["seconds"] for i in free],
+          prefix_free_from_block=free[0] if free else None,
+          demoted_blocks=sum(b["fused_step"] == "off" for b in blocks), launches=launches,
+          blocks=blocks, card=smi)
+
+
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
@@ -1165,6 +1582,7 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(2)
     eps = torch.randn((2, 1024, b, cfg.xdim), device=dev, generator=gen)
     flags = StepFlags()
+    mask_data = masked_data(ys[:MASK_T], seed=40)
 
     step_err = check_step(post_warm, qm0, qlv0, ys[-1], eps[0, 0], eps[1, 0], lr)
     sums_err = check_forward_sums(post_warm, qm0, qlv0, ys[-1], eps[0, 0], eps[1, 0])
@@ -1313,8 +1731,9 @@ def main() -> int:
     sgp_k = check_sgp_kernels(sgp_state, sgp_qm, sgp_qlv, ys, eps, lr, smi)
 
     # ---------------- sharded: the exact-sync epoch at world size 1 ----------------
-    sums_launches, sums_steps, sgp_sums_launches, sgp_sums_steps = check_sharded_epoch(
-        cfg, post_warm, ys, us, lr, qm0, qlv0, smi, (sgp_cfg, sgp_state))
+    (sums_launches, sums_steps, sgp_sums_launches, sgp_sums_steps, mask_sums_launches,
+     mask_sums_steps) = check_sharded_epoch(cfg, post_warm, ys, us, lr, qm0, qlv0, smi,
+                                            (sgp_cfg, sgp_state), mask_data)
 
     # ---------------- the autograd epoch and the fit loop ----------------
     check_xla(flagship("float32"), post_warm, ys, us, lr, smi)
@@ -1326,6 +1745,12 @@ def main() -> int:
     sgp_main = check_sgp_main(ys, us, smi)
     check_fit_sgp(ys, smi)
     check_route(ys, us, lr)
+
+    # ---------------- masks: ragged trials and missing channels ----------------
+    mask_errs = check_mask_kernels(post_warm, qm0, qlv0, post_prefix, mask_data, eps, lr, smi)
+    mask_ms = mask_times(post_prefix, mask_data, eps, lr, smi)
+    mask_main = check_mask_main(mask_data, smi)
+    check_fit_ragged(mask_data, smi)
 
     # ---------------- bounds: the least time one card could take ----------------
     # each input read once and each output written once; the mega segment's
@@ -1366,6 +1791,28 @@ def main() -> int:
     sgp_sums_bound = bound(sgp_cfg, s_read - nbytes(s_carry.p_mat, lr) + data
                            + nbytes(s_flat, s_q), step_ops(sgp_cfg, b, nfp))
 
+    # masked: the timed step's masks read once more; the products of the
+    # valid trials, and the imputation's decoder product over every trial
+    _, _, m_mask, m_cm, _ = mask_data
+    t1, m_lo = 3 * m_mask.shape[0] // 4, cfg.ns_prefix
+    m_valid = float(m_mask[t1].sum())
+    seg_valid = float(m_mask[m_lo:m_lo + MEGA_STEPS].sum(dim=1).mean())
+    impute = 2 * b * cfg.ydim * cfg.xdim
+
+    def masked_ops(n_valid, ns_iters=None):
+        f32_ops, mm_ops = step_ops(cfg, max(int(round(n_valid)), 1), nfp, ns_iters)
+        return f32_ops, mm_ops + impute
+
+    m_bytes = nbytes(m_mask[t1], m_cm[t1])
+    mask_step_bound = bound(cfg, read + written + data + m_bytes + nbytes(
+        stepped.q_pack, stepped.g_vec, stepped.xt, stepped.xs, stepped.scal),
+        masked_ops(m_valid, F.NS_ITERS))
+    mask_mega_bound = bound(cfg, (read + written + nbytes(qm_t, qlv_t)) / MEGA_STEPS + nbytes(
+        y0, e_s, e_t) + m_bytes + nbytes(stepped.q_pack) + 4 * 8,
+        masked_ops(seg_valid, F.mega_ns_base_iters(cfg, b, masked=True)))
+    mask_sums_bound = bound(cfg, read - nbytes(carry_t.p_mat, lr) + data + m_bytes
+                            + nbytes(flat, q_pack) + 4, masked_ops(m_valid))
+
     # library_ms: no single PyTorch call computes a VJF step or its phase 1
     src = "vjf_tpu_torch/csrc/fused_step.cu"
 
@@ -1391,6 +1838,14 @@ def main() -> int:
             *sgp_k["ms"]["mega_epoch"], sgp_mega_bound),
         row("forward_sums.sgp", 1437, sgp_sums_launches, sgp_sums_steps,
             sgp_k["errs"]["forward_sums"], *sgp_k["ms"]["forward_sums"], sgp_sums_bound),
+        row("fused_step.mask", 1104, mask_main["launches"]["fused_step"],
+            mask_main["steps"]["fused_step"], mask_errs["fused_step"],
+            *mask_ms["fused_step"], mask_step_bound),
+        row("mega_epoch.mask", 1767, mask_main["launches"]["mega_epoch"],
+            mask_main["steps"]["mega_epoch"], mask_errs["mega_epoch"],
+            *mask_ms["mega_epoch"], mask_mega_bound),
+        row("forward_sums.mask", 1437, mask_sums_launches, mask_sums_steps,
+            mask_errs["forward_sums"], *mask_ms["forward_sums"], mask_sums_bound),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

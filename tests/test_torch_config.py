@@ -81,8 +81,6 @@ def test_run_epoch_refuses_the_unported_xla_step():
 
 _DEFERRED = {
     "mesh": (dict(mesh=object()), "item 13"),
-    "mask": (dict(mask=torch.ones(6, 2)), "item 8"),
-    "channel_mask": (dict(channel_mask=torch.ones(6, 2, 4)), "item 8"),
     "checkpoint_path": (dict(checkpoint_path="fit.ckpt", checkpoint_every=1), "item 10"),
     "resume_from": (dict(resume_from="fit.ckpt"), "item 10"),
     "multistep_refine": (dict(cfg=dict(multistep_refine=2)), "item 7"),
@@ -119,8 +117,9 @@ def test_unported_options_raise():
     st = _state(cfg)
     ys = torch.zeros(3, 2, 4)
     us = torch.zeros(3, 2, 0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tcore.run_epoch(cfg, tcfg.StepFlags(), st, ys, us, 0, 1e-3, mask=torch.ones(3, 2))
+    # the masks are ported: a masked epoch runs (tests/test_torch_masks.py)
+    res = tcore.run_epoch(cfg, tcfg.StepFlags(), st, ys, us, 0, 1e-3, mask=torch.ones(3, 2))
+    assert torch.isfinite(res.metrics.loss).all()
     with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
         tcore.init_state(0, cfg.replace(rls_backend="precision"), device="cpu")
 
@@ -135,3 +134,45 @@ def test_kernel_wrapper_rejects_cpu_tensors():
         TF._launch("fused_step", cfg, tcfg.StepFlags(), carry, q, q, torch.zeros(1, 2, 4),
                    None, None, None, torch.tensor(1e-3), torch.empty(2, 2, 2),
                    torch.empty(1, 8))
+
+
+class _StagingLib:
+    """The kernels' two size queries, without a build: a block needs
+    ``base`` bytes, plus ``extra[0]`` with the trial mask's operand set and
+    ``extra[1]`` with the channel mask's (the staging the kernel adds)."""
+
+    def __init__(self, base, extra):
+        self.base, self.extra = base, extra
+        self.seen = []
+
+    def vjf_smem_bytes(self, args):
+        a = args._obj
+        self.seen.append((bool(a.mask), bool(a.cmask)))
+        return self.base + self.extra[0] * bool(a.mask) + self.extra[1] * bool(a.cmask)
+
+    def vjf_smem_limit(self):
+        return 232448
+
+
+def test_kernel_limits_count_the_mask_staging(monkeypatch, caplog):
+    """A shape that fits unmasked but not with the channel mask's staging:
+    ``kernel_limits`` asks the library with the mask operands set, and under
+    'auto' only the masked epoch takes the autograd route."""
+    import logging
+
+    lib = _StagingLib(210000, (1152, 26112))
+    monkeypatch.setattr(TF, "_on_cuda", lambda t: True)
+    monkeypatch.setattr(TF, "_routed_away", set())
+    monkeypatch.setattr(TF, "_library", lambda: lib)
+    cfg = tcfg.VJFConfig(ydim=4, xdim=2, n_rbf=5, hidden_sizes=(3,), rls_backend="nsv",
+                         dtype="float32")
+    st = _state(cfg)
+    assert TF.kernel_limits(cfg, 8) is None
+    assert TF.kernel_limits(cfg, 8, mask=True) is None
+    reason = TF.kernel_limits(cfg, 8, channel_mask=True)
+    assert reason is not None and "channel mask" in reason and "236112" in reason
+    assert lib.seen == [(False, False), (True, False), (False, True)]
+    with caplog.at_level(logging.WARNING, logger=TF.__name__):
+        assert TF.fused_enabled(cfg, st, n_batch=8, mask=True)
+        assert not TF.fused_enabled(cfg, st, n_batch=8, mask=True, channel_mask=True)
+    assert any("channel mask" in r.getMessage() for r in caplog.records)

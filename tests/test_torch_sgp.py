@@ -551,8 +551,8 @@ def fit_pair():
 
     mp.setattr(jsgp, "dynamics_initialize", j_init)
     mp.setattr(tsgp, "dynamics_initialize",
-               lambda c, gen, st, xt, xs, u=None: real_t(c, gen, st, xt, xs, u,
-                                                         unit=torch.tensor(unit)))
+               lambda c, gen, st, xt, xs, u=None, weights=None: real_t(
+                   c, gen, st, xt, xs, u, unit=torch.tensor(unit), weights=weights))
     mp.setattr(tcore, "_sgp_adapt_step", t_adapt)
     mp.setattr(tdyn, "running_var", _jax_running_var)
     try:

@@ -377,8 +377,13 @@ def test_make_sharded_epoch_routes(jax_epochs, group1):
     direct = run_epoch_fused_sharded(e["cfg"], tcfg.StepFlags(), e["state"], ys, us, 0,
                                      e["lr"], group1)
     assert torch.equal(res.q_means, direct.q_means) and torch.isfinite(res.metrics.loss).all()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        epoch(e["state"], ys, us, 0, e["lr"], mask=torch.ones(2, B))
+    # the masks ride the route (ported; tests/test_torch_masks.py)
+    mask = torch.ones(2, B)
+    mask[1, 0] = 0.0
+    masked = epoch(e["state"], ys, us, 0, e["lr"], mask=mask)
+    assert torch.equal(masked.q_means, run_epoch_fused_sharded(
+        e["cfg"], tcfg.StepFlags(), e["state"], ys, us, 0, e["lr"], group1, mask=mask).q_means)
+    assert torch.equal(masked.q_means[1, 0], masked.q_means[0, 0])
     epochs = make_sharded_epochs(e["cfg"], tcfg.StepFlags(), group1)(
         e["state"], ys, us, [0, 1], [e["lr"], e["lr"]])
     assert torch.equal(epochs.epoch_loss[0], torch.mean(res.metrics.loss))

@@ -7,9 +7,12 @@ exact-sync sharded epoch (``parallel.sharded``) splits its trials over the
 ranks of a ``torch.distributed`` group. The dynamics are the RBF system
 (``models.dynamics``) or the sparse GP (``gp.sgp``). The three kernels are
 hand-written CUDA in ``csrc/fused_step.cu``. On CPU tensors the kernels'
-plain PyTorch versions run instead.
+plain PyTorch versions run instead. Ragged trials and missing channels ride
+the trial mask and the channel mask (``fit(mask=..., channel_mask=...)``);
+:func:`pad_trials` builds them from a list of trials.
 """
 from .config import StepFlags, VJFConfig
 from .types import Gaussian
+from .utils.ragged import pad_trials, split_trials
 
-__all__ = ["StepFlags", "VJFConfig", "Gaussian"]
+__all__ = ["StepFlags", "VJFConfig", "Gaussian", "pad_trials", "split_trials"]

@@ -87,6 +87,26 @@
 // step of the SGP flagship takes 105 us against 96 for RBF; loading one row
 // of w_white at a time, 158). With w_white null (RBF) nothing changes.
 //
+// Ragged trials and missing channels (the TPU kernels' variants with
+// has_mask and has_cmask, fused_step.py:1027-1063, :1632-1731, :1449-1533):
+// the same launchers with a trial mask (T, B) and a channel mask (T, B, yd),
+// each null when not given. A block stages its rows of the channel mask and
+// the whole row of the trial mask for step t + 1 by cp.async beside y (at
+// the flagship, 26,112 + 1,024 bytes more a block). At the start of a step
+// the masked entries of y and u are replaced by 0 (select, channel holes
+// first: NaN padding never enters), every block counts the valid trials of
+// the step in the same order, and the batch means divide by that count (the
+// phase-1 kernel takes the caller's global 1 / count instead). A masked trial
+// leaves every sum through a 0/1 weight, its feature row is published as 0
+// for the RLS statistics, and its posterior is frozen at its last valid value
+// (not in the phase-1 kernel, whose caller freezes it). A step with no valid
+// trial leaves the loss at 0 and the recursion, the counters and tau where
+// they were. A masked channel leaves the likelihood sum and its gradient, and
+// the recognition input sees the decoder's prediction from the previous
+// posterior there (one more product, nb x yd x xd); the Gaussian noise
+// constant and count run over the observed entries. With both masks null
+// every weight is 1 and the unmasked kernel's bits are kept.
+//
 // Numerics: products marked bf16 round their inputs to bf16 (nearest even)
 // and accumulate in f32; the feedback chain (P w, every Newton-Schulz
 // product, V g, the RBF cross term) and the SGP whitening stay full f32.
@@ -113,7 +133,7 @@
 #define NS_TAU_MAX 0.7f
 #define NS_EXTRA_ITERS 2
 #define NS_TAU_ESCALATE 0.05f
-#define N_SUM_SCALARS 9  // scalar leaves of FusedSums
+#define N_SUM_SCALARS 9  // scalar leaves of FusedSums, then cm_sum with a channel mask
 #define N_SLAB_SCALARS 16
 
 // Must match vjf_tpu_torch/ops/fused_step.py:_Args field for field.
@@ -152,6 +172,8 @@ struct VJFArgs {
   const float* u;      // (T, B, ud) or null
   const float* eps_s;  // (T, B, xd) or null: in-kernel Philox
   const float* eps_t;
+  const float* mask;   // (T, B) 0/1 trial mask or null
+  const float* cmask;  // (T, B, yd) 0/1 channel mask or null
   const float* lr;     // (1,)
   // outputs
   float* q_pack;       // (T, 2, B, xd)
@@ -235,13 +257,13 @@ __host__ __device__ static SumsOff sums_offsets(const VJFArgs& a) {
   o.b_dec = off, off += yd;
   o.ftf = off, off += nfp * nfp;
   o.fxd = off, off += nfp * xd;
-  o.scalars = off, off += N_SUM_SCALARS;
+  o.scalars = off, off += N_SUM_SCALARS + (a.cmask ? 1 : 0);
   o.total = off;
   return o;
 }
 
 // Per-block raw scalars at the end of a slab (from offset ftf).
-enum { SC_ELBO = 0 /* 7 sums */, SC_GRAD = 7, SC_FINITE = 8, SC_RESID = 9 };
+enum { SC_ELBO = 0 /* 7 sums */, SC_GRAD = 7, SC_FINITE = 8, SC_RESID = 9, SC_CM = 10 };
 
 // The L2 workspace: one slab per block, the RLS target, the three
 // Newton-Schulz matrices other blocks read rows of, and every trial's
@@ -283,6 +305,7 @@ __host__ __device__ static inline int panel_ksplit(int prow, int nfp) {
 // each other.
 struct SM {
   float *y, *u, *eps, *q[2][2], *feat, *dx, *tmp, *red, *bc;
+  float *cm, *mrow, *mcol;  // channel mask rows, the trial mask's row, this block's 0/1 column
   float *cent_x, *cent_u, *c2, *inv_w2;        // the RBF constants (centroids transposed)
   float *b_dec, *b_logvar, *b_hid[MAX_LAYERS];  // the biases, loaded every step
   float *xs, *xt, *x2, *z, *fvf, *ptlv, *pt_m, *raw, *py, *g_xt, *g_qm, *g_qlv, *g_h, *g_a;
@@ -354,6 +377,9 @@ __host__ __device__ static SM carve_smem(const VJFArgs& a, float* base) {
   s.tmp = cv.take(rows * xd);
   s.red = cv.take(8 * NWARPS);
   s.bc = cv.take(32);
+  s.cm = a.cmask ? cv.take(rows * s.ldy) : nullptr;
+  s.mrow = a.mask ? cv.take(a.B) : nullptr;
+  s.mcol = cv.take(rows);
   s.cent_x = cv.take(nfp * xd);
   s.cent_u = a.ud > 0 ? cv.take(nfp * a.ud) : nullptr;
   s.c2 = cv.take(nfp);
@@ -611,10 +637,12 @@ struct CarryScalars {
   float slv, lik_lv, dyn_n, lik_n;
 };
 
-// The scalar leaves of FusedSums, in pack_sums's order (N_SUM_SCALARS).
+// The scalar leaves of FusedSums, in pack_sums's order (N_SUM_SCALARS, then
+// cm_sum, the observed entries under a channel mask), and the step's valid
+// trials (B without a trial mask).
 struct StepSums {
   float g_lik_lv_batch, recon_batch, dyn_batch, ent, sq_y, grad_check, fvf_sum, dx_sum,
-      dx2_sum;
+      dx2_sum, cm_sum, count;
 };
 
 // Element `off` of the flat buffer summed over the blocks' slabs, in rank
@@ -625,22 +653,32 @@ __device__ __forceinline__ float rank_sum(const Ctx& c, size_t off) {
   return s;
 }
 
-// Starts the copy of step t's y, u and injected noise for this block's
-// trials into shared memory.
-__device__ __forceinline__ void fetch_inputs(const VJFArgs& a, const Ctx& c, int t) {
-  const int nb = c.tr.n, yd = a.yd, ud = a.ud, xd = a.xd;
-  const size_t row = (size_t)t * a.B + c.tr.first;
-  const float* ysrc = a.y + row * yd;
-  if (yd % 4 == 0 && ((uintptr_t)ysrc & 15) == 0) {
+// Starts the copy of nb rows of yd floats (row-major) into shared memory
+// rows of leading dimension ld, 16 bytes at a time where aligned.
+__device__ __forceinline__ void stage_rows(float* dst, int ld, const float* src, int nb, int yd) {
+  if (yd % 4 == 0 && ((uintptr_t)src & 15) == 0) {
     const int q = yd / 4;
     for (int i = threadIdx.x; i < nb * q; i += NTHREADS) {
       const int r = i / q, cc = (i % q) * 4;
-      cp_async16(c.s.y + (size_t)r * c.s.ldy + cc, ysrc + (size_t)r * yd + cc);
+      cp_async16(dst + (size_t)r * ld + cc, src + (size_t)r * yd + cc);
     }
   } else {
     for (int i = threadIdx.x; i < nb * yd; i += NTHREADS)
-      cp_async4(c.s.y + (size_t)(i / yd) * c.s.ldy + i % yd, ysrc + i);
+      cp_async4(dst + (size_t)(i / yd) * ld + i % yd, src + i);
   }
+}
+
+// Starts the copy of step t's y, u, injected noise and masks for this
+// block's trials into shared memory (the trial mask's whole row: every block
+// counts the step's valid trials).
+__device__ __forceinline__ void fetch_inputs(const VJFArgs& a, const Ctx& c, int t) {
+  const int nb = c.tr.n, yd = a.yd, ud = a.ud, xd = a.xd;
+  const size_t row = (size_t)t * a.B + c.tr.first;
+  stage_rows(c.s.y, c.s.ldy, a.y + row * yd, nb, yd);
+  if (a.cmask) stage_rows(c.s.cm, c.s.ldy, a.cmask + row * yd, nb, yd);
+  if (a.mask)
+    for (int i = threadIdx.x; i < a.B; i += NTHREADS)
+      cp_async4(c.s.mrow + i, a.mask + (size_t)t * a.B + i);
   if (ud > 0) {
     const float* usrc = a.u + row * ud;
     for (int i = threadIdx.x; i < nb * ud; i += NTHREADS)
@@ -660,9 +698,12 @@ __device__ __forceinline__ void fetch_inputs(const VJFArgs& a, const Ctx& c, int
 // Waits for step t's inputs; loads the posterior entering step 0; draws the
 // noise unless it is given: rows [row0 + first, ...) of the whole batch's
 // draw, at counter `count`. `cur` is the buffer that holds the posterior
-// entering the step.
-__device__ __forceinline__ void step_begin(const VJFArgs& a, const Ctx& c, int t, int cur,
-                                           uint32_t count) {
+// entering the step. With masks: this block's 0/1 column of the trial mask
+// and its channel mask as 0/1, y and u replaced by 0 where masked (channel
+// holes first), and the step's valid trials over the whole batch, which it
+// returns (B without a trial mask).
+__device__ __forceinline__ float step_begin(const VJFArgs& a, const Ctx& c, int t, int cur,
+                                            uint32_t count) {
   const int nb = c.tr.n, xd = a.xd;
   cp_async_wait_all();
   if (t == 0) {
@@ -686,6 +727,34 @@ __device__ __forceinline__ void step_begin(const VJFArgs& a, const Ctx& c, int t
     }
   }
   __syncthreads();
+  if (!a.mask && !a.cmask) return (float)a.B;
+  float valid[1] = {0.f};
+  if (a.mask) {
+    // 0/1 sums are exact in any order: every block counts the same number
+    for (int i = threadIdx.x; i < a.B; i += NTHREADS) valid[0] += c.s.mrow[i] > 0.f ? 1.f : 0.f;
+    for (int b = threadIdx.x; b < nb; b += NTHREADS)
+      c.s.mcol[b] = c.s.mrow[c.tr.first + b] > 0.f ? 1.f : 0.f;
+    block_sum<1>(c.s.red, valid);  // its barriers publish mcol
+  } else {
+    valid[0] = (float)a.B;
+  }
+  for (int i = threadIdx.x; i < nb * a.yd; i += NTHREADS) {
+    const size_t e = (size_t)(i / a.yd) * c.s.ldy + i % a.yd;
+    float v = c.s.y[e];
+    if (a.cmask) {
+      const float cmv = c.s.cm[e] > 0.f ? 1.f : 0.f;
+      c.s.cm[e] = cmv;
+      v = cmv > 0.f ? v : 0.f;
+    }
+    c.s.y[e] = c.s.mcol[i / a.yd] > 0.f ? v : 0.f;
+  }
+  if (a.mask)
+    for (int i = threadIdx.x; i < nb * a.ud; i += NTHREADS) {
+      float* p = c.s.u + (size_t)(i / a.ud) * c.s.ldu + i % a.ud;
+      *p = c.s.mcol[i / a.ud] > 0.f ? *p : 0.f;
+    }
+  __syncthreads();
+  return valid[0];
 }
 
 // SGP whitening of this block's features: s.feat (nb x nfp) times w_white
@@ -747,21 +816,23 @@ __device__ __forceinline__ void whiten_features(const VJFArgs& a, const Ctx& c, 
     const int b = i / nfp, j = i % nfp;
     const float v = s.z[(size_t)b * s.ldf + j];
     s.feat[(size_t)b * s.ldf + j] = v;
-    if (stats) c.g.feat[(size_t)(c.tr.first + b) * nfp + j] = v;
+    if (stats) c.g.feat[(size_t)(c.tr.first + b) * nfp + j] = v * s.mcol[b];
   }
   __syncthreads();
 }
 
 // Phase 1 on this block's trials: forward, ELBO sums, manual backward, every
-// batch mean scaled by `inv_b` (1 / the whole batch). The gradient sums land
-// in this block's slab in the flat order, its raw scalar sums behind them;
-// with `stats` every trial's features and dx go to the workspace, for
-// stat_rows. Writes the posterior (shared memory buffer 1 - cur, and
-// q_pack) and xs, xt where asked; updates no carry leaf. Ends with the
-// prefetch of step t + 1 and a cluster barrier that publishes the slabs.
+// batch mean scaled by `inv_b` (1 / the step's valid trials of the whole
+// batch). The gradient sums land in this block's slab in the flat order, its
+// raw scalar sums behind them; with `stats` every trial's features (a masked
+// trial's as 0) and dx go to the workspace, for stat_rows. Writes the
+// posterior (shared memory buffer 1 - cur, and q_pack; with `freeze` a
+// masked trial's is its input) and xs, xt where asked; updates no carry
+// leaf. Ends with the prefetch of step t + 1 and a cluster barrier that
+// publishes the slabs.
 __device__ __forceinline__ void step_forward_sums(const VJFArgs& a, const Ctx& c,
                                                   const CarryScalars& cs, int t, int cur,
-                                                  float inv_b, bool stats) {
+                                                  float inv_b, bool stats, bool freeze) {
   const int tid = threadIdx.x;
   const SM& s = c.s;
   const int nb = c.tr.n, first = c.tr.first;
@@ -775,6 +846,21 @@ __device__ __forceinline__ void step_forward_sums(const VJFArgs& a, const Ctx& c
   const int eps_ld = 2 * xd;
   const float slv = cs.slv, lik_lv = cs.lik_lv;
   float* slab = c.slab;
+
+  const float* mcol = s.mcol;
+  if (a.cmask) {
+    // the recognition input at a masked channel: the decoder's prediction
+    // from the previous posterior mean (the rate for Poisson), into s.y
+    mm(nb, yd, xd, rowmaj(qs_m, xd), trans(a.w_dec, xd), s.py, s.ldy, false, bf, true);
+    for (int i = tid; i < nb * yd; i += NTHREADS) {
+      const size_t e = (size_t)(i / yd) * s.ldy + i % yd;
+      if (!(s.cm[e] > 0.f)) {
+        float p = s.py[e] + s.b_dec[i % yd];
+        if (a.poisson) p = expf(p > a.poisson_clamp ? a.poisson_clamp : p);
+        s.y[e] = p;
+      }
+    }
+  }
 
   // ---------------- forward ----------------
   for (int i = tid; i < nb * xd; i += NTHREADS) {
@@ -810,7 +896,7 @@ __device__ __forceinline__ void step_forward_sums(const VJFArgs& a, const Ctx& c
       d2 = d2 < 0.f ? 0.f : d2;
       const float f = expf(-0.5f * d2 * s.inv_w2[j]);
       s.feat[(size_t)b * s.ldf + j] = f;
-      if (stats && !a.w_white) c.g.feat[(size_t)(first + b) * nfp + j] = f;
+      if (stats && !a.w_white) c.g.feat[(size_t)(first + b) * nfp + j] = f * mcol[b];
     }
   }
   __syncthreads();
@@ -880,8 +966,9 @@ __device__ __forceinline__ void step_forward_sums(const VJFArgs& a, const Ctx& c
       const float xt = qt_m[i] + eps_t[b * eps_ld + k] * expf(0.5f * lv);
       s.xt[i] = xt;
       s.pt_m[i] = (1.0f - a.leak) * s.xs[i] + s.pt_m[i];
-      qp[i] = qt_m[i];
-      qp[(size_t)a.B * xd + i] = lv;
+      const bool keep = !freeze || mcol[b] > 0.f;
+      qp[i] = keep ? qt_m[i] : qs_m[i];
+      qp[(size_t)a.B * xd + i] = keep ? lv : qs_lv[i];
       if (a.xt) a.xt[(size_t)first * xd + i] = xt;
     }
   }
@@ -889,44 +976,52 @@ __device__ __forceinline__ void step_forward_sums(const VJFArgs& a, const Ctx& c
   mm(nb, yd, xd, rowmaj(s.xt, xd), trans(a.w_dec, xd), s.py, s.ldy, false, bf, true);
 
   // ---------------- ELBO batch sums (+ the likelihood gradient) ----------------
-  // sums: 0 nll or squared residual, 1 diff^2, 2 trace, 3 qt_lv, 4 dx, 5 dx^2, 6 fvf
-  float e[7] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  // sums: 0 nll or squared residual, 1 diff^2, 2 trace, 3 qt_lv, 4 dx, 5 dx^2,
+  // 6 fvf, 7 the observed entries (channel mask); each entry weighted by its
+  // 0/1 mask, which is 1 throughout without masks
+  float e[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   const float inv_sv = expf(-slv);
   const float inv_lik = expf(-lik_lv);
   for (int b = tid >> 5; b < nb; b += NWARPS) {
     float* row = s.py + (size_t)b * s.ldy;
     const float* yrow = y + (size_t)b * s.ldy;
+    const float* cmrow = a.cmask ? s.cm + (size_t)b * s.ldy : nullptr;
     for (int j = tid & 31; j < yd; j += 32) {
-      const float py = row[j] + s.b_dec[j], yv = yrow[j];
+      // s.y holds the recognition input; the likelihood sees 0 at a hole
+      const float cmv = cmrow ? cmrow[j] : 1.f;
+      const float w = cmv * mcol[b];
+      const float py = row[j] + s.b_dec[j], yv = cmv > 0.f ? yrow[j] : 0.f;
       float g;
       if (a.poisson) {
         const float pyc = py > a.poisson_clamp ? a.poisson_clamp : py;
         const float ex = expf(pyc);
-        e[0] += ex - yv * pyc;
+        e[0] += (ex - yv * pyc) * w;
         g = (ex - yv) * (py < a.poisson_clamp ? 1.f : 0.f) * inv_b;
       } else {
         const float r = yv - py;
-        e[0] += r * r;
+        e[0] += r * r * w;
         g = -r * inv_lik * inv_b;
       }
-      row[j] = g;  // py becomes g_py
+      e[7] += w;
+      row[j] = g * w;  // py becomes g_py
     }
   }
   for (int i = tid; i < nb * xd; i += NTHREADS) {
     const int b = i / xd;
+    const float m = mcol[b];
     const float diff = s.pt_m[i] - qt_m[i];
-    e[1] += diff * diff;
-    e[2] += a.trace_quirk ? expf(s.ptlv[b] + qt_lv[i] - slv)
-                          : expf(s.ptlv[b] - slv) + expf(qt_lv[i] - slv);
-    e[3] += qt_lv[i];
+    e[1] += diff * diff * m;
+    e[2] += (a.trace_quirk ? expf(s.ptlv[b] + qt_lv[i] - slv)
+                           : expf(s.ptlv[b] - slv) + expf(qt_lv[i] - slv)) * m;
+    e[3] += qt_lv[i] * m;
     const float dx = s.xt[i] - s.xs[i];
     s.dx[i] = dx;
     if (stats) c.g.dx[(size_t)first * xd + i] = dx;
-    e[4] += dx;
-    e[5] += dx * dx;
+    e[4] += dx * m;
+    e[5] += dx * m * dx;
   }
-  for (int b = tid; b < nb; b += NTHREADS) e[6] += s.fvf[b];
-  block_sum<7>(s.red, e);
+  for (int b = tid; b < nb; b += NTHREADS) e[6] += s.fvf[b] * mcol[b];
+  block_sum<8>(s.red, e);
 
   // ---------------- manual backward (gradient batch-sums) ----------------
   // every product that contracts over the trials writes this block's
@@ -954,8 +1049,8 @@ __device__ __forceinline__ void step_forward_sums(const VJFArgs& a, const Ctx& c
           glv = glv + 0.5f * expf(lv - slv) * inv_b;
       }
       glv = glv * (fabsf(s.raw[i]) < a.logvar_clamp ? 1.f : 0.f);
-      s.g_qm[i] = gm;
-      s.g_qlv[i] = glv;
+      s.g_qm[i] = gm * mcol[b];
+      s.g_qlv[i] = glv * mcol[b];
     }
     __syncthreads();
     const int wh = cdiv(xd, 16) * cdiv(hl, 8);
@@ -999,6 +1094,14 @@ __device__ __forceinline__ void step_forward_sums(const VJFArgs& a, const Ctx& c
   // block over every trial (stat_rows), from the features and dx published
   // above: as a partial sum, each block's would have all nfp x nfp entries
   __syncthreads();
+  if (freeze && a.mask) {
+    // the frozen carry: every read of this step's posterior is behind us
+    for (int i = tid; i < nb * xd; i += NTHREADS)
+      if (!(mcol[i / xd] > 0.f)) {
+        qt_m[i] = qs_m[i];
+        qt_lv[i] = qs_lv[i];
+      }
+  }
 
   // grad_check: the sum of every gradient entry is finite iff each one is
   // (the leaves the flags leave uncomputed are 0 in the slab)
@@ -1008,6 +1111,7 @@ __device__ __forceinline__ void step_forward_sums(const VJFArgs& a, const Ctx& c
     float* sc = slab + c.so.ftf;
     for (int i = 0; i < 7; ++i) sc[SC_ELBO + i] = e[i];
     sc[SC_GRAD] = gc[0];
+    sc[SC_CM] = e[7];
   }
   if (t + 1 < a.T) fetch_inputs(a, c, t + 1);
   cluster_sync();
@@ -1016,14 +1120,17 @@ __device__ __forceinline__ void step_forward_sums(const VJFArgs& a, const Ctx& c
 // The batch scalars from every block's raw sums, in rank order: the same
 // bits in every thread of the cluster.
 __device__ __forceinline__ StepSums reduce_scalars(const VJFArgs& a, const Ctx& c,
-                                                   const CarryScalars& cs, float inv_b) {
+                                                   const CarryScalars& cs, float inv_b,
+                                                   float count) {
   const bool rls = a.update && a.update_transition;
-  if (threadIdx.x < 8) c.s.bc[threadIdx.x] = rank_sum(c, c.so.ftf + threadIdx.x);
+  if (threadIdx.x <= SC_CM) c.s.bc[threadIdx.x] = rank_sum(c, c.so.ftf + threadIdx.x);
   __syncthreads();
-  float e[8];
-  for (int i = 0; i < 8; ++i) e[i] = c.s.bc[i];
+  float e[SC_CM + 1];
+  for (int i = 0; i <= SC_CM; ++i) e[i] = c.s.bc[i];
   __syncthreads();
   StepSums r;
+  r.count = count;
+  r.cm_sum = a.cmask ? e[SC_CM] : 0.f;
   r.recon_batch = a.poisson ? e[0] * inv_b : 0.f;
   r.sq_y = a.poisson ? 0.f : e[0];
   r.dyn_batch = e[1] * expf(-cs.slv) * inv_b + e[2] * inv_b;
@@ -1145,13 +1252,17 @@ __device__ __forceinline__ void step_apply(const VJFArgs& a, const Ctx& c, Carry
                                            const StepSums& p, int t, float inv_b) {
   const int tid = threadIdx.x;
   const SM& s = c.s;
-  const int B = a.B, yd = a.yd, xd = a.xd, nfp = a.nfp;
+  const int yd = a.yd, xd = a.xd, nfp = a.nfp;
   const bool bf = a.bf16 != 0;
   const bool rls = a.update && a.update_transition;
   const float slv = cs.slv, lik_lv = cs.lik_lv;
   const int fr0 = c.fr.first, frn = c.fr.n;
   float* g_vec = a.g_vec ? a.g_vec : c.g.g_vec;
 
+  // under a trial mask the step's valid trials replace B (count is B
+  // without one); a step without data trains nothing
+  const bool masked = a.mask != nullptr, has_cm = a.cmask != nullptr;
+  const bool has_data = p.count > 0.f;
   bool sgd_ok = false;
   float l_recon, l_dyn, h_ent, loss;
   {
@@ -1159,12 +1270,17 @@ __device__ __forceinline__ void step_apply(const VJFArgs& a, const Ctx& c, Carry
     float obs_mse = 0.f;
     if (a.poisson) {
       l_recon = p.recon_batch;
+    } else if (has_cm) {
+      // the log-variance constant and the mse per observed entry
+      l_recon = 0.5f * (p.sq_y * expf(-lik_lv) * inv_b + p.cm_sum * inv_b * lik_lv);
+      obs_mse = p.sq_y / fmaxf(p.cm_sum, 1.f);
     } else {
       l_recon = 0.5f * (p.sq_y * expf(-lik_lv) * inv_b + (float)yd * lik_lv);
       obs_mse = p.sq_y * inv_b / (float)yd;
     }
     l_dyn = 0.5f * (p.dyn_batch + (float)xd * slv);
     h_ent = p.ent;
+    if (masked && !has_data) l_recon = l_dyn = h_ent = 0.f;
     bool raw_ok = isfinite(l_recon) && isfinite(h_ent);
     if (!a.warm_up) raw_ok = raw_ok && isfinite(l_dyn);
     l_recon = isfinite(l_recon) ? l_recon : 0.f;
@@ -1178,17 +1294,22 @@ __device__ __forceinline__ void step_apply(const VJFArgs& a, const Ctx& c, Carry
       sgd_ok = raw_ok && isfinite(p.grad_check);
       if (sgd_ok) {
         sgd_slice(a, c);
-        if (!a.poisson)
-          lik_lv_new = lik_lv - c.lr * clampf(p.g_lik_lv_batch + 0.5f * (float)yd, -a.clip,
-                                              a.clip);
+        if (!a.poisson) {
+          const float g_const = has_cm ? 0.5f * p.cm_sum * inv_b
+                                       : (!masked || has_data ? 0.5f * (float)yd : 0.f);
+          lik_lv_new = lik_lv - c.lr * clampf(p.g_lik_lv_batch + g_const, -a.clip, a.clip);
+        }
       }
     }
 
     // ---------------- obs-noise running variance (Gaussian) ----------------
     if (a.update && !a.poisson && a.update_likelihood) {
+      // the count advances by the valid trials, or the fractional rows of
+      // observed entries under a channel mask
+      const float adv = has_cm ? p.cm_sum / (float)yd : p.count;
       const float n = cs.lik_n < a.obs_var_cap ? cs.lik_n : a.obs_var_cap;
-      const float tot = n + (float)B;
-      const float var = (n / tot) * expf(lik_lv_new) + ((float)B / tot) * obs_mse;
+      const float tot = n + adv;
+      const float var = (n / tot) * expf(lik_lv_new) + (adv / tot) * obs_mse;
       if (isfinite(var)) {
         lik_lv_new = clampf(logf(var), -a.logvar_clamp, a.logvar_clamp);
         cs.lik_n = tot;
@@ -1200,7 +1321,7 @@ __device__ __forceinline__ void step_apply(const VJFArgs& a, const Ctx& c, Carry
   // ---------------- RLS with Newton-Schulz tracking of V ----------------
   float tau = 0.f;
   if (rls) {
-    const bool dyn_ok = isfinite(p.dx_sum);
+    const bool dyn_ok = isfinite(p.dx_sum) && (!masked || has_data);
     if (!a.warm_up) {
       const float lam = a.rls_shrink, jit = a.chol_jitter;
       const float inv_sv_u = expf(-slv);
@@ -1283,15 +1404,15 @@ __device__ __forceinline__ void step_apply(const VJFArgs& a, const Ctx& c, Carry
     float ms[1] = {0.f};
     for (int i = tid; i < c.tr.n * xd; i += NTHREADS) {
       const float r = s.dx[i] - s.tmp[i];
-      ms[0] += r * r;
+      ms[0] += r * r * s.mcol[i / xd];
     }
     block_sum<1>(s.red, ms);
     if (tid == 0) c.slab[c.so.ftf + SC_RESID] = ms[0];
     cluster_sync();
-    const float mse = rank_sum(c, c.so.ftf + SC_RESID) / (float)(B * xd);
+    const float mse = rank_sum(c, c.so.ftf + SC_RESID) / (fmaxf(p.count, 1.f) * (float)xd);
     const float n = cs.dyn_n < a.state_var_cap ? cs.dyn_n : a.state_var_cap;
-    const float tot = n + (float)B;
-    const float var = (n / tot) * expf(slv) + ((float)B / tot) * mse;
+    const float tot = n + p.count;
+    const float var = (n / tot) * expf(slv) + (p.count / tot) * mse;
     if (isfinite(var)) {
       cs.slv = clampf(logf(var), -a.logvar_clamp, a.logvar_clamp);
       cs.dyn_n = tot;
@@ -1365,6 +1486,8 @@ __device__ const Header& make_header(const VJFArgs& args, float* smem) {
     c.s.c2[i] = a.c2[i];
     c.s.inv_w2[i] = a.inv_w2[i];
   }
+  if (!a.mask)  // every trial valid: each weight is 1 for the whole launch
+    for (int i = threadIdx.x; i < c.tr.n; i += NTHREADS) c.s.mcol[i] = 1.f;
   __syncthreads();
   return *h;
 }
@@ -1376,14 +1499,14 @@ __device__ __forceinline__ void vjf_steps(const VJFArgs& args, float* smem) {
   const Ctx& c = h.c;
   CarryScalars cs{a.state_logvar[0], a.lik_logvar[0], a.dyn_n[0], a.lik_n[0]};
   const uint32_t count0 = (uint32_t)a.rng_count[0];
-  const float inv_b = 1.0f / (float)a.B;
   const bool stats = a.update && a.update_transition && !a.warm_up;
   fetch_inputs(a, c, 0);
   for (int t = 0; t < a.T; ++t) {
     const int cur = t & 1;
-    step_begin(a, c, t, cur, count0 + (uint32_t)t);
-    step_forward_sums(a, c, cs, t, cur, inv_b, stats);
-    const StepSums p = reduce_scalars(a, c, cs, inv_b);
+    const float valid = step_begin(a, c, t, cur, count0 + (uint32_t)t);
+    const float inv_b = 1.0f / fmaxf(valid, 1.0f);  // 1 / B without a trial mask
+    step_forward_sums(a, c, cs, t, cur, inv_b, stats, true);
+    const StepSums p = reduce_scalars(a, c, cs, inv_b, valid);
     step_apply(a, c, cs, p, t, inv_b);
   }
   // every block read these at its start, before the first barrier
@@ -1398,16 +1521,17 @@ __device__ __forceinline__ void vjf_steps(const VJFArgs& args, float* smem) {
 
 // Phase 1 of the sharded step alone (forward_sums_call): the flat FusedSums
 // buffer and the q pack of this rank's B trials, with the caller's global
-// inv_b and row offset of the noise. Reads the carry, writes none of it.
+// inv_b (under a trial mask, 1 / the global valid count) and row offset of the
+// noise; the q pack is not frozen. Reads the carry, writes none of it.
 __device__ __forceinline__ void vjf_sums(const VJFArgs& args, float* smem) {
   const Header& h = make_header(args, smem);
   const VJFArgs& a = h.a;
   const Ctx& c = h.c;
   const CarryScalars cs{a.state_logvar[0], a.lik_logvar[0], a.dyn_n[0], a.lik_n[0]};
   fetch_inputs(a, c, 0);
-  step_begin(a, c, 0, 0, (uint32_t)a.rng_count[0]);
-  step_forward_sums(a, c, cs, 0, 0, a.inv_b, a.update && a.update_transition);
-  const StepSums p = reduce_scalars(a, c, cs, a.inv_b);
+  const float valid = step_begin(a, c, 0, 0, (uint32_t)a.rng_count[0]);
+  step_forward_sums(a, c, cs, 0, 0, a.inv_b, a.update && a.update_transition, false);
+  const StepSums p = reduce_scalars(a, c, cs, a.inv_b, valid);
   const Blk b = block_of((int)c.so.ftf, c.rank);
   for (int i = b.first + threadIdx.x; i < b.first + b.n; i += NTHREADS)
     a.sums[i] = rank_sum(c, i);
@@ -1421,9 +1545,10 @@ __device__ __forceinline__ void vjf_sums(const VJFArgs& args, float* smem) {
   }
   if (c.rank == 0 && threadIdx.x == 0) {
     float* tail = a.sums + c.so.scalars;
-    const float v[N_SUM_SCALARS] = {p.g_lik_lv_batch, p.recon_batch, p.dyn_batch, p.ent,
-                                    p.sq_y, p.grad_check, p.fvf_sum, p.dx_sum, p.dx2_sum};
-    for (int i = 0; i < N_SUM_SCALARS; ++i) tail[i] = v[i];
+    const float v[N_SUM_SCALARS + 1] = {p.g_lik_lv_batch, p.recon_batch, p.dyn_batch, p.ent,
+                                        p.sq_y, p.grad_check, p.fvf_sum, p.dx_sum, p.dx2_sum,
+                                        p.cm_sum};
+    for (int i = 0; i < N_SUM_SCALARS + (a.cmask ? 1 : 0); ++i) tail[i] = v[i];
   }
 }
 

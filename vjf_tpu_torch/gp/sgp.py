@@ -153,38 +153,43 @@ def transition_gaussian(state: SGPDynamicsState, x: torch.Tensor,
 
 
 def update_from_features(cfg: VJFConfig, state: SGPDynamicsState, xt: torch.Tensor,
-                         xs: torch.Tensor, feat: torch.Tensor,
-                         warm_up: bool = False) -> SGPDynamicsState:
+                         xs: torch.Tensor, feat: torch.Tensor, warm_up: bool = False,
+                         weights: Optional[torch.Tensor] = None) -> SGPDynamicsState:
     """RLS on kernel features and the state-noise running variance
-    (``dynamics.blr_residual_update``); the SGP always learns by RLS."""
+    (``dynamics.blr_residual_update``, ``weights`` the 0/1 trial mask); the
+    SGP always learns by RLS."""
     blr, logvar, n_sample = dyn.blr_residual_update(
         cfg, state.blr, state.logvar, state.n_sample, xt, xs, feat, warm_up=warm_up,
-        update_rule="rls")
+        weights=weights, update_rule="rls")
     return state._replace(blr=blr, logvar=logvar, n_sample=n_sample)
 
 
 def dynamics_update(cfg: VJFConfig, state: SGPDynamicsState, xt: torch.Tensor,
                     xs: torch.Tensor, u: Optional[torch.Tensor] = None,
-                    warm_up: bool = False) -> SGPDynamicsState:
+                    warm_up: bool = False,
+                    weights: Optional[torch.Tensor] = None) -> SGPDynamicsState:
     xs, xt = torch.atleast_2d(xs), torch.atleast_2d(xt)
-    return update_from_features(cfg, state, xt, xs, features(state, xs, u), warm_up=warm_up)
+    return update_from_features(cfg, state, xt, xs, features(state, xs, u), warm_up=warm_up,
+                                weights=weights)
 
 
 @full_f32_matmul()
 def dynamics_initialize(cfg: VJFConfig, generator: Optional[torch.Generator],
                         state: SGPDynamicsState, xt: torch.Tensor, xs: torch.Tensor,
                         u: Optional[torch.Tensor] = None,
-                        unit: Optional[torch.Tensor] = None) -> SGPDynamicsState:
+                        unit: Optional[torch.Tensor] = None,
+                        weights: Optional[torch.Tensor] = None) -> SGPDynamicsState:
     """Bootstrap at the end of warm-up: inducing points re-placed U[-r, r)
     over the visited region (``r = max ||xu||``), re-whitened, then one
     pooled RLS on ``dx`` with the naive mse as noise, and the state noise set
     to the post-fit residual mse. The unit draw U[0, 1) of the inducing
     points' shape comes from ``generator`` (a CPU one) unless ``unit``
-    injects it."""
+    injects it. ``weights``: the (N,) 0/1 validity of each pooled pair, as
+    in ``dynamics.dynamics_initialize``."""
     xs, xt = torch.atleast_2d(xs), torch.atleast_2d(xt)
     xu = nonecat(xs, u)
     dx = xt - xs
-    mse0 = torch.mean(torch.square(dx))
+    mse0 = dyn._pair_mse(dx, weights)
     r = torch.max(torch.linalg.vector_norm(xu, dim=-1))
     z = state.inducing
     if unit is None:
@@ -195,15 +200,18 @@ def dynamics_initialize(cfg: VJFConfig, generator: Optional[torch.Generator],
     w, w_inv = whiten_matrices(kzz + _jitter(kzz.dtype) * _eye(kzz.shape[0], kzz))
     state = state._replace(whiten=w, whiten_inv=w_inv)
     feat = features(state, xs, u)
+    if weights is not None:
+        feat = feat * weights.to(feat.dtype)[:, None]
     blr = regression.one_shot_rls(state.blr, feat, dx, mse0, shrink=cfg.rls_shrink,
                                   jitter=cfg.chol_jitter)
     residual = dx - regression.predict_gaussian(blr, feat).mean
-    return state._replace(blr=blr, logvar=torch.log(torch.mean(torch.square(residual))))
+    return state._replace(blr=blr, logvar=torch.log(dyn._pair_mse(residual, weights)))
 
 
 def dynamics_loss(state: SGPDynamicsState, pt: Gaussian, qt: Gaussian,
-                  trace_quirk: bool = True) -> torch.Tensor:
-    return gaussian_loss(pt, qt, state.logvar, trace_quirk=trace_quirk)
+                  trace_quirk: bool = True,
+                  weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    return gaussian_loss(pt, qt, state.logvar, trace_quirk=trace_quirk, weights=weights)
 
 
 @full_f32_matmul()

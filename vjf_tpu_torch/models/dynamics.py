@@ -14,7 +14,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 
 from ..config import VJFConfig
-from ..ops.functional import gaussian_loss, nonecat, running_var
+from ..ops.functional import batch_weighted_mean, gaussian_loss, nonecat, running_var
 from ..types import Gaussian
 from . import regression
 from .rbf import RBFParams, apply_rbf, init_rbf, reinit_rbf
@@ -151,32 +151,42 @@ def forecast(state: DynamicsState, x0: torch.Tensor, generator: Optional[torch.G
 
 
 def update_from_features(cfg: VJFConfig, state: DynamicsState, xt: torch.Tensor,
-                         xs: torch.Tensor, feat: torch.Tensor,
-                         warm_up: bool = False) -> DynamicsState:
+                         xs: torch.Tensor, feat: torch.Tensor, warm_up: bool = False,
+                         weights: Optional[torch.Tensor] = None) -> DynamicsState:
     """Closed-form learning step with precomputed features (see
     :func:`blr_residual_update`)."""
     blr, logvar, n_sample = blr_residual_update(
         cfg, state.blr, state.logvar, state.n_sample, xt, xs, feat, warm_up=warm_up,
-        update_rule=cfg.dynamics_update)
+        weights=weights, update_rule=cfg.dynamics_update)
     return DynamicsState(state.rbf, blr, logvar, n_sample)
 
 
 def blr_residual_update(cfg: VJFConfig, blr, logvar: torch.Tensor, n_sample: torch.Tensor,
                         xt: torch.Tensor, xs: torch.Tensor, feat: torch.Tensor,
-                        warm_up: bool = False, update_rule: str = "rls"):
+                        warm_up: bool = False, weights: Optional[torch.Tensor] = None,
+                        update_rule: str = "rls"):
     """RLS on ``dx = xt - xs`` (skipped during warm-up), then the state noise
     refreshed by a running variance of the post-update residual mse (skipped
     on the device where that variance is not finite). Returns ``(blr,
-    logvar, n_sample)``."""
+    logvar, n_sample)``. With the 0/1 trial mask ``weights`` (B,) a masked
+    row's feature row is zeroed, so it leaves the RLS statistics, and it
+    leaves the residual mse and the sample count."""
     if update_rule != "rls":
         raise NotImplementedError(_KALMAN_TODO)
+    if weights is not None:
+        feat = feat * weights.to(feat.dtype)[:, None]
     dx = xt - xs
     if not warm_up:
         blr = regression.rls(blr, feat, dx, torch.exp(logvar),
                              shrink=cfg.rls_shrink, jitter=cfg.chol_jitter)
     residual = dx - regression.predict_gaussian(blr, feat).mean
-    var, n_new = running_var(torch.exp(logvar), n_sample, torch.mean(torch.square(residual)),
-                             xs.shape[0], size_cap=cfg.state_var_cap)
+    if weights is None:
+        mse, count = torch.mean(torch.square(residual)), xs.shape[0]
+    else:
+        mse = batch_weighted_mean(torch.mean(torch.square(residual), dim=-1), weights)
+        count = torch.sum(weights.to(feat.dtype))
+    var, n_new = running_var(torch.exp(logvar), n_sample, mse, count,
+                             size_cap=cfg.state_var_cap)
     new_logvar = torch.clamp(torch.log(var), -cfg.logvar_clamp, cfg.logvar_clamp)
     ok = torch.isfinite(var)
     return (blr, torch.where(ok, new_logvar, logvar),
@@ -184,32 +194,48 @@ def blr_residual_update(cfg: VJFConfig, blr, logvar: torch.Tensor, n_sample: tor
 
 
 def dynamics_update(cfg: VJFConfig, state: DynamicsState, xt: torch.Tensor, xs: torch.Tensor,
-                    u: Optional[torch.Tensor] = None, warm_up: bool = False) -> DynamicsState:
-    """Closed-form learning step from a pair of latent samples."""
+                    u: Optional[torch.Tensor] = None, warm_up: bool = False,
+                    weights: Optional[torch.Tensor] = None) -> DynamicsState:
+    """Closed-form learning step from a pair of latent samples; ``weights``
+    as in :func:`blr_residual_update`."""
     xs, xt = torch.atleast_2d(xs), torch.atleast_2d(xt)
-    return update_from_features(cfg, state, xt, xs, features(state, xs, u), warm_up=warm_up)
+    return update_from_features(cfg, state, xt, xs, features(state, xs, u), warm_up=warm_up,
+                                weights=weights)
 
 
 def dynamics_initialize(cfg: VJFConfig, generator: torch.Generator, state: DynamicsState,
                         xt: torch.Tensor, xs: torch.Tensor,
-                        u: Optional[torch.Tensor] = None) -> DynamicsState:
+                        u: Optional[torch.Tensor] = None,
+                        weights: Optional[torch.Tensor] = None) -> DynamicsState:
     """Bootstrap at the end of warm-up from the pooled posterior means:
     centroids re-drawn over ``max ||xu||`` (:func:`reinit_rbf`), one pooled
     RLS on ``dx`` with the naive mse as noise (:func:`regression.one_shot_rls`),
-    then the state noise set to the post-fit residual mse."""
+    then the state noise set to the post-fit residual mse. ``weights``: the
+    (N,) 0/1 validity of each pooled pair (ragged trials: a pair is valid
+    where both ends are observed; a frozen carry's ``dx = 0`` would teach
+    ``f = 0``), which weights the features and both mses."""
     xs, xt = torch.atleast_2d(xs), torch.atleast_2d(xt)
     xu = nonecat(xs, u)
     dx = xt - xs
     rbf = reinit_rbf(generator, state.rbf, xu)
     feat = apply_rbf(rbf, xu)
-    blr = regression.one_shot_rls(state.blr, feat, dx, torch.mean(torch.square(dx)),
+    if weights is not None:
+        feat = feat * weights.to(feat.dtype)[:, None]
+    blr = regression.one_shot_rls(state.blr, feat, dx, _pair_mse(dx, weights),
                                   shrink=cfg.rls_shrink, jitter=cfg.chol_jitter)
     residual = dx - regression.predict_gaussian(blr, feat).mean
-    return DynamicsState(rbf, blr, torch.log(torch.mean(torch.square(residual))),
-                         state.n_sample)
+    return DynamicsState(rbf, blr, torch.log(_pair_mse(residual, weights)), state.n_sample)
+
+
+def _pair_mse(r: torch.Tensor, weights: Optional[torch.Tensor]) -> torch.Tensor:
+    """Mean square of ``r`` (N, d), over the valid rows of ``weights``."""
+    if weights is None:
+        return torch.mean(torch.square(r))
+    return batch_weighted_mean(torch.mean(torch.square(r), dim=-1), weights)
 
 
 def dynamics_loss(state: DynamicsState, pt: Gaussian, qt: Gaussian,
-                  trace_quirk: bool = True) -> torch.Tensor:
-    """``gaussian_loss(pt, qt, state_logvar)``."""
-    return gaussian_loss(pt, qt, state.logvar, trace_quirk=trace_quirk)
+                  trace_quirk: bool = True,
+                  weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``gaussian_loss(pt, qt, state_logvar)`` over the valid trials."""
+    return gaussian_loss(pt, qt, state.logvar, trace_quirk=trace_quirk, weights=weights)

@@ -149,11 +149,25 @@ def prior(params: Params, n_batch: int) -> Gaussian:
 # ---------------------------------------------------------------------------
 
 
-def _likelihood_loss(cfg: VJFConfig, lik_params, py: torch.Tensor,
-                     y: torch.Tensor) -> torch.Tensor:
+def _likelihood_loss(cfg: VJFConfig, lik_params, py: torch.Tensor, y: torch.Tensor,
+                     weights: Optional[torch.Tensor] = None,
+                     channel_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     if cfg.likelihood == "gaussian":
-        return gaussian_nll(lik_params, py, y)
-    return poisson_nll(py, y, clamp=cfg.poisson_clamp)
+        return gaussian_nll(lik_params, py, y, weights=weights, channel_mask=channel_mask)
+    return poisson_nll(py, y, clamp=cfg.poisson_clamp, weights=weights,
+                       channel_mask=channel_mask)
+
+
+def _impute_y(cfg: VJFConfig, params: Params, qs: Gaussian, y: torch.Tensor,
+              channel_mask: torch.Tensor) -> torch.Tensor:
+    """The recognition input with missing channels imputed: a masked entry
+    takes the decoder's prediction from the previous posterior mean (for
+    Poisson the rate ``exp(min(eta, clamp))``, the scale of the counts).
+    Detached: an input, not part of the ELBO."""
+    eta = decode(params.decoder, torch.atleast_2d(qs.mean))
+    if cfg.likelihood != "gaussian":
+        eta = torch.exp(torch.clamp(eta, max=cfg.poisson_clamp))
+    return torch.where(channel_mask > 0, y, eta.detach())
 
 
 def _transition(cfg: VJFConfig):
@@ -164,22 +178,29 @@ def _transition(cfg: VJFConfig):
 
 def elbo_terms(cfg: VJFConfig, params: Params, dynamics, qs: Gaussian,
                y: torch.Tensor, u: Optional[torch.Tensor], eps_s: torch.Tensor,
-               eps_t: torch.Tensor):
+               eps_t: torch.Tensor, weights: Optional[torch.Tensor] = None,
+               channel_mask: Optional[torch.Tensor] = None):
     """Forward pass and the three ELBO terms with injected sampling noise
     (``eps_s`` for x[t-1] ~ q[t-1], ``eps_t`` for x[t] ~ q[t]). Returns
     ``((l_recon, l_dyn, h), (qt, xt, xs, py, feat))``; a non-finite term
-    counts as 0."""
+    counts as 0. ``weights``: a (B,) 0/1 trial mask, every batch mean over
+    the valid trials; ``channel_mask``: (B, ydim) 0/1, masked entries leave
+    the likelihood sum and the recognition input sees :func:`_impute_y`.
+    ``y`` must be finite at masked entries."""
     tr = _transition(cfg)
     xs = reparametrize(qs, eps_s)
     feat = tr.features(dynamics, xs, u)
     pt = tr.predict_from_features(dynamics, xs, feat, cfg.leak)
-    qt = params.recognition(y, qs, u, activation=cfg.recognition_activation)
+    y_rec = y if channel_mask is None else _impute_y(cfg, params, qs, y, channel_mask)
+    qt = params.recognition(y_rec, qs, u, activation=cfg.recognition_activation)
     qt = Gaussian(qt.mean, torch.clamp(qt.logvar, -cfg.logvar_clamp, cfg.logvar_clamp))
     xt = reparametrize(qt, eps_t)
     py = decode(params.decoder, xt)
-    l_recon = finite_or_zero(_likelihood_loss(cfg, params.likelihood, py, y))
-    l_dyn = finite_or_zero(tr.dynamics_loss(dynamics, pt, qt, trace_quirk=cfg.trace_quirk))
-    h = finite_or_zero(gaussian_entropy(qt))
+    l_recon = finite_or_zero(_likelihood_loss(cfg, params.likelihood, py, y, weights=weights,
+                                              channel_mask=channel_mask))
+    l_dyn = finite_or_zero(tr.dynamics_loss(dynamics, pt, qt, trace_quirk=cfg.trace_quirk,
+                                            weights=weights))
+    h = finite_or_zero(gaussian_entropy(qt, weights=weights))
     return (l_recon, l_dyn, h), (qt, xt, xs, py, feat)
 
 
@@ -220,17 +241,38 @@ def filter_step(cfg: VJFConfig, flags: StepFlags, state: TrainState, qs: Gaussia
       ``flags.train_decoder``.
     - The closed-form update is kept only where its inputs and every float
       leaf of its result are finite.
+    - ``mask`` (B,) 0/1, ragged trials: a masked trial's ``y`` and ``u`` are
+      replaced by 0 (select, so padding may be NaN), it leaves every sum
+      with the means renormalised over the valid count, and its posterior
+      is frozen at its last valid value; a step without a valid trial does
+      not advance the recursion.
+    - ``channel_mask`` (B, ydim) 0/1, missing channels: masked entries are
+      replaced by 0 (before the trial mask), leave the likelihood and the
+      obs-noise update, and the recognition input sees the decoder's
+      prediction there (:func:`_impute_y`). Nothing freezes.
 
     The input state is never written: the step builds new modules and
-    tensors. Masks raise (ROADMAP Queue 1 item 8).
+    tensors.
     """
-    _fused._no_masks(mask, channel_mask)
     qs = Gaussian(qs.mean.detach(), qs.logvar.detach())
     y = torch.atleast_2d(y)
+    weights = mb = None
+    zero = torch.zeros((), dtype=y.dtype, device=y.device)
+    if channel_mask is not None:
+        cm = torch.atleast_2d(channel_mask) > 0
+        y = torch.where(cm, y, zero)
+        channel_mask = cm.to(y.dtype)
+    if mask is not None:
+        mb = torch.atleast_1d(mask) > 0
+        weights = mb.to(y.dtype)
+        y = torch.where(mb[:, None], y, zero)
+        if u is not None and u.shape[-1] > 0:
+            u = torch.where(mb[:, None], torch.atleast_2d(u), zero)
     params = _trainable(cfg, state.params) if flags.sgd else state.params
     with torch.set_grad_enabled(flags.sgd):
         (l_recon, l_dyn, h), aux = elbo_terms(cfg, params, state.dynamics, qs, y, u,
-                                              eps_s, eps_t)
+                                              eps_s, eps_t, weights=weights,
+                                              channel_mask=channel_mask)
         loss = l_recon - h
         if not flags.warm_up:
             loss = loss + l_dyn
@@ -264,14 +306,22 @@ def filter_step(cfg: VJFConfig, flags: StepFlags, state: TrainState, qs: Gaussia
         if flags.update and cfg.likelihood == "gaussian" and flags.update_likelihood:
             lik, lik_n = gaussian_lik_update(new_params.likelihood, lik_n, py, y,
                                              size_cap=cfg.obs_var_cap,
-                                             logvar_clamp=cfg.logvar_clamp)
+                                             logvar_clamp=cfg.logvar_clamp, weights=weights,
+                                             channel_mask=channel_mask)
             new_params = new_params._replace(likelihood=lik)
         dynamics = state.dynamics
         if flags.update and flags.update_transition:
             upd = _transition(cfg).update_from_features(cfg, dynamics, xt, xs, feat,
-                                                        warm_up=flags.warm_up)
+                                                        warm_up=flags.warm_up, weights=weights)
             upd_ok = all_finite((xt, xs, upd))
+            if weights is not None:
+                upd_ok = upd_ok & (torch.sum(weights) > 0)
             dynamics = tree_where(upd_ok, upd, dynamics)
+        if mb is not None:
+            # the frozen carry: a masked trial's posterior stays at its last
+            # valid value
+            qt = Gaussian(torch.where(mb[:, None], qt.mean, qs.mean),
+                          torch.where(mb[:, None], qt.logvar, qs.logvar))
     return TrainState(new_params, dynamics, lik_n), qt, metrics
 
 
@@ -312,6 +362,10 @@ def run_epoch(
     noise: the kernels' Philox stream, or on the autograd route one draw of
     (T, 2, B, xdim) normals from a CPU generator seeded with it.
     ``noise=(eps_s, eps_t)``, each (T, B, xdim), injects it instead.
+    ``mask``: a (T,) or (T, B) 0/1 trial mask (ragged trials); a (T,) mask
+    is per time and gains the trial axis. ``channel_mask``: a (T, ydim) or
+    (T, B, ydim) 0/1 mask of missing observations. Both ride the kernels
+    (see :func:`filter_step` for what they do).
     """
     if warm_gate is not None:
         raise NotImplementedError(_WARM_GATE_TODO)
@@ -319,7 +373,10 @@ def run_epoch(
         ys = ys.to(cfg.tdtype)
     if us.dtype != cfg.tdtype:
         us = us.to(cfg.tdtype)
-    if _fused.fused_enabled(cfg, state, n_batch=ys.shape[1]):
+    mask = _promote_mask(mask, ys.shape[0], ys.shape[1], ys.dtype, ys.device)
+    channel_mask = _promote_channel_mask(channel_mask, ys.shape, ys.dtype, ys.device)
+    if _fused.fused_enabled(cfg, state, n_batch=ys.shape[1], mask=mask is not None,
+                            channel_mask=channel_mask is not None):
         with torch.no_grad():
             return _fused.run_epoch_fused(cfg, flags, state, ys, us, epoch_seed(seed), lr,
                                           noise=noise, q0=q0, mask=mask,
@@ -331,8 +388,8 @@ def run_epoch(
 @_fused.full_f32_matmul()
 def _run_epoch_autograd(cfg, flags, state, ys, us, seed, lr, noise, q0, mask, channel_mask):
     """The autograd route of :func:`run_epoch`: a Python loop over
-    :func:`filter_step`, products in full f32 on the card."""
-    _fused._no_masks(mask, channel_mask)
+    :func:`filter_step`, products in full f32 on the card; the masks are
+    promoted."""
     t_len, n_batch, _ = ys.shape
     if q0 is None:
         q0 = prior(state.params, n_batch)
@@ -345,7 +402,10 @@ def _run_epoch_autograd(cfg, flags, state, ys, us, seed, lr, noise, q0, mask, ch
     q, qs, steps = q0, [], []
     for t in range(t_len):
         state, q, m = filter_step(cfg, flags, state, q, ys[t], us[t], noise[0][t],
-                                  noise[1][t], lr)
+                                  noise[1][t], lr,
+                                  mask=None if mask is None else mask[t],
+                                  channel_mask=None if channel_mask is None
+                                  else channel_mask[t])
         qs.append(q)
         steps.append(m[:4])
     return EpochResult(state, torch.stack([q.mean for q in qs]),
@@ -392,15 +452,20 @@ def run_epochs(
     seeds: Sequence[Union[int, torch.Generator]],
     lrs,
     q0: Optional[Gaussian] = None,
+    mask=None,
+    channel_mask=None,
 ) -> EpochsResult:
     """``len(seeds)`` consecutive epochs over the same data, one seed (or
-    generator) and one learning rate per epoch. With int seeds nothing here
-    waits for the device."""
+    generator) and one learning rate per epoch, with the same masks (see
+    :func:`run_epoch`). With int seeds nothing here waits for the device."""
     if q0 is None:
         q0 = prior(state.params, ys.shape[1])
+    mask = _promote_mask(mask, ys.shape[0], ys.shape[1], cfg.tdtype, ys.device)
+    channel_mask = _promote_channel_mask(channel_mask, ys.shape, cfg.tdtype, ys.device)
 
     def epoch(st, seed, lr):
-        return run_epoch(cfg, flags, st, ys, us, seed, lr, q0=q0)
+        return run_epoch(cfg, flags, st, ys, us, seed, lr, q0=q0, mask=mask,
+                         channel_mask=channel_mask)
 
     return chain_epochs(cfg, epoch, state, ys.shape[0], seeds, lrs)
 
@@ -485,13 +550,36 @@ def _promote_u(u, t_len: int, n_batch: int, dtype: torch.dtype, device) -> torch
     return u
 
 
-def _refuse_unported(cfg: VJFConfig, state: TrainState, mask, channel_mask, mesh,
-                     checkpoint_path, resume_from) -> None:
+def _promote_mask(mask, t_len: int, n_batch: int, dtype: torch.dtype,
+                  device) -> Optional[torch.Tensor]:
+    """A (T,) or (T, B) trial mask as (T, B) in ``dtype`` on ``device``. A
+    (T,) mask is per time: it gains the trial axis, never read as a
+    per-trial mask (which broadcasting would do at T == B)."""
+    if mask is None:
+        return None
+    mask = torch.as_tensor(mask).to(device=device, dtype=dtype)
+    if mask.ndim == 1:
+        mask = mask[:, None]
+    return mask.expand(t_len, n_batch)
+
+
+def _promote_channel_mask(channel_mask, y_shape, dtype: torch.dtype,
+                          device) -> Optional[torch.Tensor]:
+    """A (T, ydim) or (T, B, ydim) channel mask as (T, B, ydim)."""
+    if channel_mask is None:
+        return None
+    cm = torch.as_tensor(channel_mask).to(device=device, dtype=dtype)
+    if cm.ndim == 2:
+        cm = cm[:, None, :]
+    return cm.expand(*y_shape)
+
+
+def _refuse_unported(cfg: VJFConfig, state: TrainState, mesh, checkpoint_path,
+                     resume_from) -> None:
     from . import regression
 
     if mesh is not None:
         raise NotImplementedError(_MESH_TODO)
-    _fused._no_masks(mask, channel_mask)
     if checkpoint_path is not None or resume_from is not None:
         raise NotImplementedError(_SNAPSHOT_TODO)
     if cfg.multistep_refine > 0:
@@ -503,25 +591,68 @@ def _refuse_unported(cfg: VJFConfig, state: TrainState, mask, channel_mask, mesh
 
 
 def _bootstrap_dynamics(cfg: VJFConfig, state: TrainState, q_means: torch.Tensor,
-                        us: torch.Tensor, generator: torch.Generator) -> TrainState:
+                        us: torch.Tensor, generator: torch.Generator,
+                        pair_w: Optional[torch.Tensor] = None) -> TrainState:
     """The end of warm-up: the dynamics re-initialised from the pooled
     ``(x[t-1] -> x[t])`` pairs of the posterior means, with the controls
-    ``u[t]`` that drive them."""
+    ``u[t]`` that drive them. ``pair_w``: the (N,) validity of each pair
+    (ragged trials: both ends observed; a frozen carry's pair has ``dx = 0``
+    and would teach ``f = 0``)."""
     xt = q_means[1:].reshape(-1, cfg.xdim)
     xs = q_means[:-1].reshape(-1, cfg.xdim)
-    u_init = us[1:].reshape(-1, cfg.udim) if cfg.udim > 0 else None
     return state._replace(dynamics=_transition(cfg).dynamics_initialize(
-        cfg, generator, state.dynamics, xt, xs, u_init))
+        cfg, generator, state.dynamics, xt, xs, _pooled_controls(cfg, us, pair_w),
+        weights=pair_w))
+
+
+def _pooled_controls(cfg: VJFConfig, us: torch.Tensor,
+                     pair_w: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """The pooled controls of the pairs, an invalid pair's row set to 0:
+    padded ``u`` (NaN under ragged masks) leaves the RLS statistics through
+    ``pair_w`` but would still reach ``max ||cat(xs, u)||`` of the re-init,
+    and ``0 * NaN`` is NaN. The posterior means need no such guard (the
+    frozen carry keeps them finite)."""
+    if cfg.udim == 0:
+        return None
+    u = us[1:].reshape(-1, cfg.udim)
+    if pair_w is not None:
+        u = torch.where(pair_w[:, None] > 0, u, torch.zeros_like(u))
+    return u
+
+
+def _pair_weights(mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """The validity of the pooled ``(x[t-1] -> x[t])`` pairs of a (T, B)
+    trial mask: both ends observed."""
+    return None if mask is None else (mask[1:] * mask[:-1]).reshape(-1)
+
+
+def _demote_masked_small_sgp(cfg: VJFConfig, mask: Optional[torch.Tensor]) -> VJFConfig:
+    """The kernels' small-batch SGP gate (:func:`ops.fused_step.fused_enabled`)
+    sizes itself on the padded batch; under a trial mask the effective
+    count of a step is what keeps the trace bound hot. The mask is known
+    when the fit starts, so a fit any step of which has fewer valid trials
+    than ``sgp_fused_min_batch`` takes the autograd epoch throughout (one
+    log line). Explicit ``fused_step='on'``/``'off'`` is kept."""
+    if mask is None or cfg.dynamics != "sgp" or cfg.fused_step != "auto":
+        return cfg
+    eff = int(torch.min(torch.sum(mask > 0, dim=1)))
+    if eff < cfg.sgp_fused_min_batch:
+        logger.info("ragged SGP fit: min per-step valid count %d < sgp_fused_min_batch %d; "
+                    "routing to the autograd epoch (per-step exact-inverse fallback).",
+                    eff, cfg.sgp_fused_min_batch)
+        return cfg.replace(fused_step="off")
+    return cfg
 
 
 def _sgp_adapt_step(cfg: VJFConfig, state: TrainState, q_means: torch.Tensor,
-                    us: torch.Tensor) -> TrainState:
+                    us: torch.Tensor, pair_w: Optional[torch.Tensor] = None) -> TrainState:
     """The slow-timescale SGP hyperparameter step on the pooled posterior
-    means (``gp.sgp.adapt_hyperparams``), shared by both fit loops."""
-    u = us[1:].reshape(-1, cfg.udim) if cfg.udim > 0 else None
+    means (``gp.sgp.adapt_hyperparams``), shared by both fit loops;
+    ``pair_w`` as in :func:`_bootstrap_dynamics`."""
     return state._replace(dynamics=_sgp.adapt_hyperparams(
         cfg, state.dynamics, q_means[1:].reshape(-1, cfg.xdim),
-        q_means[:-1].reshape(-1, cfg.xdim), u))
+        q_means[:-1].reshape(-1, cfg.xdim), _pooled_controls(cfg, us, pair_w),
+        weights=pair_w))
 
 
 def _draw_generator(gen: torch.Generator) -> torch.Generator:
@@ -608,16 +739,24 @@ def fit(
     ``epochs_per_dispatch > 1`` runs :func:`_fit_blocked`. With SGP
     dynamics and ``cfg.sgp_adapt_lr > 0`` each RLS epoch that does not end
     the fit is followed by one hyperparameter step
-    (``gp.sgp.adapt_hyperparams``) on its posterior means. ``mesh``, the
-    masks, ``checkpoint_path``/``resume_from``, ``multistep_refine``, the
-    kalman learner and backends other than nsv raise
-    ``NotImplementedError`` naming their ROADMAP item.
+    (``gp.sgp.adapt_hyperparams``) on its posterior means.
+
+    ``mask`` (T,) or (T, B), 0/1: ragged trials (:func:`pad_trials` builds
+    it); ``channel_mask`` (T, ydim) or (T, B, ydim), 0/1: missing channels.
+    Both ride every epoch (:func:`filter_step`), and the padded entries of
+    ``y`` and ``u`` may hold NaN. The bootstrap and the SGP adaptation pool
+    only the pairs whose two ends are observed; a ragged SGP fit with fewer
+    than ``sgp_fused_min_batch`` valid trials at some step takes the
+    autograd epoch (:func:`_demote_masked_small_sgp`); ``select='forecast'``
+    refuses masks. ``mesh``, ``checkpoint_path``/``resume_from``,
+    ``multistep_refine``, the kalman learner and backends other than nsv
+    raise ``NotImplementedError`` naming their ROADMAP item.
     """
     del checkpoint_every
     beta = cfg.beta if beta is None else beta
     rtol = cfg.rtol if rtol is None else rtol
-    _refuse_unported(cfg, state, mask, channel_mask, mesh, checkpoint_path, resume_from)
-    select_on = _validate_select(cfg)
+    _refuse_unported(cfg, state, mesh, checkpoint_path, resume_from)
+    select_on = _validate_select(cfg, mask, channel_mask)
     if epochs_per_dispatch > 1:
         if noise_hook is not None:
             raise ValueError(
@@ -625,12 +764,17 @@ def fit(
                 "noise_hook requires epochs_per_dispatch=1")
         return _fit_blocked(cfg, state, y, u, seed=seed, max_iter=max_iter, beta=beta,
                             rtol=rtol, callback=callback, k_block=int(epochs_per_dispatch),
-                            lr0=lr0)
+                            lr0=lr0, mask=mask, channel_mask=channel_mask)
     gen = _generator(seed)
     dev = state.dynamics.blr.w_mean.device
     y = _promote_y(y, cfg.tdtype, dev)
     t_len, n_batch, _ = y.shape
     us = _promote_u(u, t_len, n_batch, cfg.tdtype, dev)
+    mask = _promote_mask(mask, t_len, n_batch, cfg.tdtype, dev)
+    channel_mask = _promote_channel_mask(channel_mask, y.shape, cfg.tdtype, dev)
+    masks = dict(mask=mask, channel_mask=channel_mask)
+    pair_w = _pair_weights(mask)
+    cfg = _demote_masked_small_sgp(cfg, mask)
     if select_on:
         _validate_select(cfg, t_len=t_len)
         sel_base = _select_base(gen)
@@ -640,7 +784,9 @@ def fit(
     # the fused route with the mega layout can demote; the states kept for a
     # re-run are never written by either route (both build new tensors)
     mega_possible = (cfg.fused_epoch == "mega"
-                     and _fused.fused_enabled(cfg, state, n_batch=n_batch))
+                     and _fused.fused_enabled(cfg, state, n_batch=n_batch,
+                                              mask=mask is not None,
+                                              channel_mask=channel_mask is not None))
     warm_up = True
     lr = cfg.lr if lr0 is None else float(lr0)
     running_loss = float("nan")
@@ -664,7 +810,7 @@ def fit(
         flags = StepFlags(sgd=True, update=True, warm_up=warm_up, train_decoder=warm_up)
         noise = noise_hook(epoch) if noise_hook is not None else None
         backup = state if (mega_guard and not warm_up) else None
-        result = run_epoch(cfg_run, flags, state, y, us, seed_e, lr, noise=noise)
+        result = run_epoch(cfg_run, flags, state, y, us, seed_e, lr, noise=noise, **masks)
         if (mega_guard and not warm_up and result.metrics.tau is not None
                 and result.metrics.tau.shape[0] > cfg.ns_prefix):
             max_tau, hot = epoch_tau_stats(cfg, result.metrics, t_len, cfg.tdtype)
@@ -679,7 +825,8 @@ def fit(
                 # the autograd re-run's exact fallback factors P directly: it
                 # must not start from an unrepaired indefinite backup
                 backup = _fused.maybe_epoch_repair(cfg, flags, backup, n_batch)
-                result = run_epoch(cfg_run, flags, backup, y, us, seed_e, lr, noise=noise)
+                result = run_epoch(cfg_run, flags, backup, y, us, seed_e, lr, noise=noise,
+                                   **masks)
                 epoch_loss = float(torch.mean(result.metrics.loss))
             elif hot_frac > 0:
                 logger.info("Rare Newton-Schulz ceiling hits (%.2f%% of steps, max finite "
@@ -706,7 +853,7 @@ def fit(
                 running_loss = epoch_loss
                 logger.info("Warm up stopped at epoch %d.", epoch)
                 state = _bootstrap_dynamics(cfg, state, result.q_means, us,
-                                            _draw_generator(gen))
+                                            _draw_generator(gen), pair_w)
         else:
             if _isclose(epoch_loss, running_loss, rtol):
                 plateau_hits += 1
@@ -714,7 +861,7 @@ def fit(
             else:
                 plateau_hits = 0
             if not converged_now and cfg.dynamics == "sgp" and cfg.sgp_adapt_lr > 0:
-                state = _sgp_adapt_step(cfg, state, result.q_means, us)
+                state = _sgp_adapt_step(cfg, state, result.q_means, us, pair_w)
 
         if select_on and not warm_up:
             sel = float(rollout_rmse(cfg, state, result.q_means, y, us,
@@ -742,7 +889,8 @@ def fit(
 
 def _fit_blocked(cfg: VJFConfig, state: TrainState, y, u=None, *,
                  seed: Union[int, torch.Generator], max_iter: int, beta: float, rtol: float,
-                 callback=None, k_block: int, lr0: Optional[float] = None) -> FitResult:
+                 callback=None, k_block: int, lr0: Optional[float] = None, mask=None,
+                 channel_mask=None) -> FitResult:
     """Block-dispatch fit: ``k_block`` epochs per :func:`run_epochs` call,
     with :func:`fit`'s plateau state machine replayed on the host over the
     block's per-epoch mean losses (one host read per block).
@@ -758,7 +906,8 @@ def _fit_blocked(cfg: VJFConfig, state: TrainState, y, u=None, *,
     (``ops.fused_step.prefix_free_next``), the next blocks dispatch with
     ``ns_prefix=0``, so no per-step exact-inverse prefix runs; the first
     post-bootstrap block always keeps the prefix. A block shorter than the
-    prefix engages it structurally.
+    prefix engages it structurally. The masks ride every block whole, as in
+    :func:`fit`.
     """
     select_on = cfg.select == "forecast"
     gen = _generator(seed)
@@ -766,6 +915,11 @@ def _fit_blocked(cfg: VJFConfig, state: TrainState, y, u=None, *,
     y = _promote_y(y, cfg.tdtype, dev)
     t_len, n_batch, _ = y.shape
     us = _promote_u(u, t_len, n_batch, cfg.tdtype, dev)
+    mask = _promote_mask(mask, t_len, n_batch, cfg.tdtype, dev)
+    channel_mask = _promote_channel_mask(channel_mask, y.shape, cfg.tdtype, dev)
+    masks = dict(mask=mask, channel_mask=channel_mask)
+    pair_w = _pair_weights(mask)
+    cfg = _demote_masked_small_sgp(cfg, mask)
     if select_on:
         _validate_select(cfg, t_len=t_len)
         sel_base = _select_base(gen)
@@ -773,7 +927,9 @@ def _fit_blocked(cfg: VJFConfig, state: TrainState, y, u=None, *,
     best_snap = None
 
     mega_possible = (cfg.fused_epoch == "mega"
-                     and _fused.fused_enabled(cfg, state, n_batch=n_batch))
+                     and _fused.fused_enabled(cfg, state, n_batch=n_batch,
+                                              mask=mask is not None,
+                                              channel_mask=channel_mask is not None))
     warm_up = True
     lr = cfg.lr if lr0 is None else float(lr0)
     running_loss = float("nan")
@@ -808,7 +964,7 @@ def _fit_blocked(cfg: VJFConfig, state: TrainState, y, u=None, *,
             pf_logged = True
             logger.info("blocked fit: carry contracted (max tau < %.2f); continuing "
                         "prefix-free from the epoch-%d block.", _fused.NS_TAU_ESCALATE, epoch)
-        res = run_epochs(cfg_disp, flags, state, y, us, seeds, lrs)
+        res = run_epochs(cfg_disp, flags, state, y, us, seeds, lrs, **masks)
         # one host read per block for the control signals
         vals = torch.cat([res.epoch_loss, res.max_tau, res.hot_frac]).tolist()
         losses, max_taus, hot_fracs = vals[:k], vals[k:2 * k], vals[2 * k:]
@@ -827,7 +983,7 @@ def _fit_blocked(cfg: VJFConfig, state: TrainState, y, u=None, *,
             mega_guard = False
             demote_epoch = epoch + j
             backup = _fused.maybe_epoch_repair(cfg, flags, backup, n_batch)
-            res = run_epochs(cfg_run, flags, backup, y, us, seeds, lrs)
+            res = run_epochs(cfg_run, flags, backup, y, us, seeds, lrs, **masks)
             losses = res.epoch_loss.tolist()
         state = res.state
 
@@ -867,10 +1023,11 @@ def _fit_blocked(cfg: VJFConfig, state: TrainState, y, u=None, *,
         if warm_up and warmup_plateau:
             warm_up = False
             running_loss = epoch_loss
-            state = _bootstrap_dynamics(cfg, state, res.q_means, us, _draw_generator(gen))
+            state = _bootstrap_dynamics(cfg, state, res.q_means, us, _draw_generator(gen),
+                                        pair_w)
         elif (not warm_up and not converged and cfg.dynamics == "sgp"
               and cfg.sgp_adapt_lr > 0):
-            state = _sgp_adapt_step(cfg, state, res.q_means, us)
+            state = _sgp_adapt_step(cfg, state, res.q_means, us, pair_w)
         if select_on and not warm_up:
             sel = float(rollout_rmse(cfg, state, res.q_means, y, us,
                                      _select_generator(sel_base, epoch - 1)))
@@ -938,12 +1095,18 @@ def rollout_rmse(cfg: VJFConfig, state: TrainState, mu: torch.Tensor, ys: torch.
     return torch.sqrt(torch.mean(err))
 
 
-def _validate_select(cfg: VJFConfig, t_len: Optional[int] = None) -> bool:
-    """Checks ``cfg.select``; True when forecast-gated selection is on."""
+def _validate_select(cfg: VJFConfig, mask=None, channel_mask=None,
+                     t_len: Optional[int] = None) -> bool:
+    """Checks ``cfg.select``; True when forecast-gated selection is on. The
+    rollout windows have no validity alignment: a masked fit raises."""
     if cfg.select not in ("loss", "forecast"):
         raise ValueError(f"unknown cfg.select: {cfg.select!r}")
     if cfg.select != "forecast":
         return False
+    if mask is not None or channel_mask is not None:
+        raise ValueError("select='forecast' supports unmasked fits only (rollout windows "
+                         "have no validity alignment); use select='loss' for ragged or "
+                         "dropout data")
     if t_len is not None and t_len < cfg.select_horizon + 2:
         raise ValueError(f"select='forecast' needs T >= select_horizon + 2 (got T={t_len}, "
                          f"select_horizon={cfg.select_horizon})")

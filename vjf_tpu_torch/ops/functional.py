@@ -45,11 +45,15 @@ def gaussian_loss(
     *,
     trace_quirk: bool = True,
     weights: Optional[torch.Tensor] = None,
+    channel_mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Expected negative Gaussian log-likelihood, constants dropped, summed
     over the last axis and averaged over the batch. A Gaussian argument adds
     its trace term; with both Gaussian, ``trace_quirk`` keeps the reference's
-    ``exp(lv1 + lv2 - logvar)`` (the corrected form adds the two)."""
+    ``exp(lv1 + lv2 - logvar)`` (the corrected form adds the two).
+    ``weights``: (B,) 0/1 trial mask (:func:`batch_weighted_mean`);
+    ``channel_mask``: (B, d) 0/1, a masked entry is selected out of the sum
+    over the last axis (no renormalisation)."""
     m1, lv1 = (a.mean, a.logvar) if isinstance(a, Gaussian) else (a, None)
     m2, lv2 = (b.mean, b.logvar) if isinstance(b, Gaussian) else (b, None)
     m1, m2 = torch.atleast_2d(m1), torch.atleast_2d(m2)
@@ -64,6 +68,8 @@ def gaussian_loss(
     elif lv1 is not None or lv2 is not None:
         lv = lv1 if lv1 is not None else lv2
         nll = nll + 0.5 * torch.exp(torch.atleast_2d(lv) - logvar)
+    if channel_mask is not None:
+        nll = torch.where(torch.atleast_2d(channel_mask) > 0, nll, torch.zeros_like(nll))
     return batch_weighted_mean(torch.sum(nll, dim=-1), weights)
 
 

@@ -35,7 +35,17 @@ and the predictive log-variance adds the DTC correction ``max(scale^2 -
 1 to ``_MAX_LAYERS`` hidden layers of width at most ``_MAX_WIDTH``, and a
 block within the card's shared memory (:func:`kernel_limits`); under
 ``fused_step='auto'`` a configuration past a limit takes the autograd
-epoch. The trial mask and the channel mask are not ported yet.
+epoch.
+
+Ragged trials and missing channels: every step function and launcher takes
+a trial mask (``mask``: per trial, 0 or 1) and a channel mask (``cmask``: per
+trial and channel), as the JAX package's do. Masked entries of ``y`` and
+``u`` are replaced by select (channel holes first, then masked trials), so
+they may hold NaN; a masked trial leaves every batch sum, which is
+renormalised over the valid count, and its posterior is frozen at its last
+valid value; a step with no valid trial advances nothing and reports loss
+and tau 0; a masked channel leaves the likelihood sum and the recognition
+input sees the decoder's prediction there (:func:`step_forward_sums`).
 """
 from __future__ import annotations
 
@@ -55,8 +65,6 @@ NS_TAU_MAX = 0.7
 NS_EXTRA_ITERS = 2
 NS_TAU_ESCALATE = 0.05
 NS_ONE_ITER_MIN_BATCH = 64
-
-_MASKS_TODO = "trial and channel masks: ROADMAP Queue 1 item 8"
 
 logger = logging.getLogger(__name__)
 
@@ -197,6 +205,10 @@ class FusedSums(NamedTuple):
     fvf_sum: torch.Tensor
     dx_sum: torch.Tensor
     dx2_sum: torch.Tensor
+    # the count of observed (channel x trial mask) entries of y, or None
+    # without a channel mask: the Gaussian log-variance constant and the
+    # fractional obs-noise count need it
+    cm_sum: Optional[torch.Tensor] = None
 
 
 class PerTrial(NamedTuple):
@@ -220,9 +232,9 @@ def _mm_fn(cfg: VJFConfig, dtype: torch.dtype):
     return torch.matmul
 
 
-def _no_masks(mask, cmask) -> None:
-    if mask is not None or cmask is not None:
-        raise NotImplementedError(_MASKS_TODO)
+def _mask_col(mask: torch.Tensor, dtype) -> torch.Tensor:
+    """A (B,) or (B, 1) trial mask as a (B, 1) column of exact 0/1."""
+    return (mask.reshape(-1, 1) > 0).to(dtype)
 
 
 def step_forward_sums(
@@ -238,15 +250,45 @@ def step_forward_sums(
     inv_b,
     mask: Optional[torch.Tensor] = None,
     cmask: Optional[torch.Tensor] = None,
+    local_renorm: bool = True,
 ) -> Tuple[FusedSums, PerTrial]:
     """Per-trial phase of the step: forward pass, hand-written backward and
-    trial-axis reductions. With SGP the features are whitened (full f32)
-    and the predictive log-variance carries the DTC correction."""
-    _no_masks(mask, cmask)
+    trial-axis reductions, every batch mean scaled by ``inv_b``. With SGP
+    the features are whitened (full f32) and the predictive log-variance
+    carries the DTC correction.
+
+    ``mask`` (B,) or (B, 1), 0/1: masked rows of ``y`` and ``u`` are
+    replaced by 0 (select: NaN padding stays out), and the rows leave every
+    sum (loss, gradients, RLS statistics). With ``local_renorm`` the batch
+    means divide by this call's valid count; a sharded caller passes
+    ``local_renorm=False`` and the global ``1 / max(count, 1)`` as
+    ``inv_b``. ``cmask`` (B, ydim), 0/1: masked entries of ``y`` become 0
+    (before the trial mask), leave the likelihood sum and its gradient, and
+    the recognition input sees the decoder's prediction from ``qs_m``
+    there (the count scale for Poisson); ``sums.cm_sum`` counts the
+    observed entries."""
     f32 = qs_m.dtype
     slogvar = carry.state_logvar[0, 0]
     has_u = u is not None and u.shape[-1] > 0
     mm = _mm_fn(cfg, f32)
+    zero = torch.zeros((), dtype=f32, device=y.device)
+    m_col = cm_eff = cm = cm_sum = None
+    if cmask is not None:
+        cm = (cmask > 0).to(f32)
+        y = torch.where(cm > 0, y, zero)
+    if mask is not None:
+        m_col = _mask_col(mask, f32)
+        y = torch.where(m_col > 0, y, zero)
+        if has_u:
+            u = torch.where(m_col > 0, u, zero)
+        if local_renorm:
+            inv_b = 1.0 / torch.clamp(torch.sum(m_col), min=1.0)
+    if cmask is not None:
+        # a masked trial's entries leave the channel statistics too
+        cm_eff = cm * m_col if m_col is not None else cm
+        cm_sum = torch.sum(cm_eff)
+    # the weights of the per-entry likelihood sums
+    row_w = cm_eff if cm_eff is not None else m_col
 
     # ---------------- forward ----------------
     xs = qs_m + eps_s * torch.exp(0.5 * qs_lv)
@@ -271,7 +313,16 @@ def step_forward_sums(
         pt_lv = torch.log(fvf)                                # (B, 1)
     pt_m = (1.0 - cfg.leak) * xs + mm(feat, carry.w_dyn)
 
-    a0 = mm(y, carry.w_in_y.T) + mm(qs_m, carry.w_in_m.T) + mm(qs_lv, carry.w_in_lv.T)
+    if cm is not None:
+        # imputation for the recognition input only: the decoder's
+        # prediction from the previous posterior mean; never differentiated
+        pred = mm(qs_m, carry.w_dec.T) + carry.b_dec
+        if cfg.likelihood == "poisson":
+            pred = torch.exp(torch.clamp(pred, max=cfg.poisson_clamp))
+        y_rec = torch.where(cm > 0, y, pred)
+    else:
+        y_rec = y
+    a0 = mm(y_rec, carry.w_in_y.T) + mm(qs_m, carry.w_in_m.T) + mm(qs_lv, carry.w_in_lv.T)
     if has_u:
         a0 = a0 + mm(u, carry.w_in_u.T)
     a = torch.tanh(a0 + carry.b_hidden[0])
@@ -288,16 +339,21 @@ def step_forward_sums(
     py = mm(xt, carry.w_dec.T) + carry.b_dec
 
     # ---------------- ELBO batch sums ----------------
-    zero = torch.zeros((), dtype=f32, device=y.device)
     if cfg.likelihood == "poisson":
         pyc = torch.clamp(py, max=cfg.poisson_clamp)
         exp_pyc = torch.exp(pyc)
-        recon_batch = torch.sum(exp_pyc - y * pyc) * inv_b
+        nll_rows = exp_pyc - y * pyc
+        if row_w is not None:
+            nll_rows = nll_rows * row_w
+        recon_batch = torch.sum(nll_rows) * inv_b
         sq_y = zero
     else:
         lik_lv = carry.lik_logvar[0, 0]
         resid_y = y - py
-        sq_y = torch.sum(resid_y * resid_y)
+        sq_rows = resid_y * resid_y
+        if row_w is not None:
+            sq_rows = sq_rows * row_w
+        sq_y = torch.sum(sq_rows)
         recon_batch = zero
 
     inv_sv = torch.exp(-slogvar)
@@ -306,8 +362,11 @@ def step_forward_sums(
         trace = torch.exp(pt_lv + qt_lv - slogvar)
     else:
         trace = torch.exp(pt_lv - slogvar) + torch.exp(qt_lv - slogvar)
-    dyn_batch = torch.sum(diff * diff) * inv_sv * inv_b + torch.sum(trace) * inv_b
-    h_ent = 0.5 * torch.sum(qt_lv) * inv_b
+    diff2, ent_rows = diff * diff, qt_lv
+    if m_col is not None:
+        diff2, trace, ent_rows = diff2 * m_col, trace * m_col, ent_rows * m_col
+    dyn_batch = torch.sum(diff2) * inv_sv * inv_b + torch.sum(trace) * inv_b
+    h_ent = 0.5 * torch.sum(ent_rows) * inv_b
 
     # ---------------- manual backward (gradient batch-sums) ----------------
     nh = len(carry.w_hidden)
@@ -318,6 +377,8 @@ def step_forward_sums(
         else:
             g_py = -resid_y * torch.exp(-lik_lv) * inv_b
             g_lik_lv_batch = -0.5 * sq_y * torch.exp(-lik_lv) * inv_b
+        if row_w is not None:
+            g_py = g_py * row_w
 
         g_xt = mm(g_py, carry.w_dec)                           # (B, xd)
         if flags.train_decoder:
@@ -337,6 +398,8 @@ def step_forward_sums(
                 g_qt_lv = g_qt_lv + 0.5 * torch.exp(qt_lv - slogvar) * inv_b
         # nothing flows back through the logvar clip where it binds
         g_qt_lv = g_qt_lv * (torch.abs(raw_qt_lv) < cfg.logvar_clamp)
+        if m_col is not None:
+            g_qt_m, g_qt_lv = g_qt_m * m_col, g_qt_lv * m_col
 
         g_wm = mm(g_qt_m.T, h_last)
         g_wlv = mm(g_qt_lv.T, h_last)
@@ -354,7 +417,7 @@ def step_forward_sums(
         g_a0 = g_h * (1.0 - hs[0] * hs[0])                     # first layer
         g_b_hidden[0] = torch.sum(g_a0, dim=0, keepdim=True)
         g_w_in_u = mm(g_a0.T, u) if has_u else None
-        g_w_in_y = mm(g_a0.T, y)
+        g_w_in_y = mm(g_a0.T, y_rec)          # the layer saw the imputed input
         g_w_in_m = mm(g_a0.T, qs_m)
         g_w_in_lv = mm(g_a0.T, qs_lv)
     else:
@@ -374,11 +437,16 @@ def step_forward_sums(
     # ---------------- RLS raw statistics ----------------
     dx = xt - xs
     if flags.update and flags.update_transition:
-        dx_sum = torch.sum(dx)
-        dx2_sum = torch.sum(dx * dx)
-        fvf_sum = torch.sum(fvf)
-        ftf_raw = mm(feat.T, feat)
-        fxd_raw = mm(feat.T, dx)
+        if m_col is not None:
+            # zeroed feature rows leave F^T F and F^T dx
+            feat_s, dx_s = feat * m_col, dx * m_col
+            dx_sum, dx2_sum = torch.sum(dx_s), torch.sum(dx_s * dx)
+            fvf_sum = torch.sum(fvf * m_col)
+        else:
+            feat_s = feat
+            dx_sum, dx2_sum, fvf_sum = torch.sum(dx), torch.sum(dx * dx), torch.sum(fvf)
+        ftf_raw = mm(feat_s.T, feat_s)
+        fxd_raw = mm(feat_s.T, dx)
     else:
         dx_sum = dx2_sum = fvf_sum = zero
         ftf_raw = torch.zeros_like(carry.p_mat)
@@ -404,7 +472,7 @@ def step_forward_sums(
         recon_batch=recon_batch, dyn_batch=dyn_batch, ent=h_ent, sq_y=sq_y,
         grad_check=grad_check,
         ftf_raw=ftf_raw, fxd_raw=fxd_raw, fvf_sum=fvf_sum,
-        dx_sum=dx_sum, dx2_sum=dx2_sum,
+        dx_sum=dx_sum, dx2_sum=dx2_sum, cm_sum=cm_sum,
     )
     per = PerTrial(qt_m=qt_m, qt_lv=qt_lv, xt=xt, xs=xs, feat=feat, dx=dx)
     return sums, per
@@ -435,6 +503,7 @@ def step_apply(
     ns_tau_max: Optional[float] = None,
     ns_iters: int = NS_ITERS,
     mask: Optional[torch.Tensor] = None,
+    valid_count: Optional[torch.Tensor] = None,
 ) -> Tuple[FusedCarry, ScalarPack, torch.Tensor]:
     """Batch-independent phase: reconstruct the ELBO from the sums, apply
     clipped SGD, then the closed-form updates (obs noise, RLS with
@@ -443,13 +512,37 @@ def step_apply(
     ``feat``/``dx`` (per-trial) give the post-update residual directly on
     one device; without them (the sharded step, whose ``sums`` are
     all-reduced) its mean square comes from the summed statistics
-    (:func:`_stats_mse`)."""
-    _no_masks(mask, None)
+    (:func:`_stats_mse`).
+
+    ``mask``: the trial mask given to :func:`step_forward_sums` (one
+    device); ``valid_count``: instead, the global valid count (a scalar
+    tensor; the sharded step). Either makes every count and denominator the
+    valid count; a step with no valid trial then leaves the loss at 0, the
+    RLS recursion and the noise counters where they were. With
+    ``sums.cm_sum`` (a channel mask) the Gaussian log-variance constant is
+    per observed entry and the obs-noise count advances by ``cm_sum /
+    ydim``."""
     f32 = carry.w_dyn.dtype
     dev = carry.w_dyn.device
-    b = b_total
-    count = b
+    zero = torch.zeros((), dtype=f32, device=dev)
+    m_col = None
+    if mask is not None:
+        m_col = _mask_col(mask, f32)
+        count = torch.sum(m_col)               # the raw count, 0 allowed
+    elif valid_count is not None:
+        if feat is not None:
+            raise ValueError("valid_count is the sharded mode: no per-trial feat/dx")
+        count = valid_count.to(f32)
+    else:
+        count = b_total
+    masked = mask is not None or valid_count is not None
+    if masked:
+        b = torch.clamp(count, min=1.0)        # the guarded divisor
+        has_data = count > 0
+    else:
+        b = b_total
     inv_b = 1.0 / b
+    has_cm = sums.cm_sum is not None
     slogvar = carry.state_logvar[0, 0]
     mm = _mm_fn(cfg, f32)
     ydim = carry.w_dec.shape[0]
@@ -458,20 +551,30 @@ def step_apply(
     # ---------------- ELBO components with their constants ----------------
     if cfg.likelihood == "poisson":
         l_recon = sums.recon_batch
-        obs_mse = torch.zeros((), dtype=f32, device=dev)
+        obs_mse = zero
     else:
         lik_lv = carry.lik_logvar[0, 0]
-        l_recon = 0.5 * (sums.sq_y * torch.exp(-lik_lv) * inv_b + ydim * lik_lv)
-        obs_mse = sums.sq_y * inv_b / ydim
+        if has_cm:
+            # the log-variance constant per observed entry; the mse over them
+            l_recon = 0.5 * (sums.sq_y * torch.exp(-lik_lv) * inv_b
+                             + sums.cm_sum * inv_b * lik_lv)
+            obs_mse = sums.sq_y / torch.clamp(sums.cm_sum, min=1.0)
+        else:
+            l_recon = 0.5 * (sums.sq_y * torch.exp(-lik_lv) * inv_b + ydim * lik_lv)
+            obs_mse = sums.sq_y * inv_b / ydim
     l_dyn = 0.5 * (sums.dyn_batch + xd * slogvar)
     h_ent = sums.ent
+    if masked:
+        # no data, no loss: the constants would survive an empty step
+        l_recon = torch.where(has_data, l_recon, zero)
+        l_dyn = torch.where(has_data, l_dyn, zero)
+        h_ent = torch.where(has_data, h_ent, zero)
 
     # the skip-step gate sees the RAW components; in warm-up the dynamics
     # term is outside the loss, so it does not gate
     raw_ok = torch.isfinite(l_recon) & torch.isfinite(h_ent)
     if not flags.warm_up:
         raw_ok = raw_ok & torch.isfinite(l_dyn)
-    zero = torch.zeros((), dtype=f32, device=dev)
     l_recon = torch.where(torch.isfinite(l_recon), l_recon, zero)
     l_dyn = torch.where(torch.isfinite(l_dyn), l_dyn, zero)
     h_ent = torch.where(torch.isfinite(h_ent), h_ent, zero)
@@ -490,7 +593,15 @@ def step_apply(
         if cfg.likelihood == "poisson":
             lik_logvar_new = carry.lik_logvar
         else:
-            lik_logvar_new = upd(carry.lik_logvar, sums.g_lik_lv_batch + 0.5 * ydim)
+            # d(0.5 ydim lik_lv)/d(lik_lv); per observed entry under a
+            # channel mask, 0 on a step without data
+            if has_cm:
+                g_lv_const = 0.5 * sums.cm_sum * inv_b
+            elif masked:
+                g_lv_const = torch.where(has_data, torch.full_like(zero, 0.5 * ydim), zero)
+            else:
+                g_lv_const = 0.5 * ydim
+            lik_logvar_new = upd(carry.lik_logvar, sums.g_lik_lv_batch + g_lv_const)
         if flags.train_decoder:
             w_dec_new = upd(carry.w_dec, sums.g_w_dec)
             b_dec_new = upd(carry.b_dec, sums.g_b_dec)
@@ -518,9 +629,11 @@ def step_apply(
     g_vec = torch.zeros_like(carry.w_dyn)
     if flags.update and cfg.likelihood == "gaussian" and flags.update_likelihood:
         # running-var overwrite with the POST-SGD logvar
+        # the raw valid count, or under a channel mask the fractional rows
+        adv = sums.cm_sum / ydim if has_cm else count
         lik_n = torch.clamp(new.lik_n[0, 0], max=float(cfg.obs_var_cap))
-        tot = lik_n + count
-        var = (lik_n / tot) * torch.exp(new.lik_logvar[0, 0]) + (count / tot) * obs_mse
+        tot = lik_n + adv
+        var = (lik_n / tot) * torch.exp(new.lik_logvar[0, 0]) + (adv / tot) * obs_mse
         lik_lv_new = torch.clamp(torch.log(var), -cfg.logvar_clamp, cfg.logvar_clamp)
         lik_ok = torch.isfinite(var)
         new = new._replace(
@@ -530,6 +643,9 @@ def step_apply(
 
     if flags.update and flags.update_transition:
         dyn_ok = torch.isfinite(sums.dx_sum)
+        if masked:
+            # a step without data must not advance the recursion
+            dyn_ok = dyn_ok & has_data
         w_dyn_new = carry.w_dyn
         if not flags.warm_up:
             lam = float(cfg.rls_shrink)
@@ -575,7 +691,10 @@ def step_apply(
 
         if feat is not None:
             resid = dx - mm(feat, w_dyn_new)
-            mse_dyn = torch.mean(resid * resid)
+            if m_col is not None:
+                mse_dyn = torch.sum(resid * resid * m_col) / (b * xd)
+            else:
+                mse_dyn = torch.mean(resid * resid)
         else:
             mse_dyn = _stats_mse(sums, w_dyn_new, b)
         dyn_n = torch.clamp(new.dyn_n[0, 0], max=float(cfg.state_var_cap))
@@ -618,18 +737,24 @@ def step_math(
     """The whole step on padded tensors: :func:`step_forward_sums` composed
     with :func:`step_apply`. ``ns_extra(x_ns, p_new, eye2, tau)`` optionally
     escalates Newton-Schulz; ``ns_tau_max`` gates the V/w update for
-    segments without an exact-inverse fallback."""
-    _no_masks(mask, cmask)
+    segments without an exact-inverse fallback. Under the trial ``mask`` a
+    masked row's posterior is frozen at ``(qs_m, qs_lv)``; the channel mask
+    ``cmask`` freezes nothing (a row with every channel masked is a pure
+    prediction step)."""
     b = y.shape[0]
     sums, per = step_forward_sums(
-        cfg, flags, carry, qs_m, qs_lv, y, u, eps_s, eps_t, 1.0 / b,
+        cfg, flags, carry, qs_m, qs_lv, y, u, eps_s, eps_t, 1.0 / b, mask=mask, cmask=cmask,
     )
     new, scal, g_vec = step_apply(
         cfg, flags, carry, sums, lr, b, feat=per.feat, dx=per.dx,
-        ns_extra=ns_extra, ns_tau_max=ns_tau_max, ns_iters=ns_iters,
+        ns_extra=ns_extra, ns_tau_max=ns_tau_max, ns_iters=ns_iters, mask=mask,
     )
+    qt_m, qt_lv = per.qt_m, per.qt_lv
+    if mask is not None:
+        keep = mask.reshape(-1, 1) > 0
+        qt_m, qt_lv = torch.where(keep, qt_m, qs_m), torch.where(keep, qt_lv, qs_lv)
     return StepOut(
-        carry=new, qt_mean=per.qt_m, qt_logvar=per.qt_lv, g_vec=g_vec,
+        carry=new, qt_mean=qt_m, qt_logvar=qt_lv, g_vec=g_vec,
         xt=per.xt, xs=per.xs, scal=scal,
     )
 
@@ -672,26 +797,33 @@ def _array_leaves(tree, names):
     return out
 
 
-def sums_size(carry: FusedCarry) -> int:
-    """Floats in the flat FusedSums buffer of ``carry``'s shapes."""
+def _scalar_names(has_cm: bool) -> tuple:
+    return _SUM_SCALARS + (("cm_sum",) if has_cm else ())
+
+
+def sums_size(carry: FusedCarry, has_cm: bool = False) -> int:
+    """Floats in the flat FusedSums buffer of ``carry``'s shapes; with
+    ``has_cm`` (a channel mask) one more scalar, ``cm_sum``."""
     return sum(t.numel() for t in _array_leaves(carry, [c for _, c in _SUM_ARRAYS])) + len(
-        _SUM_SCALARS)
+        _scalar_names(has_cm))
 
 
 def pack_sums(sums: FusedSums) -> torch.Tensor:
     """FusedSums -> one contiguous 1-D buffer: the array leaves in field
-    order, then the scalar leaves (``_SUM_SCALARS``)."""
+    order, then the scalar leaves (``_SUM_SCALARS``, then ``cm_sum`` when
+    it is given)."""
     arrays = _array_leaves(sums, [n for n, _ in _SUM_ARRAYS])
-    scalars = torch.stack([getattr(sums, n).reshape(()) for n in _SUM_SCALARS])
+    scalars = torch.stack([getattr(sums, n).reshape(())
+                           for n in _scalar_names(sums.cm_sum is not None)])
     return torch.cat([a.reshape(-1) for a in arrays] + [scalars])
 
 
-def unpack_sums(flat: torch.Tensor, carry: FusedCarry) -> FusedSums:
+def unpack_sums(flat: torch.Tensor, carry: FusedCarry, has_cm: bool = False) -> FusedSums:
     """Inverse of :func:`pack_sums`; each gradient leaf takes its parameter's
     shape from ``carry``. The leaves are views of ``flat``."""
-    if flat.shape != (sums_size(carry),):
+    if flat.shape != (sums_size(carry, has_cm),):
         raise ValueError(f"flat sums of shape {tuple(flat.shape)}, the carry needs "
-                         f"{sums_size(carry)} floats")
+                         f"{sums_size(carry, has_cm)} floats")
     off = 0
 
     def take(like):
@@ -705,7 +837,7 @@ def unpack_sums(flat: torch.Tensor, carry: FusedCarry) -> FusedSums:
         ref = getattr(carry, leaf)
         fields[name] = (tuple(take(r) for r in ref) if isinstance(ref, tuple)
                         else None if ref is None else take(ref))
-    for name in _SUM_SCALARS:
+    for name in _scalar_names(has_cm):
         fields[name] = flat[off]
         off += 1
     return FusedSums(**fields)
@@ -725,21 +857,26 @@ class PackedStepOut(NamedTuple):
     scal: torch.Tensor                    # (1, 8): loss, recon, dyn, ent, tau
 
 
-def fused_step_plain(cfg, flags, carry, qs_m, qs_lv, y, u, eps_s, eps_t, lr
-                     ) -> PackedStepOut:
+def fused_step_plain(cfg, flags, carry, qs_m, qs_lv, y, u, eps_s, eps_t, lr, mask=None,
+                     cmask=None) -> PackedStepOut:
     """Plain version of the per-step kernel: ``step_math`` with the fixed
     ``NS_ITERS`` and no tau ceiling, packed like the kernel's outputs.
-    ``eps_s=None`` draws the noise from the carry's Philox stream."""
+    ``eps_s=None`` draws the noise from the carry's Philox stream; ``mask``
+    (B,) and ``cmask`` (B, ydim) as in :func:`step_math`."""
     eps_s, eps_t = _latents(carry, y.shape[0], cfg.xdim, y.dtype, eps_s, eps_t)
-    out = step_math(cfg, flags, carry, qs_m, qs_lv, y, u, eps_s, eps_t, lr)
+    out = step_math(cfg, flags, carry, qs_m, qs_lv, y, u, eps_s, eps_t, lr, mask=mask,
+                    cmask=cmask)
     new = out.carry._replace(rng_count=carry.rng_count + 1)
     return PackedStepOut(new, torch.stack([out.qt_mean, out.qt_logvar]),
                          out.g_vec, out.xt, out.xs, _scal_row(out.scal))
 
 
-def mega_ns_base_iters(cfg: VJFConfig, n_batch: int) -> int:
-    """Batch-adaptive base Newton-Schulz iterations of the mega segment."""
-    return int(cfg.mega_ns_iters) or (1 if n_batch >= NS_ONE_ITER_MIN_BATCH else 2)
+def mega_ns_base_iters(cfg: VJFConfig, n_batch: int, masked: bool = False) -> int:
+    """Batch-adaptive base Newton-Schulz iterations of the mega segment: 1
+    at 64 trials or more, else 2. Under a trial mask (``masked``) 2, since
+    the padded batch says nothing of a step's valid count."""
+    return int(cfg.mega_ns_iters) or (
+        1 if n_batch >= NS_ONE_ITER_MIN_BATCH and not masked else 2)
 
 
 def _ns_escalate(x_ns, p_new, eye2, tau):
@@ -753,12 +890,14 @@ def _ns_escalate(x_ns, p_new, eye2, tau):
     return torch.where(tau >= NS_TAU_THRESHOLD, x2, x_ns)
 
 
-def mega_epoch_plain(cfg, flags, carry, qs_m, qs_lv, ys, us, eps_s, eps_t, lr):
+def mega_epoch_plain(cfg, flags, carry, qs_m, qs_lv, ys, us, eps_s, eps_t, lr, mask=None,
+                     cmask=None):
     """Plain version of the mega kernel: a loop over the T steps of ``ys``
-    with the base iterations, the escalation and the ``NS_TAU_MAX`` skip.
-    Returns ``(carry, q_pack (T, 2, B, xd), scal (T, 8))``."""
+    with the base iterations, the escalation and the ``NS_TAU_MAX`` skip;
+    ``mask`` (T, B) and ``cmask`` (T, B, ydim) by step. Returns ``(carry,
+    q_pack (T, 2, B, xd), scal (T, 8))``."""
     t_total, b, _ = ys.shape
-    base = mega_ns_base_iters(cfg, b)
+    base = mega_ns_base_iters(cfg, b, masked=mask is not None)
     qm, qlv = qs_m, qs_lv
     qs, scals = [], []
     for t in range(t_total):
@@ -767,7 +906,9 @@ def mega_epoch_plain(cfg, flags, carry, qs_m, qs_lv, ys, us, eps_s, eps_t, lr):
                             None if eps_t is None else eps_t[t])
         out = step_math(cfg, flags, carry, qm, qlv, ys[t],
                         us[t] if us is not None else None, e_s, e_t, lr,
-                        ns_extra=_ns_escalate, ns_tau_max=NS_TAU_MAX, ns_iters=base)
+                        ns_extra=_ns_escalate, ns_tau_max=NS_TAU_MAX, ns_iters=base,
+                        mask=None if mask is None else mask[t],
+                        cmask=None if cmask is None else cmask[t])
         carry = out.carry._replace(rng_count=carry.rng_count + 1)
         qm, qlv = out.qt_mean, out.qt_logvar
         qs.append(torch.stack([qm, qlv]))
@@ -776,13 +917,17 @@ def mega_epoch_plain(cfg, flags, carry, qs_m, qs_lv, ys, us, eps_s, eps_t, lr):
 
 
 def forward_sums_plain(cfg, flags, carry, qs_m, qs_lv, y, u, eps_s, eps_t, inv_b,
-                       row0: int = 0):
+                       row0: int = 0, mask=None, cmask=None):
     """Plain version of the phase-1 kernel: :func:`step_forward_sums` on this
-    rank's trials with the GLOBAL ``inv_b``. Returns ``(flat sums, q_pack
-    (2, B_local, xd))``; the carry is left as it is. ``eps_s=None`` draws
-    rows ``[row0, row0 + B_local)`` of the whole batch's Philox draw."""
+    rank's trials with the GLOBAL ``inv_b`` (under a trial mask, ``1 /
+    max(global valid count, 1)``). Returns ``(flat sums, q_pack (2,
+    B_local, xd))``, the posterior not frozen; the carry is left as it is.
+    ``eps_s=None`` draws rows ``[row0, row0 + B_local)`` of the whole
+    batch's Philox draw. ``mask`` (B_local,) and ``cmask`` (B_local, ydim)
+    are this rank's rows; a channel mask adds ``cm_sum`` to the buffer."""
     eps_s, eps_t = _latents(carry, y.shape[0], cfg.xdim, y.dtype, eps_s, eps_t, row0)
-    sums, per = step_forward_sums(cfg, flags, carry, qs_m, qs_lv, y, u, eps_s, eps_t, inv_b)
+    sums, per = step_forward_sums(cfg, flags, carry, qs_m, qs_lv, y, u, eps_s, eps_t, inv_b,
+                                  mask=mask, cmask=cmask, local_renorm=False)
     return pack_sums(sums), torch.stack([per.qt_m, per.qt_lv])
 
 
@@ -825,7 +970,8 @@ class _Args(ctypes.Structure):
             "w_mean", "w_logvar", "b_logvar", "w_dec", "b_dec", "cent_x", "cent_u",
             "c2", "inv_w2", "w_white", "scale2", "p_mat", "v_mat", "w_dyn", "state_logvar",
             "lik_logvar", "dyn_n", "lik_n", "rng_seed", "rng_count", "qs_m", "qs_lv", "y", "u",
-            "eps_s", "eps_t", "lr", "q_pack", "scal", "g_vec", "xt", "xs", "sums", "ws")]
+            "eps_s", "eps_t", "mask", "cmask", "lr", "q_pack", "scal", "g_vec", "xt", "xs",
+            "sums", "ws")]
         + [(n, ctypes.c_int) for n in ("T", "B", "yd", "ud", "xd", "nfp", "nf", "n_layers")]
         + [("h", ctypes.c_int * _MAX_LAYERS)]
         + [(n, ctypes.c_int) for n in (
@@ -865,10 +1011,14 @@ def _library():
     return lib
 
 
-def _dims(cfg: VJFConfig, n_batch: int, t_total: int = 1) -> _Args:
+def _dims(cfg: VJFConfig, n_batch: int, t_total: int = 1, mask: bool = False,
+          cmask: bool = False) -> _Args:
     """An ``_Args`` with the dimensions of ``cfg`` at ``n_batch`` trials and
-    no operands: enough for the library's size queries."""
+    no operands: enough for the library's size queries. ``mask`` and
+    ``cmask`` set those two pointers to a non-null placeholder, since a
+    block stages them (the queries read no operand)."""
     a = _Args()
+    a.mask, a.cmask = (1 if mask else None), (1 if cmask else None)
     a.T, a.B, a.yd, a.ud, a.xd = t_total, n_batch, cfg.ydim, cfg.udim, cfg.xdim
     a.nfp, a.nf = _round_up(cfg.feature_dim), cfg.feature_dim
     a.n_layers = len(cfg.hidden_sizes)
@@ -877,14 +1027,16 @@ def _dims(cfg: VJFConfig, n_batch: int, t_total: int = 1) -> _Args:
     return a
 
 
-def kernel_limits(cfg: VJFConfig, n_batch: int, on_card: bool = True) -> Optional[str]:
+def kernel_limits(cfg: VJFConfig, n_batch: int, on_card: bool = True, mask: bool = False,
+                  channel_mask: bool = False) -> Optional[str]:
     """The first limit of the kernels that ``cfg`` at ``n_batch`` trials
     exceeds, as a message, or None: at most ``_MAX_FEATURES`` padded
     features, 1 to ``_MAX_LAYERS`` hidden layers, widths of at most
     ``_MAX_WIDTH``, and with ``on_card`` a block's shared memory within the
     card's (``vjf_smem_bytes`` against ``vjf_smem_limit``, which builds the
-    library). :func:`_launch` raises on it, and :func:`fused_enabled` routes
-    away from it under ``fused_step='auto'``."""
+    library), counting the staging of a trial ``mask`` and of a
+    ``channel_mask``. :func:`_launch` raises on it, and
+    :func:`fused_enabled` routes away from it under ``fused_step='auto'``."""
     nfp, widths = _round_up(cfg.feature_dim), list(cfg.hidden_sizes)
     if nfp > _MAX_FEATURES:
         return (f"{cfg.feature_dim} features pad to {nfp}, over the {_MAX_FEATURES} "
@@ -895,9 +1047,11 @@ def kernel_limits(cfg: VJFConfig, n_batch: int, on_card: bool = True) -> Optiona
         return f"hidden layers of widths {widths}, the kernels take widths of at most {_MAX_WIDTH}"
     if on_card:
         lib = _library()
-        need, limit = lib.vjf_smem_bytes(ctypes.byref(_dims(cfg, n_batch))), lib.vjf_smem_limit()
+        dims = _dims(cfg, n_batch, mask=mask, cmask=channel_mask)
+        need, limit = lib.vjf_smem_bytes(ctypes.byref(dims)), lib.vjf_smem_limit()
         if need > limit:
-            return (f"{n_batch} trials over {cluster_size()} blocks at these widths need "
+            what = " with a channel mask" if channel_mask else ""
+            return (f"{n_batch} trials over {cluster_size()} blocks at these widths{what} need "
                     f"{need} bytes of shared memory a block, over the card's {limit}")
     return None
 
@@ -924,7 +1078,7 @@ _LAUNCHERS = {"fused_step": "vjf_fused_step", "mega_epoch": "vjf_mega_epoch",
 
 def _launch(kernel: str, cfg, flags, carry: FusedCarry, qs_m, qs_lv, ys, us, eps_s,
             eps_t, lr, q_pack, scal, g_vec=None, xt=None, xs=None, ns_iters=0,
-            sums=None, inv_b=0.0, row0=0):
+            sums=None, inv_b=0.0, row0=0, mask=None, cmask=None):
     """Check every operand and launch ``vjf_fused_step``, ``vjf_mega_epoch``
     or ``vjf_forward_sums`` on the current stream, or, with
     ``kernel="info"``, launch nothing and return :func:`cluster_info`'s
@@ -932,10 +1086,11 @@ def _launch(kernel: str, cfg, flags, carry: FusedCarry, qs_m, qs_lv, ys, us, eps
     is the mega kernel's base Newton-Schulz iterations (each launcher sets
     its own mode). The phase-1 kernel takes ``sums`` (the flat buffer),
     ``inv_b`` and ``row0`` (the first row of this rank's trials in the whole
-    batch) and no ``lr`` or ``scal``. Raises ``ValueError`` for a tensor
-    that does not lie on the card and for a shape the kernel does not take:
-    nothing falls back to the plain version. The limits are those of
-    :func:`kernel_limits`."""
+    batch) and no ``lr`` or ``scal``. ``mask`` (T, B) and ``cmask`` (T, B,
+    ydim) are the 0/1 masks by step, or None. Raises ``ValueError`` for a
+    tensor that does not lie on the card and for a shape the kernel does
+    not take: nothing falls back to the plain version. The limits are those
+    of :func:`kernel_limits`."""
     dev = carry.p_mat.device
     t_total, b, yd = ys.shape
     reason = kernel_limits(cfg, b, on_card=False)
@@ -992,6 +1147,8 @@ def _launch(kernel: str, cfg, flags, carry: FusedCarry, qs_m, qs_lv, ys, us, eps
     a.u = c(us, "us", (t_total, b, ud))
     a.eps_s = c(eps_s, "eps_s", (t_total, b, xd))
     a.eps_t = c(eps_t, "eps_t", (t_total, b, xd))
+    a.mask = c(mask, "mask", (t_total, b))
+    a.cmask = c(cmask, "cmask", (t_total, b, yd))
     a.lr = c(lr, "lr", ())
     a.q_pack = c(q_pack, "q_pack", (t_total, 2, b, xd) if q_pack.dim() == 4 else (2, b, xd))
     a.scal = c(scal, "scal", (t_total, 8))
@@ -1012,7 +1169,7 @@ def _launch(kernel: str, cfg, flags, carry: FusedCarry, qs_m, qs_lv, ys, us, eps
     a.obs_var_cap, a.state_var_cap = float(cfg.obs_var_cap), float(cfg.state_var_cap)
 
     lib = _library()
-    reason = kernel_limits(cfg, b)
+    reason = kernel_limits(cfg, b, mask=mask is not None, channel_mask=cmask is not None)
     if reason is not None:
         raise ValueError(f"the kernels do not take this configuration: {reason}")
     if kernel == "info":
@@ -1065,14 +1222,25 @@ def _on_cuda(t: torch.Tensor) -> bool:
     return t.device.type == "cuda"
 
 
-def fused_step_call(cfg, flags, carry, qs_m, qs_lv, y, u, eps_s, eps_t, lr
-                    ) -> PackedStepOut:
+def _kernel_mask(m: Optional[torch.Tensor], shape) -> Optional[torch.Tensor]:
+    """A mask as the kernels read it: f32, contiguous, ``shape`` (no copy
+    when it is one already). The kernels and the plain versions read an
+    entry as valid where it is > 0."""
+    if m is None:
+        return None
+    return m.to(torch.float32).reshape(shape).contiguous()
+
+
+def fused_step_call(cfg, flags, carry, qs_m, qs_lv, y, u, eps_s, eps_t, lr, mask=None,
+                    cmask=None) -> PackedStepOut:
     """One fused step. On CUDA tensors: the ``fused_step`` kernel, which
     updates the carry IN PLACE (the returned carry holds the same tensors);
     on CPU tensors: :func:`fused_step_plain`. ``eps_s=None`` selects the
-    in-kernel Philox noise."""
+    in-kernel Philox noise; ``mask`` (B,) or (B, 1) and ``cmask`` (B, ydim)
+    as in :func:`step_math`."""
     if not _on_cuda(carry.p_mat):
-        return fused_step_plain(cfg, flags, carry, qs_m, qs_lv, y, u, eps_s, eps_t, lr)
+        return fused_step_plain(cfg, flags, carry, qs_m, qs_lv, y, u, eps_s, eps_t, lr,
+                                mask=mask, cmask=cmask)
     b, xd = y.shape[0], cfg.xdim
     dev, dt = y.device, y.dtype
     nfp = carry.p_mat.shape[0]
@@ -1085,27 +1253,32 @@ def fused_step_call(cfg, flags, carry, qs_m, qs_lv, y, u, eps_s, eps_t, lr
         "fused_step", cfg, flags, carry, qs_m, qs_lv, y[None], None if u is None else u[None],
         None if eps_s is None else eps_s[None], None if eps_t is None else eps_t[None],
         lr, q_pack, scal, g_vec=g_vec, xt=xt, xs=xs,
+        mask=_kernel_mask(mask, (1, b)), cmask=_kernel_mask(cmask, (1,) + tuple(y.shape)),
     )
     launches["fused_step"] += 1
     steps["fused_step"] += 1
     return PackedStepOut(carry, q_pack, g_vec, xt, xs, scal)
 
 
-def mega_epoch_call(cfg, flags, carry, qs_m, qs_lv, ys, us, eps_s, eps_t, lr):
+def mega_epoch_call(cfg, flags, carry, qs_m, qs_lv, ys, us, eps_s, eps_t, lr, mask=None,
+                    cmask=None):
     """``T = ys.shape[0]`` fused steps. On CUDA tensors: ONE launch of the
     ``mega_epoch`` kernel, which loops over time and updates the carry IN
     PLACE; on CPU tensors: :func:`mega_epoch_plain`. ``eps_s=None`` selects
-    the in-kernel Philox noise, continuing the carried ``rng_count``.
-    Returns ``(carry, q_pack (T, 2, B, xd), scal (T, 8))``."""
+    the in-kernel Philox noise, continuing the carried ``rng_count``;
+    ``mask`` (T, B) and ``cmask`` (T, B, ydim) by step. Returns ``(carry,
+    q_pack (T, 2, B, xd), scal (T, 8))``."""
     if not _on_cuda(carry.p_mat):
-        return mega_epoch_plain(cfg, flags, carry, qs_m, qs_lv, ys, us, eps_s, eps_t, lr)
+        return mega_epoch_plain(cfg, flags, carry, qs_m, qs_lv, ys, us, eps_s, eps_t, lr,
+                                mask=mask, cmask=cmask)
     t_total, b, _ = ys.shape
     dev, dt = ys.device, ys.dtype
     q_pack = torch.empty((t_total, 2, b, cfg.xdim), dtype=dt, device=dev)
     scal = torch.empty((t_total, 8), dtype=dt, device=dev)
     _launch(
         "mega_epoch", cfg, flags, carry, qs_m, qs_lv, ys, us, eps_s, eps_t, lr,
-        q_pack, scal, ns_iters=mega_ns_base_iters(cfg, b),
+        q_pack, scal, ns_iters=mega_ns_base_iters(cfg, b, masked=mask is not None),
+        mask=_kernel_mask(mask, (t_total, b)), cmask=_kernel_mask(cmask, tuple(ys.shape)),
     )
     launches["mega_epoch"] += 1
     steps["mega_epoch"] += t_total
@@ -1113,24 +1286,28 @@ def mega_epoch_call(cfg, flags, carry, qs_m, qs_lv, ys, us, eps_s, eps_t, lr):
 
 
 def forward_sums_call(cfg, flags, carry, qs_m, qs_lv, y, u, eps_s, eps_t, inv_b,
-                      row0: int = 0):
+                      row0: int = 0, mask=None, cmask=None):
     """Phase 1 of the sharded step on this rank's ``B_local`` trials, with
     the GLOBAL ``inv_b``: ``(flat sums, q_pack (2, B_local, xd))``, ready for
     one all-reduce of the flat buffer. On CUDA tensors: the ``forward_sums``
     kernel, which writes both outputs and updates NO carry leaf; on CPU
     tensors: :func:`forward_sums_plain`. ``eps_s=None`` selects the
-    in-kernel Philox noise at row offset ``row0``."""
+    in-kernel Philox noise at row offset ``row0``. ``mask`` and ``cmask``:
+    this rank's rows, with ``inv_b`` from the global valid count (see
+    :func:`forward_sums_plain`)."""
     if not _on_cuda(carry.p_mat):
         return forward_sums_plain(cfg, flags, carry, qs_m, qs_lv, y, u, eps_s, eps_t,
-                                  inv_b, row0)
+                                  inv_b, row0, mask=mask, cmask=cmask)
     dev, dt = y.device, y.dtype
-    flat = torch.empty(sums_size(carry), dtype=dt, device=dev)
+    b = y.shape[0]
+    flat = torch.empty(sums_size(carry, has_cm=cmask is not None), dtype=dt, device=dev)
     q_pack = torch.empty((2, y.shape[0], cfg.xdim), dtype=dt, device=dev)
     _launch(
         "forward_sums", cfg, flags, carry, qs_m, qs_lv, y[None],
         None if u is None else u[None], None if eps_s is None else eps_s[None],
         None if eps_t is None else eps_t[None], None, q_pack, None,
         sums=flat, inv_b=inv_b, row0=row0,
+        mask=_kernel_mask(mask, (1, b)), cmask=_kernel_mask(cmask, (1,) + tuple(y.shape)),
     )
     launches["forward_sums"] += 1
     steps["forward_sums"] += 1
@@ -1323,11 +1500,19 @@ def exact_v_fallback(cfg: VJFConfig, out, prev_carry: FusedCarry,
     computed every call and selected with ``torch.where`` on the device, so
     the prefix never syncs with the host. ``prev_carry`` needs only the
     pre-step ``dyn_n`` and ``state_logvar`` (the per-step kernel updates the
-    carry in place, so the caller snapshots those two).
+    carry in place, so the caller snapshots those two). Under the step's
+    trial ``mask`` the residual mse and the sample count run over the valid
+    rows (a step without one reports tau 0, so the branch is never taken),
+    and the features see the masked rows' controls as 0, as the step did.
+    Deliberate deviation from the JAX package, whose fallback reads the
+    controls as given: there a NaN-padded control makes the residual NaN
+    and the exact inverse is skipped on every step with a masked trial.
     """
-    _no_masks(mask, None)
     c = out.carry
-    b = out.xt.shape[0]
+    m_col = None if mask is None else _mask_col(mask, out.xt.dtype)
+    b = out.xt.shape[0] if m_col is None else torch.sum(m_col)
+    if m_col is not None and u is not None:
+        u = torch.where(m_col > 0, u, torch.zeros_like(u))
 
     def mse_fn(w_new):
         x2 = torch.sum(out.xs * out.xs, dim=-1, keepdim=True)
@@ -1340,6 +1525,8 @@ def exact_v_fallback(cfg: VJFConfig, out, prev_carry: FusedCarry,
         if c.w_white is not None:
             feat = feat @ c.w_white          # SGP whitening
         resid = (out.xt - out.xs) - feat @ w_new
+        if m_col is not None:
+            return torch.sum(resid * resid * m_col) / (torch.clamp(b, min=1.0) * resid.shape[-1])
         return torch.mean(resid * resid)
 
     exact = _exact_inverse_repair(cfg, c, prev_carry, out.g_vec, b, mse_fn)
@@ -1360,15 +1547,18 @@ def _select_exact(c: FusedCarry, exact, tau: torch.Tensor) -> FusedCarry:
 
 def exact_v_fallback_sums(cfg: VJFConfig, carry_new: FusedCarry, prev_carry: FusedCarry,
                           sums: FusedSums, g_vec: torch.Tensor, tau: torch.Tensor,
-                          b_total: int) -> FusedCarry:
+                          b_total) -> FusedCarry:
     """The exact-inverse fallback of the sharded step: as
     :func:`exact_v_fallback`, but the post-update residual comes from the
     all-reduced statistics (:func:`_stats_mse`), so no per-trial tensor
     crosses ranks. Computed every call and selected where ``tau >=
     NS_TAU_THRESHOLD``, with no host sync. ``prev_carry`` is the carry
-    before :func:`step_apply` (its ``dyn_n`` and ``state_logvar``)."""
+    before :func:`step_apply` (its ``dyn_n`` and ``state_logvar``).
+    ``b_total``: the batch, or under a trial mask the global valid count (a
+    scalar tensor)."""
+    b_div = torch.clamp(b_total, min=1.0) if isinstance(b_total, torch.Tensor) else b_total
     exact = _exact_inverse_repair(cfg, carry_new, prev_carry, g_vec, b_total,
-                                  lambda w: _stats_mse(sums, w, b_total))
+                                  lambda w: _stats_mse(sums, w, b_div))
     return _select_exact(carry_new, exact, tau)
 
 
@@ -1381,7 +1571,8 @@ def exact_v_fallback_sums(cfg: VJFConfig, carry_new: FusedCarry, prev_carry: Fus
 _routed_away = set()
 
 
-def fused_enabled(cfg: VJFConfig, state, n_batch: Optional[int] = None) -> bool:
+def fused_enabled(cfg: VJFConfig, state, n_batch: Optional[int] = None,
+                  mask: bool = False, channel_mask: bool = False) -> bool:
     """Whether ``run_epoch`` takes the fused path. 'auto' means float32, a
     state on a CUDA device (the JAX gate asks for a TPU backend) and a
     configuration within :func:`kernel_limits` at ``n_batch`` trials.
@@ -1392,7 +1583,9 @@ def fused_enabled(cfg: VJFConfig, state, n_batch: Optional[int] = None) -> bool:
     the launch raises ``ValueError``. As in the JAX package, SGP below
     ``cfg.sgp_fused_min_batch`` trials takes the autograd epoch under
     'auto': a tiny batch keeps the Newton-Schulz trace bound hot, and that
-    route has the per-step exact-inverse fallback."""
+    route has the per-step exact-inverse fallback. ``mask`` and
+    ``channel_mask`` say whether the epoch carries them (their staging
+    counts against the shared memory)."""
     from ..models.regression import NSVBLR
 
     if cfg.fused_step == "off":
@@ -1410,7 +1603,8 @@ def fused_enabled(cfg: VJFConfig, state, n_batch: Optional[int] = None) -> bool:
         return True
     if not (cfg.dtype == "float32" and _on_cuda(state.dynamics.blr.precision)):
         return False
-    reason = kernel_limits(cfg, n_batch, on_card=n_batch is not None)
+    reason = kernel_limits(cfg, n_batch, on_card=n_batch is not None, mask=mask,
+                           channel_mask=channel_mask)
     if reason is not None:
         if reason not in _routed_away:
             _routed_away.add(reason)
@@ -1452,12 +1646,15 @@ def run_epoch_fused(cfg, flags, state, ys, us, seed: int, lr, noise=None,
     have no prefix); 'stepwise' runs every step through the per-step path.
 
     ``seed`` keys the Philox stream of the in-kernel noise (``noise=None``);
-    ``noise=(eps_s, eps_t)``, each (T, B, xd), injects it instead.
+    ``noise=(eps_s, eps_t)``, each (T, B, xd), injects it instead. ``mask``
+    (T, B) and ``channel_mask`` (T, B, ydim), already promoted, ride every
+    step (the prefix's fallback takes the trial mask too).
     """
     from ..models.vjf import prior
 
-    _no_masks(mask, channel_mask)
     t_len, n_batch, _ = ys.shape
+    mask3 = _kernel_mask(mask, (t_len, n_batch))
+    cmask3 = _kernel_mask(channel_mask, tuple(ys.shape))
     dtype, dev = ys.dtype, ys.device
     if q0 is None:
         q0 = prior(state.params, n_batch)
@@ -1488,11 +1685,13 @@ def run_epoch_fused(cfg, flags, state, ys, us, seed: int, lr, noise=None,
         e_s, e_t = eps_at(t, t + 1)
         prev = carry._replace(dyn_n=carry.dyn_n.clone(),
                               state_logvar=carry.state_logvar.clone())
+        m_t = None if mask3 is None else mask3[t]
         out = fused_step_call(cfg, flags, carry, qm, qlv, ys[t], u_t,
                               None if e_s is None else e_s[0],
-                              None if e_t is None else e_t[0], lr)
+                              None if e_t is None else e_t[0], lr, mask=m_t,
+                              cmask=None if cmask3 is None else cmask3[t])
         if do_fallback:
-            out = exact_v_fallback(cfg, out, prev, u_t)
+            out = exact_v_fallback(cfg, out, prev, u_t, mask=m_t)
         carry = out.carry
         qm, qlv = out.q_pack[0], out.q_pack[1]
         q_segs.append(out.q_pack[None])
@@ -1502,6 +1701,8 @@ def run_epoch_fused(cfg, flags, state, ys, us, seed: int, lr, noise=None,
         carry, q_seq, scal = mega_epoch_call(
             cfg, flags, carry, qm, qlv, ys[prefix:],
             us[prefix:] if has_u else None, e_s, e_t, lr,
+            mask=None if mask3 is None else mask3[prefix:],
+            cmask=None if cmask3 is None else cmask3[prefix:],
         )
         q_segs.append(q_seq)
         scal_segs.append(scal)

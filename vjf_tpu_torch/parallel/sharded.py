@@ -21,9 +21,17 @@ size uses the single-device epoch's noise for the same seed. The posteriors
 returned are this rank's rows; the metrics and the state are the global,
 replicated ones.
 
+Ragged trials and missing channels: the trial mask is given whole (every
+rank holds it); the per-step global valid counts are taken from it once an
+epoch on the host, each rank's phase-1 kernel gets its rows of the mask and
+the global ``1 / max(count, 1)``, ``step_apply`` the global count, and a
+masked row's posterior is frozen at its last valid value. The channel mask
+is given whole too and cut to the rank's rows; its observed-entry count
+rides the all-reduce in the flat sums.
+
 Not ported: the relaxed-sync path (``run_epoch_sync_every``,
 ``_merge_local_states``), the ``tp`` axis and the XLA-step route (ROADMAP
-Queue 1 items 13 and 4). Masks raise.
+Queue 1 items 13 and 4).
 """
 from __future__ import annotations
 
@@ -110,17 +118,32 @@ def run_epoch_fused_sharded(
     (:func:`shard_state`). Every rank passes the same ``seed`` (an int, or a
     generator in the same state), which keys the in-kernel Philox noise;
     ``noise=(eps_s, eps_t)``, each this rank's (T, B_local, xd), injects it
-    instead. Returns this rank's posteriors and the global metrics."""
+    instead. ``mask`` ((T,) or (T, B), every trial of the group) and
+    ``channel_mask`` ((T, ydim) or (T, B, ydim), every trial) are the same
+    on every rank; each rank cuts its rows (module docstring). Returns this
+    rank's posteriors and the global metrics."""
     rank, world = _rank_and_size(group)
-    F._no_masks(mask, channel_mask)
     if ys.dtype != cfg.tdtype:
         ys = ys.to(cfg.tdtype)
     if us.dtype != cfg.tdtype:
         us = us.to(cfg.tdtype)
-    t_len, b_local, _ = ys.shape
+    t_len, b_local, ydim = ys.shape
     n_batch = world * b_local
     inv_b = 1.0 / n_batch
     dtype, dev = ys.dtype, ys.device
+    rows = slice(rank * b_local, (rank + 1) * b_local)
+    m_local = counts = inv_bs = cm_local = None
+    if mask is not None:
+        full = core._promote_mask(mask, t_len, n_batch, dtype, "cpu") > 0
+        # the global valid counts, once an epoch on the host: the phase-1
+        # kernel takes 1 / max(count, 1) as a number, so no step waits
+        n_valid = full.sum(dim=1).to(dtype)
+        inv_bs = (1.0 / torch.clamp(n_valid, min=1.0)).tolist()
+        counts = n_valid.to(dev)
+        m_local = full[:, rows].to(device=dev, dtype=dtype)
+    if channel_mask is not None:
+        cm_full = core._promote_channel_mask(channel_mask, (t_len, n_batch, ydim), dtype, dev)
+        cm_local = cm_full[:, rows]
     if q0 is None:
         q0 = core.prior(state.params, b_local)
     lr = F._lr_tensor(lr, dtype, dev)
@@ -136,17 +159,27 @@ def run_epoch_fused_sharded(
     qm, qlv = q0.mean.contiguous(), q0.logvar.contiguous()
     q_seq, scal_seq = [], []
     for t in range(t_len):
+        m_t = None if m_local is None else m_local[t]
         flat, q_pack = F.forward_sums_call(
             cfg, flags, carry, qm, qlv, ys[t], us[t] if has_u else None,
             None if noise is None else noise[0][t], None if noise is None else noise[1][t],
-            inv_b, row0=rank * b_local,
+            inv_b if inv_bs is None else inv_bs[t], row0=rank * b_local, mask=m_t,
+            cmask=None if cm_local is None else cm_local[t],
         )
         dist.all_reduce(flat, group=group)
-        sums = F.unpack_sums(flat, carry)
-        new, scal, g_vec = F.step_apply(cfg, flags, carry, sums, lr, n_batch)
+        sums = F.unpack_sums(flat, carry, has_cm=cm_local is not None)
+        count = None if counts is None else counts[t]
+        new, scal, g_vec = F.step_apply(cfg, flags, carry, sums, lr, n_batch,
+                                        valid_count=count)
         if do_fallback:
-            new = F.exact_v_fallback_sums(cfg, new, carry, sums, g_vec, scal.tau[0, 0], n_batch)
+            new = F.exact_v_fallback_sums(cfg, new, carry, sums, g_vec, scal.tau[0, 0],
+                                          n_batch if count is None else count)
         carry = new._replace(rng_count=carry.rng_count + 1)
+        if m_t is not None:
+            # the frozen carry of masked rows
+            keep = m_t[:, None] > 0
+            q_pack = torch.stack([torch.where(keep, q_pack[0], qm),
+                                  torch.where(keep, q_pack[1], qlv)])
         qm, qlv = q_pack[0], q_pack[1]
         q_seq.append(q_pack)
         scal_seq.append(F._scal_row(scal))
@@ -166,9 +199,10 @@ def run_epochs_fused_sharded(
     channel_mask=None,
 ) -> core.EpochsResult:
     """``len(seeds)`` consecutive sharded epochs over the same trials, the
-    multi-rank counterpart of ``models.vjf.run_epochs``. Every epoch starts
-    from the prior; the posteriors returned are the last epoch's, this
-    rank's rows."""
+    multi-rank counterpart of ``models.vjf.run_epochs``, with the same masks
+    (whole, as :func:`run_epoch_fused_sharded` takes them). Every epoch
+    starts from the prior; the posteriors returned are the last epoch's,
+    this rank's rows."""
     q0 = core.prior(state.params, ys.shape[1])
 
     def epoch(st, seed, lr):
@@ -181,8 +215,10 @@ def run_epochs_fused_sharded(
 _XLA_TODO = "the sharded autograd epoch: ROADMAP Queue 1 item 4 (its multi-rank route)"
 
 
-def _fused_or_raise(cfg: VJFConfig, state, n_batch: int) -> None:
-    if not F.fused_enabled(cfg, state, n_batch=n_batch):
+def _fused_or_raise(cfg: VJFConfig, state, n_batch: int, mask=None,
+                    channel_mask=None) -> None:
+    if not F.fused_enabled(cfg, state, n_batch=n_batch, mask=mask is not None,
+                           channel_mask=channel_mask is not None):
         raise NotImplementedError(_XLA_TODO)
 
 
@@ -190,13 +226,13 @@ def make_sharded_epoch(cfg: VJFConfig, flags: StepFlags, group):
     """``fn(state, ys, us, seed, lr, mask=None, channel_mask=None) ->
     EpochResult`` over ``group``: the fused route,
     :func:`run_epoch_fused_sharded`. The XLA-step route (a configuration the
-    fused step does not take) raises, and so do masks."""
+    fused step does not take) raises."""
     _rank_and_size(group)
 
     def call(state, ys, us, seed, lr, mask=None, channel_mask=None):
-        F._no_masks(mask, channel_mask)
-        _fused_or_raise(cfg, state, ys.shape[1])
-        return run_epoch_fused_sharded(cfg, flags, state, ys, us, seed, lr, group)
+        _fused_or_raise(cfg, state, ys.shape[1], mask, channel_mask)
+        return run_epoch_fused_sharded(cfg, flags, state, ys, us, seed, lr, group, mask=mask,
+                                       channel_mask=channel_mask)
 
     return call
 
@@ -208,8 +244,8 @@ def make_sharded_epochs(cfg: VJFConfig, flags: StepFlags, group):
     _rank_and_size(group)
 
     def call(state, ys, us, seeds, lrs, mask=None, channel_mask=None):
-        F._no_masks(mask, channel_mask)
-        _fused_or_raise(cfg, state, ys.shape[1])
-        return run_epochs_fused_sharded(cfg, flags, state, ys, us, seeds, lrs, group)
+        _fused_or_raise(cfg, state, ys.shape[1], mask, channel_mask)
+        return run_epochs_fused_sharded(cfg, flags, state, ys, us, seeds, lrs, group,
+                                        mask=mask, channel_mask=channel_mask)
 
     return call
