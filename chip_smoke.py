@@ -56,8 +56,12 @@ from vjf_tpu_torch import datasets
 from vjf_tpu_torch.config import StepFlags, VJFConfig
 from vjf_tpu_torch.convert import flatten, state_to_numpy
 from vjf_tpu_torch.gp import sgp
+from vjf_tpu_torch.models import dynamics as dyn
+from vjf_tpu_torch.models import regression as R
 from vjf_tpu_torch.models import vjf as core
-from vjf_tpu_torch.ops import _build, rng
+from vjf_tpu_torch.models.recognition import Recognition, linear_from, map_linears
+from vjf_tpu_torch.ops import _build, linalg, rng
+from vjf_tpu_torch.ops import kalman as K
 from vjf_tpu_torch.ops import fused_step as F
 from vjf_tpu_torch.parallel import make_dp_group, run_epoch_fused_sharded
 from vjf_tpu_torch.utils.evaluation import forecast_rmse, latent_r2
@@ -133,6 +137,29 @@ MASK_DROP = 0.10        # the share of y's entries dropped at random
 MASK_DEAD = 8           # channels dead over a contiguous quarter of the masked data
 MASK_SHARD_T = 64       # sharded.mask: the masked data's steps around MASK_T * 3 / 4
 MASK_FIT_EPOCHS = 6     # fit.ragged: 2 warm-up epochs, then 2 RLS blocks of 2
+BACKEND_STEPS = 64      # backends.steps: autograd steps on the card and on the CPU
+BACKEND_FIT_T = 300     # backends.fit: the first steps of the Van der Pol data
+# backends.steps: the card's autograd epoch against the same epoch on the
+# CPU in compare()'s normalised error. At float64 the limit is 1e-8. At
+# float32 it is 1e-3 or, where larger, BACKEND_F32_MARGIN times the CPU's
+# own float32 rounding on that leaf (the CPU float32 epoch against the CPU
+# float64 epoch from the same state; two float32 runs can differ by twice
+# that): the precision form's explicit triangular inverse at B 1 moves w
+# by 8e-3 between float32 and float64 on the CPU, and by 2.3e-2 between the
+# card and the CPU (H100, 700 W). The planted faults move the leaves by 0.1
+# to 10.
+BACKEND_TOL = {"float32": 1e-3, "float64": 1e-8}
+BACKEND_F32_MARGIN = 8.0
+# name: (config fields over bench_all.py #1 with rls_backend 'auto' and
+# chol_jitter 0, the posterior form it must build, the planted fault)
+BACKEND_CASES = {
+    "precision.f32": (dict(rls_backend="precision"), "PrecisionBLR", dict(rls_shrink=0.99)),
+    "precision.f64": (dict(dtype="float64"), "PrecisionBLR", dict(rls_shrink=0.99)),
+    "covariance.f32": ({}, "CovarianceBLR", dict(rls_shrink=0.99)),
+    "kalman": (dict(dynamics_update="kalman"), "CovarianceBLR", dict(joseph_quirk=True)),
+    "kalman.quirk": (dict(dynamics_update="kalman", joseph_quirk=True), "CovarianceBLR",
+                     dict(joseph_quirk=False)),
+}
 # one card's published peaks (H100 SXM data sheet, dense): HBM bytes/s,
 # FP32 outside the tensor cores, bf16 in them
 PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
@@ -197,21 +224,9 @@ def faults(cfg: VJFConfig, flags: StepFlags) -> dict:
                                 flags)}
 
 
-def compare(name: str, ref: dict, got: dict, tol, start: dict,
-            reject: bool = False) -> float:
-    """Hold ``got`` (kernel) against ``ref`` (plain) leaf by leaf; return
-    the largest max abs diff.
-
-    A leaf's normalised error is max|got - ref| over a scale. For a carry
-    leaf (a key of ``start``, its value before the run) the scale is how far
-    the plain version moved it, max|ref - start|, so that an update the
-    kernel skipped or got wrong counts in full however small the step; for
-    an output it is max|ref|. Four f32 ulps of the leaf's size are added for
-    the rounding of a value that barely moved. Integer leaves and non-finite
-    entries (the inf tau of a skipped step) must match exactly. ``tol`` is
-    one limit for every leaf or a limit by leaf. Fails when a leaf's error
-    exceeds its limit, or, with ``reject=True`` (a planted fault), when none
-    does."""
+def compare_errs(ref: dict, got: dict, start: dict) -> tuple:
+    """``(errs, diffs)`` by leaf: the normalised error and the max abs diff
+    of :func:`compare`."""
     errs, diffs = {}, {}
     for k, r in ref.items():
         g = got[k]
@@ -236,6 +251,25 @@ def compare(name: str, ref: dict, got: dict, tol, start: dict,
         scale = moved + 4 * F32_ULP * size
         errs[k] = d / scale if scale > 0 else (0.0 if d == 0 else float("inf"))
         diffs[k] = d
+    return errs, diffs
+
+
+def compare(name: str, ref: dict, got: dict, tol, start: dict,
+            reject: bool = False) -> float:
+    """Hold ``got`` (kernel) against ``ref`` (plain) leaf by leaf; return
+    the largest max abs diff.
+
+    A leaf's normalised error is max|got - ref| over a scale. For a carry
+    leaf (a key of ``start``, its value before the run) the scale is how far
+    the plain version moved it, max|ref - start|, so that an update the
+    kernel skipped or got wrong counts in full however small the step; for
+    an output it is max|ref|. Four f32 ulps of the leaf's size are added for
+    the rounding of a value that barely moved. Integer leaves and non-finite
+    entries (the inf tau of a skipped step) must match exactly. ``tol`` is
+    one limit for every leaf or a limit by leaf. Fails when a leaf's error
+    exceeds its limit, or, with ``reject=True`` (a planted fault), when none
+    does."""
+    errs, diffs = compare_errs(ref, got, start)
     limit = tol if isinstance(tol, dict) else dict.fromkeys(errs, tol)
     worst = max(errs, key=lambda k: errs[k] / limit[k])
     phase(name, tol=tol, max_err=errs[worst], worst_leaf=worst,
@@ -1498,6 +1532,174 @@ def check_fit_ragged(data, smi) -> None:
           blocks=blocks, card=smi)
 
 
+def backend_leaves(state, res=None) -> dict:
+    """The leaves ``backends.steps`` holds, on the CPU: the state noise, the
+    first layer, the decoder and every field of the weight posterior of
+    ``state``, and with an epoch's ``res`` its loss and posterior means."""
+    d, p = state.dynamics, state.params
+    out = {"state_logvar": d.logvar, "w_in": p.recognition.layers[0].weight,
+           "w_dec": p.decoder.weight}
+    out.update({f"blr.{k}": v for k, v in d.blr._asdict().items()})
+    if res is not None:
+        out.update(loss=res.metrics.loss, q_means=res.q_means)
+    return {k: v.detach().cpu() for k, v in out.items()}
+
+
+def nosync_cholesky(a, eps: float = 1e-3):
+    """``safe_cholesky`` without its repair, so without its host sync: the
+    factor, NaN where it failed. Only for timing the sync."""
+    del eps
+    return linalg.nan_where_failed(*linalg.cholesky_f32(a))
+
+
+@contextlib.contextmanager
+def cholesky_timed(safe: bool):
+    """For the duration, every ``safe_cholesky`` of the RLS update and the
+    Kalman toolkit (or, with ``safe=False``, :func:`nosync_cholesky` in its
+    place) timed on the host clock; yields the seconds of each call. The
+    steps are host-bound, so the sync's wait is what separates the two."""
+    fn = linalg.safe_cholesky if safe else nosync_cholesky
+    secs = []
+
+    def call(*args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        secs.append(time.perf_counter() - t0)
+        return out
+
+    saved = R.safe_cholesky, K.safe_cholesky
+    R.safe_cholesky = K.safe_cholesky = call
+    try:
+        yield secs
+    finally:
+        R.safe_cholesky, K.safe_cholesky = saved
+
+
+def cast_state(state, dtype, device):
+    """A copy of ``state`` with every float leaf in ``dtype`` on ``device``."""
+    def leaf(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(device=device, dtype=dtype if x.is_floating_point() else x.dtype)
+        if isinstance(x, torch.nn.Linear):
+            return linear_from(leaf(x.weight), None if x.bias is None else leaf(x.bias))
+        if isinstance(x, Recognition):
+            return map_linears(x, leaf)
+        return type(x)(*(leaf(v) for v in x)) if isinstance(x, tuple) else x
+
+    return leaf(state)
+
+
+def check_backends_steps(dev, smi) -> dict:
+    """The precision, covariance and Kalman backends on the card
+    (``bench_all.py`` config #1's widths, B 1): ``BACKEND_STEPS`` steps of the
+    autograd epoch (the only route these states take) from the same state
+    with the same injected draws on the card and on the CPU, held by
+    ``compare`` within the limits of ``BACKEND_TOL``; each planted fault
+    (``rls_shrink`` changed, the Joseph quirk flipped) must be rejected.
+    Each backend's µs per step on the card, and again with
+    ``safe_cholesky`` replaced by a factorisation without repair (no host
+    sync): the two must give the same bits; the host time inside those
+    calls is what the sync costs. nsv on the autograd route is timed beside
+    them. Returns µs per step."""
+    base, y, _ = quality_problem("van_der_pol")
+    base = base.replace(rls_backend="auto", chol_jitter=0.0)
+    steps, cpu = BACKEND_STEPS, torch.device("cpu")
+    g = torch.Generator().manual_seed(60)
+    eps = torch.randn((2, steps, 1, base.xdim), generator=g, dtype=torch.float64)
+
+    def epoch(cf, state):
+        dt, device = cf.tdtype, state.dynamics.logvar.device
+        ys = torch.as_tensor(y[:steps, None, :], dtype=dt, device=device)
+        us = torch.zeros((steps, 1, 0), dtype=dt, device=device)
+        noise = (eps[0].to(device, dt), eps[1].to(device, dt))
+        return synced(lambda: core.run_epoch(cf, StepFlags(), state, ys, us, 0, cf.lr,
+                                             noise=noise))
+
+    def leaves(res):
+        return backend_leaves(res.state, res)
+
+    times = {}
+    for name, (kw, kind, fault) in BACKEND_CASES.items():
+        c = base.replace(**kw)
+        built = core.init_state(0, c, device=dev, batch_hint=1)
+        check(type(built.dynamics.blr).__name__ == kind,
+              f"backends.steps[{name}]: built {type(built.dynamics.blr).__name__}, not {kind}")
+        check(not F.fused_enabled(c, built, n_batch=1),
+              f"backends.steps[{name}]: routed to the kernels")
+        # one state for every run: drawn at float64, cast to the run's dtype
+        backend = dyn.resolve_backend(c, batch_hint=1)
+        s64 = core.init_state(0, c.replace(dtype="float64"), device=cpu, backend=backend)
+        on_cpu = cast_state(s64, c.tdtype, cpu)
+        on_card = cast_state(s64, c.tdtype, dev)
+        ref, _ = epoch(c, on_cpu)
+        start = backend_leaves(on_cpu)
+        tol = BACKEND_TOL[c.dtype]
+        if c.dtype == "float32":
+            exact, _ = epoch(c.replace(dtype="float64"), s64)
+            own, _ = compare_errs(leaves(exact), leaves(ref), backend_leaves(s64))
+            tol = {k: max(tol, BACKEND_F32_MARGIN * e) for k, e in own.items()}
+        # the fault's run goes first: it warms the card up for the timed runs
+        faulty, _ = epoch(c.replace(**fault), on_card)
+        with cholesky_timed(safe=True) as in_sync:
+            got, secs = epoch(c, on_card)
+        with cholesky_timed(safe=False) as in_bare:
+            bare, bare_s = epoch(c, on_card)
+        check(got.metrics.tau is None, f"backends.steps[{name}]: not the autograd route")
+        err = compare(f"backends.steps[{name}]", leaves(ref), leaves(got), tol, start)
+        fault_name = ",".join(f"{k}={v}" for k, v in fault.items())
+        compare(f"backends.steps[{name}].fault.{fault_name}", leaves(ref), leaves(faulty), tol,
+                start, reject=True)
+        a, b = leaves(got), leaves(bare)
+        check(all(torch.equal(a[k], b[k]) for k in a),
+              f"backends.steps[{name}]: the repair of safe_cholesky fired")
+        times[name] = {"us_per_step": 1e6 * secs / steps,
+                       "no_sync_us_per_step": 1e6 * bare_s / steps,
+                       "safe_cholesky_calls_per_step": len(in_sync) / steps,
+                       "in_safe_cholesky_us_per_step": 1e6 * sum(in_sync) / steps,
+                       "in_no_sync_cholesky_us_per_step": 1e6 * sum(in_bare) / steps,
+                       "max_abs_err": err}
+    nsv = base.replace(rls_backend="nsv", fused_step="off")
+    nsv_state = core.init_state(0, nsv, device=dev)
+    epoch(nsv, nsv_state)
+    _, nsv_s = epoch(nsv, nsv_state)
+    times["nsv.f32"] = {"us_per_step": 1e6 * nsv_s / steps}
+    phase("backends.times", config="bench_all.py #1 widths (ydim 20, xdim 2, n_rbf 100, "
+          "hidden (20,)), B 1, autograd epoch, %d steps" % steps, unit="us per step",
+          card=smi, **times)
+    return times
+
+
+def check_backends_fit(dev, smi) -> None:
+    """A short per-epoch ``fit`` at B 1 on the Van der Pol data (its first
+    ``BACKEND_FIT_T`` steps) with ``rls_backend='auto'`` and ``chol_jitter``
+    0, which resolves to the covariance form, then the same with
+    ``dynamics_update='kalman'``: every epoch on the autograd route, a
+    finite result, the covariance form kept, the forecast beside
+    persistence (reported, not gated: three epochs)."""
+    cfg, y, x = quality_problem("van_der_pol")
+    y, x = y[:BACKEND_FIT_T], x[:BACKEND_FIT_T]
+    base = cfg.replace(rls_backend="auto", chol_jitter=0.0, warmup_max=2)
+    for name, kw in (("auto", {}), ("kalman", dict(dynamics_update="kalman"))):
+        c = base.replace(**kw)
+        state = core.init_state(0, c, device=dev, batch_hint=1)
+        with watched("run_epoch") as log:
+            res, secs = synced(lambda: core.fit(c, state, y, seed=0, max_iter=3))
+        blr = res.state.dynamics.blr
+        check(isinstance(blr, R.CovarianceBLR), f"backends.fit.{name}: {type(blr).__name__}")
+        check(math.isfinite(res.loss) and not res.warm_up,
+              f"backends.fit.{name}: loss {res.loss}, warm_up {res.warm_up}")
+        check(all(bool(torch.isfinite(v).all()) for v in blr), f"backends.fit.{name}: blr")
+        check(all(e["route"] == "autograd" for e in log), f"backends.fit.{name}: a fused epoch")
+        check(all(e["input_intact"] for e in log), f"backends.fit.{name}: input written")
+        m_rmse, p_rmse = forecast_rmse(c, res.state, res.mu[:, 0, :], y, 0)
+        phase(f"backends.fit.{name}", config="bench_all.py #1 van_der_pol_gaussian, T %d, B 1, "
+              "rls_backend auto, chol_jitter 0" % BACKEND_FIT_T, dynamics_update=c.dynamics_update,
+              blr=type(blr).__name__, seconds=secs, epochs_run=res.epochs_run, loss=res.loss,
+              us_per_step=[1e6 * e["seconds"] / BACKEND_FIT_T for e in log],
+              latent_r2=latent_r2(res.mu[:, 0, :], x), forecast_rmse=m_rmse,
+              persistence_rmse=p_rmse, card=smi)
+
+
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
@@ -1751,6 +1953,10 @@ def main() -> int:
     mask_ms = mask_times(post_prefix, mask_data, eps, lr, smi)
     mask_main = check_mask_main(mask_data, smi)
     check_fit_ragged(mask_data, smi)
+
+    # ---------------- backends: precision, covariance, the Kalman learner ----------------
+    check_backends_steps(dev, smi)
+    check_backends_fit(dev, smi)
 
     # ---------------- bounds: the least time one card could take ----------------
     # each input read once and each output written once; the mega segment's

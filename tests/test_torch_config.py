@@ -84,10 +84,7 @@ _DEFERRED = {
     "checkpoint_path": (dict(checkpoint_path="fit.ckpt", checkpoint_every=1), "item 10"),
     "resume_from": (dict(resume_from="fit.ckpt"), "item 10"),
     "multistep_refine": (dict(cfg=dict(multistep_refine=2)), "item 7"),
-    "kalman": (dict(cfg=dict(dynamics_update="kalman")), "item 3"),
     "warm_gate": (None, "item 11"),
-    "precision_backend": (None, "item 3"),
-    "covariance_backend": (None, "item 3"),
 }
 
 
@@ -103,8 +100,6 @@ def test_deferred_branches_name_their_roadmap_item(branch):
         if branch == "warm_gate":
             tcore.run_epoch(cfg, tcfg.StepFlags(), state, ys, torch.zeros(6, 2, 0), 0, 1e-3,
                             warm_gate=torch.tensor(1.0))
-        elif branch.endswith("_backend"):
-            tcore.init_state(0, cfg.replace(rls_backend=branch.split("_")[0]), device="cpu")
         else:
             kw = dict(kw)
             fit_cfg = cfg.replace(**kw.pop("cfg", {}))
@@ -120,8 +115,9 @@ def test_unported_options_raise():
     # the masks are ported: a masked epoch runs (tests/test_torch_masks.py)
     res = tcore.run_epoch(cfg, tcfg.StepFlags(), st, ys, us, 0, 1e-3, mask=torch.ones(3, 2))
     assert torch.isfinite(res.metrics.loss).all()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        tcore.init_state(0, cfg.replace(rls_backend="precision"), device="cpu")
+    # the other regression backends are ported (tests/test_torch_regression.py)
+    pst = tcore.init_state(0, cfg.replace(rls_backend="precision"), device="cpu")
+    assert type(pst.dynamics.blr).__name__ == "PrecisionBLR"
 
 
 def test_kernel_wrapper_rejects_cpu_tensors():

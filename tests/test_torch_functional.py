@@ -259,7 +259,20 @@ def test_one_shot_rls():
 
 
 def test_unported_backend_raises():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    """Every backend is ported: the precision and covariance forms predict,
+    and an object that is none of the three forms raises as it does in the
+    JAX package (no ``w_mean``)."""
+    feat = _rng(12).uniform(size=(B, NF))
+    for kind in ("precision", "covariance"):
+        got = treg.predict_gaussian(getattr(treg, f"init_{kind}")(NF, XD, dtype=torch.float64),
+                                    _t(feat))
+        want = jreg.predict_gaussian(getattr(jreg, f"init_{kind}")(NF, XD, dtype=jnp.float64),
+                                     feat)
+        close(got.mean, want.mean, LA_TOL)
+        close(got.logvar, want.logvar, LA_TOL)
+    with pytest.raises(AttributeError, match="w_mean"):
+        jreg.predict_gaussian(object(), feat)
+    with pytest.raises(AttributeError, match="w_mean"):
         treg.predict_gaussian(object(), torch.zeros(1, NF))
 
 
@@ -346,8 +359,11 @@ def test_dynamics_update(warm_up):
     want = jdyn.dynamics_update(jc, js, xt, xs, u, warm_up=warm_up)
     got = tdyn.dynamics_update(tc, ts, _t(xt), _t(xs), _t(u), warm_up=warm_up)
     _dyn_close(got, want)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        tdyn.dynamics_update(tc.replace(dynamics_update="kalman"), ts, _t(xt), _t(xs), _t(u))
+    # the weight-diffusion Kalman learner on the same nsv state
+    jk, tk = jc.replace(dynamics_update="kalman"), tc.replace(dynamics_update="kalman")
+    want = jdyn.dynamics_update(jk, js, xt, xs, u, warm_up=warm_up)
+    got = tdyn.dynamics_update(tk, ts, _t(xt), _t(xs), _t(u), warm_up=warm_up)
+    _dyn_close(got, want)
 
 
 def test_dynamics_initialize():

@@ -146,7 +146,8 @@ def test_whiten_matrices(lengthscale):
 
 def test_init_sgp_dynamics():
     """Inducing points U[-2, 2) from a seed or the same CPU generator, the
-    whitener of K_zz + jitter, the nsv prior; other backends name item 3."""
+    whitener of K_zz + jitter, the nsv prior; the precision and covariance
+    backends build their own prior."""
     tc = _port_cfg(_cfg())
     st = tsgp.init_sgp_dynamics(4, tc, device="cpu")
     assert st.inducing.shape == (M, XD + UD) and st.inducing.abs().max() <= 2.0
@@ -160,8 +161,10 @@ def test_init_sgp_dynamics():
     close(st.log_lengthscale, np.log(0.9))
     assert torch.equal(st.blr.precision, torch.eye(M, dtype=torch.float64))
     assert st.n_sample.dtype == torch.int32 and int(st.n_sample) == 0
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        tsgp.init_sgp_dynamics(0, tc.replace(rls_backend="precision"), device="cpu")
+    for backend, kind in (("precision", treg.PrecisionBLR), ("covariance", treg.CovarianceBLR)):
+        other = tsgp.init_sgp_dynamics(4, tc.replace(rls_backend=backend, chol_jitter=0.0),
+                                       device="cpu")
+        assert type(other.blr) is kind and torch.equal(other.inducing, st.inducing)
 
 
 # ---------------------------------------------------------------------------

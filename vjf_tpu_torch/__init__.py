@@ -5,7 +5,9 @@ module layout and names. The main path is the fused filter-then-learn epoch
 (``models.vjf.run_epochs`` -> ``ops.fused_step.run_epoch_fused``); the
 exact-sync sharded epoch (``parallel.sharded``) splits its trials over the
 ranks of a ``torch.distributed`` group. The dynamics are the RBF system
-(``models.dynamics``) or the sparse GP (``gp.sgp``). The three kernels are
+(``models.dynamics``) or the sparse GP (``gp.sgp``), their weight posterior
+in precision, covariance or Newton-Schulz form (``models.regression``),
+learned by RLS or the weight-diffusion Kalman step. The three kernels are
 hand-written CUDA in ``csrc/fused_step.cu``. On CPU tensors the kernels'
 plain PyTorch versions run instead. Ragged trials and missing channels ride
 the trial mask and the channel mask (``fit(mask=..., channel_mask=...)``);

@@ -6,7 +6,8 @@ imports neither ``jax`` nor ``vjf_tpu``. :func:`state_to_numpy` returns the
 port's state as nested dicts under the JAX package's field names;
 :func:`flatten` turns either side into ``{"a.b.0.c": array}`` for a
 leaf-by-leaf comparison. Both directions carry the RBF dynamics and the
-sparse-GP dynamics (``cfg.dynamics='sgp'``).
+sparse-GP dynamics (``cfg.dynamics='sgp'``), with the weight posterior of
+any of the three RLS backends.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from .models.dynamics import DynamicsState
 from .models.likelihoods import GaussianLikParams, PoissonLikParams
 from .models.rbf import RBFParams
 from .models.recognition import Recognition, linear_from
-from .models.regression import NSVBLR
+from .models.regression import CovarianceBLR, NSVBLR, PrecisionBLR
 from .models.vjf import Params, PriorParams, TrainState
 
 
@@ -29,6 +30,13 @@ def _t(a, device, dtype=None) -> torch.Tensor:
     # copy: a tensor sharing memory with the caller's array would let the
     # port's updates write through into it
     return torch.tensor(np.array(a, copy=True), dtype=dtype, device=device)
+
+
+def _blr_type(blr):
+    """The port's posterior type of a JAX one, told apart by its fields."""
+    if hasattr(blr, "prec_chol_inv_t"):
+        return PrecisionBLR
+    return NSVBLR if hasattr(blr, "precision") else CovarianceBLR
 
 
 def state_from_numpy(cfg: VJFConfig, tree, device=torch.device("cuda")) -> TrainState:
@@ -45,11 +53,9 @@ def state_from_numpy(cfg: VJFConfig, tree, device=torch.device("cuda")) -> Train
         lik = GaussianLikParams(logvar=_t(p.likelihood.logvar, device))
     else:
         lik = PoissonLikParams()
-    blr = tree.dynamics.blr
-    if not (hasattr(blr, "precision") and hasattr(blr, "cov")):
-        raise NotImplementedError("only the nsv backend is ported (ROADMAP Queue 1 item 3)")
     d = tree.dynamics
-    blr = NSVBLR(_t(blr.w_mean, device), _t(blr.precision, device), _t(blr.cov, device))
+    kind = _blr_type(d.blr)
+    blr = kind(*(_t(getattr(d.blr, f), device) for f in kind._fields))
     noise = dict(logvar=_t(d.logvar, device), n_sample=_t(d.n_sample, device, torch.int32))
     if cfg.dynamics == "sgp":
         dynamics = SGPDynamicsState(
@@ -82,8 +88,7 @@ def _linear(lin) -> Dict[str, Any]:
 
 def _dynamics(d) -> Dict[str, Any]:
     """The dynamics state under the JAX field names, in the JAX field order."""
-    blr = {"w_mean": _np(d.blr.w_mean), "precision": _np(d.blr.precision),
-           "cov": _np(d.blr.cov)}
+    blr = {k: _np(v) for k, v in d.blr._asdict().items()}
     if isinstance(d, SGPDynamicsState):
         head = {k: _np(getattr(d, k)) for k in ("inducing", "whiten", "whiten_inv",
                                                  "log_scale", "log_lengthscale")}

@@ -1,7 +1,7 @@
 """Sparse Gaussian-process dynamics (counterpart of ``vjf_tpu/gp``): the
-covariance functions and the SGP transition module that plugs into the fit
-path beside the RBF dynamics. The standalone ``SGP`` regression class waits
-for the precision backend (ROADMAP Queue 1 item 3)."""
+covariance functions, the SGP transition module that plugs into the fit
+path beside the RBF dynamics, and the standalone ``SGP`` regression class."""
 from . import covfun, sgp
+from .sgp import SGP
 
-__all__ = ["covfun", "sgp"]
+__all__ = ["SGP", "covfun", "sgp"]

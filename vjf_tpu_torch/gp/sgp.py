@@ -16,10 +16,10 @@ k(x, x)`` with a bounded operator norm. Whitening is one product, shared
 by this module and the fused kernels (``ops/fused_step.py:pad_carry``).
 
 Where the JAX package takes a PRNG key, the port takes an int seed or a CPU
-``torch.Generator``; the bootstrap's unit draw can be injected. Only the
-nsv RLS backend is ported; the others, and the standalone ``SGP`` class,
-wait for ROADMAP Queue 1 item 3. Every product here runs in full f32 on the
-card (no TF32).
+``torch.Generator``; the bootstrap's unit draw can be injected. The weight
+posterior takes any of the three RLS backends. Every product here runs in
+full f32 on the card (no TF32). :class:`SGP` is the standalone sparse-GP
+regression of the reference's test surface.
 """
 from __future__ import annotations
 
@@ -39,6 +39,7 @@ from ..ops.functional import (
     tree_where,
 )
 from ..ops.fused_step import full_f32_matmul
+from ..ops.linalg import inv_tril_transpose, safe_cholesky, tril_solve
 from ..types import Gaussian
 from .covfun import CovarianceFunction, SquaredExponential, _sqdist
 
@@ -55,7 +56,7 @@ class SGPDynamicsState(NamedTuple):
     whiten_inv: torch.Tensor       # W^{-1}: f(Z) = whiten_inv @ v is basis-free
     log_scale: torch.Tensor        # kernel hyperparameters, carried in the state
     log_lengthscale: torch.Tensor
-    blr: regression.NSVBLR
+    blr: regression.BLRState
     logvar: torch.Tensor           # scalar state noise
     n_sample: torch.Tensor         # running-var counter (int32)
 
@@ -86,11 +87,8 @@ def init_sgp_dynamics(seed: Union[int, torch.Generator], cfg: VJFConfig,
                       backend: Optional[str] = None, device=None) -> SGPDynamicsState:
     """Inducing points U[-r, r) with ``r = cfg.centroid_init_range`` from a
     seed or a CPU generator, the whitener of ``K_zz + jitter I``, and a zero
-    weight posterior (nsv backend only)."""
+    weight posterior of ``backend`` (default ``dynamics.resolve_backend``)."""
     backend = backend or dyn.resolve_backend(cfg)
-    if backend != "nsv":
-        raise NotImplementedError(
-            f"rls_backend={backend!r}: ROADMAP Queue 1 item 3 (only 'nsv' is ported)")
     gen = seed if isinstance(seed, torch.Generator) else torch.Generator().manual_seed(int(seed))
     dtype, m = cfg.tdtype, cfg.n_inducing
     r = cfg.centroid_init_range
@@ -104,7 +102,7 @@ def init_sgp_dynamics(seed: Union[int, torch.Generator], cfg: VJFConfig,
         log_scale=torch.log(torch.tensor(cfg.sgp_scale, dtype=dtype, device=device)),
         log_lengthscale=torch.log(torch.tensor(cfg.sgp_lengthscale, dtype=dtype,
                                                device=device)),
-        blr=regression.init_nsv(m, cfg.xdim, dtype=dtype, device=device),
+        blr=dyn.init_blr(backend, m, cfg.xdim, dtype=dtype, device=device),
         logvar=torch.zeros((), dtype=dtype, device=device),
         n_sample=torch.zeros((), dtype=torch.int32, device=device),
     )
@@ -269,7 +267,8 @@ def adapt_hyperparams(cfg: VJFConfig, state: SGPDynamicsState, xt: torch.Tensor,
     """SGD on ``(log_scale, log_lengthscale)`` over the pooled one-step
     predictive NLL (:func:`hyperparam_nll`), then re-whiten and reproject
     the weight posterior through ``A = W_new W_old^{-1}``: ``v' = A v`` (the
-    mean at Z is kept exactly), ``V' = A V A^T``, ``P' = A^{-T} P A^{-1}``.
+    mean at Z is kept exactly), ``V' = A V A^T``, ``P' = A^{-T} P A^{-1}``
+    (symmetrised and refactored for the precision form).
 
     Each step is finite-gated (a step whose gradient is not finite, or whose
     kernel does not factor, is skipped), clipped at ``cfg.clip`` and kept in
@@ -277,9 +276,6 @@ def adapt_hyperparams(cfg: VJFConfig, state: SGPDynamicsState, xt: torch.Tensor,
     every leaf is finite. Runs once per epoch in ``fit`` when
     ``cfg.sgp_adapt_lr > 0``. The gates select on the device; the loop runs
     ``n_steps`` times without waiting for it."""
-    blr = state.blr
-    if not isinstance(blr, regression.NSVBLR):
-        raise NotImplementedError(regression._BACKENDS_TODO)
     lr = cfg.sgp_adapt_lr if lr is None else lr
     n_steps = cfg.sgp_adapt_steps if n_steps is None else n_steps
     xs, xt = torch.atleast_2d(xs), torch.atleast_2d(xt)
@@ -305,6 +301,85 @@ def adapt_hyperparams(cfg: VJFConfig, state: SGPDynamicsState, xt: torch.Tensor,
     a_inv = state.whiten @ w_inv                       # A^{-1} = W_old W_new^{-1}
     new = state._replace(
         log_scale=log_scale, log_lengthscale=log_ls, whiten=w_whiten, whiten_inv=w_inv,
-        blr=regression.NSVBLR(a @ blr.w_mean, a_inv.T @ blr.precision @ a_inv,
-                              a @ blr.cov @ a.T))
+        blr=_reproject(state.blr, a, a_inv))
     return tree_where(all_finite(new), new, state)
+
+
+def _reproject(blr: regression.BLRState, a: torch.Tensor,
+               a_inv: torch.Tensor) -> regression.BLRState:
+    """The weight posterior in the basis ``A`` maps to: ``w' = A w``, ``V' =
+    A V A^T``, ``P' = A^{-T} P A^{-1}``."""
+    w_new = a @ blr.w_mean
+    if isinstance(blr, regression.NSVBLR):
+        return regression.NSVBLR(w_new, a_inv.T @ blr.precision @ a_inv, a @ blr.cov @ a.T)
+    if isinstance(blr, regression.CovarianceBLR):
+        return regression.CovarianceBLR(w_new, a @ blr.cov @ a.T)
+    p_new = a_inv.T @ blr.precision @ a_inv
+    p_new = 0.5 * (p_new + p_new.T)
+    chol = safe_cholesky(p_new)
+    return regression.PrecisionBLR(w_new, p_new, chol, inv_tril_transpose(chol))
+
+
+# ---------------------------------------------------------------------------
+# The standalone regression class of the reference's test surface
+# ---------------------------------------------------------------------------
+
+
+class SGP:
+    """Sparse-GP regression ``y = f(x) + eps`` over inducing points:
+    ``SGP(xdim, ydim, udim, covfun, noise_var=..., f_cov="I",
+    inducing=<(m, xdim)>)``, features ``k(x, Z) L_zz^{-T}`` with the
+    precision-form posterior. Float64 by default; the jitter of ``K_zz``
+    follows the dtype the inducing points actually have. The inducing
+    points go to the card unless the caller asks for ``device="cpu"``."""
+
+    def __init__(self, xdim: int, ydim: int, udim: int = 0,
+                 covfun: Optional[CovarianceFunction] = None, *, noise_var: float = 0.0,
+                 f_cov: str = "I", inducing=None, dtype=torch.float64,
+                 device=torch.device("cuda")):
+        if covfun is None:
+            covfun = SquaredExponential()
+        if f_cov != "I":
+            raise NotImplementedError("only the whitened identity prior (f_cov='I') is "
+                                      "supported")
+        if inducing is None:
+            raise ValueError("inducing points are required")
+        self.xdim, self.ydim, self.udim = xdim, ydim, udim
+        self.covfun = covfun
+        # noise_var = 0 would make the Bayesian update degenerate
+        self.noise_var = max(float(noise_var), 1e-6)
+        self.inducing = torch.as_tensor(inducing, dtype=dtype, device=device)
+        self.dtype = self.inducing.dtype
+        self.kzz_chol = None
+        self.blr = None
+        self.initialize()
+
+    def initialize(self) -> None:
+        m = self.inducing.shape[0]
+        kzz = self.covfun(self.inducing, self.inducing)
+        self.kzz_chol = safe_cholesky(kzz + _jitter(self.dtype) * _eye(m, kzz))
+        self.blr = regression.init_precision(m, self.ydim, dtype=self.dtype,
+                                             device=self.inducing.device)
+
+    def _as_rows(self, x) -> torch.Tensor:
+        return torch.atleast_2d(torch.as_tensor(x, dtype=self.dtype,
+                                                device=self.inducing.device))
+
+    def _features(self, x: torch.Tensor) -> torch.Tensor:
+        return tril_solve(self.kzz_chol, self.covfun(x, self.inducing).T).T
+
+    def predict(self, x) -> Gaussian:
+        """Predictive distribution of f(x): the parametric term plus the DTC
+        correction ``k(x, x) - q(x, x)``."""
+        x = self._as_rows(x)
+        feat = self._features(x)
+        g = regression.predict_gaussian(self.blr, feat)
+        dtc = torch.clamp(self.covfun.diag(x) - torch.sum(feat * feat, dim=-1), min=0.0)
+        return Gaussian(g.mean, torch.log(torch.exp(g.logvar) + dtc[..., None] + 1e-30))
+
+    def fit(self, x, y) -> "SGP":
+        """One batch Bayesian update; repeated calls accumulate evidence."""
+        feat = self._features(self._as_rows(x))
+        noise = torch.tensor(self.noise_var, dtype=self.dtype, device=self.inducing.device)
+        self.blr = regression.rls(self.blr, feat, self._as_rows(y), noise)
+        return self

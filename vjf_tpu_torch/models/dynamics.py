@@ -19,12 +19,10 @@ from ..types import Gaussian
 from . import regression
 from .rbf import RBFParams, apply_rbf, init_rbf, reinit_rbf
 
-_KALMAN_TODO = "dynamics_update='kalman': ROADMAP Queue 1 item 3"
-
 
 class DynamicsState(NamedTuple):
     rbf: RBFParams
-    blr: regression.NSVBLR
+    blr: regression.BLRState
     logvar: torch.Tensor     # scalar state noise
     n_sample: torch.Tensor   # running-var counter (int32)
 
@@ -53,21 +51,28 @@ def resolve_backend(cfg: VJFConfig, batch_hint: Optional[int] = None) -> str:
     return "nsv"
 
 
+def init_blr(backend: str, n_feature: int, n_out: int, dtype, device=None):
+    """The zero-mean, identity-precision weight posterior of ``backend``
+    ('covariance', 'nsv', otherwise 'precision', as the JAX package reads
+    it)."""
+    if backend == "covariance":
+        return regression.init_covariance(n_feature, n_out, dtype=dtype, device=device)
+    if backend == "nsv":
+        return regression.init_nsv(n_feature, n_out, dtype=dtype, device=device)
+    return regression.init_precision(n_feature, n_out, dtype=dtype, device=device)
+
+
 def init_dynamics(
     generator: torch.Generator, cfg: VJFConfig, backend: Optional[str] = None,
     device=None,
 ) -> DynamicsState:
     backend = backend or resolve_backend(cfg)
-    if backend != "nsv":
-        raise NotImplementedError(
-            f"rls_backend={backend!r}: ROADMAP Queue 1 item 3 (only 'nsv' is ported)"
-        )
     dtype = cfg.tdtype
     rbf = init_rbf(generator, cfg.xudim, cfg.n_rbf, cfg.centroid_init_range,
                    dtype=dtype, device=device)
     return DynamicsState(
         rbf=rbf,
-        blr=regression.init_nsv(cfg.n_rbf, cfg.xdim, dtype=dtype, device=device),
+        blr=init_blr(backend, cfg.n_rbf, cfg.xdim, dtype=dtype, device=device),
         logvar=torch.zeros((), dtype=dtype, device=device),
         n_sample=torch.zeros((), dtype=torch.int32, device=device),
     )
@@ -165,20 +170,24 @@ def blr_residual_update(cfg: VJFConfig, blr, logvar: torch.Tensor, n_sample: tor
                         xt: torch.Tensor, xs: torch.Tensor, feat: torch.Tensor,
                         warm_up: bool = False, weights: Optional[torch.Tensor] = None,
                         update_rule: str = "rls"):
-    """RLS on ``dx = xt - xs`` (skipped during warm-up), then the state noise
-    refreshed by a running variance of the post-update residual mse (skipped
-    on the device where that variance is not finite). Returns ``(blr,
-    logvar, n_sample)``. With the 0/1 trial mask ``weights`` (B,) a masked
-    row's feature row is zeroed, so it leaves the RLS statistics, and it
-    leaves the residual mse and the sample count."""
-    if update_rule != "rls":
-        raise NotImplementedError(_KALMAN_TODO)
+    """The closed-form weight update on ``dx = xt - xs`` (skipped during
+    warm-up): RLS, or with ``update_rule='kalman'`` the weight-diffusion
+    Kalman step (``cfg.kalman_diffusion``, ``cfg.joseph_quirk``); then the
+    state noise refreshed by a running variance of the post-update residual
+    mse (skipped on the device where that variance is not finite). Returns
+    ``(blr, logvar, n_sample)``. With the 0/1 trial mask ``weights`` (B,) a
+    masked row's feature row is zeroed, so it leaves the weight update, and
+    it leaves the residual mse and the sample count."""
     if weights is not None:
         feat = feat * weights.to(feat.dtype)[:, None]
     dx = xt - xs
     if not warm_up:
-        blr = regression.rls(blr, feat, dx, torch.exp(logvar),
-                             shrink=cfg.rls_shrink, jitter=cfg.chol_jitter)
+        if update_rule == "kalman":
+            blr = regression.kalman(blr, feat, dx, torch.exp(logvar),
+                                    diffusion=cfg.kalman_diffusion, quirk=cfg.joseph_quirk)
+        else:
+            blr = regression.rls(blr, feat, dx, torch.exp(logvar),
+                                 shrink=cfg.rls_shrink, jitter=cfg.chol_jitter)
     residual = dx - regression.predict_gaussian(blr, feat).mean
     if weights is None:
         mse, count = torch.mean(torch.square(residual)), xs.shape[0]

@@ -574,20 +574,13 @@ def _promote_channel_mask(channel_mask, y_shape, dtype: torch.dtype,
     return cm.expand(*y_shape)
 
 
-def _refuse_unported(cfg: VJFConfig, state: TrainState, mesh, checkpoint_path,
-                     resume_from) -> None:
-    from . import regression
-
+def _refuse_unported(cfg: VJFConfig, mesh, checkpoint_path, resume_from) -> None:
     if mesh is not None:
         raise NotImplementedError(_MESH_TODO)
     if checkpoint_path is not None or resume_from is not None:
         raise NotImplementedError(_SNAPSHOT_TODO)
     if cfg.multistep_refine > 0:
         raise NotImplementedError(_MULTISTEP_TODO)
-    if cfg.dynamics_update != "rls":
-        raise NotImplementedError(dyn._KALMAN_TODO)
-    if not isinstance(state.dynamics.blr, regression.NSVBLR):
-        raise NotImplementedError(regression._BACKENDS_TODO)
 
 
 def _bootstrap_dynamics(cfg: VJFConfig, state: TrainState, q_means: torch.Tensor,
@@ -748,14 +741,19 @@ def fit(
     only the pairs whose two ends are observed; a ragged SGP fit with fewer
     than ``sgp_fused_min_batch`` valid trials at some step takes the
     autograd epoch (:func:`_demote_masked_small_sgp`); ``select='forecast'``
-    refuses masks. ``mesh``, ``checkpoint_path``/``resume_from``,
-    ``multistep_refine``, the kalman learner and backends other than nsv
-    raise ``NotImplementedError`` naming their ROADMAP item.
+    refuses masks. ``mesh``, ``checkpoint_path``/``resume_from`` and
+    ``multistep_refine`` raise ``NotImplementedError`` naming their ROADMAP
+    item.
+
+    The kernels carry the nsv RLS learner only: a state of the precision or
+    covariance backend, or ``dynamics_update='kalman'``, trains every epoch
+    on the autograd route, and no demotion, repair or prefix logic runs
+    (as in the JAX package, whose fused gate asks for the nsv backend).
     """
     del checkpoint_every
     beta = cfg.beta if beta is None else beta
     rtol = cfg.rtol if rtol is None else rtol
-    _refuse_unported(cfg, state, mesh, checkpoint_path, resume_from)
+    _refuse_unported(cfg, mesh, checkpoint_path, resume_from)
     select_on = _validate_select(cfg, mask, channel_mask)
     if epochs_per_dispatch > 1:
         if noise_hook is not None:

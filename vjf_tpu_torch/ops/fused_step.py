@@ -109,13 +109,15 @@ def epoch_repair_enabled(cfg, n_batch: int) -> bool:
 
 def maybe_epoch_repair(cfg, flags, state, n_batch: int):
     """Epoch-boundary spectral repair of the tracked (P, V) pair, if this
-    epoch is RLS-active and ``cfg.rls_epoch_repair`` resolves enabled. Runs
-    on the UNPADDED state."""
+    epoch is RLS-active, ``cfg.rls_epoch_repair`` resolves enabled and the
+    state carries the nsv form. Runs on the UNPADDED state."""
     do_fallback = flags.update and flags.update_transition and not flags.warm_up
     if not (do_fallback and epoch_repair_enabled(cfg, n_batch)):
         return state
     from ..models import regression as _reg
 
+    if not isinstance(state.dynamics.blr, _reg.NSVBLR):
+        return state
     return state._replace(
         dynamics=state.dynamics._replace(
             blr=_reg.spectral_repair(

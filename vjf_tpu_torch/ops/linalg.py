@@ -1,12 +1,17 @@
 """Linear-algebra helpers (counterpart of ``vjf_tpu/ops/linalg.py``): the
-parts the fused epoch, the RLS update and the rollout need. Every product
-here runs in the input dtype at
-full precision (TF32 stays off on the card, see ``fused_step``)."""
+Cholesky plumbing of the fused epoch, the RLS backends, the Kalman toolkit
+and the rollout. Every product here runs in the input dtype at full
+precision (TF32 stays off on the card, see ``fused_step``)."""
 from __future__ import annotations
 
 import math
 
 import torch
+
+
+def symmetric(a: torch.Tensor, rtol: float = 1e-5, atol: float = 1e-8) -> torch.Tensor:
+    """Symmetry check: a boolean tensor, no host sync."""
+    return torch.isclose(a, a.transpose(-1, -2), rtol=rtol, atol=atol).all()
 
 
 def symmetrize(a: torch.Tensor) -> torch.Tensor:
@@ -34,18 +39,20 @@ def positivize(a: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:
 
 def safe_cholesky(a: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:
     """Lower Cholesky factor, repaired where it fails: where ``info != 0``
-    or the factor is not finite, the factor of ``positivize(a, eps)``.
+    or the factor is not finite, the factor of ``positivize(a, eps)`` (NaN
+    if that fails too, as JAX's).
 
     The branch is taken on the host (one sync), as the JAX package's
-    ``lax.cond`` takes it: the callers (the rollout's weight square root)
-    run once per rollout, and ``eigh`` raises on a non-finite input, so the
-    repair is not computed on every call. A non-finite ``a`` gives NaN, as
-    the JAX repair does."""
+    ``lax.cond`` takes it on the device: ``eigh`` raises on a non-finite
+    input, and computing the repair on every call would cost an eigh each
+    time. The precision and covariance RLS updates call it once a step, so
+    they pay one sync a step. A non-finite ``a`` gives NaN, as the JAX
+    repair does."""
     chol, info = torch.linalg.cholesky_ex(a)
     if bool(info != 0) or not bool(torch.isfinite(chol).all()):
         if not bool(torch.isfinite(a).all()):
             return torch.full_like(a, float("nan"))
-        chol, _ = torch.linalg.cholesky_ex(positivize(a, eps))
+        chol = nan_where_failed(*torch.linalg.cholesky_ex(positivize(a, eps)))
     return chol
 
 
@@ -67,3 +74,28 @@ def tri_inv_newton(tri: torch.Tensor) -> torch.Tensor:
     for _ in range(max(1, math.ceil(math.log2(n)))):
         x = x @ (two_eye - tri @ x)
     return x
+
+
+def tril_solve(chol: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve ``L x = b`` with L lower-triangular."""
+    return torch.linalg.solve_triangular(chol, b, upper=False)
+
+
+def cho_solve(chol: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve ``(L L^T) x = b`` given the lower Cholesky factor."""
+    return torch.cholesky_solve(b, chol, upper=False)
+
+
+def inv_tril_transpose(chol: torch.Tensor) -> torch.Tensor:
+    """``inv(L)^T``: with ``P = L L^T`` the returned ``U`` has ``U U^T =
+    P^{-1}``."""
+    eye = torch.eye(chol.shape[-1], dtype=chol.dtype, device=chol.device)
+    return tril_solve(chol, eye).transpose(-1, -2)
+
+
+def nan_where_failed(out: torch.Tensor, info: torch.Tensor) -> torch.Tensor:
+    """The result of a ``torch.linalg.*_ex`` call (a Cholesky factor, an
+    inverse) as JAX gives it: NaN throughout where LAPACK's ``info != 0``
+    (``cholesky_ex`` returns a finite partial factor there), selected on the
+    device."""
+    return torch.where(info == 0, out, torch.full_like(out, float("nan")))
