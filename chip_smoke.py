@@ -43,16 +43,19 @@ import dataclasses
 import datetime
 import json
 import logging
+import itertools
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from vjf_tpu_torch import datasets
+from vjf_tpu_torch import VJF, datasets
 from vjf_tpu_torch.config import StepFlags, VJFConfig
 from vjf_tpu_torch.convert import flatten, state_to_numpy
 from vjf_tpu_torch.gp import sgp
@@ -60,10 +63,12 @@ from vjf_tpu_torch.models import dynamics as dyn
 from vjf_tpu_torch.models import regression as R
 from vjf_tpu_torch.models import vjf as core
 from vjf_tpu_torch.models.recognition import Recognition, linear_from, map_linears
+from vjf_tpu_torch.native import StreamingLoader, device_prefetch
 from vjf_tpu_torch.ops import _build, linalg, rng
 from vjf_tpu_torch.ops import kalman as K
 from vjf_tpu_torch.ops import fused_step as F
 from vjf_tpu_torch.parallel import make_dp_group, run_epoch_fused_sharded
+from vjf_tpu_torch.utils.checkpoint import load_snapshot
 from vjf_tpu_torch.utils.evaluation import forecast_rmse, latent_r2
 
 B = 256                 # trials, as in bench.py
@@ -160,6 +165,12 @@ BACKEND_CASES = {
     "kalman.quirk": (dict(dynamics_update="kalman", joseph_quirk=True), "CovarianceBLR",
                      dict(joseph_quirk=False)),
 }
+STREAM_T, STREAM_B = 20000, 16   # stream: bench_all.py config #4's steps and trials
+STREAM_CHUNK, STREAM_K = 2000, 9  # its chunks and chunks_per_dispatch (1 + 9 chunks)
+STREAM_SHORT_CHUNK = 500          # stream.tail and stream.resume: the same widths, shorter
+STREAM_TAIL = 37                  # stream.tail: the valid steps of the partial last chunk
+FIT_RESUME_T = 1024               # fit.resume: the flagship data's first steps
+FACADE_EPOCHS = 40                # facade.vdp: epochs (bench_all.py's config #1 runs 60)
 # one card's published peaks (H100 SXM data sheet, dense): HBM bytes/s,
 # FP32 outside the tensor cores, bf16 in them
 PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
@@ -1700,6 +1711,357 @@ def check_backends_fit(dev, smi) -> None:
               persistence_rmse=p_rmse, card=smi)
 
 
+def stream_cfg() -> VJFConfig:
+    """``bench_all.py``'s config #4 (neural population streaming)."""
+    return VJFConfig(ydim=200, xdim=10, udim=0, n_rbf=100, hidden_sizes=(32,),
+                     likelihood="poisson", dtype="float32", rls_backend="nsv")
+
+
+def stream_counts() -> np.ndarray:
+    """``bench_all.py:bench_streaming``'s recording: (T, B, ydim) counts
+    drawn as Poisson(0.12) with numpy seed 0, clipped to 255, as uint8."""
+    rng = np.random.default_rng(0)
+    return np.minimum(rng.poisson(0.12, size=(STREAM_T, STREAM_B, 200)), 255).astype(np.uint8)
+
+
+def stream(model, chunks, k: int, **kw):
+    """Every result of ``model.filter_stream`` and its seconds, the device
+    synchronised."""
+    return synced(lambda: list(model.filter_stream(chunks, chunks_per_dispatch=k, **kw)))
+
+
+def same_results(a, b) -> bool:
+    return len(a) == len(b) and all(
+        torch.equal(x.q_means, y.q_means) and torch.equal(x.q_logvars, y.q_logvars)
+        and torch.equal(x.metrics.loss, y.metrics.loss) for x, y in zip(a, b))
+
+
+def same_state(a, b) -> bool:
+    a, b = state_leaves(a), state_leaves(b)
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def stream_hot(cfg, results) -> tuple:
+    """(hot fraction over the stream's post-prefix steps, demoted): the
+    first chunk's prefix steps are left out, and a result without a tau
+    stream took the autograd route."""
+    taus = [r.metrics.tau[cfg.ns_prefix if i == 0 else 0:]
+            for i, r in enumerate(results) if r.metrics.tau is not None]
+    tau = torch.cat(taus)
+    hot = float(((tau >= F.NS_TAU_MAX) | ~torch.isfinite(tau)).float().mean())
+    return hot, len(taus) < len(results)
+
+
+def step_mega_bounds(cfg, b, carry, qm, qlv, y0, e_s, e_t, lr, stepped, seg_tau) -> tuple:
+    """The bounds of one step kernel launch and of a mega step at ``b``
+    trials: each input read once and each output written once; the mega
+    segment's carry once per MEGA_STEPS steps, its Newton-Schulz
+    iterations as the timed segment's tau asked for (base, +1 at 0.05, +2
+    at 0.25, none when skipped at 0.7)."""
+    nfp = carry.p_mat.shape[0]
+    read, written = carry_bytes(carry), carry_bytes(carry, written=True)
+    step_b = bound(cfg, read + written + nbytes(y0, qm, qlv, e_s, e_t, lr) + nbytes(
+        stepped.q_pack, stepped.g_vec, stepped.xt, stepped.xs, stepped.scal),
+        step_ops(cfg, b, nfp, F.NS_ITERS))
+    iters = torch.where(seg_tau < F.NS_TAU_MAX, F.mega_ns_base_iters(cfg, b)
+                        + (seg_tau >= F.NS_TAU_ESCALATE).int()
+                        + F.NS_EXTRA_ITERS * (seg_tau >= F.NS_TAU_THRESHOLD).int(), 0)
+    mega_b = bound(cfg, (read + written + nbytes(qm, qlv)) / MEGA_STEPS + nbytes(y0, e_s, e_t)
+                   + nbytes(stepped.q_pack) + 4 * 8,
+                   step_ops(cfg, b, nfp, float(iters.float().mean())))
+    return step_b, mega_b
+
+
+def kernel_times(cfg, carry, qm, qlv, ys, eps, lr) -> dict:
+    """us per step of the step kernel and of the mega kernel (over
+    ``ys``'s MEGA_STEPS steps) beside their plain versions, timed in turns
+    (plain, kernel, kernel, plain), and one step's output for the bounds."""
+    flags = StepFlags()
+    carry_s, carry_m = clone(carry), clone(carry)
+    args = (ys[0], None, eps[0, 0], eps[1, 0], lr)
+
+    def k_step():
+        return F.fused_step_call(cfg, flags, carry_s, qm, qlv, *args)
+
+    def p_step():
+        F.fused_step_plain(cfg, flags, carry, qm, qlv, *args)
+
+    def k_mega():
+        F.mega_epoch_call(cfg, flags, carry_m, qm, qlv, ys, None, eps[0], eps[1], lr)
+
+    def p_mega():
+        F.mega_epoch_plain(cfg, flags, carry, qm, qlv, ys, None, eps[0], eps[1], lr)
+
+    p1, k1, k2, p2 = cuda_ms(p_step, 20), cuda_ms(k_step, 20), cuda_ms(k_step, 20), cuda_ms(p_step, 20)
+    out = {"fused_step": (1e3 * (k1 + k2) / 2, 1e3 * (p1 + p2) / 2)}
+    p1, k1, k2, p2 = cuda_ms(p_mega, 1), cuda_ms(k_mega, 3), cuda_ms(k_mega, 3), cuda_ms(p_mega, 1)
+    n = ys.shape[0]
+    out["mega_epoch"] = (1e3 * (k1 + k2) / 2 / n, 1e3 * (p1 + p2) / 2 / n)
+    out["stepped"] = k_step()
+    return out
+
+
+def check_stream(dev, smi) -> dict:
+    """``bench_all.py``'s config #4 at its own size through the facade: the
+    uint8 recording in a file, read by the native ``StreamingLoader``,
+    staged on the card by ``device_prefetch`` and filtered by
+    ``VJF.filter_stream`` in blocks of K chunks; the same stream replayed
+    from chunks already on the card, and as float32, must give the same
+    bits. Then, at B 16, each kernel against its plain version (one prefix
+    step from the stream's first state, MEGA_STEPS mega steps from its state
+    after the first chunk) with the planted faults, and their times. Returns
+    the launches, errors, times and bounds for the ``kernels`` line."""
+    cfg = stream_cfg()
+    data = stream_counts()
+    k = STREAM_K
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "stream.bin")
+        data.tofile(path)
+        # the warm-up runs the first chunk's path and one block on another
+        # model, before the timed loader starts reading
+        probe = StreamingLoader(path, ydim=cfg.ydim, batch=STREAM_B, chunk=STREAM_CHUNK,
+                                dtype=np.uint8)
+        first = next(probe)
+        probe.close()
+        _, warm_s = stream(VJF(cfg, seed=1), iter([first] * 3), 2)
+        model = VJF(cfg, seed=0)
+        loader = StreamingLoader(path, ydim=cfg.ydim, batch=STREAM_B, chunk=STREAM_CHUNK,
+                                 dtype=np.uint8)
+        native = loader.is_native
+        check(native, "stream: the native loader did not build")
+        F.reset_launches()
+        e2e, wall = stream(model, device_prefetch(loader, depth=k + 1,
+                                                  valid_fn=lambda: loader.last_valid), k)
+        launches, timesteps = dict(F.launches), dict(F.steps)
+    n = sum(r.q_means.shape[0] for r in e2e)
+    hot, demoted = stream_hot(cfg, e2e)
+    check(n == STREAM_T, f"stream: {n} steps, expected {STREAM_T}")
+    check(launches["fused_step"] > 0 and launches["mega_epoch"] > 0, f"stream: launches {launches}")
+    check(all(bool(torch.isfinite(r.metrics.loss).all()) for r in e2e), "stream: a loss not finite")
+    check(all(bool(torch.isfinite(r.q_means).all()) for r in e2e), "stream: a posterior not finite")
+    chunks = [torch.from_numpy(data[i:i + STREAM_CHUNK]).to(dev)
+              for i in range(0, STREAM_T, STREAM_CHUNK)]
+    replay_model = VJF(cfg, seed=0)
+    replay, pipe_wall = stream(replay_model, iter(chunks), k)
+    f32_model = VJF(cfg, seed=0)
+    f32, _ = stream(f32_model, iter([c.float() for c in chunks]), k)
+    check(same_results(e2e, replay) and same_state(model.state, replay_model.state),
+          "stream: the loader and prefetch changed the bits of the device-resident replay")
+    check(same_results(replay, f32) and same_state(replay_model.state, f32_model.state),
+          "stream: the uint8 stream differs from the float32 stream")
+    phase("stream", config="bench_all.py #4 neural_population_streaming: T %d, B %d, ydim 200, "
+          "xdim 10, n_rbf 100, hidden (32,), Poisson, float32, nsv" % (STREAM_T, STREAM_B),
+          chunk=STREAM_CHUNK, chunks_per_dispatch=k, native_loader=native, steps=n,
+          wall_s=wall, steps_per_s=n / wall, pipeline_steps_per_s=n / pipe_wall,
+          warm_up_s=warm_s, launches=launches, timesteps=timesteps, hot_frac=hot,
+          demoted=demoted, losses_finite=True, uint8_bits_equal_float32=True,
+          e2e_bits_equal_replay=True, card=smi)
+
+    # the kernels at B 16: the stream's first step, and MEGA_STEPS steps of
+    # its second chunk from its state after the first
+    flags = StepFlags()
+    lr = torch.tensor(cfg.lr, device=dev)
+    g = torch.Generator(device=dev).manual_seed(6)
+    eps = torch.randn((2, MEGA_STEPS, STREAM_B, cfg.xdim), device=dev, generator=g)
+    ys0, ys1 = chunks[0].float(), chunks[1].float()
+    state0 = VJF(cfg, seed=0).state
+    q0 = core.prior(state0.params, STREAM_B)
+    carry0 = F.pad_carry(cfg, state0)
+    start = flatten(carry0._asdict())
+    args = (q0.mean.contiguous(), q0.logvar.contiguous(), ys0[0], eps[0, 0], eps[1, 0], lr)
+    ref = prefix_step(F.fused_step_plain, cfg, flags, clone(carry0), *args)
+    got = prefix_step(F.fused_step_call, cfg, flags, clone(carry0), *args)
+    tol = TOL[cfg.matmul_dtype]
+    errs = {"fused_step": compare("stream.step[b16]", packed(ref), packed(got), tol, start)}
+    for fault, (fcfg, fflags) in faults(cfg, flags).items():
+        bad = prefix_step(F.fused_step_call, fcfg, fflags, clone(carry0), *args)
+        compare(f"stream.step[b16].fault.{fault}", packed(ref), packed(bad), tol, start,
+                reject=True)
+    # the mega kernel over MEGA_STEPS steps of the second chunk, from the kind
+    # of state the flagship's check starts from, at B 16: a warm-up epoch of
+    # WARM_STEPS steps, then an RLS epoch of ns_prefix steps (the per-step
+    # kernel and the exact fallback)
+    pre_ys = torch.from_numpy(data[:WARM_STEPS + cfg.ns_prefix]).to(dev).float()
+    us = torch.zeros((cfg.ns_prefix, STREAM_B, 0), device=dev)
+    warm = core.run_epoch(cfg, StepFlags(warm_up=True), state0, pre_ys[:WARM_STEPS],
+                          us[:WARM_STEPS], 5, lr)
+    pre = core.run_epoch(cfg, flags, warm.state, pre_ys[WARM_STEPS:], us, 8, lr,
+                         q0=core.Gaussian(warm.q_means[-1], warm.q_logvars[-1]))
+    carry1 = F.pad_carry(cfg, pre.state)
+    qm1, qlv1 = pre.q_means[-1].contiguous(), pre.q_logvars[-1].contiguous()
+    errs["mega_epoch"], _, (_, _, ks) = check_mega(
+        "stream.mega[b16]", cfg, flags, carry1, qm1, qlv1, ys1[:MEGA_STEPS], eps[0], eps[1], lr)
+    # the same from the stream's own state after its first chunk (no warm-up),
+    # reported, not gated, beside the plain version against itself from a V
+    # one float32 ulp away (V * (1 + 2^-23)) and the segment's tau range:
+    # where that moves a leaf as much as the kernel does, the leaf is not
+    # determined in float32 there
+    after = VJF(cfg, seed=0)
+    first = list(after.filter_stream(iter(chunks[:1])))[0]
+    carry2 = F.pad_carry(cfg, after.state)
+    qm2, qlv2 = first.q_means[-1].contiguous(), first.q_logvars[-1].contiguous()
+    seg = (ys1[:MEGA_STEPS], None, eps[0], eps[1], lr)
+    ref2 = segment(*F.mega_epoch_plain(cfg, flags, clone(carry2), qm2, qlv2, *seg))
+    start2 = flatten(carry2._asdict())
+    k_errs, _ = compare_errs(ref2, segment(*F.mega_epoch_call(cfg, flags, clone(carry2), qm2,
+                                                              qlv2, *seg)), start2)
+    nudged = clone(carry2)._replace(v_mat=carry2.v_mat * (1 + F32_ULP))
+    u_errs, _ = compare_errs(ref2, segment(*F.mega_epoch_plain(cfg, flags, nudged, qm2, qlv2,
+                                                               *seg)), start2)
+    phase("stream.mega[b16].after_first_chunk", steps=MEGA_STEPS, gated=False,
+          tau_min=float(ref2["tau"].min()), tau_max=float(ref2["tau"].max()),
+          kernel_err_by_leaf={k: float(f"{v:.3e}") for k, v in k_errs.items() if v > 0},
+          plain_v_one_ulp_err_by_leaf={k: float(f"{v:.3e}") for k, v in u_errs.items()
+                                       if v > 0})
+    times = kernel_times(cfg, carry1, qm1, qlv1, ys1[:MEGA_STEPS], eps, lr)
+    bounds = step_mega_bounds(cfg, STREAM_B, carry1, qm1, qlv1, ys1[0], eps[0, 0], eps[1, 0], lr,
+                              times["stepped"], ks[:, 4])
+    phase("stream.times", unit="us per timestep", batch=STREAM_B,
+          mega_base_ns_iters=F.mega_ns_base_iters(cfg, STREAM_B),
+          fused_step=times["fused_step"][0], fused_step_plain=times["fused_step"][1],
+          mega_epoch=times["mega_epoch"][0], mega_epoch_plain=times["mega_epoch"][1], card=smi)
+    return {"launches": launches, "steps": timesteps, "errs": errs,
+            "ms": {kk: (v[0] / 1e3, v[1] / 1e3) for kk, v in times.items() if kk != "stepped"},
+            "bounds": {"fused_step": bounds[0], "mega_epoch": bounds[1]}, "data": data}
+
+
+def check_stream_tail(cfg, data, smi) -> None:
+    """A stream whose last chunk is partial, read by the loader and staged
+    by ``device_prefetch`` as ``(chunk, n_valid)`` pairs: the first chunk
+    alone, a block of two, then the tail's valid steps, one ``filter`` step
+    each; exactly the valid steps come out."""
+    t_len = 3 * STREAM_SHORT_CHUNK + STREAM_TAIL
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tail.bin")
+        data[:t_len].tofile(path)
+        loader = StreamingLoader(path, ydim=cfg.ydim, batch=STREAM_B, chunk=STREAM_SHORT_CHUNK,
+                                 dtype=np.uint8)
+        out, secs = stream(VJF(cfg, seed=2), device_prefetch(
+            loader, depth=3, valid_fn=lambda: loader.last_valid), 2)
+    lens = [r.q_means.shape[0] for r in out]
+    check(lens == [STREAM_SHORT_CHUNK] * 3 + [STREAM_TAIL], f"stream.tail: chunk lengths {lens}")
+    check(all(bool(torch.isfinite(r.q_means).all() and torch.isfinite(r.metrics.loss).all())
+              for r in out), "stream.tail: not finite")
+    check(out[-1].metrics.tau is None, "stream.tail: the tail did not take the filter step")
+    phase("stream.tail", steps=sum(lens), chunk_lengths=lens, seconds=secs,
+          tail="per-step VJF.filter (autograd step)", card=smi)
+
+
+def check_stream_resume(cfg, data, dev, smi) -> None:
+    """A K-block stream (K 2, chunks of STREAM_SHORT_CHUNK) with a snapshot
+    every K chunks, stopped after its second block and resumed on a model of
+    another seed: the rest of the stream, the final state, the posterior,
+    the learning rate and the generator are the uninterrupted stream's."""
+    k, n_chunks = 2, 7
+    chunks = [torch.from_numpy(data[i:i + STREAM_SHORT_CHUNK]).to(dev)
+              for i in range(0, n_chunks * STREAM_SHORT_CHUNK, STREAM_SHORT_CHUNK)]
+    ref = VJF(cfg, seed=3)
+    ref_out, ref_s = stream(ref, iter(chunks), k)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "stream.ckpt")
+        part = VJF(cfg, seed=3)
+        gen = part.filter_stream(iter(chunks), chunks_per_dispatch=k, checkpoint_path=path,
+                                 checkpoint_every=k)
+        list(itertools.islice(gen, 1 + 2 * k))
+        gen.close()
+        done = load_snapshot(path, dev).chunks_done
+        check(done == 1 + 2 * k, f"stream.resume: snapshot at chunk {done}")
+        res = VJF(cfg, seed=4)
+        out, secs = stream(res, iter(chunks[done:]), k, resume_from=path)
+    check(same_results(out, ref_out[done:]), "stream.resume: the resumed results differ")
+    check(same_state(res.state, ref.state), "stream.resume: the final state differs")
+    check(res._lr == ref._lr and torch.equal(res.generator.get_state(), ref.generator.get_state()),
+          "stream.resume: the learning rate or the generator differs")
+    phase("stream.resume", chunks=n_chunks, chunk=STREAM_SHORT_CHUNK, chunks_per_dispatch=k,
+          resumed_at_chunk=done, bit_identical=True, uninterrupted_s=ref_s, resumed_s=secs,
+          card=smi)
+
+
+def check_fit_resume(cfg, ys, smi) -> None:
+    """The blocked flagship ``fit`` (2 epochs a block, warm-up forced to end
+    after 2, ``bench_all.py``'s forgetting) with a snapshot every 2 epochs,
+    stopped after 4 and resumed from another state and seed to 6: the
+    result is the uninterrupted fit's, bit for bit."""
+    cfg = cfg.replace(warmup_max=2, **FIT_FORGET)
+    ys = ys[:FIT_RESUME_T]
+    dev = ys.device
+    state = core.init_state(0, cfg, device=dev)
+    ref, ref_s = synced(lambda: core.fit(cfg, state, ys, seed=7, max_iter=6,
+                                         epochs_per_dispatch=2))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "fit.ckpt")
+        synced(lambda: core.fit(cfg, state, ys, seed=7, max_iter=4, epochs_per_dispatch=2,
+                                checkpoint_path=path, checkpoint_every=2))
+        snap = load_snapshot(path, dev)
+        check(snap.epoch == 4 and not snap.warm_up, f"fit.resume: snapshot at {snap.epoch}")
+        got, secs = synced(lambda: core.fit(cfg, core.init_state(1, cfg, device=dev), ys,
+                                            seed=9, max_iter=6, epochs_per_dispatch=2,
+                                            resume_from=path))
+    check(torch.equal(got.mu, ref.mu) and torch.equal(got.logvar, ref.logvar),
+          "fit.resume: the posteriors differ")
+    check((got.loss, got.lr, got.epochs_run, got.warm_up) == (ref.loss, ref.lr, ref.epochs_run,
+                                                              ref.warm_up),
+          f"fit.resume: {(got.loss, got.lr, got.epochs_run)} != {(ref.loss, ref.lr, ref.epochs_run)}")
+    check(same_state(got.state, ref.state), "fit.resume: the state differs")
+    phase("fit.resume", config="bench.py flagship, B %d, T %d, 2 epochs a block, rls_shrink "
+          "0.999, chol_jitter 1e-3" % (ys.shape[1], ys.shape[0]), epochs=6, resumed_at_epoch=4,
+          prefix_free_at_snapshot=snap.prefix_free, bit_identical=True, uninterrupted_s=ref_s,
+          resumed_s=secs, loss=got.loss, card=smi)
+
+
+def check_facade_vdp(dev, smi) -> None:
+    """``bench_all.py``'s config #1 through the facade with the knobs of
+    ``examples/limit_cycle.py``: the default backend at B 1 and float32 is
+    nsv and the fit takes the kernels; quality is reported, not gated; the
+    kernels' us per step at B 1; then ``save`` and ``load``: one filter step
+    and one fit epoch of the loaded model give the bits of the one never
+    saved."""
+    _, y, x = quality_problem("van_der_pol")
+    model = VJF.make_model(ydim=20, xdim=2, n_rbf=100, hidden_sizes=[20], likelihood="gaussian",
+                           lr=1e-3, rtol=0.0, warmup_max=15, rls_shrink=0.999, chol_jitter=1e-3)
+    cfg = model.cfg
+    blr = type(model.state.dynamics.blr).__name__
+    check(blr == "NSVBLR", f"facade.vdp: the default backend built {blr}")
+    check(F.fused_enabled(cfg, model.state, n_batch=1), "facade.vdp: B 1 does not take the kernels")
+    F.reset_launches()
+    (mu, logvar, loss), secs = synced(lambda: model.fit(y, max_iter=FACADE_EPOCHS,
+                                                        epochs_per_dispatch=5))
+    launches, timesteps = dict(F.launches), dict(F.steps)
+    epochs_run = model.epochs_run
+    check(launches["mega_epoch"] > 0, f"facade.vdp: launches {launches}")
+    check(math.isfinite(loss) and bool(torch.isfinite(mu).all()), f"facade.vdp: loss {loss}")
+    m = mu[:, 0, :]
+    m_rmse, p_rmse = forecast_rmse(cfg, model.state, m, y, 0)
+    # the kernels at B 1 from the fitted state
+    g = torch.Generator(device=dev).manual_seed(7)
+    eps = torch.randn((2, MEGA_STEPS, 1, cfg.xdim), device=dev, generator=g)
+    ys = torch.as_tensor(y[:MEGA_STEPS], device=dev)[:, None, :]
+    times = kernel_times(cfg, F.pad_carry(cfg, model.state), mu[-1].contiguous(),
+                         logvar[-1].contiguous(), ys, eps, torch.tensor(model._lr, device=dev))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "vdp.pt")
+        model.save(path)
+        loaded = VJF.load(path)
+    check(same_state(model.state, loaded.state) and loaded._lr == model._lr
+          and loaded._decoder_frozen == model._decoder_frozen
+          and torch.equal(loaded.generator.get_state(), model.generator.get_state()),
+          "facade.vdp: load did not restore the model")
+    (q1, l1), (q2, l2) = model.filter(y[0]), loaded.filter(y[0])
+    check(torch.equal(q1.mean, q2.mean) and torch.equal(q1.logvar, q2.logvar)
+          and torch.equal(l1, l2), "facade.vdp: a filter step of the loaded model differs")
+    f1, f2 = model.fit(y, max_iter=1), loaded.fit(y, max_iter=1)
+    check(torch.equal(f1[0], f2[0]) and f1[2] == f2[2] and same_state(model.state, loaded.state),
+          "facade.vdp: a fit epoch of the loaded model differs")
+    phase("facade.vdp", config="bench_all.py #1 van_der_pol_gaussian, T 1200, B 1, "
+          "VJF.make_model with examples/limit_cycle.py's knobs", backend=blr,
+          epochs_run=epochs_run, seconds=secs, steps_per_s=y.shape[0] * epochs_run / secs, loss=loss, launches=launches,
+          timesteps=timesteps, latent_r2=latent_r2(m, x), forecast_rmse=m_rmse,
+          persistence_rmse=p_rmse, b1_us_per_step={
+              "fused_step": times["fused_step"][0], "fused_step_plain": times["fused_step"][1],
+              "mega_epoch": times["mega_epoch"][0], "mega_epoch_plain": times["mega_epoch"][1]},
+          save_load_bit_identical=True, card=smi)
+
+
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
@@ -1884,29 +2246,11 @@ def main() -> int:
     # Newton-Schulz iteration (a state with tau >= 0.7 would skip it); the
     # kernels update their carry in place, so each side gets its own copy
     carry_t, qm_t, qlv_t = post_prefix
-    carry_s, carry_m = clone(carry_t), clone(carry_t)
-    y0, e_s, e_t = ys[-2], eps[0, 0], eps[1, 0]
-
-    def k_step():
-        return F.fused_step_call(cfg, flags, carry_s, qm_t, qlv_t, y0, None, e_s, e_t, lr)
-
-    def p_step():
-        F.fused_step_plain(cfg, flags, carry_t, qm_t, qlv_t, y0, None, e_s, e_t, lr)
-
-    def k_mega():
-        F.mega_epoch_call(cfg, flags, carry_m, qm_t, qlv_t, ys[lo:hi], None,
-                          eps[0, lo:hi], eps[1, lo:hi], lr)
-
-    def p_mega():
-        F.mega_epoch_plain(cfg, flags, carry_t, qm_t, qlv_t, ys[lo:hi], None,
-                           eps[0, lo:hi], eps[1, lo:hi], lr)
-
-    p1, k1, k2, p2 = cuda_ms(p_step, 20), cuda_ms(k_step, 20), cuda_ms(k_step, 20), cuda_ms(p_step, 20)
-    step_ms, step_plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-    p1, k1, k2, p2 = (cuda_ms(p_mega, 1), cuda_ms(k_mega, 3), cuda_ms(k_mega, 3),
-                      cuda_ms(p_mega, 1))
-    mega_ms, mega_plain_ms = (k1 + k2) / 2 / MEGA_STEPS, (p1 + p2) / 2 / MEGA_STEPS
-    stepped = k_step()
+    y0, e_s, e_t = ys[lo], eps[0, lo], eps[1, lo]
+    times = kernel_times(cfg, carry_t, qm_t, qlv_t, ys[lo:hi], eps[:, lo:hi], lr)
+    step_ms, step_plain_ms = (us / 1e3 for us in times["fused_step"])
+    mega_ms, mega_plain_ms = (us / 1e3 for us in times["mega_epoch"])
+    stepped = times["stepped"]
     fallback_ms = cuda_ms(lambda: F.exact_v_fallback(cfg, stepped, carry_t, None), 20)
 
     sums_args = (qm_t, qlv_t, y0, None, e_s, e_t, 1.0 / b)
@@ -1958,41 +2302,31 @@ def main() -> int:
     check_backends_steps(dev, smi)
     check_backends_fit(dev, smi)
 
+    # ---------------- the facade: streaming, snapshots, save and load ----------------
+    stream_k = check_stream(dev, smi)
+    check_stream_tail(stream_cfg(), stream_k["data"], smi)
+    check_stream_resume(stream_cfg(), stream_k["data"], dev, smi)
+    check_fit_resume(cfg, ys, smi)
+    check_facade_vdp(dev, smi)
+
     # ---------------- bounds: the least time one card could take ----------------
-    # each input read once and each output written once; the mega segment's
-    # carry once per MEGA_STEPS steps, its Newton-Schulz iterations as the
-    # timed segment's tau asked for (base, +1 at 0.05, +2 at 0.25, none when
-    # skipped at 0.7)
+    # each input read once and each output written once (step_mega_bounds)
     nfp = carry_t.p_mat.shape[0]
     data = nbytes(y0, qm_t, qlv_t, e_s, e_t, lr)
     read, written = carry_bytes(carry_t), carry_bytes(carry_t, written=True)
-    step_bound = bound(cfg, read + written + data + nbytes(
-        stepped.q_pack, stepped.g_vec, stepped.xt, stepped.xs, stepped.scal),
-        step_ops(cfg, b, nfp, F.NS_ITERS))
-    iters = torch.where(mega_tau < F.NS_TAU_MAX, F.mega_ns_base_iters(cfg, b)
-                        + (mega_tau >= F.NS_TAU_ESCALATE).int()
-                        + F.NS_EXTRA_ITERS * (mega_tau >= F.NS_TAU_THRESHOLD).int(), 0)
-    mega_bound = bound(cfg, (read + written + nbytes(qm_t, qlv_t)) / MEGA_STEPS + nbytes(
-        y0, e_s, e_t) + nbytes(stepped.q_pack) + 4 * 8, step_ops(cfg, b, nfp, float(
-            iters.float().mean())))
+    step_bound, mega_bound = step_mega_bounds(cfg, b, carry_t, qm_t, qlv_t, y0, e_s, e_t, lr,
+                                              stepped, mega_tau)
     flat, q_pack = k_sums()   # phase 1 reads neither P nor the learning rate
     sums_bound = bound(cfg, read - nbytes(carry_t.p_mat, lr) + data + nbytes(flat, q_pack),
                        step_ops(cfg, b, nfp))
 
     # the SGP carry: the same reads and writes plus w_white and scale2, the
     # whitening product among the f32 operations
-    s_carry, s_stepped = sgp_k["carry"], sgp_k["stepped"]
-    s_read, s_written = carry_bytes(s_carry), carry_bytes(s_carry, written=True)
-    sgp_step_bound = bound(sgp_cfg, s_read + s_written + data + nbytes(
-        s_stepped.q_pack, s_stepped.g_vec, s_stepped.xt, s_stepped.xs, s_stepped.scal),
-        step_ops(sgp_cfg, b, nfp, F.NS_ITERS))
-    s_tau = sgp_k["mega_tau"]
-    s_iters = torch.where(s_tau < F.NS_TAU_MAX, F.mega_ns_base_iters(sgp_cfg, b)
-                          + (s_tau >= F.NS_TAU_ESCALATE).int()
-                          + F.NS_EXTRA_ITERS * (s_tau >= F.NS_TAU_THRESHOLD).int(), 0)
-    sgp_mega_bound = bound(sgp_cfg, (s_read + s_written + nbytes(qm_t, qlv_t)) / MEGA_STEPS
-                           + nbytes(y0, e_s, e_t) + nbytes(s_stepped.q_pack) + 4 * 8,
-                           step_ops(sgp_cfg, b, nfp, float(s_iters.float().mean())))
+    s_carry = sgp_k["carry"]
+    s_read = carry_bytes(s_carry)
+    sgp_step_bound, sgp_mega_bound = step_mega_bounds(sgp_cfg, b, s_carry, qm_t, qlv_t, y0,
+                                                      e_s, e_t, lr, sgp_k["stepped"],
+                                                      sgp_k["mega_tau"])
     s_flat, s_q = sgp_k["flat"]
     sgp_sums_bound = bound(sgp_cfg, s_read - nbytes(s_carry.p_mat, lr) + data
                            + nbytes(s_flat, s_q), step_ops(sgp_cfg, b, nfp))
@@ -2052,6 +2386,12 @@ def main() -> int:
             *mask_ms["mega_epoch"], mask_mega_bound),
         row("forward_sums.mask", 1437, mask_sums_launches, mask_sums_steps,
             mask_errs["forward_sums"], *mask_ms["forward_sums"], mask_sums_bound),
+        row("fused_step.stream", 1104, stream_k["launches"]["fused_step"],
+            stream_k["steps"]["fused_step"], stream_k["errs"]["fused_step"],
+            *stream_k["ms"]["fused_step"], stream_k["bounds"]["fused_step"]),
+        row("mega_epoch.stream", 1767, stream_k["launches"]["mega_epoch"],
+            stream_k["steps"]["mega_epoch"], stream_k["errs"]["mega_epoch"],
+            *stream_k["ms"]["mega_epoch"], stream_k["bounds"]["mega_epoch"]),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

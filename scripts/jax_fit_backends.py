@@ -5,6 +5,11 @@ chosen: the reference side of the port's
 
     JAX_PLATFORMS=cpu python3 scripts/jax_fit_backends.py [--backend covariance]
         [--dtype float32|float64] [--rls-shrink 0.999] [--chol-jitter 0]
+        [--lr 3e-3] [--rtol 2e-3] [--warmup-max 0] [--max-iter 60]
+
+``--backend nsv --chol-jitter 1e-3 --lr 1e-3 --rtol 0 --warmup-max 15``
+are ``examples/limit_cycle.py``'s knobs, which ``chip_smoke.py``'s
+"facade.vdp" phase gives the port's ``VJF.make_model``.
 
 Prints one JSON line: the fit's epochs, latent R^2 and the 20-step forecast
 RMSE beside persistence (``bench_all.py:_fit_throughput``), and the final
@@ -31,6 +36,9 @@ def main(argv) -> int:
     ap.add_argument("--rls-shrink", type=float, default=0.999)
     ap.add_argument("--chol-jitter", type=float, default=0.0)
     ap.add_argument("--max-iter", type=int, default=60)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--rtol", type=float, default=2e-3)
+    ap.add_argument("--warmup-max", type=int, default=0)
     args = ap.parse_args(argv)
 
     import jax
@@ -52,8 +60,8 @@ def main(argv) -> int:
     y = x @ rng.normal(size=(2, 20)) + rng.normal(size=(20,)) + 0.1 * rng.normal(size=(1200, 20))
     cfg = VJFConfig(ydim=20, xdim=2, udim=0, n_rbf=100, hidden_sizes=(20,),
                     likelihood="gaussian", dtype=args.dtype, rls_backend=args.backend,
-                    lr=3e-3, rtol=2e-3, rls_shrink=args.rls_shrink,
-                    chol_jitter=args.chol_jitter)
+                    lr=args.lr, rtol=args.rtol, warmup_max=args.warmup_max,
+                    rls_shrink=args.rls_shrink, chol_jitter=args.chol_jitter)
     key = jax.random.PRNGKey(0)
     out = _fit_throughput(cfg, y.astype(args.dtype), key, args.max_iter, core, jnp, x_true=x)
     # the final posterior: _fit_throughput's fit once more (the same key, bit for bit)
@@ -67,7 +75,8 @@ def main(argv) -> int:
     ev = np.linalg.eigvalsh(0.5 * (cov + cov.T))
     print(json.dumps({"config": "van_der_pol_gaussian", "package": "vjf_tpu (CPU)",
                       "rls_backend": args.backend, "dtype": args.dtype,
-                      "rls_shrink": args.rls_shrink, "chol_jitter": args.chol_jitter, **out,
+                      "rls_shrink": args.rls_shrink, "chol_jitter": args.chol_jitter,
+                      "lr": args.lr, "rtol": args.rtol, "warmup_max": args.warmup_max, **out,
                       "max_abs_w": float(np.abs(blr.w_mean).max()),
                       "cov_eig_min": float(ev[0]), "cov_eig_max": float(ev[-1]),
                       "state_logvar": float(res.state.dynamics.logvar)}), flush=True)

@@ -81,8 +81,6 @@ def test_run_epoch_refuses_the_unported_xla_step():
 
 _DEFERRED = {
     "mesh": (dict(mesh=object()), "item 13"),
-    "checkpoint_path": (dict(checkpoint_path="fit.ckpt", checkpoint_every=1), "item 10"),
-    "resume_from": (dict(resume_from="fit.ckpt"), "item 10"),
     "multistep_refine": (dict(cfg=dict(multistep_refine=2)), "item 7"),
     "warm_gate": (None, "item 11"),
 }

@@ -11,10 +11,14 @@ learned by RLS or the weight-diffusion Kalman step. The three kernels are
 hand-written CUDA in ``csrc/fused_step.cu``. On CPU tensors the kernels'
 plain PyTorch versions run instead. Ragged trials and missing channels ride
 the trial mask and the channel mask (``fit(mask=..., channel_mask=...)``);
-:func:`pad_trials` builds them from a list of trials.
+:func:`pad_trials` builds them from a list of trials. :class:`VJF` is the
+user-facing facade (``make_model``, ``fit``, ``filter``, ``filter_stream``,
+``forecast``, ``save``/``load``); ``native`` streams recordings from a file
+or FIFO to the card.
 """
+from .api import VJF
 from .config import StepFlags, VJFConfig
 from .types import Gaussian
 from .utils.ragged import pad_trials, split_trials
 
-__all__ = ["StepFlags", "VJFConfig", "Gaussian", "pad_trials", "split_trials"]
+__all__ = ["VJF", "StepFlags", "VJFConfig", "Gaussian", "pad_trials", "split_trials"]

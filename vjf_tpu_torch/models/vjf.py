@@ -54,7 +54,6 @@ from .recognition import Recognition, init_recognition, linear_from, map_linears
 logger = logging.getLogger(__name__)
 
 _MESH_TODO = "fit(mesh=...): ROADMAP Queue 1 item 13"
-_SNAPSHOT_TODO = "FitSnapshot checkpoints and resume: ROADMAP Queue 1 item 10"
 _MULTISTEP_TODO = "multistep_refine: ROADMAP Queue 1 item 7"
 _WARM_GATE_TODO = "warm_gate (phase-mixed ensemble epochs): ROADMAP Queue 1 item 11"
 
@@ -496,6 +495,59 @@ def chain_epochs(cfg: VJFConfig, epoch, state: TrainState, t_len: int, seeds,
     )
 
 
+class ChunksResult(NamedTuple):
+    state: TrainState
+    q_means: torch.Tensor    # (K, L, B, xdim) per-chunk posterior means
+    q_logvars: torch.Tensor  # (K, L, B, xdim)
+    metrics: Metrics         # per-step tensors, each (K, L)
+    q_last: Gaussian         # posterior after the final chunk (the stream's carry)
+    hot_frac: torch.Tensor   # scalar: hot fraction over all post-prefix steps
+
+
+def run_chunks(
+    cfg: VJFConfig,
+    flags: StepFlags,
+    state: TrainState,
+    ys: torch.Tensor,
+    us: torch.Tensor,
+    seeds: Sequence[int],
+    lr,
+    q0: Optional[Gaussian] = None,
+    masks=None,
+    channel_masks=None,
+) -> ChunksResult:
+    """``K`` consecutive stream chunks, the streaming counterpart of
+    :func:`run_epochs` (``VJF.filter_stream``'s ``chunks_per_dispatch``):
+    the posterior carries across the chunk boundaries on the device, one
+    continuous filter (where every epoch of ``run_epochs`` starts again from
+    ``q0``). Only the final state is returned; the per-chunk posteriors and
+    metrics are stacked. With int ``seeds`` (one per chunk) nothing here
+    waits for the device. Observations may arrive in their integer wire
+    dtype on the device; :func:`run_epoch` widens them there.
+
+    :param ys: (K, L, B, ydim) stacked chunks; ``us`` (K, L, B, udim)
+    :param masks: optional (K, L, B); ``channel_masks`` (K, L, B, ydim)
+    """
+    n_batch = ys.shape[2]
+    if q0 is None:
+        q0 = prior(state.params, n_batch)
+    q = Gaussian(q0.mean.to(cfg.tdtype), q0.logvar.to(cfg.tdtype))
+    means, logvars, steps, hots = [], [], [], []
+    for i in range(ys.shape[0]):
+        res = run_epoch(cfg, flags, state, ys[i], us[i], seeds[i], lr, q0=q,
+                        mask=None if masks is None else masks[i],
+                        channel_mask=None if channel_masks is None else channel_masks[i])
+        state = res.state
+        q = Gaussian(res.q_means[-1], res.q_logvars[-1])
+        means.append(res.q_means)
+        logvars.append(res.q_logvars)
+        steps.append(res.metrics)
+        hots.append(epoch_tau_stats(cfg, res.metrics, ys.shape[1], cfg.tdtype)[1])
+    metrics = Metrics(*(None if f[0] is None else torch.stack(f) for f in zip(*steps)))
+    return ChunksResult(state=state, q_means=torch.stack(means), q_logvars=torch.stack(logvars),
+                        metrics=metrics, q_last=q, hot_frac=torch.mean(torch.stack(hots)))
+
+
 # ---------------------------------------------------------------------------
 # Host-side fit loop
 # ---------------------------------------------------------------------------
@@ -525,17 +577,178 @@ class FitResult:
     selected_metric: float = float("nan")
 
 
-def _promote_y(y, dtype: torch.dtype, device) -> torch.Tensor:
-    """(T, ydim) -> (T, 1, ydim); (T, B, ydim) as it is, on ``device`` in
-    ``dtype``. Data wider than ``dtype`` is narrowed before the copy to the
-    device, narrower data (uint8 spike counts) is copied as it is and
-    widened there."""
+def _copy_generator(gen: torch.Generator) -> torch.Generator:
+    out = torch.Generator()
+    out.set_state(gen.get_state())
+    return out
+
+
+class FitSnapshot(NamedTuple):
+    """The whole :func:`fit` loop state at an epoch (or block) boundary, so
+    that an interrupted fit resumes bit-identically to the uninterrupted
+    run. Saved with ``utils.checkpoint.save_snapshot``."""
+
+    epoch: int              # completed epochs
+    warm_up: bool
+    lr: float               # schedule position
+    running_loss: float
+    plateau_hits: int
+    generator: torch.Generator   # the fit's generator (the JAX key chain)
+    state: TrainState
+    mu: torch.Tensor        # last epoch's (T, B, xdim) posteriors
+    logvar: torch.Tensor
+    epoch_loss: float
+    demoted: bool           # hot-tau demotion active (cfg_run != cfg)
+    demote_epoch: int       # -1 encodes None
+    repromotes_left: int
+    best: Optional[tuple]   # select='forecast': (state, mu, lv, loss, epoch, metric)
+    cfg_digest: str         # resume-compatibility fingerprint
+    # the selection stream's base: derived from the original run's
+    # generator, which the resume replaces (None under select='loss')
+    sel_base: Optional[int] = None
+    # epochs_per_dispatch of the saving run: another blocking changes the
+    # seed draws and the plateau cadence
+    k_block: Optional[int] = None
+    prefix_free: Optional[bool] = None   # blocked mode's continuation
+
+
+def _make_fit_snapshot(cfg, epoch, warm_up, lr, running_loss, plateau_hits, gen, state,
+                       result, epoch_loss, demoted, demote_epoch, repromotes_left, best_snap,
+                       best_sel, sel_base=None, k_block=1, prefix_free=False) -> FitSnapshot:
+    from ..utils.checkpoint import config_digest
+
+    best = None
+    if best_snap is not None:
+        b_state, b_mu, b_lv, b_loss, b_epoch = best_snap
+        best = (b_state, b_mu, b_lv, float(b_loss), int(b_epoch), float(best_sel))
+    return FitSnapshot(
+        epoch=int(epoch), warm_up=bool(warm_up), lr=float(lr),
+        running_loss=float(running_loss), plateau_hits=int(plateau_hits),
+        generator=_copy_generator(gen), state=state, mu=result.q_means,
+        logvar=result.q_logvars, epoch_loss=float(epoch_loss), demoted=bool(demoted),
+        demote_epoch=-1 if demote_epoch is None else int(demote_epoch),
+        repromotes_left=int(repromotes_left), best=best, cfg_digest=config_digest(cfg),
+        sel_base=sel_base, k_block=int(k_block), prefix_free=bool(prefix_free))
+
+
+def _load_fit_snapshot(cfg: VJFConfig, resume_from: str, k_block: int, device) -> FitSnapshot:
+    from ..utils.checkpoint import config_digest, load_snapshot
+
+    snap = load_snapshot(resume_from, device)
+    if not isinstance(snap, FitSnapshot):
+        raise ValueError(f"resume_from {resume_from!r} is not a fit snapshot "
+                         f"(got {type(snap).__name__})")
+    if snap.cfg_digest != config_digest(cfg):
+        raise ValueError("resume_from snapshot was saved under a different config; "
+                         "resume with the same cfg")
+    if snap.k_block is not None and snap.k_block != k_block:
+        raise ValueError(f"resume_from snapshot was saved with epochs_per_dispatch="
+                         f"{snap.k_block}; resuming with {k_block} would change the seed "
+                         "draws and the plateau cadence (not bit-exact)")
+    return snap
+
+
+def _restore_fit_snapshot(snap: FitSnapshot):
+    """A :class:`FitSnapshot`'s loop variables, one source for :func:`fit`
+    and :func:`_fit_blocked`: ``(epoch, warm_up, lr, running_loss,
+    plateau_hits, epoch_loss, demoted, demote_epoch, repromotes_left,
+    best_snap, best_sel, prefix_free)``."""
+    best_snap, best_sel = None, float("inf")
+    if snap.best is not None:
+        b_state, b_mu, b_lv, b_loss, b_epoch, b_sel = snap.best
+        best_snap, best_sel = (b_state, b_mu, b_lv, b_loss, b_epoch), b_sel
+    return (snap.epoch, snap.warm_up, snap.lr, snap.running_loss, snap.plateau_hits,
+            snap.epoch_loss, snap.demoted, None if snap.demote_epoch < 0 else snap.demote_epoch,
+            snap.repromotes_left, best_snap, best_sel, bool(snap.prefix_free))
+
+
+class StreamSnapshot(NamedTuple):
+    """The whole ``VJF.filter_stream`` loop state at a chunk (or K-block)
+    boundary: a resumed stream continues the generator, the posterior
+    carry, the learning rate, the demotion machinery and the K-block
+    prefix-free contract where the saving run stopped, bit-identically. The
+    caller re-positions the chunk stream at ``chunks_done``."""
+
+    chunks_done: int        # chunks fully consumed (the stream position)
+    state: TrainState
+    generator: torch.Generator   # the model's generator (the JAX key chain)
+    lr: float
+    q_mean: Optional[torch.Tensor]     # the posterior carry; None before the
+    q_logvar: Optional[torch.Tensor]   # first chunk completes
+    warm_up: bool           # the stream's flag (checked on resume)
+    decoder_frozen: bool
+    demoted: bool           # hot-tau demotion applied (fused_step off)
+    first_checked: bool     # the first chunk's synchronous check ran
+    # a hot fraction read at the save and not yet acted on (-1.0 encodes
+    # None): acting on it at the same point keeps the demotion's timing
+    # that of the uninterrupted stream
+    pending_hot: float
+    k_block: int            # chunks_per_dispatch of the saving run
+    cfg_digest: str
+
+
+def _make_stream_snapshot(cfg, chunks_done, state, gen, lr, q, warm_up, decoder_frozen,
+                          demoted, first_checked, pending_hot, k_block) -> StreamSnapshot:
+    from ..utils.checkpoint import config_digest
+
+    return StreamSnapshot(
+        chunks_done=int(chunks_done), state=state, generator=_copy_generator(gen),
+        lr=float(lr), q_mean=None if q is None else q.mean,
+        q_logvar=None if q is None else q.logvar, warm_up=bool(warm_up),
+        decoder_frozen=bool(decoder_frozen), demoted=bool(demoted),
+        first_checked=bool(first_checked),
+        pending_hot=-1.0 if pending_hot is None else float(pending_hot),
+        k_block=int(k_block), cfg_digest=config_digest(cfg))
+
+
+def _load_stream_snapshot(cfg: VJFConfig, resume_from: str, k_block: int, warm_up: bool,
+                          device) -> StreamSnapshot:
+    from ..utils.checkpoint import config_digest, load_snapshot
+
+    snap = load_snapshot(resume_from, device)
+    if not isinstance(snap, StreamSnapshot):
+        raise ValueError(f"resume_from {resume_from!r} is not a filter_stream snapshot "
+                         f"(got {type(snap).__name__})")
+    # a snapshot missing its fields is refused, never trusted
+    if snap.cfg_digest is None or snap.k_block is None:
+        raise ValueError("resume_from snapshot is missing validation fields; refusing "
+                         "to resume an unvalidatable snapshot")
+    if snap.cfg_digest != config_digest(cfg):
+        raise ValueError("resume_from snapshot was saved under a different config; "
+                         "resume with the same cfg")
+    if snap.k_block != k_block:
+        raise ValueError(f"resume_from snapshot was saved with chunks_per_dispatch="
+                         f"{snap.k_block}; resuming with {k_block} would change block "
+                         "formation and the seed draws (not bit-exact)")
+    if bool(snap.warm_up) != bool(warm_up):
+        raise ValueError(f"resume_from snapshot was saved with warm_up={bool(snap.warm_up)}; "
+                         f"this call passes warm_up={bool(warm_up)}")
+    return snap
+
+
+def wire_put(y, dtype: torch.dtype, device) -> torch.Tensor:
+    """``y`` on ``device`` in its wire dtype: as it is where it is narrower
+    than ``dtype`` (uint8 spike counts cross to the card at a quarter of the
+    float32 bytes; the consumer widens them there), cast on the host first
+    where it is wider (a float64 array would cross at twice the bytes). A
+    tensor already on a device is never cast on the host."""
     y = torch.as_tensor(y)
-    if y.dtype.itemsize > dtype.itemsize:
+    if y.device.type == "cpu" and y.dtype.itemsize > dtype.itemsize:
         y = y.to(dtype)
-    y = y.to(device)
-    if y.dtype != dtype:
-        y = y.to(dtype)
+    return y.to(device)
+
+
+def wire_ingest(y, dtype: torch.dtype, device) -> torch.Tensor:
+    """:func:`wire_put`, then the cast to ``dtype`` on the device: the one
+    place that keeps the integer wire format's contract."""
+    y = wire_put(y, dtype, device)
+    return y if y.dtype == dtype else y.to(dtype)
+
+
+def _promote_y(y, dtype: torch.dtype, device) -> torch.Tensor:
+    """(T, ydim) -> (T, 1, ydim); (T, B, ydim) as it is; on ``device`` in
+    ``dtype`` through :func:`wire_ingest`."""
+    y = wire_ingest(y, dtype, device)
     return y[:, None, :] if y.ndim == 2 else y
 
 
@@ -574,11 +787,9 @@ def _promote_channel_mask(channel_mask, y_shape, dtype: torch.dtype,
     return cm.expand(*y_shape)
 
 
-def _refuse_unported(cfg: VJFConfig, mesh, checkpoint_path, resume_from) -> None:
+def _refuse_unported(cfg: VJFConfig, mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(_MESH_TODO)
-    if checkpoint_path is not None or resume_from is not None:
-        raise NotImplementedError(_SNAPSHOT_TODO)
     if cfg.multistep_refine > 0:
         raise NotImplementedError(_MULTISTEP_TODO)
 
@@ -741,20 +952,29 @@ def fit(
     only the pairs whose two ends are observed; a ragged SGP fit with fewer
     than ``sgp_fused_min_batch`` valid trials at some step takes the
     autograd epoch (:func:`_demote_masked_small_sgp`); ``select='forecast'``
-    refuses masks. ``mesh``, ``checkpoint_path``/``resume_from`` and
-    ``multistep_refine`` raise ``NotImplementedError`` naming their ROADMAP
-    item.
+    refuses masks. ``mesh`` and ``multistep_refine`` raise
+    ``NotImplementedError`` naming their ROADMAP item.
+
+    ``checkpoint_path`` with ``checkpoint_every=K``: save the whole loop
+    state (:class:`FitSnapshot`: the state, the phase, the plateau machine,
+    the learning rate, the generator, the demotion and selection machinery)
+    every K epochs (at block boundaries in blocked mode), atomically, to
+    that one file. ``resume_from``: the path of such a snapshot; the fit
+    resumes bit-identically to the uninterrupted run (same cfg, data and
+    ``epochs_per_dispatch``; the snapshot supersedes ``state``, ``seed``
+    and ``lr0``), on the device of ``state``. Not with ``noise_hook``.
 
     The kernels carry the nsv RLS learner only: a state of the precision or
     covariance backend, or ``dynamics_update='kalman'``, trains every epoch
     on the autograd route, and no demotion, repair or prefix logic runs
     (as in the JAX package, whose fused gate asks for the nsv backend).
     """
-    del checkpoint_every
     beta = cfg.beta if beta is None else beta
     rtol = cfg.rtol if rtol is None else rtol
-    _refuse_unported(cfg, mesh, checkpoint_path, resume_from)
+    _refuse_unported(cfg, mesh)
     select_on = _validate_select(cfg, mask, channel_mask)
+    if resume_from is not None and noise_hook is not None:
+        raise ValueError("resume_from and noise_hook are mutually exclusive")
     if epochs_per_dispatch > 1:
         if noise_hook is not None:
             raise ValueError(
@@ -762,7 +982,9 @@ def fit(
                 "noise_hook requires epochs_per_dispatch=1")
         return _fit_blocked(cfg, state, y, u, seed=seed, max_iter=max_iter, beta=beta,
                             rtol=rtol, callback=callback, k_block=int(epochs_per_dispatch),
-                            lr0=lr0, mask=mask, channel_mask=channel_mask)
+                            lr0=lr0, mask=mask, channel_mask=channel_mask,
+                            checkpoint_path=checkpoint_path,
+                            checkpoint_every=checkpoint_every, resume_from=resume_from)
     gen = _generator(seed)
     dev = state.dynamics.blr.w_mean.device
     y = _promote_y(y, cfg.tdtype, dev)
@@ -773,6 +995,10 @@ def fit(
     masks = dict(mask=mask, channel_mask=channel_mask)
     pair_w = _pair_weights(mask)
     cfg = _demote_masked_small_sgp(cfg, mask)
+    # loaded after the cfg rewrite above: the snapshot digests the resolved cfg
+    snap = None if resume_from is None else _load_fit_snapshot(cfg, resume_from, 1, dev)
+    if snap is not None:
+        state, gen = snap.state, snap.generator
     if select_on:
         _validate_select(cfg, t_len=t_len)
         sel_base = _select_base(gen)
@@ -795,8 +1021,19 @@ def fit(
     demote_epoch: Optional[int] = None
     repromotes_left = cfg.repromote_max if cfg.repromote_after > 0 else 0
     plateau_hits = 0
+    start_epoch = 0
+    if snap is not None:
+        (start_epoch, warm_up, lr, running_loss, plateau_hits, epoch_loss, demoted,
+         demote_epoch, repromotes_left, r_best, r_sel, _) = _restore_fit_snapshot(snap)
+        if demoted:
+            cfg_run = cfg.replace(fused_step="off")
+            mega_guard = False
+        if r_best is not None:
+            best_snap, best_sel = r_best, r_sel
+        if select_on and snap.sel_base is not None:
+            sel_base = snap.sel_base
 
-    for epoch in range(max_iter):
+    for epoch in range(start_epoch, max_iter):
         if (demote_epoch is not None and repromotes_left > 0 and not warm_up
                 and epoch - demote_epoch >= cfg.repromote_after):
             repromotes_left -= 1
@@ -873,22 +1110,46 @@ def fit(
         running_loss = (beta * running_loss + (1 - beta) * epoch_loss
                         if epoch > 0 else epoch_loss)
         lr *= cfg.lr_decay
+        if (checkpoint_path is not None and checkpoint_every > 0
+                and (epoch + 1) % checkpoint_every == 0):
+            from ..utils.checkpoint import save_snapshot
 
-    epochs_total = 0 if result is None else epoch + 1
+            save_snapshot(checkpoint_path, _make_fit_snapshot(
+                cfg, epoch + 1, warm_up, lr, running_loss, plateau_hits, gen, state, result,
+                epoch_loss, cfg_run != cfg, demote_epoch, repromotes_left,
+                best_snap if select_on else None, best_sel,
+                sel_base=sel_base if select_on else None))
+
+    epochs_total = start_epoch if result is None else epoch + 1
+    return _fit_result(select_on, best_snap, best_sel, result, snap, epoch_loss, state,
+                       warm_up, lr, epochs_total)
+
+
+def _fit_result(select_on, best_snap, best_sel, result, snap, epoch_loss, state, warm_up, lr,
+                epochs_run) -> FitResult:
+    """The :class:`FitResult` both fit loops return: the selected epoch's
+    under ``select='forecast'``; the snapshot's posteriors when a resume
+    landed at or past ``max_iter`` and ran nothing."""
     if select_on and best_snap is not None:
         b_state, b_mu, b_lv, b_loss, b_epoch = best_snap
         return FitResult(mu=b_mu, logvar=b_lv, loss=b_loss, state=b_state, warm_up=warm_up,
-                         lr=lr, epochs_run=epochs_total, selected_epoch=b_epoch,
+                         lr=lr, epochs_run=epochs_run, selected_epoch=b_epoch,
                          selected_metric=best_sel)
-    return FitResult(mu=None if result is None else result.q_means,
-                     logvar=None if result is None else result.q_logvars, loss=epoch_loss,
-                     state=state, warm_up=warm_up, lr=lr, epochs_run=epochs_total)
+    if result is not None:
+        mu, logvar = result.q_means, result.q_logvars
+    elif snap is not None:
+        mu, logvar = snap.mu, snap.logvar
+    else:
+        mu = logvar = None
+    return FitResult(mu=mu, logvar=logvar, loss=epoch_loss, state=state, warm_up=warm_up,
+                     lr=lr, epochs_run=epochs_run)
 
 
 def _fit_blocked(cfg: VJFConfig, state: TrainState, y, u=None, *,
                  seed: Union[int, torch.Generator], max_iter: int, beta: float, rtol: float,
                  callback=None, k_block: int, lr0: Optional[float] = None, mask=None,
-                 channel_mask=None) -> FitResult:
+                 channel_mask=None, checkpoint_path: Optional[str] = None,
+                 checkpoint_every: int = 0, resume_from: Optional[str] = None) -> FitResult:
     """Block-dispatch fit: ``k_block`` epochs per :func:`run_epochs` call,
     with :func:`fit`'s plateau state machine replayed on the host over the
     block's per-epoch mean losses (one host read per block).
@@ -905,7 +1166,8 @@ def _fit_blocked(cfg: VJFConfig, state: TrainState, y, u=None, *,
     ``ns_prefix=0``, so no per-step exact-inverse prefix runs; the first
     post-bootstrap block always keeps the prefix. A block shorter than the
     prefix engages it structurally. The masks ride every block whole, as in
-    :func:`fit`.
+    :func:`fit`. A snapshot is saved at the first block boundary at or past
+    each multiple of ``checkpoint_every`` epochs.
     """
     select_on = cfg.select == "forecast"
     gen = _generator(seed)
@@ -918,6 +1180,9 @@ def _fit_blocked(cfg: VJFConfig, state: TrainState, y, u=None, *,
     masks = dict(mask=mask, channel_mask=channel_mask)
     pair_w = _pair_weights(mask)
     cfg = _demote_masked_small_sgp(cfg, mask)
+    snap = None if resume_from is None else _load_fit_snapshot(cfg, resume_from, k_block, dev)
+    if snap is not None:
+        state, gen = snap.state, snap.generator
     if select_on:
         _validate_select(cfg, t_len=t_len)
         sel_base = _select_base(gen)
@@ -941,6 +1206,16 @@ def _fit_blocked(cfg: VJFConfig, state: TrainState, y, u=None, *,
     prefix_free = False
     pf_logged = False
     epoch = 0
+    if snap is not None:
+        (epoch, warm_up, lr, running_loss, plateau_hits, epoch_loss, demoted, demote_epoch,
+         repromotes_left, r_best, r_sel, prefix_free) = _restore_fit_snapshot(snap)
+        if demoted:
+            cfg_run = cfg.replace(fused_step="off")
+            mega_guard = False
+        if r_best is not None:
+            best_snap, best_sel = r_best, r_sel
+        if select_on and snap.sel_base is not None:
+            sel_base = snap.sel_base
 
     while epoch < max_iter:
         if (demote_epoch is not None and repromotes_left > 0 and not warm_up
@@ -1034,15 +1309,19 @@ def _fit_blocked(cfg: VJFConfig, state: TrainState, y, u=None, *,
                 best_snap = (state, res.q_means, res.q_logvars, epoch_loss, epoch - 1)
         if converged:
             break
+        if (checkpoint_path is not None and checkpoint_every > 0
+                and epoch // checkpoint_every > (epoch - k) // checkpoint_every):
+            from ..utils.checkpoint import save_snapshot
 
-    if select_on and best_snap is not None:
-        b_state, b_mu, b_lv, b_loss, b_epoch = best_snap
-        return FitResult(mu=b_mu, logvar=b_lv, loss=b_loss, state=b_state, warm_up=warm_up,
-                         lr=lr, epochs_run=epoch, selected_epoch=b_epoch,
-                         selected_metric=best_sel)
-    return FitResult(mu=None if res is None else res.q_means,
-                     logvar=None if res is None else res.q_logvars, loss=epoch_loss,
-                     state=state, warm_up=warm_up, lr=lr, epochs_run=epoch)
+            save_snapshot(checkpoint_path, _make_fit_snapshot(
+                cfg, epoch, warm_up, lr, running_loss, plateau_hits, gen, state, res,
+                epoch_loss, cfg_run != cfg, demote_epoch, repromotes_left,
+                best_snap if select_on else None, best_sel,
+                sel_base=sel_base if select_on else None, k_block=k_block,
+                prefix_free=prefix_free))
+
+    return _fit_result(select_on, best_snap, best_sel, res, snap, epoch_loss, state, warm_up,
+                       lr, epoch)
 
 
 # ---------------------------------------------------------------------------
