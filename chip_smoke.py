@@ -29,7 +29,17 @@ lengths in [T/2, T], 10% of y dropped, 8 channels dead over a quarter of the
 epoch, NaN at every masked entry): the three launchers with either mask and
 both against their plain versions and the planted mask faults, NaN
 invariance, the masked main path, a masked sharded epoch and a blocked
-``fit`` on the ragged data.
+``fit`` on the ragged data. The ``ensemble`` phases run 8 members of 32
+trials at the flagship widths: the two member-axis launches (one cluster a
+member) against their plain versions, on per-member y and on one shared y,
+member m of a launch bit for bit against a solo launch of member m, the
+planted member faults (a stride one member short, a per-member posterior
+read as shared), ``fit_ensemble`` per epoch and blocked beside the same
+members' solo fits, that per-epoch fit again with a batched exact
+fallback in place of the member-by-member one (its times, how far its
+members end from the shipped ones), a phase-mixed epoch
+(``warm_gate``) against each member's static-flag epoch, and a forced hot
+member re-run alone while the others keep their bits.
 Phases print one line each; any failed check raises and the script exits
 non-zero. The last line is the result:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -67,7 +77,14 @@ from vjf_tpu_torch.native import StreamingLoader, device_prefetch
 from vjf_tpu_torch.ops import _build, linalg, rng
 from vjf_tpu_torch.ops import kalman as K
 from vjf_tpu_torch.ops import fused_step as F
-from vjf_tpu_torch.parallel import make_dp_group, run_epoch_fused_sharded
+from vjf_tpu_torch.parallel import ensemble as E
+from vjf_tpu_torch.parallel import (
+    fit_ensemble,
+    init_ensemble,
+    make_dp_group,
+    run_epoch_ensemble,
+    run_epoch_fused_sharded,
+)
 from vjf_tpu_torch.utils.checkpoint import load_snapshot
 from vjf_tpu_torch.utils.evaluation import forecast_rmse, latent_r2
 
@@ -171,6 +188,15 @@ STREAM_SHORT_CHUNK = 500          # stream.tail and stream.resume: the same widt
 STREAM_TAIL = 37                  # stream.tail: the valid steps of the partial last chunk
 FIT_RESUME_T = 1024               # fit.resume: the flagship data's first steps
 FACADE_EPOCHS = 40                # facade.vdp: epochs (bench_all.py's config #1 runs 60)
+# ensemble.*: the JAX package's ensemble measurement (docs/RESULTS.md:346-357),
+# members at the flagship widths, 8 members of 32 trials, T 2000
+ENS_N, ENS_B, ENS_T = 8, 32, 2000
+ENS_FIT_EPOCHS, ENS_BLOCK_EPOCHS = 4, 6   # 1 warm-up + 3 RLS epochs; 6 in blocks of 2
+ENS_SHORT_T = 64                          # ensemble.mixed and ensemble.demote
+# ensemble.mixed: the gated autograd epoch against each member's static-flag
+# autograd epoch (the same f32 code: a constant gate adds exact zeros and
+# selects copy bits), as compare()'s normalised error
+ENS_MIXED_TOL = 1e-6
 # one card's published peaks (H100 SXM data sheet, dense): HBM bytes/s,
 # FP32 outside the tensor cores, bf16 in them
 PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
@@ -297,7 +323,7 @@ def compare(name: str, ref: dict, got: dict, tol, start: dict,
 def outputs(q_pack: torch.Tensor, scal: torch.Tensor) -> dict:
     """The posterior means and log-variances of q_pack, and scal by column."""
     out = {"q_mean": q_pack.select(-3, 0), "q_logvar": q_pack.select(-3, 1)}
-    out.update({c: scal[:, i] for i, c in enumerate(SCAL_COLUMNS)})
+    out.update({c: scal[..., i] for i, c in enumerate(SCAL_COLUMNS)})
     return out
 
 
@@ -582,7 +608,7 @@ def check_sharded_epoch(cfg, post_warm, ys, us, lr, qm, qlv, smi, sgp_args,
                 launches, timesteps = dict(F.launches), dict(F.steps)
             ref[mm] = core.run_epoch(c.replace(fused_epoch="stepwise"), flags, post_warm, ys_e,
                                      us_e, 21, lr)
-        check(launches == {"fused_step": 0, "mega_epoch": 0, "forward_sums": SHARD_T},
+        check(launches == {**dict.fromkeys(F.launches, 0), "forward_sums": SHARD_T},
               f"sharded: launches {launches}")
         loss = got[cfg.matmul_dtype].metrics.loss
         q = got[cfg.matmul_dtype].q_means
@@ -633,7 +659,7 @@ def check_sharded_epoch(cfg, post_warm, ys, us, lr, qm, qlv, smi, sgp_args,
         s_launches = dict(F.launches)
         s_ref = core.run_epoch(s_cfg.replace(fused_epoch="stepwise"), flags, s_state, ys_s, us_s,
                                31, lr)
-        check(s_launches == {"fused_step": 0, "mega_epoch": 0, "forward_sums": SGP_SHARD_T},
+        check(s_launches == {**dict.fromkeys(F.launches, 0), "forward_sums": SGP_SHARD_T},
               f"sgp.sharded: launches {s_launches}")
         blr = s_state.dynamics.blr
         s_err = compare("sgp.sharded.epoch", epoch_leaves(s_ref), epoch_leaves(s_got),
@@ -658,7 +684,7 @@ def check_sharded_epoch(cfg, post_warm, ys, us, lr, qm, qlv, smi, sgp_args,
         m_launches = dict(F.launches)
         m_ref = core.run_epoch(cfg.replace(fused_epoch="stepwise"), flags, post_warm, *m_args,
                                **m_kw)
-        check(m_launches == {"fused_step": 0, "mega_epoch": 0, "forward_sums": MASK_SHARD_T},
+        check(m_launches == {**dict.fromkeys(F.launches, 0), "forward_sums": MASK_SHARD_T},
               f"sharded.mask: launches {m_launches}")
         blr = post_warm.dynamics.blr
         m_err = compare("sharded.mask", epoch_leaves(m_ref), epoch_leaves(m_got),
@@ -2062,6 +2088,322 @@ def check_facade_vdp(dev, smi) -> None:
           save_load_bit_identical=True, card=smi)
 
 
+def ensemble_check_state(cfg, ys, lr):
+    """ENS_N distinct members at ENS_B trials (per-member data ``ys``, (N,
+    T, B, ydim)): fresh states of seeds 0..N-1 after a warm-up epoch of
+    WARM_STEPS and a ``cfg.ns_prefix``-step RLS prefix, both through the
+    ensemble launches, as the flagship's checks start from a warm-up and a
+    prefix. Returns the stacked carry (Philox keys 300 + m) and the
+    posterior entering the next step."""
+    n = ys.shape[0]
+    states = [core.init_state(m, cfg, device=ys.device) for m in range(n)]
+    warm = F.run_epoch_fused(cfg, StepFlags(warm_up=True), states, ys[:, :WARM_STEPS], None,
+                             [100 + m for m in range(n)], lr)
+    q0 = core.Gaussian(warm.q_means[:, -1].contiguous(), warm.q_logvars[:, -1].contiguous())
+    hi = WARM_STEPS + cfg.ns_prefix
+    pre = F.run_epoch_fused(cfg, StepFlags(), warm.state, ys[:, WARM_STEPS:hi], None,
+                            [200 + m for m in range(n)], lr, q0=q0)
+    carry = F.stack_carries([F.pad_carry(cfg, st)._replace(
+        rng_seed=torch.full((1, 1), 300 + m, dtype=torch.int32, device=ys.device))
+        for m, st in enumerate(pre.state)])
+    return carry, pre.q_means[:, -1].contiguous(), pre.q_logvars[:, -1].contiguous()
+
+
+def member_faults(ys, qm, qlv) -> dict:
+    """Planted faults of an ensemble launch, as (y, q mean, q log-variance)
+    that the comparison against the sound plain run must reject: each
+    member but the first reading the y of the member before it (a stride
+    one member short), and the per-member posterior read as one copy for
+    all members (member 0's, stacked)."""
+    return {"y_stride": (torch.cat([ys[:1], ys[:-1]]), qm, qlv),
+            "qs_shared": (ys, qm[:1].expand_as(qm).contiguous(),
+                          qlv[:1].expand_as(qlv).contiguous())}
+
+
+def check_ensemble_kernels(cfg, ys, lr, smi) -> dict:
+    """The two ensemble launches (N members, one cluster each) against their
+    plain versions (the solo plain versions over the members) from
+    :func:`ensemble_check_state`, with ``compare``'s limits, on per-member
+    y and on one y shared by all (stride 0, the form ``fit_ensemble`` on
+    shared data launches); the planted member faults; member m of each
+    N-member launch against a solo launch of member m, bit for bit; their
+    times beside the plain versions; the cluster waves. Returns the
+    errors, times and one step's output."""
+    n, b = ys.shape[0], ys.shape[2]
+    flags = StepFlags()
+    carry, qm, qlv = ensemble_check_state(cfg, ys, lr)
+    start = flatten(carry._asdict())
+    lo = WARM_STEPS + cfg.ns_prefix
+    y0, seg = ys[:, lo].contiguous(), ys[:, lo:lo + MEGA_STEPS].contiguous()
+    tol = TOL[cfg.matmul_dtype]
+
+    def step(fn, c, y, m, lv):
+        prev = c._replace(dyn_n=c.dyn_n.clone(), state_logvar=c.state_logvar.clone())
+        return F.exact_v_fallback(cfg, fn(cfg, flags, c, m, lv, y, None, None, None, lr),
+                                  prev, None)
+
+    ref = step(F.fused_step_plain, clone(carry), y0, qm, qlv)
+    got = step(F.fused_step_call, clone(carry), y0, qm, qlv)
+    errs = {"fused_step": compare("ensemble.step", packed(ref), packed(got), tol, start)}
+    for fault, (fy, fm, flv) in member_faults(y0, qm, qlv).items():
+        bad = step(F.fused_step_call, clone(carry), fy, fm, flv)
+        compare(f"ensemble.step.fault.{fault}", packed(ref), packed(bad), tol, start,
+                reject=True)
+    seg_args = (qm, qlv, seg, None, None, None, lr)
+    ref = F.mega_epoch_plain(cfg, flags, clone(carry), *seg_args)
+    got = F.mega_epoch_call(cfg, flags, clone(carry), *seg_args)
+    errs["mega_epoch"] = compare("ensemble.mega", segment(*ref), segment(*got), tol, start)
+    for fault, (fy, fm, flv) in member_faults(seg, qm, qlv).items():
+        bad = F.mega_epoch_call(cfg, flags, clone(carry), fm, flv, fy, None, None, None, lr)
+        compare(f"ensemble.mega.fault.{fault}", segment(*ref), segment(*bad), tol, start,
+                reject=True)
+    # one y for all members, read at stride 0
+    y_one, seg_one = y0[0], seg[0]
+    ref = step(F.fused_step_plain, clone(carry), y_one, qm, qlv)
+    shared = step(F.fused_step_call, clone(carry), y_one, qm, qlv)
+    errs["fused_step"] = max(errs["fused_step"], compare(
+        "ensemble.step.shared_y", packed(ref), packed(shared), tol, start))
+    one_args = (qm, qlv, seg_one, None, None, None, lr)
+    ref = F.mega_epoch_plain(cfg, flags, clone(carry), *one_args)
+    shared = F.mega_epoch_call(cfg, flags, clone(carry), *one_args)
+    errs["mega_epoch"] = max(errs["mega_epoch"], compare(
+        "ensemble.mega.shared_y", segment(*ref), segment(*shared), tol, start))
+
+    # member m of the N-member launch against a solo launch of member m
+    stepped = F.fused_step_call(cfg, flags, clone(carry), qm, qlv, y0, None, None, None, lr)
+    differ = []
+    for m in range(n):
+        solo = F.fused_step_call(cfg, flags, clone(F.member_carry(carry, m)), qm[m], qlv[m],
+                                 y0[m], None, None, None, lr)
+        one = F.PackedStepOut(F.member_carry(stepped.carry, m), *(x[m] for x in stepped[1:]))
+        a, z = packed(solo), packed(one)
+        differ += [f"step.{m}.{k}" for k in a if not torch.equal(a[k], z[k])]
+        solo = F.mega_epoch_call(cfg, flags, clone(F.member_carry(carry, m)), qm[m], qlv[m],
+                                 seg[m], None, None, None, lr)
+        a, z = segment(*solo), segment(F.member_carry(got[0], m), got[1][m], got[2][m])
+        differ += [f"mega.{m}.{k}" for k in a if not torch.equal(a[k], z[k])]
+    check(not differ, f"ensemble.members_vs_solo: leaves differ: {differ[:8]}")
+    phase("ensemble.members_vs_solo", members=n, launches=["fused_step", "mega_epoch"],
+          steps=[1, MEGA_STEPS], bit_identical=True)
+
+    # times: the whole ensemble's step and mega step, in turns
+    c_s, c_m = clone(carry), clone(carry)
+    k_step = lambda: F.fused_step_call(cfg, flags, c_s, qm, qlv, y0, None, None, None, lr)
+    p_step = lambda: F.fused_step_plain(cfg, flags, carry, qm, qlv, y0, None, None, None, lr)
+    k_mega = lambda: F.mega_epoch_call(cfg, flags, c_m, *seg_args)
+    p_mega = lambda: F.mega_epoch_plain(cfg, flags, carry, *seg_args)
+    p1, k1, k2, p2 = cuda_ms(p_step, 3), cuda_ms(k_step, 20), cuda_ms(k_step, 20), cuda_ms(
+        p_step, 3)
+    ms = {"fused_step": ((k1 + k2) / 2, (p1 + p2) / 2)}
+    p1, k1, k2, p2 = (cuda_ms(p_mega, 1), cuda_ms(k_mega, 3), cuda_ms(k_mega, 3),
+                      cuda_ms(p_mega, 1))
+    ms["mega_epoch"] = ((k1 + k2) / 2 / MEGA_STEPS, (p1 + p2) / 2 / MEGA_STEPS)
+    info = F.cluster_info(cfg, flags, carry, qm, qlv, seg, None, lr)
+    phase("ensemble.kernels", members=n, batch=b, unit="us per step of all members",
+          fused_step=1e3 * ms["fused_step"][0], fused_step_plain=1e3 * ms["fused_step"][1],
+          mega_epoch=1e3 * ms["mega_epoch"][0], mega_epoch_plain=1e3 * ms["mega_epoch"][1],
+          mega_us_per_member_step=1e3 * ms["mega_epoch"][0] / n, cluster=info, card=smi)
+    return {"errs": errs, "ms": ms, "carry": carry, "qm": qm, "qlv": qlv, "stepped": stepped,
+            "mega_tau": got[2][..., 4], "y0": y0}
+
+
+@contextlib.contextmanager
+def ensemble_dispatches():
+    """``parallel.ensemble._ensemble_epoch`` wrapped for the duration: each
+    dispatch timed with the device synchronised and logged with its route
+    (the member kernels, or the autograd epoch: a gated phase-mixed epoch or
+    a re-run), its prefix and how many members it ran. Yields the log."""
+    real = E._ensemble_epoch
+    log = []
+
+    def call(cfg, flags, states, *args, **kw):
+        warms = args[5] if len(args) > 5 else kw.get("warms")
+        fused = warms is None and F.fused_enabled(cfg, states[0], n_batch=args[0].shape[-2])
+        res, secs = synced(lambda: real(cfg, flags, states, *args, **kw))
+        log.append({"route": "kernels" if fused else "autograd", "ns_prefix": cfg.ns_prefix,
+                    "warm_up": flags.warm_up, "gated": warms is not None,
+                    "members": len(states), "seconds": secs})
+        return res
+
+    E._ensemble_epoch = call
+    try:
+        yield log
+    finally:
+        E._ensemble_epoch = real
+
+
+def ensemble_cfg(cfg) -> VJFConfig:
+    """The ensemble fits' knobs: bench_all.py's forgetting, without which
+    the flagship diverges after the bootstrap, and uniform phases (rtol 0,
+    warm-up forced after one epoch)."""
+    return cfg.replace(rtol=0.0, warmup_max=1, **FIT_FORGET)
+
+
+def check_ensemble_fit(cfg, dev, smi) -> dict:
+    """``fit_ensemble`` on shared data at the ensemble shape (ENS_N
+    members x ENS_B trials, T ENS_T): 1 warm-up + 3 RLS epochs per epoch,
+    then ENS_BLOCK_EPOCHS epochs in blocks of 2 (prefix-free continuation);
+    wall seconds, member-steps/s, launches by kernel; the same members as
+    sequential solo fits, whose finals must agree with the ensemble's
+    within compare()'s limits. The per-epoch ensemble drops the prefix once
+    every member has contracted and the solo per-epoch ``fit`` never does
+    (in both packages), so that pair runs with ``ns_prefix_free='off'``, the
+    same steps on both sides. Returns the per-epoch fit's launches (the
+    ensemble's main path), result, seeds and times."""
+    blocked_cfg = ensemble_cfg(cfg)
+    cfg = blocked_cfg.replace(ns_prefix_free="off")
+    y = spikes(ENS_T, ENS_B, cfg.ydim, dev, seed=60)
+    states = init_ensemble(0, cfg, ENS_N, device=dev)
+    seeds = [20 + m for m in range(ENS_N)]
+    with ensemble_dispatches() as log:
+        F.reset_launches()
+        res, secs = synced(lambda: fit_ensemble(cfg, states, y, seeds=seeds,
+                                                max_iter=ENS_FIT_EPOCHS))
+        launches, steps_ = dict(F.launches), dict(F.steps)
+    check(launches["fused_step.ensemble"] > 0 and launches["mega_epoch.ensemble"] > 0,
+          f"ensemble.fit: launches {launches}")
+    check(launches["fused_step"] == 0 and launches["mega_epoch"] == 0,
+          f"ensemble.fit: solo launches on the ensemble path {launches}")
+    check(bool(np.isfinite(res.loss).all()) and not res.warm_up.any(),
+          f"ensemble.fit: loss {res.loss}, warm_up {res.warm_up}")
+    check(bool(torch.isfinite(res.mu).all()), "ensemble.fit: posterior not finite")
+    member_steps = int(res.epochs_run.sum()) * ENS_T
+    rls = [e for e in log if not e["warm_up"]]
+
+    # the same members fitted one after the other
+    solo_s, solo_err = 0.0, 0.0
+    for m in range(ENS_N):
+        solo, s_ = synced(lambda: core.fit(cfg, states[m], y, seed=seeds[m],
+                                           max_iter=ENS_FIT_EPOCHS))
+        solo_s += s_
+        ref = dict(state_leaves(solo.state), mu=solo.mu.cpu())
+        got = dict(state_leaves(res.states[m]), mu=res.mu[m].cpu())
+        solo_err = max(solo_err, compare(f"ensemble.fit.member{m}_vs_solo", ref, got,
+                                         TOL[cfg.matmul_dtype], state_leaves(states[m])))
+
+    with ensemble_dispatches() as blog:
+        bres, b_secs = synced(lambda: fit_ensemble(blocked_cfg, states, y, seeds=seeds,
+                                                   max_iter=ENS_BLOCK_EPOCHS,
+                                                   epochs_per_dispatch=2))
+    check(bool(np.isfinite(bres.loss).all()), f"ensemble.fit.blocked: loss {bres.loss}")
+    # one entry a dispatched epoch, in order (no demotion here)
+    epochs = [dict(e, member_steps_per_s=ENS_N * ENS_T / e["seconds"]) for e in blog]
+    free = [i for i, e in enumerate(blog) if not e["warm_up"] and e["ns_prefix"] == 0]
+    phase("ensemble.fit", config="bench.py flagship member widths, %d members x B %d, T %d, "
+          "shared data, rls_shrink 0.999, chol_jitter 1e-3, rtol 0, warmup_max 1"
+          % (ENS_N, ENS_B, ENS_T), ns_prefix_free="off, then auto in the blocked fit",
+          seconds=secs, member_steps=member_steps,
+          member_steps_per_s=member_steps / secs, epochs_run=res.epochs_run.tolist(),
+          loss=res.loss.tolist(), launches=launches, member_steps_by_kernel=steps_,
+          rls_epoch_s=[e["seconds"] for e in rls],
+          solo_fits_s=solo_s, solo_over_ensemble=solo_s / secs, solo_max_abs_err=solo_err,
+          blocked_seconds=b_secs, blocked_epochs=ENS_BLOCK_EPOCHS,
+          blocked_member_steps_per_s=int(bres.epochs_run.sum()) * ENS_T / b_secs,
+          prefix_free_epoch=free[0] if free else None,
+          member_steps_per_s_with_prefix=[e["member_steps_per_s"] for e in epochs
+                                          if not e["warm_up"] and e["ns_prefix"] > 0],
+          member_steps_per_s_prefix_free=[epochs[i]["member_steps_per_s"] for i in free],
+          blocked_epochs_log=epochs, card=smi)
+    return {"launches": launches, "steps": steps_, "result": res, "seeds": seeds,
+            "seconds": secs, "rls_epoch_s": [e["seconds"] for e in rls]}
+
+
+def check_ensemble_fallback(cfg, dev, smi, shipped: dict) -> None:
+    """What the exact fallback's member loop costs: "ensemble.fit"'s
+    per-epoch fit again, with a batched fallback (one batched Cholesky and
+    batched products over the stack) in place of the shipped one (each
+    member's P factored and its thin products run alone, so that a member
+    keeps the bits of its solo fit): its RLS epochs' seconds beside the
+    shipped fit's, and how far its members' finals end from the shipped
+    ones (``compare``'s normalised errors, not gated: the fit is not
+    determined in float32 once the bootstrap has run)."""
+    cfg = ensemble_cfg(cfg).replace(ns_prefix_free="off")
+    y = spikes(ENS_T, ENS_B, cfg.ydim, dev, seed=60)
+    states = init_ensemble(0, cfg, ENS_N, device=dev)
+    batched = {"_member_cholesky": linalg.cholesky_f32, "_member_mm": lambda a, b: a @ b}
+    own = {k: getattr(F, k) for k in batched}
+    for k, fn in batched.items():
+        setattr(F, k, fn)
+    try:
+        with ensemble_dispatches() as log:
+            res, secs = synced(lambda: fit_ensemble(cfg, states, y, seeds=shipped["seeds"],
+                                                    max_iter=ENS_FIT_EPOCHS))
+    finally:
+        for k, fn in own.items():
+            setattr(F, k, fn)
+    ref = shipped["result"]
+    errs = [compare_errs(state_leaves(ref.states[m]), state_leaves(res.states[m]),
+                         state_leaves(states[m]))[0] for m in range(ENS_N)]
+    phase("ensemble.fallback", members=ENS_N, batch=ENS_B, steps=ENS_T,
+          prefix=cfg.ns_prefix, rls_epoch_s_per_member=shipped["rls_epoch_s"],
+          rls_epoch_s_batched=[e["seconds"] for e in log if not e["warm_up"]],
+          fit_s_per_member=shipped["seconds"], fit_s_batched=secs,
+          finite=bool(np.isfinite(res.loss).all()),
+          w_mean_err_vs_shipped=[e["dynamics.blr.w_mean"] for e in errs],
+          max_err_vs_shipped=[max(e.values()) for e in errs], card=smi)
+
+
+def check_ensemble_mixed(cfg, dev, smi) -> None:
+    """A phase-mixed epoch: member 0 warm, member 1 past warm-up, one
+    ``run_epoch_ensemble`` with their gates (the autograd route) against
+    each member's static-flag autograd epoch, within ENS_MIXED_TOL."""
+    cfg = ensemble_cfg(cfg).replace(fused_step="off")
+    y = spikes(ENS_SHORT_T, ENS_B, cfg.ydim, dev, seed=61)
+    us = torch.zeros((ENS_SHORT_T, ENS_B, 0), device=dev)
+    lr = torch.tensor(cfg.lr, device=dev)
+    states = init_ensemble(1, cfg, 2, device=dev)
+    gated, secs = synced(lambda: run_epoch_ensemble(
+        cfg, StepFlags(warm_up=False, train_decoder=False), states, y, us, [31, 32], lr,
+        warm_gate=[1.0, 0.0]))
+    identical = []
+    for m, warm in enumerate((True, False)):
+        ref = core.run_epoch(cfg, StepFlags(warm_up=warm, train_decoder=warm), states[m], y,
+                             us, [31, 32][m], lr)
+        a = dict(state_leaves(ref.state), loss=ref.metrics.loss.cpu(), mu=ref.q_means.cpu())
+        b = dict(state_leaves(gated.state[m]), loss=gated.metrics.loss[m].cpu(),
+                 mu=gated.q_means[m].cpu())
+        compare(f"ensemble.mixed.member{m}", a, b, ENS_MIXED_TOL, state_leaves(states[m]))
+        identical.append(all(torch.equal(a[k], b[k]) for k in a))
+    phase("ensemble.mixed", members=2, phases=["warm-up", "rls"], steps=ENS_SHORT_T,
+          batch=ENS_B, tol=ENS_MIXED_TOL, bit_identical=identical, seconds=secs,
+          autograd_us_per_member_step=1e6 * secs / (2 * ENS_SHORT_T), card=smi)
+
+
+def check_ensemble_demote(cfg, dev, smi) -> None:
+    """4 members, member 1 forced hot on every watched epoch: it alone
+    re-runs on the autograd route, and members 0, 2 and 3 end with the bits
+    of the same fit without the forcing."""
+    cfg = ensemble_cfg(cfg).replace(ns_prefix=16)
+    y = spikes(ENS_SHORT_T, ENS_B, cfg.ydim, dev, seed=62)
+    states = init_ensemble(2, cfg, 4, device=dev)
+    kw = dict(seeds=[41, 42, 43, 44], max_iter=3)
+    clean = fit_ensemble(cfg, states, y, **kw)
+    real = E._member_tau_stats
+
+    def forced(c, tau, t_len, n, dtype, device):
+        max_tau, hot = real(c, tau, t_len, n, dtype, device)
+        return max_tau, torch.where(torch.arange(n, device=hot.device) == 1,
+                                    torch.ones_like(hot), hot)
+
+    E._member_tau_stats = forced
+    try:
+        with ensemble_dispatches() as log:
+            hot, secs = synced(lambda: fit_ensemble(cfg, states, y, **kw))
+    finally:
+        E._member_tau_stats = real
+    reruns = [e for e in log if e["route"] == "autograd"]
+    check(reruns and all(e["members"] == 1 for e in reruns),
+          f"ensemble.demote: re-runs {reruns}")
+    for m in (0, 2, 3):
+        a, b = state_leaves(clean.states[m]), state_leaves(hot.states[m])
+        check(all(torch.equal(a[k], b[k]) for k in a) and torch.equal(clean.mu[m], hot.mu[m]),
+              f"ensemble.demote: healthy member {m} differs from the run without the demotion")
+    check(not torch.equal(clean.mu[1], hot.mu[1]), "ensemble.demote: member 1 never re-ran")
+    phase("ensemble.demote", members=4, hot_member=1, steps_per_epoch=ENS_SHORT_T,
+          dispatches=[{k: e[k] for k in ("route", "members", "ns_prefix", "seconds")}
+                      for e in log], healthy_bit_identical=True, seconds=secs, card=smi)
+
+
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
@@ -2309,6 +2651,15 @@ def main() -> int:
     check_fit_resume(cfg, ys, smi)
     check_facade_vdp(dev, smi)
 
+    # ---------------- ensembles: N members a launch ----------------
+    ens_ys = torch.stack([spikes(WARM_STEPS + cfg.ns_prefix + MEGA_STEPS, ENS_B, cfg.ydim, dev,
+                                 seed=50 + m) for m in range(ENS_N)])
+    ens_k = check_ensemble_kernels(cfg, ens_ys, lr, smi)
+    ens_main = check_ensemble_fit(cfg, dev, smi)
+    check_ensemble_fallback(cfg, dev, smi, ens_main)
+    check_ensemble_mixed(cfg, dev, smi)
+    check_ensemble_demote(cfg, dev, smi)
+
     # ---------------- bounds: the least time one card could take ----------------
     # each input read once and each output written once (step_mega_bounds)
     nfp = carry_t.p_mat.shape[0]
@@ -2353,6 +2704,14 @@ def main() -> int:
     mask_sums_bound = bound(cfg, read - nbytes(carry_t.p_mat, lr) + data + m_bytes
                             + nbytes(flat, q_pack) + 4, masked_ops(m_valid))
 
+    # ensembles: N members' work, member 0's bounds times N
+    st0 = ens_k["stepped"]
+    st0 = F.PackedStepOut(F.member_carry(st0.carry, 0), *(x[0] for x in st0[1:]))
+    e_step, e_mega = step_mega_bounds(cfg, ENS_B, F.member_carry(ens_k["carry"], 0),
+                                      ens_k["qm"][0], ens_k["qlv"][0], ens_k["y0"][0], None,
+                                      None, lr, st0, ens_k["mega_tau"][0])
+    ens_step_bound, ens_mega_bound = ((ENS_N * b_[0], b_[1]) for b_ in (e_step, e_mega))
+
     # library_ms: no single PyTorch call computes a VJF step or its phase 1
     src = "vjf_tpu_torch/csrc/fused_step.cu"
 
@@ -2392,6 +2751,12 @@ def main() -> int:
         row("mega_epoch.stream", 1767, stream_k["launches"]["mega_epoch"],
             stream_k["steps"]["mega_epoch"], stream_k["errs"]["mega_epoch"],
             *stream_k["ms"]["mega_epoch"], stream_k["bounds"]["mega_epoch"]),
+        row("fused_step.ensemble", 1104, ens_main["launches"]["fused_step.ensemble"],
+            ens_main["steps"]["fused_step.ensemble"], ens_k["errs"]["fused_step"],
+            *ens_k["ms"]["fused_step"], ens_step_bound),
+        row("mega_epoch.ensemble", 1767, ens_main["launches"]["mega_epoch.ensemble"],
+            ens_main["steps"]["mega_epoch.ensemble"], ens_k["errs"]["mega_epoch"],
+            *ens_k["ms"]["mega_epoch"], ens_mega_bound),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -166,3 +166,38 @@ def test_launch_refuses_a_cpu_tensor():
 def test_launch_refuses_a_shape_the_kernel_does_not_take(kw, what):
     with pytest.raises(ValueError, match=what):
         TF._launch("mega_epoch", *_launch_args(_cfg(dtype="float32", **kw)))
+
+
+@pytest.mark.card
+def test_member_kernels_match_plain_and_solo_on_the_card():
+    """The member axis of the launch (one cluster a member along
+    ``gridDim.y``): the N-member mega launch against its plain version, and
+    member m bit for bit against a solo launch of member m."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the member-axis CUDA kernels)")
+    from vjf_tpu_torch.parallel import init_ensemble
+
+    dev = torch.device("cuda")
+    cfg = tcfg.VJFConfig(ydim=8, xdim=2, n_rbf=10, hidden_sizes=(6,), likelihood="poisson",
+                         dtype="float32", rls_backend="nsv", fused_step="on",
+                         fused_epoch="mega", ns_prefix=4)
+    carry = TF.stack_carries([TF.pad_carry(cfg, s) for s in init_ensemble(3, cfg, 3,
+                                                                          device=dev)])
+    g = torch.Generator(device=dev).manual_seed(0)
+    ys = torch.poisson(torch.full((3, 16, 8, 8), 0.5, device=dev), generator=g)
+    q = torch.zeros(3, 8, 2, device=dev)
+    lr = torch.tensor(1e-3, device=dev)
+    flags = tcfg.StepFlags()
+
+    def clone(c):
+        return c._replace(**{k: (v.clone() if isinstance(v, torch.Tensor) else tuple(
+            x.clone() for x in v) if isinstance(v, tuple) else v)
+            for k, v in c._asdict().items()})
+
+    got = TF.mega_epoch_call(cfg, flags, clone(carry), q, q, ys, None, None, None, lr)
+    ref = TF.mega_epoch_plain(cfg, flags, clone(carry), q, q, ys, None, None, None, lr)
+    torch.testing.assert_close(got[1], ref[1], rtol=1e-3, atol=1e-3)
+    for m in range(3):
+        solo = TF.mega_epoch_call(cfg, flags, clone(TF.member_carry(carry, m)), q[m], q[m],
+                                  ys[m], None, None, None, lr)
+        assert torch.equal(solo[1], got[1][m]) and torch.equal(solo[0].w_dyn, got[0].w_dyn[m])

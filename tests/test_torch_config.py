@@ -81,8 +81,7 @@ def test_run_epoch_refuses_the_unported_xla_step():
 
 _DEFERRED = {
     "mesh": (dict(mesh=object()), "item 13"),
-    "multistep_refine": (dict(cfg=dict(multistep_refine=2)), "item 7"),
-    "warm_gate": (None, "item 11"),
+    "fit_ensemble_mesh": (dict(mesh=object()), "item 13"),
 }
 
 
@@ -95,9 +94,10 @@ def test_deferred_branches_name_their_roadmap_item(branch):
     ys = torch.zeros(6, 2, 4)
     kw, item = _DEFERRED[branch]
     with pytest.raises(NotImplementedError, match=f"Queue 1 {item}$|Queue 1 {item}[^0-9]"):
-        if branch == "warm_gate":
-            tcore.run_epoch(cfg, tcfg.StepFlags(), state, ys, torch.zeros(6, 2, 0), 0, 1e-3,
-                            warm_gate=torch.tensor(1.0))
+        if branch == "fit_ensemble_mesh":
+            from vjf_tpu_torch.parallel import fit_ensemble
+
+            fit_ensemble(cfg, [state, state], ys, seed=0, max_iter=1, **kw)
         else:
             kw = dict(kw)
             fit_cfg = cfg.replace(**kw.pop("cfg", {}))

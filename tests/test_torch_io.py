@@ -277,11 +277,19 @@ def test_native_fifo_ends_and_closes_without_hanging(tmp_path):
         out.extend(c.copy() for c in loader)
         finished.set()
 
-    threading.Thread(target=writer, daemon=True).start()
-    threading.Thread(target=consume, daemon=True).start()
-    assert finished.wait(timeout=15.0), "EOF never reached after the writer left"
-    assert len(out) == 1 and loader.last_valid == 3
-    np.testing.assert_array_equal(out[0][:3].reshape(-1), data[:12])
+    threads = [threading.Thread(target=f, daemon=True) for f in (writer, consume)]
+    for t in threads:
+        t.start()
+    try:
+        assert finished.wait(timeout=15.0), "EOF never reached after the writer left"
+        assert len(out) == 1 and loader.last_valid == 3
+        np.testing.assert_array_equal(out[0][:3].reshape(-1), data[:12])
+    finally:
+        # nothing of this test outlives it: the loader closed, the threads
+        # joined with a bound
+        loader.close()
+        for t in threads:
+            t.join(timeout=5.0)
 
 
 def test_native_build_failure_is_cached(tmp_path, monkeypatch, caplog, stream_file):

@@ -11,6 +11,7 @@ import dataclasses
 import socket
 import subprocess
 import sys
+import time
 import types
 from pathlib import Path
 
@@ -305,6 +306,7 @@ def test_sharded_epoch_world1_matches_jax(jax_epochs, group1, dtype):
 
 
 _WORKER = r"""
+import datetime
 import sys
 import torch
 import torch.distributed as dist
@@ -313,7 +315,8 @@ from vjf_tpu_torch.parallel import make_dp_group, run_epoch_fused_sharded, shard
 
 rank, world, port, path = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
 torch.set_num_threads(1)
-dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+dist.init_process_group("gloo", timeout=datetime.timedelta(seconds=60),
+                        init_method=f"tcp://localhost:{port}", rank=rank,
                         world_size=world)
 try:
     group = make_dp_group()
@@ -356,11 +359,15 @@ def test_sharded_epoch_world2_matches_jax(jax_epochs, tmp_path):
     procs = [subprocess.Popen([sys.executable, "-c", _WORKER, str(r), "2", port, str(tmp_path)],
                               cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                               text=True) for r in range(2)]
+    # one deadline for both ranks; whatever happens, both are killed and
+    # reaped before the test ends
+    deadline = time.monotonic() + 60.0
     try:
-        logs = [p.communicate(timeout=30)[0] for p in procs]
+        logs = [p.communicate(timeout=max(deadline - time.monotonic(), 1.0))[0] for p in procs]
     finally:
         for p in procs:
             p.kill()
+            p.communicate()
     assert all(p.returncode == 0 for p in procs), logs
     for r in range(2):
         out = torch.load(tmp_path / f"out{r}.pt")

@@ -12,9 +12,10 @@ hand-written CUDA in ``csrc/fused_step.cu``. On CPU tensors the kernels'
 plain PyTorch versions run instead. Ragged trials and missing channels ride
 the trial mask and the channel mask (``fit(mask=..., channel_mask=...)``);
 :func:`pad_trials` builds them from a list of trials. :class:`VJF` is the
-user-facing facade (``make_model``, ``fit``, ``filter``, ``filter_stream``,
-``forecast``, ``save``/``load``); ``native`` streams recordings from a file
-or FIFO to the card.
+user-facing facade (``make_model``, ``fit``, ``fit_ensemble``, ``filter``,
+``filter_stream``, ``forecast``, ``save``/``load``); ``native`` streams
+recordings from a file or FIFO to the card. ``parallel.fit_ensemble`` trains
+N independent members in one launch stream (a member axis on the kernels).
 """
 from .api import VJF
 from .config import StepFlags, VJFConfig

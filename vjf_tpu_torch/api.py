@@ -2,8 +2,8 @@
 
 A stateful wrapper over the functional core in ``vjf_tpu_torch.models.vjf``
 with the reference's user-facing calls: ``VJF.make_model(...)``,
-``.fit(...)``, ``.filter(...)``, ``.filter_stream(...)``, ``.forecast(...)``,
-``.save``/``.load``. The model lives on the card unless the caller asks for
+``.fit(...)``, ``.fit_ensemble(...)``, ``.filter(...)``,
+``.filter_stream(...)``, ``.forecast(...)``, ``.save``/``.load``. The model lives on the card unless the caller asks for
 ``device="cpu"``; where the JAX facade keeps a PRNG key, this one keeps a
 CPU ``torch.Generator`` and draws a fresh seed from it for each call.
 """
@@ -26,7 +26,6 @@ from .ops.functional import finite_or_zero, gaussian_entropy
 from .types import Gaussian
 
 _EXHAUSTED = object()  # filter_stream: a side iterable that ran dry
-_ENSEMBLE_TODO = "fit_ensemble: ROADMAP Queue 1 item 11"
 _SMOOTHING_TODO = "{}: ROADMAP Queue 1 item 12"
 
 logger = logging.getLogger(__name__)
@@ -487,9 +486,48 @@ class VJF:
                     split_trials(result.logvar.cpu(), lengths), result.loss)
         return result.mu, result.logvar, result.loss
 
-    def fit_ensemble(self, *args, **kwargs):
-        """Seed ensembles are not ported yet."""
-        raise NotImplementedError(_ENSEMBLE_TODO)
+    def fit_ensemble(self, y, u=None, *, n_models: int, max_iter: int = 200,
+                     beta: Optional[float] = None, rtol: Optional[float] = None, callback=None,
+                     mask=None, channel_mask=None, mesh=None, seed: Optional[int] = None,
+                     epochs_per_dispatch: int = 1, checkpoint_path: Optional[str] = None,
+                     checkpoint_every: int = 0, resume_from: Optional[str] = None):
+        """Train ``n_models`` independent models (fresh states of this
+        model's config) in one launch stream (``parallel.fit_ensemble``):
+        seed ensembles, per-subject sweeps. This instance is the template;
+        its own state is untouched. ``y``: (T, B, ydim) shared data or (N,
+        T, B, ydim) per member; ``epochs_per_dispatch`` K > 1: K epochs a
+        dispatch, transitions at block boundaries. ``mesh`` is ROADMAP
+        Queue 1 item 13. The init and fit seeds come from ``seed`` or, by
+        default, from the model's generator. Returns ``(result,
+        members)``: the ``EnsembleFitResult`` and ``n_models`` fitted
+        :class:`VJF` instances ready for ``forecast`` and ``filter``."""
+        from .parallel import fit_ensemble as _fit_ensemble
+        from .parallel import init_ensemble
+
+        base = torch.Generator().manual_seed(self._seed() if seed is None else int(seed))
+        k_init, k_fit = core.epoch_seed(base), core.epoch_seed(base)
+        states = init_ensemble(k_init, self.cfg, n_models, device=self.device)
+        result = _fit_ensemble(
+            self.cfg, states, y, u, seed=k_fit, max_iter=max_iter, beta=beta, rtol=rtol,
+            callback=callback, mask=mask, channel_mask=channel_mask, mesh=mesh, lr0=self._lr,
+            epochs_per_dispatch=epochs_per_dispatch, checkpoint_path=checkpoint_path,
+            checkpoint_every=checkpoint_every, resume_from=resume_from)
+        members = []
+        for i in range(n_models):
+            m = object.__new__(VJF)
+            m.cfg, m.device = self.cfg, self.device
+            m.generator = torch.Generator().manual_seed(core.epoch_seed(base))
+            m.state = result.states[i]
+            m._step_fn = self._step_fn
+            m._lr = float(result.lr[i])
+            m.epochs_run = int(result.epochs_run[i])
+            m._decoder_frozen = not bool(result.warm_up[i])
+            m.selected_epoch = (None if result.selected_epoch is None
+                                else int(result.selected_epoch[i]))
+            m.selected_metric = (float("nan") if result.selected_metric is None
+                                 else float(result.selected_metric[i]))
+            members.append(m)
+        return result, members
 
     # -- generation -------------------------------------------------------
     def forecast(self, x0, u=None, n_step: int = 1, *, noise: bool = False):

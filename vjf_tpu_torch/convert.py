@@ -138,3 +138,36 @@ def flatten(tree, prefix: str = "") -> Dict[str, Any]:
     for k, v in items:
         out.update(flatten(v, f"{prefix}.{k}" if prefix else str(k)))
     return out
+
+
+def ensemble_from_numpy(cfg: VJFConfig, tree, device=torch.device("cuda")) -> list:
+    """The port's ensemble, a list of ``TrainState``s, from a JAX ensemble
+    state stacked on a leading member axis (``init_ensemble``'s, after
+    ``jax.tree.map(np.asarray, states)``): member m is every leaf's row m."""
+    n = len(tree.lik_n_sample)
+    return [state_from_numpy(cfg, _member(tree, m), device) for m in range(n)]
+
+
+def ensemble_to_numpy(states) -> Dict[str, Any]:
+    """The port's ensemble as one tree of numpy arrays stacked on a leading
+    member axis, under the JAX package's field names (:func:`state_to_numpy`
+    of every member, leaf by leaf)."""
+    return _stack([state_to_numpy(st) for st in states])
+
+
+def _member(tree, m: int):
+    """Row ``m`` of every leaf of a NamedTuple tree of stacked arrays."""
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(_member(v, m) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_member(v, m) for v in tree)
+    return None if tree is None else np.asarray(tree)[m]
+
+
+def _stack(trees):
+    t0 = trees[0]
+    if isinstance(t0, dict):
+        return {k: _stack([t[k] for t in trees]) for k in t0}
+    if isinstance(t0, list):
+        return [_stack([t[i] for t in trees]) for i in range(len(t0))]
+    return None if t0 is None else np.stack(trees)

@@ -107,6 +107,17 @@
 // constant and count run over the observed entries. With both masks null
 // every weight is 1 and the unmasked kernel's bits are kept.
 //
+// Ensembles (fit_ensemble; the TPU kernels under jax.vmap over members,
+// vjf_tpu/parallel/ensemble.py:115-144): the step and mega launchers take N
+// members in one launch, gridDim (VJF_CLUSTER, N), the cluster at blockIdx.y
+// = m running member m. At entry each block moves every carry, data and
+// output pointer by m times that leaf's per-member size (to_member), except
+// for y and u where a SHARED_* bit marks them as one copy for all members (a
+// seed ensemble's data); the masks and lr are always one copy for all. Each member has its own Philox key (rng_seed) and its
+// own L2 workspace. The rank inside a cluster is still %cluster_ctarank and
+// no cluster waits on another, so a member runs the bits of its solo launch
+// and clusters past what the card holds at once run in a later wave.
+//
 // Numerics: products marked bf16 round their inputs to bf16 (nearest even)
 // and accumulate in f32; the feedback chain (P w, every Newton-Schulz
 // product, V g, the RBF cross term) and the SGP whitening stay full f32.
@@ -190,10 +201,23 @@ struct VJFArgs {
   int sgd, update, warm_up, train_decoder, update_likelihood, update_transition;
   int poisson, trace_quirk, bf16, mega, ns_iters;
   int row0;            // first row of these trials in the whole batch (noise)
+  int n_members;       // ensemble launch: clusters along gridDim.y, one a member (0 or 1: solo)
+  int shared;          // SHARED_* bits: data every member reads the same copy of
   // constants
   float leak, poisson_clamp, logvar_clamp, clip, rls_shrink, chol_jitter;
   float obs_var_cap, state_var_cap;
   float inv_b;         // phase-1 kernel only: the GLOBAL 1/B
+};
+
+// Ensemble launches (fit_ensemble): member m is the cluster at blockIdx.y = m,
+// and every per-member operand is stacked with a leading member axis. These
+// bits of VJFArgs.shared mark y or u as one copy that all members read
+// (stride 0); the carry, the posterior, the noise, the outputs and the
+// workspace are always per member, the masks and the learning rate always
+// shared.
+enum {
+  SHARED_Y = 1,
+  SHARED_U = 2
 };
 
 // ---------------------------------------------------------------------------
@@ -1436,6 +1460,61 @@ __device__ __forceinline__ void step_apply(const VJFArgs& a, const Ctx& c, Carry
   }
 }
 
+template <typename P>
+__device__ __forceinline__ void member_shift(P*& p, size_t per_member, int m) {
+  if (p) p += (size_t)m * per_member;
+}
+
+// Moves every per-member pointer of `a` to member m's slice. Each leaf's size
+// follows from the dims, so the caller passes only n_members and the shared
+// bits. The members never wait on each other: clusters past what the card
+// holds at once run in a later wave.
+__device__ void to_member(VJFArgs& a, int m) {
+  if (m == 0) return;
+  const size_t T = a.T, B = a.B, yd = a.yd, ud = a.ud, xd = a.xd, nfp = a.nfp;
+  const size_t h0 = a.h[0], hl = a.h[a.n_layers - 1];
+  member_shift(a.w_in_y, h0 * yd, m);
+  member_shift(a.w_in_u, h0 * ud, m);
+  member_shift(a.w_in_m, h0 * xd, m);
+  member_shift(a.w_in_lv, h0 * xd, m);
+  for (int i = 0; i + 1 < a.n_layers; ++i)
+    member_shift(a.w_hidden[i], (size_t)a.h[i + 1] * a.h[i], m);
+  for (int i = 0; i < a.n_layers; ++i) member_shift(a.b_hidden[i], (size_t)a.h[i], m);
+  member_shift(a.w_mean, xd * hl, m);
+  member_shift(a.w_logvar, xd * hl, m);
+  member_shift(a.b_logvar, xd, m);
+  member_shift(a.w_dec, yd * xd, m);
+  member_shift(a.b_dec, yd, m);
+  member_shift(a.cent_x, nfp * xd, m);
+  member_shift(a.cent_u, nfp * ud, m);
+  member_shift(a.c2, nfp, m);
+  member_shift(a.inv_w2, nfp, m);
+  member_shift(a.w_white, nfp * nfp, m);
+  member_shift(a.scale2, 1, m);
+  member_shift(a.p_mat, nfp * nfp, m);
+  member_shift(a.v_mat, nfp * nfp, m);
+  member_shift(a.w_dyn, nfp * xd, m);
+  member_shift(a.state_logvar, 1, m);
+  member_shift(a.lik_logvar, 1, m);
+  member_shift(a.dyn_n, 1, m);
+  member_shift(a.lik_n, 1, m);
+  member_shift(a.rng_seed, 1, m);
+  member_shift(a.rng_count, 1, m);
+  member_shift(a.qs_m, B * xd, m);
+  member_shift(a.qs_lv, B * xd, m);
+  if (!(a.shared & SHARED_Y)) member_shift(a.y, T * B * yd, m);
+  if (!(a.shared & SHARED_U)) member_shift(a.u, T * B * ud, m);
+  member_shift(a.eps_s, T * B * xd, m);
+  member_shift(a.eps_t, T * B * xd, m);
+  member_shift(a.q_pack, T * 2 * B * xd, m);
+  member_shift(a.scal, T * 8, m);
+  member_shift(a.g_vec, nfp * xd, m);
+  member_shift(a.xt, B * xd, m);
+  member_shift(a.xs, B * xd, m);
+  member_shift(a.sums, sums_offsets(a).total, m);
+  member_shift(a.ws, carve_global(a, nullptr).total, m);
+}
+
 // What every kernel sets up: the arguments and the context in the head of
 // the block's shared memory (thread 0 writes them), this block's slab
 // zeroed (a leaf the flags leave uncomputed stays 0), the RBF constants.
@@ -1443,6 +1522,7 @@ __device__ const Header& make_header(const VJFArgs& args, float* smem) {
   Header* h = reinterpret_cast<Header*>(smem);
   if (threadIdx.x == 0) {
     h->a = args;
+    to_member(h->a, blockIdx.y);
     const VJFArgs& a = h->a;
     Ctx& c = h->c;
     c.s = carve_smem(a, smem);
@@ -1581,8 +1661,8 @@ __global__ void philox_kernel(uint32_t seed, uint32_t count, int n_pairs, float*
 
 typedef void (*vjf_kernel_t)(VJFArgs);
 
-// One cluster of VJF_CLUSTER blocks with the dynamic shared memory the
-// shapes ask for.
+// One cluster of VJF_CLUSTER blocks a member (n_members clusters along y) with
+// the dynamic shared memory the shapes ask for.
 static cudaError_t launch_config(vjf_kernel_t kernel, const VJFArgs& a, cudaStream_t stream,
                                  cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
   const size_t smem = carve_smem(a, nullptr).total * sizeof(float);
@@ -1597,7 +1677,7 @@ static cudaError_t launch_config(vjf_kernel_t kernel, const VJFArgs& a, cudaStre
     if (e != cudaSuccess) return e;
   }
   *cfg = cudaLaunchConfig_t{};
-  cfg->gridDim = dim3(VJF_CLUSTER, 1, 1);
+  cfg->gridDim = dim3(VJF_CLUSTER, a.n_members > 1 ? a.n_members : 1, 1);
   cfg->blockDim = dim3(NTHREADS, 1, 1);
   cfg->dynamicSmemBytes = smem;
   cfg->stream = stream;

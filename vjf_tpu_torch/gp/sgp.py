@@ -152,13 +152,15 @@ def transition_gaussian(state: SGPDynamicsState, x: torch.Tensor,
 
 def update_from_features(cfg: VJFConfig, state: SGPDynamicsState, xt: torch.Tensor,
                          xs: torch.Tensor, feat: torch.Tensor, warm_up: bool = False,
-                         weights: Optional[torch.Tensor] = None) -> SGPDynamicsState:
+                         weights: Optional[torch.Tensor] = None,
+                         warm_gate: Optional[torch.Tensor] = None) -> SGPDynamicsState:
     """RLS on kernel features and the state-noise running variance
-    (``dynamics.blr_residual_update``, ``weights`` the 0/1 trial mask); the
-    SGP always learns by RLS."""
+    (``dynamics.blr_residual_update``, ``weights`` the 0/1 trial mask,
+    ``warm_gate`` an ensemble member's phase); the SGP always learns by
+    RLS."""
     blr, logvar, n_sample = dyn.blr_residual_update(
         cfg, state.blr, state.logvar, state.n_sample, xt, xs, feat, warm_up=warm_up,
-        weights=weights, update_rule="rls")
+        weights=weights, update_rule="rls", warm_gate=warm_gate)
     return state._replace(blr=blr, logvar=logvar, n_sample=n_sample)
 
 

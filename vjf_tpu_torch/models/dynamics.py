@@ -14,7 +14,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 
 from ..config import VJFConfig
-from ..ops.functional import batch_weighted_mean, gaussian_loss, nonecat, running_var
+from ..ops.functional import batch_weighted_mean, gaussian_loss, nonecat, running_var, tree_where
 from ..types import Gaussian
 from . import regression
 from .rbf import RBFParams, apply_rbf, init_rbf, reinit_rbf
@@ -157,19 +157,20 @@ def forecast(state: DynamicsState, x0: torch.Tensor, generator: Optional[torch.G
 
 def update_from_features(cfg: VJFConfig, state: DynamicsState, xt: torch.Tensor,
                          xs: torch.Tensor, feat: torch.Tensor, warm_up: bool = False,
-                         weights: Optional[torch.Tensor] = None) -> DynamicsState:
+                         weights: Optional[torch.Tensor] = None,
+                         warm_gate: Optional[torch.Tensor] = None) -> DynamicsState:
     """Closed-form learning step with precomputed features (see
     :func:`blr_residual_update`)."""
     blr, logvar, n_sample = blr_residual_update(
         cfg, state.blr, state.logvar, state.n_sample, xt, xs, feat, warm_up=warm_up,
-        weights=weights, update_rule=cfg.dynamics_update)
+        weights=weights, update_rule=cfg.dynamics_update, warm_gate=warm_gate)
     return DynamicsState(state.rbf, blr, logvar, n_sample)
 
 
 def blr_residual_update(cfg: VJFConfig, blr, logvar: torch.Tensor, n_sample: torch.Tensor,
                         xt: torch.Tensor, xs: torch.Tensor, feat: torch.Tensor,
                         warm_up: bool = False, weights: Optional[torch.Tensor] = None,
-                        update_rule: str = "rls"):
+                        update_rule: str = "rls", warm_gate: Optional[torch.Tensor] = None):
     """The closed-form weight update on ``dx = xt - xs`` (skipped during
     warm-up): RLS, or with ``update_rule='kalman'`` the weight-diffusion
     Kalman step (``cfg.kalman_diffusion``, ``cfg.joseph_quirk``); then the
@@ -177,17 +178,23 @@ def blr_residual_update(cfg: VJFConfig, blr, logvar: torch.Tensor, n_sample: tor
     mse (skipped on the device where that variance is not finite). Returns
     ``(blr, logvar, n_sample)``. With the 0/1 trial mask ``weights`` (B,) a
     masked row's feature row is zeroed, so it leaves the weight update, and
-    it leaves the residual mse and the sample count."""
+    it leaves the residual mse and the sample count.
+
+    ``warm_gate``: the phase of one member of an ensemble epoch whose members
+    are in different phases, a scalar (1 = warm-up). Given, it overrides
+    ``warm_up``: the weight update is computed and selected away where the
+    gate is warm, so what follows sees the state either phase would."""
     if weights is not None:
         feat = feat * weights.to(feat.dtype)[:, None]
     dx = xt - xs
-    if not warm_up:
+    if not warm_up or warm_gate is not None:
         if update_rule == "kalman":
-            blr = regression.kalman(blr, feat, dx, torch.exp(logvar),
+            new = regression.kalman(blr, feat, dx, torch.exp(logvar),
                                     diffusion=cfg.kalman_diffusion, quirk=cfg.joseph_quirk)
         else:
-            blr = regression.rls(blr, feat, dx, torch.exp(logvar),
+            new = regression.rls(blr, feat, dx, torch.exp(logvar),
                                  shrink=cfg.rls_shrink, jitter=cfg.chol_jitter)
+        blr = new if warm_gate is None else tree_where(warm_gate > 0, blr, new)
     residual = dx - regression.predict_gaussian(blr, feat).mean
     if weights is None:
         mse, count = torch.mean(torch.square(residual)), xs.shape[0]

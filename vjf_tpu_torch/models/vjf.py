@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import logging
 import math
+import warnings
 from dataclasses import dataclass
 from typing import NamedTuple, Optional, Sequence, Union
 
@@ -54,8 +55,6 @@ from .recognition import Recognition, init_recognition, linear_from, map_linears
 logger = logging.getLogger(__name__)
 
 _MESH_TODO = "fit(mesh=...): ROADMAP Queue 1 item 13"
-_MULTISTEP_TODO = "multistep_refine: ROADMAP Queue 1 item 7"
-_WARM_GATE_TODO = "warm_gate (phase-mixed ensemble epochs): ROADMAP Queue 1 item 11"
 
 
 class PriorParams(NamedTuple):
@@ -226,7 +225,7 @@ def _trained_leaves(cfg: VJFConfig, params: Params):
 
 def filter_step(cfg: VJFConfig, flags: StepFlags, state: TrainState, qs: Gaussian,
                 y: torch.Tensor, u: Optional[torch.Tensor], eps_s: torch.Tensor,
-                eps_t: torch.Tensor, lr, mask=None, channel_mask=None):
+                eps_t: torch.Tensor, lr, mask=None, channel_mask=None, warm_gate=None):
     """One filter-then-learn step with torch autograd; returns ``(state,
     qt, Metrics)``. The order is the reference's: forward, loss, clipped SGD,
     then the obs-noise running variance (from the post-SGD log-variance) and
@@ -249,6 +248,14 @@ def filter_step(cfg: VJFConfig, flags: StepFlags, state: TrainState, qs: Gaussia
       replaced by 0 (before the trial mask), leave the likelihood and the
       obs-noise update, and the recognition input sees the decoder's
       prediction there (:func:`_impute_y`). Nothing freezes.
+    - ``warm_gate``: a scalar tensor, the phase of an ensemble member in an
+      epoch whose members are in different phases (1 = warm-up,
+      ``parallel.fit_ensemble``). Given, it overrides ``flags.warm_up`` and
+      ``flags.train_decoder``: the dynamics term enters the loss times ``1 -
+      warm_gate``, the decoder's SGD step is selected where the gate is
+      warm, and the weight update is computed and selected away there. At a
+      constant 0 or 1 the result is that of the static flags (``0 * l_dyn``
+      adds exact zeros, selects copy bits).
 
     The input state is never written: the step builds new modules and
     tensors.
@@ -273,7 +280,9 @@ def filter_step(cfg: VJFConfig, flags: StepFlags, state: TrainState, qs: Gaussia
                                               eps_s, eps_t, weights=weights,
                                               channel_mask=channel_mask)
         loss = l_recon - h
-        if not flags.warm_up:
+        if warm_gate is not None:
+            loss = loss + (1.0 - warm_gate) * l_dyn
+        elif not flags.warm_up:
             loss = loss + l_dyn
         if flags.sgd:
             leaves = _trained_leaves(cfg, params)
@@ -293,10 +302,18 @@ def filter_step(cfg: VJFConfig, flags: StepFlags, state: TrainState, qs: Gaussia
                 return linear_from(new[id(lin.weight)],
                                    None if lin.bias is None else new[id(lin.bias)])
 
+            if warm_gate is not None:
+                # the decoder trains only while warm (the fit loop's freeze)
+                trained, kept = stepped(params.decoder), state.params.decoder
+                decoder = linear_from(torch.where(warm_gate > 0, trained.weight, kept.weight),
+                                      torch.where(warm_gate > 0, trained.bias, kept.bias))
+            elif flags.train_decoder:
+                decoder = stepped(params.decoder)
+            else:
+                decoder = state.params.decoder
             new_params = Params(
                 recognition=map_linears(params.recognition, stepped),
-                decoder=stepped(params.decoder) if flags.train_decoder
-                else state.params.decoder,
+                decoder=decoder,
                 likelihood=(GaussianLikParams(new[id(params.likelihood.logvar)])
                             if cfg.likelihood == "gaussian" else state.params.likelihood),
                 prior=state.params.prior,
@@ -311,7 +328,8 @@ def filter_step(cfg: VJFConfig, flags: StepFlags, state: TrainState, qs: Gaussia
         dynamics = state.dynamics
         if flags.update and flags.update_transition:
             upd = _transition(cfg).update_from_features(cfg, dynamics, xt, xs, feat,
-                                                        warm_up=flags.warm_up, weights=weights)
+                                                        warm_up=flags.warm_up, weights=weights,
+                                                        warm_gate=warm_gate)
             upd_ok = all_finite((xt, xs, upd))
             if weights is not None:
                 upd_ok = upd_ok & (torch.sum(weights) > 0)
@@ -364,28 +382,33 @@ def run_epoch(
     ``mask``: a (T,) or (T, B) 0/1 trial mask (ragged trials); a (T,) mask
     is per time and gains the trial axis. ``channel_mask``: a (T, ydim) or
     (T, B, ydim) 0/1 mask of missing observations. Both ride the kernels
-    (see :func:`filter_step` for what they do).
+    (see :func:`filter_step` for what they do). ``warm_gate``: a member's
+    phase in an ensemble epoch whose members are in different phases (see
+    :func:`filter_step`); a gated epoch always takes the autograd route, the
+    kernels fix the phase by their flags.
     """
-    if warm_gate is not None:
-        raise NotImplementedError(_WARM_GATE_TODO)
     if ys.dtype != cfg.tdtype:
         ys = ys.to(cfg.tdtype)
     if us.dtype != cfg.tdtype:
         us = us.to(cfg.tdtype)
     mask = _promote_mask(mask, ys.shape[0], ys.shape[1], ys.dtype, ys.device)
     channel_mask = _promote_channel_mask(channel_mask, ys.shape, ys.dtype, ys.device)
-    if _fused.fused_enabled(cfg, state, n_batch=ys.shape[1], mask=mask is not None,
-                            channel_mask=channel_mask is not None):
+    if warm_gate is None and _fused.fused_enabled(
+            cfg, state, n_batch=ys.shape[1], mask=mask is not None,
+            channel_mask=channel_mask is not None):
         with torch.no_grad():
             return _fused.run_epoch_fused(cfg, flags, state, ys, us, epoch_seed(seed), lr,
                                           noise=noise, q0=q0, mask=mask,
                                           channel_mask=channel_mask)
+    if warm_gate is not None:
+        warm_gate = torch.as_tensor(warm_gate, dtype=ys.dtype, device=ys.device)
     return _run_epoch_autograd(cfg, flags, state, ys, us, seed, lr, noise, q0, mask,
-                               channel_mask)
+                               channel_mask, warm_gate)
 
 
 @_fused.full_f32_matmul()
-def _run_epoch_autograd(cfg, flags, state, ys, us, seed, lr, noise, q0, mask, channel_mask):
+def _run_epoch_autograd(cfg, flags, state, ys, us, seed, lr, noise, q0, mask, channel_mask,
+                        warm_gate=None):
     """The autograd route of :func:`run_epoch`: a Python loop over
     :func:`filter_step`, products in full f32 on the card; the masks are
     promoted."""
@@ -404,7 +427,7 @@ def _run_epoch_autograd(cfg, flags, state, ys, us, seed, lr, noise, q0, mask, ch
                                   noise[1][t], lr,
                                   mask=None if mask is None else mask[t],
                                   channel_mask=None if channel_mask is None
-                                  else channel_mask[t])
+                                  else channel_mask[t], warm_gate=warm_gate)
         qs.append(q)
         steps.append(m[:4])
     return EpochResult(state, torch.stack([q.mean for q in qs]),
@@ -453,10 +476,12 @@ def run_epochs(
     q0: Optional[Gaussian] = None,
     mask=None,
     channel_mask=None,
+    warm_gate=None,
 ) -> EpochsResult:
     """``len(seeds)`` consecutive epochs over the same data, one seed (or
-    generator) and one learning rate per epoch, with the same masks (see
-    :func:`run_epoch`). With int seeds nothing here waits for the device."""
+    generator) and one learning rate per epoch, with the same masks and
+    ``warm_gate`` (see :func:`run_epoch`). With int seeds nothing here waits
+    for the device."""
     if q0 is None:
         q0 = prior(state.params, ys.shape[1])
     mask = _promote_mask(mask, ys.shape[0], ys.shape[1], cfg.tdtype, ys.device)
@@ -464,7 +489,7 @@ def run_epochs(
 
     def epoch(st, seed, lr):
         return run_epoch(cfg, flags, st, ys, us, seed, lr, q0=q0, mask=mask,
-                         channel_mask=channel_mask)
+                         channel_mask=channel_mask, warm_gate=warm_gate)
 
     return chain_epochs(cfg, epoch, state, ys.shape[0], seeds, lrs)
 
@@ -787,11 +812,20 @@ def _promote_channel_mask(channel_mask, y_shape, dtype: torch.dtype,
     return cm.expand(*y_shape)
 
 
-def _refuse_unported(cfg: VJFConfig, mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(_MESH_TODO)
-    if cfg.multistep_refine > 0:
-        raise NotImplementedError(_MULTISTEP_TODO)
+def _validate_multistep(cfg: VJFConfig, mask) -> None:
+    """``cfg.multistep_refine``: refused for controls and masks, up front
+    (the rollout has no control or validity alignment), and deprecated, as
+    in the JAX package."""
+    if cfg.multistep_refine <= 0:
+        return
+    if cfg.udim > 0 or mask is not None:
+        raise ValueError("multistep_refine supports autonomous, unmasked fits only "
+                         "(the rollout has no control/validity alignment)")
+    warnings.warn(
+        "cfg.multistep_refine is deprecated: the measured A/B shows it does not improve "
+        "(VdP: worsens) long-horizon forecasts; use cfg.select='forecast' instead "
+        "(docs/RESULTS.md 'Forecast-skill training'). The knob will be removed in a "
+        "future release.", DeprecationWarning, stacklevel=3)
 
 
 def _bootstrap_dynamics(cfg: VJFConfig, state: TrainState, q_means: torch.Tensor,
@@ -857,6 +891,52 @@ def _sgp_adapt_step(cfg: VJFConfig, state: TrainState, q_means: torch.Tensor,
         cfg, state.dynamics, q_means[1:].reshape(-1, cfg.xdim),
         q_means[:-1].reshape(-1, cfg.xdim), _pooled_controls(cfg, us, pair_w),
         weights=pair_w))
+
+
+@_fused.full_f32_matmul()
+def multistep_refine(cfg: VJFConfig, state: TrainState, mu: torch.Tensor,
+                     horizon: Optional[int] = None, weight: Optional[float] = None,
+                     n_iter: Optional[int] = None) -> TrainState:
+    """K-step rollout-consistency refinement of the velocity field
+    (``cfg.multistep_refine``, deprecated; no reference counterpart).
+
+    With leak ``l`` and ``lam = 1 - l`` the rollout telescopes to
+    ``x_{i+K} = lam^K x_i + sum_j lam^(K-1-j) phi(x_j) w``, so along the
+    current rolled path the K-step displacement is linear in ``w`` with the
+    path-accumulated features. Their ridge solution over every start in the
+    epoch's posterior means ``mu`` (T, B, xdim) is found through the
+    relative-floored eigh and blended in, ``w <- (1 - a) w + a w_ms``; each
+    iteration re-linearises around the improved path. P and V are left as
+    they are. Controls are not supported (``fit`` refuses them)."""
+    from ..ops.linalg import eigh_floor_inv_pair
+
+    horizon = cfg.multistep_refine if horizon is None else horizon
+    weight = cfg.multistep_weight if weight is None else weight
+    n_iter = cfg.multistep_iters if n_iter is None else n_iter
+    if horizon <= 1 or mu.shape[0] <= horizon:
+        return state
+    tr = _transition(cfg)
+    d = state.dynamics
+    lam = 1.0 - cfg.leak
+    k, xd = int(horizon), cfg.xdim
+    x0 = mu[:-k].reshape(-1, xd)
+    tgt = (mu[k:] - (lam ** k) * mu[:-k]).reshape(-1, xd)
+    v = k * torch.exp(d.logvar)
+    for _ in range(n_iter):
+        xj, acc = x0, None
+        for j in range(k):
+            feat = tr.features(d, xj)
+            c = lam ** (k - 1 - j)
+            acc = c * feat if acc is None else acc + c * feat
+            xj = lam * xj + feat @ d.blr.w_mean
+        # the ridge solve in at least f32: the pooled Gram reaches cond 1e8
+        sol = torch.promote_types(acc.dtype, torch.float32)
+        a, vs = acc.to(sol), v.to(sol)
+        p = torch.eye(a.shape[1], dtype=sol, device=a.device) + (a.T @ a) / vs
+        _, v_sol = eigh_floor_inv_pair(p)
+        w_ms = (v_sol @ ((a.T @ tgt.to(sol)) / vs)).to(d.blr.w_mean.dtype)
+        d = d._replace(blr=d.blr._replace(w_mean=(1.0 - weight) * d.blr.w_mean + weight * w_ms))
+    return state._replace(dynamics=d)
 
 
 def _draw_generator(gen: torch.Generator) -> torch.Generator:
@@ -952,8 +1032,10 @@ def fit(
     only the pairs whose two ends are observed; a ragged SGP fit with fewer
     than ``sgp_fused_min_batch`` valid trials at some step takes the
     autograd epoch (:func:`_demote_masked_small_sgp`); ``select='forecast'``
-    refuses masks. ``mesh`` and ``multistep_refine`` raise
-    ``NotImplementedError`` naming their ROADMAP item.
+    refuses masks. ``mesh`` raises ``NotImplementedError`` naming its
+    ROADMAP item. ``cfg.multistep_refine > 0`` (deprecated, with a warning)
+    blends :func:`multistep_refine` into the weights after each RLS epoch
+    (block) that does not end the fit; it refuses controls and masks.
 
     ``checkpoint_path`` with ``checkpoint_every=K``: save the whole loop
     state (:class:`FitSnapshot`: the state, the phase, the plateau machine,
@@ -971,7 +1053,9 @@ def fit(
     """
     beta = cfg.beta if beta is None else beta
     rtol = cfg.rtol if rtol is None else rtol
-    _refuse_unported(cfg, mesh)
+    if mesh is not None:
+        raise NotImplementedError(_MESH_TODO)
+    _validate_multistep(cfg, mask)
     select_on = _validate_select(cfg, mask, channel_mask)
     if resume_from is not None and noise_hook is not None:
         raise ValueError("resume_from and noise_hook are mutually exclusive")
@@ -1097,6 +1181,8 @@ def fit(
                 plateau_hits = 0
             if not converged_now and cfg.dynamics == "sgp" and cfg.sgp_adapt_lr > 0:
                 state = _sgp_adapt_step(cfg, state, result.q_means, us, pair_w)
+            if not converged_now and cfg.multistep_refine > 0:
+                state = multistep_refine(cfg, state, result.q_means)
 
         if select_on and not warm_up:
             sel = float(rollout_rmse(cfg, state, result.q_means, y, us,
@@ -1298,9 +1384,12 @@ def _fit_blocked(cfg: VJFConfig, state: TrainState, y, u=None, *,
             running_loss = epoch_loss
             state = _bootstrap_dynamics(cfg, state, res.q_means, us, _draw_generator(gen),
                                         pair_w)
-        elif (not warm_up and not converged and cfg.dynamics == "sgp"
-              and cfg.sgp_adapt_lr > 0):
-            state = _sgp_adapt_step(cfg, state, res.q_means, us, pair_w)
+        elif not warm_up and not converged:
+            if cfg.dynamics == "sgp" and cfg.sgp_adapt_lr > 0:
+                state = _sgp_adapt_step(cfg, state, res.q_means, us, pair_w)
+            if cfg.multistep_refine > 0:
+                # block-granular, like every phase action here
+                state = multistep_refine(cfg, state, res.q_means)
         if select_on and not warm_up:
             sel = float(rollout_rmse(cfg, state, res.q_means, y, us,
                                      _select_generator(sel_base, epoch - 1)))

@@ -237,12 +237,23 @@ def device_prefetch(iterator, depth: int = 2, valid_fn=None, device="cuda"):
         except BaseException as e:  # noqa: BLE001 -- handed to the consumer, which raises it
             put(e)
 
+    def get():
+        # bounded waits: a staging thread that died without a word (it puts
+        # its exceptions) must not leave the consumer blocked for ever
+        while True:
+            try:
+                return q.get(timeout=0.5)
+            except queue.Empty:
+                if not t.is_alive() and q.empty():
+                    raise RuntimeError("device_prefetch: the staging thread ended without "
+                                       "handing over a chunk") from None
+
     side = torch.cuda.Stream(device) if on_card else None
     t = threading.Thread(target=worker, daemon=True)
     t.start()
     try:
         while True:
-            item = q.get()
+            item = get()
             if item is done:
                 return
             if isinstance(item, BaseException):
@@ -255,3 +266,6 @@ def device_prefetch(iterator, depth: int = 2, valid_fn=None, device="cuda"):
             yield chunk if v is None else (chunk, v)
     finally:
         stop.set()
+        # the worker sees ``stop`` within one put timeout; one blocked in the
+        # source iterator (an idle FIFO) is a daemon and is left to it
+        t.join(timeout=1.0)

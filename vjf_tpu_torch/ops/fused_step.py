@@ -68,11 +68,13 @@ NS_ONE_ITER_MIN_BATCH = 64
 
 logger = logging.getLogger(__name__)
 
-# kernel launches, one count per launcher; only the CUDA branch of a wrapper
-# adds to its count
-launches = {"fused_step": 0, "mega_epoch": 0, "forward_sums": 0}
-# timesteps those launches ran (a mega launch runs a whole segment)
-steps = {"fused_step": 0, "mega_epoch": 0, "forward_sums": 0}
+# kernel launches, one count per launcher and form (``.ensemble``: N members
+# in one launch); only the CUDA branch of a wrapper adds to its count
+launches = {"fused_step": 0, "mega_epoch": 0, "forward_sums": 0,
+            "fused_step.ensemble": 0, "mega_epoch.ensemble": 0}
+# timesteps those launches ran (a mega launch runs a whole segment; an
+# ensemble launch counts member-steps)
+steps = dict.fromkeys(launches, 0)
 
 
 def reset_launches() -> None:
@@ -859,12 +861,65 @@ class PackedStepOut(NamedTuple):
     scal: torch.Tensor                    # (1, 8): loss, recon, dyn, ent, tau
 
 
+def stack_carries(carries) -> FusedCarry:
+    """Member carries as one carry whose every leaf has a leading member
+    axis: the layout of an ensemble launch."""
+    def stack(*leaves):
+        if leaves[0] is None:
+            return None
+        if isinstance(leaves[0], tuple):
+            return tuple(torch.stack(x) for x in zip(*leaves))
+        return torch.stack(leaves)
+
+    return FusedCarry(*(stack(*f) for f in zip(*carries)))
+
+
+def member_carry(carry: FusedCarry, m: int) -> FusedCarry:
+    """Member ``m`` of a stacked carry, as views: an ensemble launch that
+    updates the stack in place shows through."""
+    def pick(v):
+        if v is None:
+            return None
+        return tuple(x[m] for x in v) if isinstance(v, tuple) else v[m]
+
+    return FusedCarry(*(pick(v) for v in carry))
+
+
+def n_members(carry: FusedCarry) -> int:
+    """N of a stacked carry (:func:`stack_carries`, an ensemble), 0 of a
+    solo one."""
+    return carry.p_mat.shape[0] if carry.p_mat.dim() == 3 else 0
+
+
+def _over_members(fn, ndim: int, cfg, flags, carry, qs_m, qs_lv, ys, us, eps_s, eps_t, lr,
+                  mask, cmask):
+    """``fn``, a solo plain version, for each member of the stacked
+    ``carry``, the results stacked. ``ys`` and ``us`` are stacked or, with
+    the ``ndim`` dims of one member's, one copy for all; ``qs_*`` and
+    ``eps_*`` are stacked; ``mask``, ``cmask`` and ``lr`` are one for all."""
+    def own(x, m):
+        return x if x is None or x.dim() == ndim else x[m]
+
+    outs = [fn(cfg, flags, member_carry(carry, m), qs_m[m], qs_lv[m], own(ys, m), own(us, m),
+               None if eps_s is None else eps_s[m], None if eps_t is None else eps_t[m], lr,
+               mask=mask, cmask=cmask)
+            for m in range(n_members(carry))]
+    out = (stack_carries([o[0] for o in outs]),
+           *(torch.stack(f) for f in list(zip(*outs))[1:]))
+    return PackedStepOut(*out) if isinstance(outs[0], PackedStepOut) else out
+
+
 def fused_step_plain(cfg, flags, carry, qs_m, qs_lv, y, u, eps_s, eps_t, lr, mask=None,
                      cmask=None) -> PackedStepOut:
     """Plain version of the per-step kernel: ``step_math`` with the fixed
     ``NS_ITERS`` and no tau ceiling, packed like the kernel's outputs.
     ``eps_s=None`` draws the noise from the carry's Philox stream; ``mask``
-    (B,) and ``cmask`` (B, ydim) as in :func:`step_math`."""
+    (B,) and ``cmask`` (B, ydim) as in :func:`step_math`. A stacked carry:
+    each member in turn, the operands as :func:`fused_step_call` takes
+    them."""
+    if n_members(carry):
+        return _over_members(fused_step_plain, 2, cfg, flags, carry, qs_m, qs_lv, y, u, eps_s,
+                             eps_t, lr, mask, cmask)
     eps_s, eps_t = _latents(carry, y.shape[0], cfg.xdim, y.dtype, eps_s, eps_t)
     out = step_math(cfg, flags, carry, qs_m, qs_lv, y, u, eps_s, eps_t, lr, mask=mask,
                     cmask=cmask)
@@ -897,7 +952,12 @@ def mega_epoch_plain(cfg, flags, carry, qs_m, qs_lv, ys, us, eps_s, eps_t, lr, m
     """Plain version of the mega kernel: a loop over the T steps of ``ys``
     with the base iterations, the escalation and the ``NS_TAU_MAX`` skip;
     ``mask`` (T, B) and ``cmask`` (T, B, ydim) by step. Returns ``(carry,
-    q_pack (T, 2, B, xd), scal (T, 8))``."""
+    q_pack (T, 2, B, xd), scal (T, 8))``. A stacked carry: each member in
+    turn, the operands as :func:`mega_epoch_call` takes them, the results
+    with a leading member axis."""
+    if n_members(carry):
+        return _over_members(mega_epoch_plain, 3, cfg, flags, carry, qs_m, qs_lv, ys, us,
+                             eps_s, eps_t, lr, mask, cmask)
     t_total, b, _ = ys.shape
     base = mega_ns_base_iters(cfg, b, masked=mask is not None)
     qm, qlv = qs_m, qs_lv
@@ -979,11 +1039,16 @@ class _Args(ctypes.Structure):
         + [(n, ctypes.c_int) for n in (
             "sgd", "update", "warm_up", "train_decoder", "update_likelihood",
             "update_transition", "poisson", "trace_quirk", "bf16", "mega", "ns_iters",
-            "row0")]
+            "row0", "n_members", "shared")]
         + [(n, ctypes.c_float) for n in (
             "leak", "poisson_clamp", "logvar_clamp", "clip", "rls_shrink",
             "chol_jitter", "obs_var_cap", "state_var_cap", "inv_b")]
     )
+
+
+# Bits of ``VJFArgs.shared``: data of an ensemble launch that every member
+# reads from one copy (``SHARED_*`` in ``csrc/fused_step.cu``).
+_SHARED = {"y": 1, "u": 2}
 
 
 def _library():
@@ -1038,7 +1103,10 @@ def kernel_limits(cfg: VJFConfig, n_batch: int, on_card: bool = True, mask: bool
     card's (``vjf_smem_bytes`` against ``vjf_smem_limit``, which builds the
     library), counting the staging of a trial ``mask`` and of a
     ``channel_mask``. :func:`_launch` raises on it, and
-    :func:`fused_enabled` routes away from it under ``fused_step='auto'``."""
+    :func:`fused_enabled` routes away from it under ``fused_step='auto'``.
+    The number of members of an ensemble launch has no limit: a member is
+    one cluster, and those past what the card holds at once
+    (:func:`cluster_info`'s ``active_clusters``) run in a later wave."""
     nfp, widths = _round_up(cfg.feature_dim), list(cfg.hidden_sizes)
     if nfp > _MAX_FEATURES:
         return (f"{cfg.feature_dim} features pad to {nfp}, over the {_MAX_FEATURES} "
@@ -1092,14 +1160,22 @@ def _launch(kernel: str, cfg, flags, carry: FusedCarry, qs_m, qs_lv, ys, us, eps
     ydim) are the 0/1 masks by step, or None. Raises ``ValueError`` for a
     tensor that does not lie on the card and for a shape the kernel does
     not take: nothing falls back to the plain version. The limits are those
-    of :func:`kernel_limits`."""
+    of :func:`kernel_limits`.
+
+    A stacked carry (:func:`stack_carries`) is an ensemble launch of N
+    members, N clusters. Every carry leaf, output, ``qs_m``/``qs_lv`` and
+    ``eps_*`` then has a leading member axis; ``ys`` and ``us`` have one
+    too, or are given without it as one copy that every member reads
+    (stride 0); ``mask``, ``cmask`` and ``lr`` are one for all."""
     dev = carry.p_mat.device
-    t_total, b, yd = ys.shape
+    t_total, b, yd = ys.shape[-3:]
     reason = kernel_limits(cfg, b, on_card=False)
     if reason is not None:
         raise ValueError(f"the kernels do not take this configuration: {reason}")
     xd, nfp = cfg.xdim, _round_up(cfg.feature_dim)
     ud = 0 if us is None else us.shape[-1]
+    n_mem = n_members(carry)
+    lead = (n_mem,) if n_mem else ()
     widths = list(cfg.hidden_sizes)
     if len(carry.b_hidden) != len(widths):
         raise ValueError(f"a carry of {len(carry.b_hidden)} hidden layers, cfg has {widths}")
@@ -1114,9 +1190,17 @@ def _launch(kernel: str, cfg, flags, carry: FusedCarry, qs_m, qs_lv, ys, us, eps
     h0, hl = widths[0], widths[-1]
 
     def c(t, name, shape, dtype=torch.float32):
-        return _ptr(t, name, shape, dtype, dev)
+        return _ptr(t, name, lead + tuple(shape), dtype, dev)
 
     a = _dims(cfg, b, t_total)
+    a.n_members = n_mem
+
+    def d(t, name, shape):
+        """Data: per member, or in an ensemble launch one copy for all."""
+        if n_mem and t is not None and t.dim() == len(shape):
+            a.shared |= _SHARED[name]
+            return _ptr(t, name, shape, device=dev)
+        return c(t, name, shape)
     a.w_in_y = c(carry.w_in_y, "w_in_y", (h0, yd))
     a.w_in_u = c(carry.w_in_u, "w_in_u", (h0, ud))
     a.w_in_m = c(carry.w_in_m, "w_in_m", (h0, xd))
@@ -1145,14 +1229,15 @@ def _launch(kernel: str, cfg, flags, carry: FusedCarry, qs_m, qs_lv, ys, us, eps
     a.rng_count = c(carry.rng_count, "rng_count", (1, 1), torch.int32)
     a.qs_m = c(qs_m, "qs_m", (b, xd))
     a.qs_lv = c(qs_lv, "qs_lv", (b, xd))
-    a.y = c(ys, "ys", (t_total, b, yd))
-    a.u = c(us, "us", (t_total, b, ud))
+    a.y = d(ys, "y", (t_total, b, yd))
+    a.u = d(us, "u", (t_total, b, ud))
     a.eps_s = c(eps_s, "eps_s", (t_total, b, xd))
     a.eps_t = c(eps_t, "eps_t", (t_total, b, xd))
-    a.mask = c(mask, "mask", (t_total, b))
-    a.cmask = c(cmask, "cmask", (t_total, b, yd))
-    a.lr = c(lr, "lr", ())
-    a.q_pack = c(q_pack, "q_pack", (t_total, 2, b, xd) if q_pack.dim() == 4 else (2, b, xd))
+    a.mask = _ptr(mask, "mask", (t_total, b), device=dev)
+    a.cmask = _ptr(cmask, "cmask", (t_total, b, yd), device=dev)
+    a.lr = _ptr(lr, "lr", (), torch.float32, dev)
+    a.q_pack = c(q_pack, "q_pack", (t_total, 2, b, xd) if q_pack.dim() == 4 + len(lead)
+                 else (2, b, xd))
     a.scal = c(scal, "scal", (t_total, 8))
     a.row0, a.inv_b = int(row0), float(inv_b)
     a.g_vec = c(g_vec, "g_vec", (nfp, xd))
@@ -1183,8 +1268,8 @@ def _launch(kernel: str, cfg, flags, carry: FusedCarry, qs_m, qs_lv, ys, us, eps
                          "local_bytes"), out))
     if sums is not None:
         a.sums = c(sums, "sums", (lib.vjf_sums_floats(ctypes.byref(a)),))
-    ws = torch.empty(lib.vjf_workspace_floats(ctypes.byref(a)), dtype=torch.float32,
-                     device=dev)
+    ws = torch.empty(max(n_mem, 1) * lib.vjf_workspace_floats(ctypes.byref(a)),
+                     dtype=torch.float32, device=dev)
     a.ws = ws.data_ptr()
     fn = getattr(lib, _LAUNCHERS[kernel])
     with torch.cuda.device(dev):
@@ -1197,12 +1282,21 @@ def cluster_info(cfg, flags, carry: FusedCarry, qs_m, qs_lv, ys, us, lr) -> dict
     """How the fused kernel would launch on these operands, without
     launching it: blocks in the cluster, threads a block, bytes of dynamic
     shared memory a block, clusters the card holds at once, registers a
-    thread, and bytes of local memory a thread (register spills)."""
-    t_total, b, _ = ys.shape
-    q_pack = torch.empty((t_total, 2, b, cfg.xdim), dtype=ys.dtype, device=ys.device)
-    scal = torch.empty((t_total, 8), dtype=ys.dtype, device=ys.device)
-    return _launch("info", cfg, flags, carry, qs_m, qs_lv, ys, us, None, None, lr, q_pack,
+    thread, and bytes of local memory a thread (register spills). With a
+    stacked carry (see :func:`_launch`) also the members and the waves
+    their clusters run in: a member is one cluster, and the card holds
+    ``active_clusters`` of them at once."""
+    t_total, b, _ = ys.shape[-3:]
+    n = n_members(carry)
+    lead = carry.p_mat.shape[:-2]
+    q_pack = torch.empty(lead + (t_total, 2, b, cfg.xdim), dtype=ys.dtype, device=ys.device)
+    scal = torch.empty(lead + (t_total, 8), dtype=ys.dtype, device=ys.device)
+    info = _launch("info", cfg, flags, carry, qs_m, qs_lv, ys, us, None, None, lr, q_pack,
                    scal)
+    if n:
+        info["members"] = n
+        info["member_waves"] = -(-n // max(info["active_clusters"], 1))
+    return info
 
 
 def philox_normals_kernel(seed: int, count: int, rows: int, cols: int, device):
@@ -1224,13 +1318,28 @@ def _on_cuda(t: torch.Tensor) -> bool:
     return t.device.type == "cuda"
 
 
-def _kernel_mask(m: Optional[torch.Tensor], shape) -> Optional[torch.Tensor]:
-    """A mask as the kernels read it: f32, contiguous, ``shape`` (no copy
-    when it is one already). The kernels and the plain versions read an
-    entry as valid where it is > 0."""
+def _kernel_mask(m: Optional[torch.Tensor], shape=None) -> Optional[torch.Tensor]:
+    """A mask as the kernels read it: f32, contiguous, ``shape`` (its own by
+    default; no copy when it is one already). The kernels and the plain
+    versions read an entry as valid where it is > 0."""
     if m is None:
         return None
-    return m.to(torch.float32).reshape(shape).contiguous()
+    return m.to(torch.float32).reshape(m.shape if shape is None else shape).contiguous()
+
+
+def _count(kernel: str, carry: FusedCarry, t_total: int) -> None:
+    """One launch of ``kernel`` on ``carry``, under ``<kernel>.ensemble``
+    when the carry is stacked (its steps then member-steps)."""
+    n = n_members(carry)
+    key = f"{kernel}.ensemble" if n else kernel
+    launches[key] += 1
+    steps[key] += max(n, 1) * t_total
+
+
+def _one_step(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """A step's (B, d) operand, stacked or not, with the time axis of length
+    1 that a launch reads."""
+    return None if x is None else x.unsqueeze(-3)
 
 
 def fused_step_call(cfg, flags, carry, qs_m, qs_lv, y, u, eps_s, eps_t, lr, mask=None,
@@ -1239,51 +1348,56 @@ def fused_step_call(cfg, flags, carry, qs_m, qs_lv, y, u, eps_s, eps_t, lr, mask
     updates the carry IN PLACE (the returned carry holds the same tensors);
     on CPU tensors: :func:`fused_step_plain`. ``eps_s=None`` selects the
     in-kernel Philox noise; ``mask`` (B,) or (B, 1) and ``cmask`` (B, ydim)
-    as in :func:`step_math`."""
+    as in :func:`step_math`.
+
+    A stacked carry (:func:`stack_carries`) steps N members in ONE launch
+    of N clusters, the counterpart of the JAX package's ``vmap`` over
+    members: ``qs_*`` and ``eps_*`` are then stacked, ``y`` and ``u``
+    stacked (N, B, ...) or one copy for all, ``mask``, ``cmask`` and ``lr``
+    one for all, and every output has a leading member axis."""
     if not _on_cuda(carry.p_mat):
         return fused_step_plain(cfg, flags, carry, qs_m, qs_lv, y, u, eps_s, eps_t, lr,
                                 mask=mask, cmask=cmask)
-    b, xd = y.shape[0], cfg.xdim
+    lead = carry.p_mat.shape[:-2]
+    b, xd, nfp = y.shape[-2], cfg.xdim, carry.p_mat.shape[-1]
     dev, dt = y.device, y.dtype
-    nfp = carry.p_mat.shape[0]
-    q_pack = torch.empty((2, b, xd), dtype=dt, device=dev)
-    g_vec = torch.empty((nfp, xd), dtype=dt, device=dev)
-    xt = torch.empty((b, xd), dtype=dt, device=dev)
-    xs = torch.empty((b, xd), dtype=dt, device=dev)
-    scal = torch.empty((1, 8), dtype=dt, device=dev)
+    q_pack = torch.empty(lead + (2, b, xd), dtype=dt, device=dev)
+    g_vec = torch.empty(lead + (nfp, xd), dtype=dt, device=dev)
+    xt = torch.empty(lead + (b, xd), dtype=dt, device=dev)
+    xs = torch.empty(lead + (b, xd), dtype=dt, device=dev)
+    scal = torch.empty(lead + (1, 8), dtype=dt, device=dev)
     _launch(
-        "fused_step", cfg, flags, carry, qs_m, qs_lv, y[None], None if u is None else u[None],
-        None if eps_s is None else eps_s[None], None if eps_t is None else eps_t[None],
-        lr, q_pack, scal, g_vec=g_vec, xt=xt, xs=xs,
-        mask=_kernel_mask(mask, (1, b)), cmask=_kernel_mask(cmask, (1,) + tuple(y.shape)),
+        "fused_step", cfg, flags, carry, qs_m, qs_lv, _one_step(y), _one_step(u),
+        _one_step(eps_s), _one_step(eps_t), lr, q_pack, scal, g_vec=g_vec, xt=xt, xs=xs,
+        mask=_kernel_mask(mask, (1, b)), cmask=_kernel_mask(cmask, (1, b, y.shape[-1])),
     )
-    launches["fused_step"] += 1
-    steps["fused_step"] += 1
+    _count("fused_step", carry, 1)
     return PackedStepOut(carry, q_pack, g_vec, xt, xs, scal)
 
 
 def mega_epoch_call(cfg, flags, carry, qs_m, qs_lv, ys, us, eps_s, eps_t, lr, mask=None,
                     cmask=None):
-    """``T = ys.shape[0]`` fused steps. On CUDA tensors: ONE launch of the
+    """``T = ys.shape[-3]`` fused steps. On CUDA tensors: ONE launch of the
     ``mega_epoch`` kernel, which loops over time and updates the carry IN
     PLACE; on CPU tensors: :func:`mega_epoch_plain`. ``eps_s=None`` selects
     the in-kernel Philox noise, continuing the carried ``rng_count``;
     ``mask`` (T, B) and ``cmask`` (T, B, ydim) by step. Returns ``(carry,
-    q_pack (T, 2, B, xd), scal (T, 8))``."""
+    q_pack (T, 2, B, xd), scal (T, 8))``. A stacked carry runs N members in
+    one launch, the operands and outputs as in :func:`fused_step_call`."""
     if not _on_cuda(carry.p_mat):
         return mega_epoch_plain(cfg, flags, carry, qs_m, qs_lv, ys, us, eps_s, eps_t, lr,
                                 mask=mask, cmask=cmask)
-    t_total, b, _ = ys.shape
+    lead = carry.p_mat.shape[:-2]
+    t_total, b, yd = ys.shape[-3:]
     dev, dt = ys.device, ys.dtype
-    q_pack = torch.empty((t_total, 2, b, cfg.xdim), dtype=dt, device=dev)
-    scal = torch.empty((t_total, 8), dtype=dt, device=dev)
+    q_pack = torch.empty(lead + (t_total, 2, b, cfg.xdim), dtype=dt, device=dev)
+    scal = torch.empty(lead + (t_total, 8), dtype=dt, device=dev)
     _launch(
         "mega_epoch", cfg, flags, carry, qs_m, qs_lv, ys, us, eps_s, eps_t, lr,
         q_pack, scal, ns_iters=mega_ns_base_iters(cfg, b, masked=mask is not None),
-        mask=_kernel_mask(mask, (t_total, b)), cmask=_kernel_mask(cmask, tuple(ys.shape)),
+        mask=_kernel_mask(mask, (t_total, b)), cmask=_kernel_mask(cmask, (t_total, b, yd)),
     )
-    launches["mega_epoch"] += 1
-    steps["mega_epoch"] += t_total
+    _count("mega_epoch", carry, t_total)
     return carry, q_pack, scal
 
 
@@ -1467,28 +1581,60 @@ def unpad_carry(cfg: VJFConfig, carry: FusedCarry, state_template):
 # ---------------------------------------------------------------------------
 
 
+def _member_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b``; where either has a leading member axis, member by member:
+    on the card a batched product of these thin shapes takes other kernels
+    than the solo one, with other bits (5e-6 on ``V g`` at the flagship,
+    H100), which a fit amplifies. The square products agree bit for bit and
+    stay batched."""
+    if a.dim() <= 2 and b.dim() <= 2:
+        return a @ b
+    n = a.shape[0] if a.dim() > 2 else b.shape[0]
+    return torch.stack([(a[m] if a.dim() > 2 else a) @ (b[m] if b.dim() > 2 else b)
+                        for m in range(n)])
+
+
+def _member_cholesky(p: torch.Tensor):
+    """``cholesky_f32(p)``; with a leading member axis, member by member
+    (see :func:`_exact_inverse_repair`)."""
+    from .linalg import cholesky_f32
+
+    if p.dim() <= 2:
+        return cholesky_f32(p)
+    chol, info = zip(*(cholesky_f32(x) for x in p))
+    return torch.stack(chol), torch.stack(info)
+
+
 def _exact_inverse_repair(cfg, c, prev_carry, g_vec, b, mse_fn):
     """Cholesky inverse of the current precision, refreshed weights, then the
     state-noise running variance from ``mse_fn(w_new)``. Gated so a failed
     factorization (``info != 0``), a non-finite result or an overflowing
-    residual is SKIPPED; the gate reads the PRE-clip log-variance."""
-    from .linalg import cholesky_f32, tri_inv_newton
+    residual is SKIPPED; the gate reads the PRE-clip log-variance. Every
+    leaf may carry a leading member axis (an ensemble's stacked carry): each
+    member's P is then factored alone, because the card's batched
+    factorisation takes another algorithm whose bits differ from the solo
+    one's (by 1.6e-2 on a flagship P after the bootstrap, H100), which the
+    fit amplifies, and the thin products go through :func:`_member_mm`; so
+    member k keeps the bits of its solo fit."""
+    from .linalg import tri_inv_newton
 
-    chol, info = cholesky_f32(c.p_mat)
+    chol, info = _member_cholesky(c.p_mat)
     x = tri_inv_newton(chol)
-    v_new = x.T @ x
-    w_new = v_new @ g_vec
+    v_new = x.mT @ x
+    w_new = _member_mm(v_new, g_vec)
     mse = mse_fn(w_new)
-    dyn_n = torch.clamp(prev_carry.dyn_n[0, 0], max=float(cfg.state_var_cap))
+    dyn_n = torch.clamp(prev_carry.dyn_n[..., 0, 0], max=float(cfg.state_var_cap))
     tot = dyn_n + b
-    var = (dyn_n / tot) * torch.exp(prev_carry.state_logvar[0, 0]) + (b / tot) * mse
+    var = (dyn_n / tot) * torch.exp(prev_carry.state_logvar[..., 0, 0]) + (b / tot) * mse
     slv = torch.clamp(torch.log(var), -cfg.logvar_clamp, cfg.logvar_clamp)
-    ok = (info == 0) & torch.isfinite(torch.sum(v_new) + torch.sum(w_new)) & torch.isfinite(var)
+    finite = torch.isfinite(torch.sum(v_new, dim=(-2, -1)) + torch.sum(w_new, dim=(-2, -1)))
+    ok = (info == 0) & finite & torch.isfinite(var)
+    ok2 = ok[..., None, None]
     return (
-        torch.where(ok, v_new, c.v_mat),
-        torch.where(ok, w_new, c.w_dyn),
-        torch.where(ok, slv, c.state_logvar[0, 0]).reshape(1, 1),
-        torch.where(ok, tot, c.dyn_n[0, 0]).reshape(1, 1),
+        torch.where(ok2, v_new, c.v_mat),
+        torch.where(ok2, w_new, c.w_dyn),
+        torch.where(ok, slv, c.state_logvar[..., 0, 0])[..., None, None],
+        torch.where(ok, tot, c.dyn_n[..., 0, 0])[..., None, None],
     )
 
 
@@ -1509,37 +1655,42 @@ def exact_v_fallback(cfg: VJFConfig, out, prev_carry: FusedCarry,
     Deliberate deviation from the JAX package, whose fallback reads the
     controls as given: there a NaN-padded control makes the residual NaN
     and the exact inverse is skipped on every step with a masked trial.
+
+    An ensemble step's output (:func:`fused_step_call` on a stacked carry)
+    is taken as it is, each member's branch selected by its own tau;
+    ``mask`` is then one copy for all members, ``u`` stacked or one copy.
     """
     c = out.carry
     m_col = None if mask is None else _mask_col(mask, out.xt.dtype)
-    b = out.xt.shape[0] if m_col is None else torch.sum(m_col)
+    b = out.xt.shape[-2] if m_col is None else torch.sum(m_col)
     if m_col is not None and u is not None:
         u = torch.where(m_col > 0, u, torch.zeros_like(u))
 
     def mse_fn(w_new):
         x2 = torch.sum(out.xs * out.xs, dim=-1, keepdim=True)
-        cross = out.xs @ c.cent_x.T
+        cross = _member_mm(out.xs, c.cent_x.mT)
         if u is not None and u.shape[-1] > 0:
             x2 = x2 + torch.sum(u * u, dim=-1, keepdim=True)
-            cross = cross + u @ c.cent_u.T
+            cross = cross + _member_mm(u, c.cent_u.mT)
         d2 = torch.clamp(x2 + c.c2 - 2.0 * cross, min=0.0)
         feat = torch.exp(-0.5 * d2 * c.inv_w2)
         if c.w_white is not None:
-            feat = feat @ c.w_white          # SGP whitening
-        resid = (out.xt - out.xs) - feat @ w_new
+            feat = _member_mm(feat, c.w_white)          # SGP whitening
+        resid = (out.xt - out.xs) - _member_mm(feat, w_new)
         if m_col is not None:
-            return torch.sum(resid * resid * m_col) / (torch.clamp(b, min=1.0) * resid.shape[-1])
-        return torch.mean(resid * resid)
+            return (torch.sum(resid * resid * m_col, dim=(-2, -1))
+                    / (torch.clamp(b, min=1.0) * resid.shape[-1]))
+        return torch.mean(resid * resid, dim=(-2, -1))
 
     exact = _exact_inverse_repair(cfg, c, prev_carry, out.g_vec, b, mse_fn)
-    tau = out.scal.tau[0, 0] if isinstance(out, StepOut) else out.scal[0, 4]
+    tau = out.scal.tau[0, 0] if isinstance(out, StepOut) else out.scal[..., 0, 4]
     return out._replace(carry=_select_exact(c, exact, tau))
 
 
 def _select_exact(c: FusedCarry, exact, tau: torch.Tensor) -> FusedCarry:
     """``c`` with the exact-inverse repair's four leaves where ``tau >=
     NS_TAU_THRESHOLD``, selected on the device."""
-    keep_ = tau < NS_TAU_THRESHOLD
+    keep_ = (tau < NS_TAU_THRESHOLD)[..., None, None]
     v_new, w_new, slv, dn = (
         torch.where(keep_, k, e)
         for k, e in zip((c.v_mat, c.w_dyn, c.state_logvar, c.dyn_n), exact)
@@ -1637,7 +1788,7 @@ def _lr_tensor(lr, dtype, device) -> torch.Tensor:
 
 
 @full_f32_matmul()
-def run_epoch_fused(cfg, flags, state, ys, us, seed: int, lr, noise=None,
+def run_epoch_fused(cfg, flags, state, ys, us, seed, lr, noise=None,
                     q0=None, mask=None, channel_mask=None):
     """One epoch through the fused kernels -- same contract as
     ``models.vjf.run_epoch``.
@@ -1651,84 +1802,106 @@ def run_epoch_fused(cfg, flags, state, ys, us, seed: int, lr, noise=None,
     ``noise=(eps_s, eps_t)``, each (T, B, xd), injects it instead. ``mask``
     (T, B) and ``channel_mask`` (T, B, ydim), already promoted, ride every
     step (the prefix's fallback takes the trial mask too).
+
+    An ensemble, the counterpart of the JAX package's ``vmap`` over this
+    epoch (``vjf_tpu/parallel/ensemble.py:115-125``): ``state`` a list of N
+    ``TrainState``s and ``seed`` N ints. Their carries are stacked once, so
+    every launch runs all N members (:func:`fused_step_call`), and
+    :func:`exact_v_fallback` selects each member's branch by its own tau on
+    the device. ``ys`` and ``us`` are (N, T, B, ...) per member or shared;
+    ``noise`` and ``q0`` are stacked; the masks are shared. The result's
+    ``state`` is then the list of N states and its tensors lead with the
+    member axis.
     """
     from ..models.vjf import prior
 
-    t_len, n_batch, _ = ys.shape
+    members = isinstance(state, list)         # a TrainState is a tuple too
+    states = list(state) if members else [state]
+    seeds = list(seed) if members else [seed]
+    t_len, n_batch, _ = ys.shape[-3:]
     mask3 = _kernel_mask(mask, (t_len, n_batch))
-    cmask3 = _kernel_mask(channel_mask, tuple(ys.shape))
+    cmask3 = _kernel_mask(channel_mask, (t_len, n_batch, cfg.ydim))
     dtype, dev = ys.dtype, ys.device
-    if q0 is None:
-        q0 = prior(state.params, n_batch)
     lr = _lr_tensor(lr, dtype, dev)
-    has_u = cfg.udim > 0
+    us = us if cfg.udim > 0 else None
 
     do_fallback = flags.update and flags.update_transition and not flags.warm_up
-    state = maybe_epoch_repair(cfg, flags, state, n_batch)
-    carry = pad_carry(cfg, state)
-    carry = carry._replace(
-        rng_seed=torch.full((1, 1), int(seed), dtype=torch.int32, device=dev)
-    )
+    states = [maybe_epoch_repair(cfg, flags, st, n_batch) for st in states]
+    carries = [pad_carry(cfg, st)._replace(
+        rng_seed=torch.full((1, 1), int(s), dtype=torch.int32, device=dev))
+        for st, s in zip(states, seeds)]
+    carry = stack_carries(carries) if members else carries[0]
+    if q0 is None:
+        q0s = [prior(st.params, n_batch) for st in states]
+        qm, qlv = (torch.stack(v) if members else v[0].contiguous() for v in zip(*q0s))
+    else:
+        qm, qlv = q0.mean.contiguous(), q0.logvar.contiguous()
 
     if cfg.fused_epoch == "mega":
         prefix = min(cfg.ns_prefix, t_len) if do_fallback else 0
     else:
         prefix = t_len
+    eps_s, eps_t = (None, None) if noise is None else noise
 
-    def eps_at(lo, hi):
-        if noise is None:
-            return None, None
-        return noise[0][lo:hi], noise[1][lo:hi]
+    def at(x, lo, hi):
+        """Steps [lo, hi) of an operand, stacked or not, as a launch reads it."""
+        if x is None:
+            return None
+        return (x[lo:hi] if x.dim() == 3 else x[:, lo:hi]).contiguous()
 
-    qm, qlv = q0.mean.contiguous(), q0.logvar.contiguous()
+    def now(x, t):
+        return None if x is None else at(x, t, t + 1)[..., 0, :, :]
+
     q_segs, scal_segs = [], []
     for t in range(prefix):
-        u_t = us[t] if has_u else None
-        e_s, e_t = eps_at(t, t + 1)
         prev = carry._replace(dyn_n=carry.dyn_n.clone(),
                               state_logvar=carry.state_logvar.clone())
         m_t = None if mask3 is None else mask3[t]
-        out = fused_step_call(cfg, flags, carry, qm, qlv, ys[t], u_t,
-                              None if e_s is None else e_s[0],
-                              None if e_t is None else e_t[0], lr, mask=m_t,
+        out = fused_step_call(cfg, flags, carry, qm, qlv, now(ys, t), now(us, t),
+                              now(eps_s, t), now(eps_t, t), lr, mask=m_t,
                               cmask=None if cmask3 is None else cmask3[t])
         if do_fallback:
-            out = exact_v_fallback(cfg, out, prev, u_t, mask=m_t)
+            out = exact_v_fallback(cfg, out, prev, now(us, t), mask=m_t)
         carry = out.carry
-        qm, qlv = out.q_pack[0], out.q_pack[1]
-        q_segs.append(out.q_pack[None])
+        qm, qlv = out.q_pack[..., 0, :, :].contiguous(), out.q_pack[..., 1, :, :].contiguous()
+        q_segs.append(out.q_pack.unsqueeze(-4))
         scal_segs.append(out.scal)
     if prefix < t_len:
-        e_s, e_t = eps_at(prefix, t_len)
         carry, q_seq, scal = mega_epoch_call(
-            cfg, flags, carry, qm, qlv, ys[prefix:],
-            us[prefix:] if has_u else None, e_s, e_t, lr,
+            cfg, flags, carry, qm, qlv, at(ys, prefix, t_len), at(us, prefix, t_len),
+            at(eps_s, prefix, t_len), at(eps_t, prefix, t_len), lr,
             mask=None if mask3 is None else mask3[prefix:],
             cmask=None if cmask3 is None else cmask3[prefix:],
         )
         q_segs.append(q_seq)
         scal_segs.append(scal)
 
-    return epoch_result(cfg, carry, state, torch.cat(q_segs, dim=0),
-                        torch.cat(scal_segs, dim=0))
+    return epoch_result(cfg, carry, states if members else states[0],
+                        torch.cat(q_segs, dim=-4), torch.cat(scal_segs, dim=-2))
 
 
 def epoch_result(cfg: VJFConfig, carry: FusedCarry, state, q_seq: torch.Tensor,
                  scal_seq: torch.Tensor):
     """An epoch's ``EpochResult`` from its final carry (unpadded against
-    ``state``), its q packs (T, 2, B, xd) and its scalar rows (T, 8)."""
+    ``state``), its q packs (T, 2, B, xd) and its scalar rows (T, 8). A
+    stacked carry, with the list of member states and both sequences led
+    by the member axis: the list of the N new states."""
     from ..models.vjf import EpochResult, Metrics
 
+    if n_members(carry):
+        new = [unpad_carry(cfg, member_carry(carry, m), st) for m, st in enumerate(state)]
+    else:
+        new = unpad_carry(cfg, carry, state)
     metrics = Metrics(
-        loss=scal_seq[:, 0],
-        recon=scal_seq[:, 1],
-        dynamics=scal_seq[:, 2],
-        entropy=scal_seq[:, 3],
-        tau=scal_seq[:, 4],
+        loss=scal_seq[..., 0],
+        recon=scal_seq[..., 1],
+        dynamics=scal_seq[..., 2],
+        entropy=scal_seq[..., 3],
+        tau=scal_seq[..., 4],
     )
     return EpochResult(
-        state=unpad_carry(cfg, carry, state),
-        q_means=q_seq[:, 0],
-        q_logvars=q_seq[:, 1],
+        state=new,
+        q_means=q_seq[..., 0, :, :],
+        q_logvars=q_seq[..., 1, :, :],
         metrics=metrics,
     )

@@ -1,6 +1,10 @@
-"""Multi-process training (counterpart of ``vjf_tpu/parallel``): the
-exact-sync sharded fused epoch over a ``dp`` process group."""
+"""Multi-model and multi-process training (counterpart of
+``vjf_tpu/parallel``): ensembles of independent members trained in one
+launch stream (``fit_ensemble``), and the exact-sync sharded fused epoch
+over a ``dp`` process group."""
+from .ensemble import EnsembleFitResult, EnsembleSnapshot, fit_ensemble, forecast_ensemble
 from .mesh import make_dp_group
+from .replicated import init_ensemble, run_epoch_ensemble
 from .sharded import (
     make_sharded_epoch,
     make_sharded_epochs,
@@ -11,6 +15,12 @@ from .sharded import (
 )
 
 __all__ = [
+    "EnsembleFitResult",
+    "EnsembleSnapshot",
+    "fit_ensemble",
+    "forecast_ensemble",
+    "init_ensemble",
+    "run_epoch_ensemble",
     "make_dp_group",
     "make_sharded_epoch",
     "make_sharded_epochs",

@@ -194,3 +194,24 @@ def load_snapshot(path: str, device=torch.device("cuda")):
     if payload.get("kind") != "snapshot":
         raise ValueError(f"{path!r} is a model checkpoint, not a fit or stream snapshot")
     return _decode(payload["snapshot"], device)
+
+
+def save_ensemble_checkpoint(path: str, snapshot) -> None:
+    """Persist a ``parallel.ensemble.EnsembleSnapshot`` (the per-member fit
+    state machine: the member states, the phase and plateau arrays, the
+    learning rates, the member generators, the demotion and selection
+    machinery) to the one file ``path``, for the exact resume of
+    ``fit_ensemble``. Where the JAX package writes an ``.npz`` with a
+    pickled treedef, this is the same one ``torch.save`` file as the fit
+    snapshots, loaded with ``weights_only=True``."""
+    _atomic_save({"format": _FORMAT, "kind": "ensemble", "snapshot": _encode(snapshot)}, path)
+
+
+def load_ensemble_checkpoint(path: str, device=torch.device("cuda")):
+    """An ensemble snapshot from :func:`save_ensemble_checkpoint`, its
+    tensors on ``device``; the host state comes back as Python floats, ints
+    and bools, so a resume continues bit for bit."""
+    payload = _load(path)
+    if payload.get("kind") != "ensemble":
+        raise ValueError(f"{path!r} is not a fit_ensemble snapshot")
+    return _decode(payload["snapshot"], device)
