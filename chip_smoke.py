@@ -39,7 +39,16 @@ members' solo fits, that per-epoch fit again with a batched exact
 fallback in place of the member-by-member one (its times, how far its
 members end from the shipped ones), a phase-mixed epoch
 (``warm_gate``) against each member's static-flag epoch, and a forced hot
-member re-run alone while the others keep their bits.
+member re-run alone while the others keep their bits. The ``smooth``
+phases drive post-hoc smoothing and co-smoothing evaluation: the
+associative-scan smoother in f32 at the flagship widths against the
+sequential loops in f64 (a swapped smooth combine must be rejected),
+``scripts/flagship_cosmooth.py``'s workload (a 25-epoch ``fit`` through
+the kernels, then the 5-fold co-smoothing evaluation with the fold loop and
+with fold batches, one fold again in f64, and held-out channels left in the
+inference mask, which must be caught), the facade's ``smooth``,
+``evaluate`` and ``evaluate_kfold``, and the times of a Laplace pass and of
+the small inverse.
 Phases print one line each; any failed check raises and the script exits
 non-zero. The last line is the result:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -70,12 +79,15 @@ from vjf_tpu_torch.config import StepFlags, VJFConfig
 from vjf_tpu_torch.convert import flatten, state_to_numpy
 from vjf_tpu_torch.gp import sgp
 from vjf_tpu_torch.models import dynamics as dyn
+from vjf_tpu_torch.models import evaluate as EV
+from vjf_tpu_torch.models import smoothing
 from vjf_tpu_torch.models import regression as R
 from vjf_tpu_torch.models import vjf as core
 from vjf_tpu_torch.models.recognition import Recognition, linear_from, map_linears
 from vjf_tpu_torch.native import StreamingLoader, device_prefetch
 from vjf_tpu_torch.ops import _build, linalg, rng
 from vjf_tpu_torch.ops import kalman as K
+from vjf_tpu_torch.ops import pkalman as PK
 from vjf_tpu_torch.ops import fused_step as F
 from vjf_tpu_torch.parallel import ensemble as E
 from vjf_tpu_torch.parallel import (
@@ -197,6 +209,11 @@ ENS_SHORT_T = 64                          # ensemble.mixed and ensemble.demote
 # autograd epoch (the same f32 code: a constant gate adds exact zeros and
 # selects copy bits), as compare()'s normalised error
 ENS_MIXED_TOL = 1e-6
+SMOOTH_T = 2048         # smooth.pkalman: steps of an LGSSM at the flagship widths
+SMOOTH_TOL = 1e-3       # smooth.pkalman: parallel f32 against the sequential f64 loops
+COSMOOTH_T, COSMOOTH_B, COSMOOTH_FOLDS = 300, 256, 5   # scripts/flagship_cosmooth.py
+COSMOOTH_MODE_TOL = 1e-3    # bits/spike and R² of the fold loop against the fold batches
+COSMOOTH_F64_TOL = 2e-3     # fold 0's bits/spike in f32 against f64 (absolute)
 # one card's published peaks (H100 SXM data sheet, dense): HBM bytes/s,
 # FP32 outside the tensor cores, bf16 in them
 PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
@@ -2404,6 +2421,259 @@ def check_ensemble_demote(cfg, dev, smi) -> None:
                       for e in log], healthy_bit_identical=True, seconds=secs, card=smi)
 
 
+def lgssm_case(name: str, dev):
+    """(a, q, h, r, m0, p0, ys, b, diag_r) of an LGSSM at the flagship widths
+    (xdim 10, ydim 200, T SMOOTH_T) in f64 on ``dev``, simulated from
+    numpy's seed 0: a stable rotation A perturbed per step with an offset b
+    (the observations come from that system in every case), a random
+    decoder, per-channel variances. ``dense`` and ``diag_inf`` smooth under
+    the unperturbed A, ``diag_inf`` with 10% of the entries dropped
+    (variance inf, y NaN); ``time_varying`` under the per-step A and b."""
+    rng = np.random.default_rng(0)
+    xd, yd, t_len = 10, 200, SMOOTH_T
+    a = 0.97 * np.linalg.qr(rng.normal(size=(xd, xd)))[0]
+    q, h = 0.05 * np.eye(xd), 0.3 * rng.normal(size=(yd, xd))
+    r_var = rng.uniform(0.5, 1.5, size=yd)
+    a_seq = a + 0.02 * rng.normal(size=(t_len, xd, xd))
+    b = 0.1 * rng.normal(size=(t_len, xd))
+    x, xs = np.zeros(xd), []
+    for t in range(t_len):
+        x = a_seq[t] @ x + b[t] + rng.normal(size=xd) * np.sqrt(0.05)
+        xs.append(x)
+    ys = np.stack(xs) @ h.T + rng.normal(size=(t_len, yd)) * np.sqrt(r_var)
+    r, diag = np.diag(r_var), False
+    if name == "diag_inf":
+        r = np.broadcast_to(r_var, (t_len, yd)).copy()
+        miss = rng.random((t_len, yd)) < 0.1
+        r[miss], ys[miss], diag = np.inf, np.nan, True
+    if name != "time_varying":
+        a_seq, b = a, None
+    t = (lambda v: None if v is None else torch.tensor(v, dtype=torch.float64, device=dev))
+    return (*(t(v) for v in (a_seq, q, h, r, np.zeros(xd), np.eye(xd), ys, b)), diag)
+
+
+def normalised(got, ref) -> float:
+    return float((got.double() - ref).abs().max() / ref.abs().max())
+
+
+def check_smooth_pkalman(dev, smi) -> None:
+    """``parallel_smooth`` in f32 on the card against ``sequential_filter``
+    and ``sequential_smooth`` in f64 on the card, SMOOTH_T steps at the
+    flagship widths, for a dense R, a diagonal R with missing entries (the
+    loops take them as a dense per-step R with the variance at 1e12 and y
+    0, which leaves a gain below 1e-12) and time-varying A and b. Each
+    filtered and smoothed mean and covariance within SMOOTH_TOL (normalised
+    by the largest entry of the f64 result). The smooth combine with its
+    arguments swapped must be rejected."""
+    out = {}
+    for name in ("dense", "diag_inf", "time_varying"):
+        a, q, h, r, m0, p0, ys, b, diag = lgssm_case(name, dev)
+        f32 = [None if v is None else v.float() for v in (a, q, h, r, m0, p0, ys, b)]
+        (filt, sm), par_s = synced(lambda: PK.parallel_smooth(*f32, diag_r=diag))
+        r_seq, y_seq = r, ys
+        if diag:
+            missing = torch.isinf(r)
+            r_seq = torch.diag_embed(torch.where(missing, 1e12, r))
+            y_seq = torch.where(missing, 0.0, ys)
+
+        def loops():
+            f = PK.sequential_filter(a, q, h, r_seq, m0, p0, y_seq, b)
+            return f, PK.sequential_smooth(a, q, f, b)
+
+        (seq_f, seq_s), seq_secs = synced(loops)
+        errs = {"filtered_means": normalised(filt.means, seq_f.means),
+                "filtered_covs": normalised(filt.covs, seq_f.covs),
+                "smoothed_means": normalised(sm.means, seq_s.means),
+                "smoothed_covs": normalised(sm.covs, seq_s.covs)}
+        check(all(v <= SMOOTH_TOL for v in errs.values()),
+              f"smooth.pkalman[{name}]: {errs} over {SMOOTH_TOL}")
+        out[name] = dict(errs, parallel_f32_s=par_s, sequential_f64_s=seq_secs)
+        if name == "dense":
+            elems = PK._smooth_elements(f32[0], f32[1], filt, f32[7])
+            _, g_bad, _ = PK.associative_scan(lambda ej, ei: PK._smooth_combine(ei, ej),
+                                              elems, reverse=True)
+            bad = normalised(g_bad, seq_s.means)
+            check(bad > SMOOTH_TOL, f"smooth.pkalman: swapped combine accepted ({bad})")
+            out["fault.swapped_smooth_combine"] = {"smoothed_means": bad, "rejected": True}
+    phase("smooth.pkalman", steps=SMOOTH_T, xdim=10, ydim=200, tol=SMOOTH_TOL,
+          cases=out, card=smi)
+
+
+def cosmooth_data(dev):
+    """scripts/flagship_cosmooth.py's data: a 10-D population of 5
+    oscillator planes, 200 Poisson channels, B 256 trials of T 300, uint8
+    counts from numpy's seed 0, put on the card as they are."""
+    t_len, b, ydim, xdim = COSMOOTH_T, COSMOOTH_B, 200, 10
+    rng = np.random.default_rng(0)
+    ts = np.arange(t_len)[:, None]
+    freqs = 2 * np.pi * np.linspace(0.01, 0.05, 5)
+    ph = rng.uniform(0, 2 * np.pi, size=(b, 5))
+    x = np.stack([np.sin(freqs * ts[:, None] + ph), np.cos(freqs * ts[:, None] + ph)],
+                 axis=-1).reshape(t_len, b, xdim)
+    c = rng.normal(size=(xdim, ydim)) * 0.5
+    rate = np.exp(np.clip(x @ c - 0.8, -6, 2.5))
+    return torch.from_numpy(rng.poisson(rate).astype(np.uint8)).to(dev)
+
+
+def cosmooth_cfg() -> VJFConfig:
+    """scripts/flagship_cosmooth.py's configuration."""
+    return VJFConfig(ydim=200, xdim=10, udim=0, n_rbf=100, hidden_sizes=(32,),
+                     likelihood="poisson", dtype="float32", rls_backend="nsv", lr=1e-3,
+                     warmup_max=25, rtol=2e-3)
+
+
+def check_cosmooth(dev, smi) -> dict:
+    """The flagship co-smoothing workload: ``fit`` (25 epochs, both kernels),
+    then ``kfold_channel_eval`` with 5 folds, with the fold loop and with
+    ``vmap_folds=True, fold_chunk=2``, two runs each (cold, warm). The
+    pooled bits/spike must be finite and above 0 (the model beats the
+    constant-rate null) and the two modes agree within COSMOOTH_MODE_TOL;
+    fold 0 recomputed in f64 agrees within COSMOOTH_F64_TOL; held-out
+    values must not move a prediction, and the held-out channels left in
+    the inference mask (a planted fault) must move it. Returns the fit's
+    state and the data."""
+    cfg, y = cosmooth_cfg(), cosmooth_data(dev)
+    state = core.init_state(0, cfg, device=dev)
+    F.reset_launches()
+    res, fit_s = synced(lambda: core.fit(cfg, state, y, seed=0, max_iter=25))
+    fit_launches = dict(F.launches)
+    check(fit_launches["fused_step"] > 0 and fit_launches["mega_epoch"] > 0,
+          f"smooth.flagship: fit launches {fit_launches}")
+    runs = {}
+    for mode, kw in (("fold_loop", {}), ("fold_batched", dict(vmap_folds=True, fold_chunk=2))):
+        secs = []
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        for _ in range(2):
+            kf, sec = synced(lambda: EV.kfold_channel_eval(cfg, res.state, y,
+                                                           n_folds=COSMOOTH_FOLDS, **kw))
+            secs.append(sec)
+        # the evaluation's own peak, above what earlier phases still hold
+        runs[mode] = dict(kf=kf, cold_s=secs[0], warm_s=secs[1],
+                          peak_bytes=torch.cuda.max_memory_allocated() - held)
+    loop, batched = runs["fold_loop"]["kf"], runs["fold_batched"]["kf"]
+    bits = loop.bits_per_spike
+    check(math.isfinite(bits) and bits > 0, f"smooth.flagship: bits/spike {bits}")
+    mode_diff = max(abs(bits - batched.bits_per_spike) / abs(bits),
+                    float(np.abs(loop.r2 - batched.r2).max()))
+    check(mode_diff <= COSMOOTH_MODE_TOL,
+          f"smooth.flagship: fold loop and fold batches {mode_diff} apart")
+
+    # fold 0 again in f64 on the card
+    fold = loop.folds[0]
+    cfg64 = cfg.replace(dtype="float64")
+    ev64 = EV.heldout_eval(cfg64, cast_state(res.state, torch.float64, dev), y, fold.heldout)
+    f64_diff = abs(float(fold.bits_per_spike) - float(ev64.bits_per_spike))
+    f64_means = normalised(fold.smoothed_means, ev64.smoothed_means)
+    check(f64_diff <= COSMOOTH_F64_TOL, f"smooth.flagship: f32 bits {f64_diff} off f64")
+
+    # held-out values reach no prediction; with the held-out channels left
+    # in the inference mask (the planted fault) they do
+    idx = fold.heldout
+    corrupt = y.clone()
+    corrupt[..., idx] = y[..., idx].flip(0)
+    sound = EV.heldout_eval(cfg, res.state, corrupt, idx)
+    check(torch.equal(sound.pred, fold.pred), "smooth.flagship: held-out values moved pred")
+
+    def leaky(ys):
+        _, sm = smoothing.smooth_batch(cfg, res.state, ys)
+        w = torch.ones(ys.shape[:-1] + (len(idx),), device=dev)
+        return EV._score_heldout(cfg, res.state, ys.float(), idx, w, sm).pred
+
+    leak = float((leaky(corrupt) - leaky(y)).abs().max())
+    check(leak > 0, "smooth.flagship: the leaky evaluation was not caught")
+    phase("smooth.flagship", config="scripts/flagship_cosmooth.py: T %d, B %d, ydim 200, "
+          "xdim 10, poisson, n_rbf 100, hidden (32,), f32, nsv, lr 1e-3, warmup_max 25, "
+          "rtol 2e-3, max_iter 25, %d folds" % (COSMOOTH_T, COSMOOTH_B, COSMOOTH_FOLDS),
+          fit_s=fit_s, epochs_run=res.epochs_run, fit_loss=res.loss, warm_up=res.warm_up,
+          fit_launches=fit_launches,
+          bits_per_spike=bits, bits_per_spike_batched=batched.bits_per_spike,
+          fold_r2=loop.r2.tolist(), mode_tol=COSMOOTH_MODE_TOL, mode_diff=mode_diff,
+          **{f"{m}_{k}": runs[m][k] for m in runs for k in ("cold_s", "warm_s", "peak_bytes")},
+          fold0_f64_bits=float(ev64.bits_per_spike), fold0_f64_bits_diff=f64_diff,
+          fold0_f64_means_err=f64_means, f64_tol=COSMOOTH_F64_TOL,
+          heldout_corrupted_pred_bit_identical=True, fault_leaked_heldout_pred_moved=leak,
+          card=smi)
+    return {"cfg": cfg, "state": res.state, "y": y}
+
+
+def check_smooth_facade(dev, smi) -> None:
+    """``VJF.smooth``/``evaluate``/``evaluate_kfold`` on a small model on the
+    card (ydim 20, xdim 2, 2 fit epochs on counts of a rotating latent, T
+    200, B 4): finite results; NaN at the entries a channel mask drops gives
+    the bits of a zero fill, bit for bit; ``mesh=`` raises naming ROADMAP
+    Queue 1 item 13."""
+    rng = np.random.default_rng(5)
+    t_len, b, ydim = 200, 4, 20
+    th = 0.1 * np.arange(t_len)[:, None] + rng.uniform(0, 6.3, size=b)
+    x = np.stack([np.sin(th), np.cos(th)], axis=-1)
+    y = rng.poisson(np.exp(x @ rng.normal(size=(2, ydim)) * 0.7 - 0.5)).astype(np.float32)
+    model = VJF.make_model(ydim, 2, n_rbf=20, hidden_sizes=(8,), likelihood="poisson", seed=0)
+    (_, _, fit_loss), fit_s = synced(lambda: model.fit(y, max_iter=2))
+    _, one = model.smooth(y[:, 0])
+    _, batch = model.smooth(y)
+    check(tuple(batch.covs.shape) == (t_len, b, 2, 2) and bool(torch.isfinite(batch.covs).all())
+          and bool(torch.isfinite(one.means).all()), "smooth.facade: smooth not finite")
+    ev = model.evaluate(y, [1, 5, 9])
+    kf = model.evaluate_kfold(y, n_folds=4)
+    check(math.isfinite(kf.bits_per_spike) and bool(torch.isfinite(ev.bits_per_spike)),
+          "smooth.facade: evaluation not finite")
+    cm = (rng.random((t_len, b, ydim)) > 0.2).astype(np.float32)
+    bits = [model.evaluate(np.where(cm > 0, y, fill), [1, 5, 9], channel_mask=cm).bits_per_spike
+            for fill in (np.nan, 0.0)]
+    check(torch.equal(bits[0], bits[1]), f"smooth.facade: NaN fill {bits[0]} != zero {bits[1]}")
+    refused = []
+    for method, args in (("smooth", (y,)), ("evaluate", (y, [1])), ("evaluate_kfold", (y,))):
+        try:
+            getattr(model, method)(*args, mesh=object())
+        except NotImplementedError as e:
+            refused.append(str(e).endswith("ROADMAP Queue 1 item 13"))
+    check(refused == [True] * 3, f"smooth.facade: mesh refusals {refused}")
+    phase("smooth.facade", config="ydim 20, xdim 2, n_rbf 20, poisson, T %d, B %d" % (t_len, b),
+          fit_epochs=model.epochs_run, fit_loss=fit_loss, fit_s=fit_s,
+          bits_per_spike=float(ev.bits_per_spike),
+          kfold_bits_per_spike=kf.bits_per_spike, nan_fill_bits=float(bits[0]),
+          zero_fill_bits=float(bits[1]), mesh_refused=refused, card=smi)
+
+
+def check_smooth_times(flag: dict, smi) -> None:
+    """One Laplace pass at the flagship co-smoothing shape (B 256, T 300:
+    the linearization and one pass of the smoother), its seconds and the
+    CUDA kernels it launches (torch.profiler), and ``_gj_inverse`` on
+    (76,800, 10, 10) beside ``torch.linalg.inv`` (CUDA events)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg, state, y = flag["cfg"], flag["state"], flag["y"]
+
+    def one_pass():
+        return smoothing.smooth_batch(cfg, state, y, n_iter=1)
+
+    one_pass()
+    secs = [synced(one_pass)[1] for _ in range(3)]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        one_pass()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    launches = sum(e.count for e in kernels)
+    device_s = sum(e.self_device_time_total for e in kernels) / 1e6
+    check(launches > 0 and device_s > 0, "smooth.times: no device time recorded")
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]
+    g = torch.Generator(device=y.device).manual_seed(3)
+    m = torch.eye(10, device=y.device) + 0.1 * torch.randn(
+        (COSMOOTH_T * COSMOOTH_B, 10, 10), device=y.device, generator=g)
+    gj_err = normalised(PK._gj_inverse(m), torch.linalg.inv(m.double()))
+    gj = [cuda_ms(lambda: PK._gj_inverse(m), 10), cuda_ms(lambda: torch.linalg.inv(m), 10)]
+    gj += [cuda_ms(lambda: torch.linalg.inv(m), 10), cuda_ms(lambda: PK._gj_inverse(m), 10)]
+    phase("smooth.times", what="one Laplace pass, B %d, T %d, xdim 10, ydim 200" % (
+          COSMOOTH_B, COSMOOTH_T), pass_s=secs, kernel_launches=launches,
+          device_s_profiled=device_s, device_busy_share=device_s / min(secs),
+          top_kernels=[{"name": e.key[:60], "calls": e.count,
+                        "share": e.self_device_time_total / 1e6 / device_s} for e in top],
+          gj_inverse_batch=list(m.shape), gj_inverse_ms=[gj[0], gj[3]],
+          linalg_inv_ms=[gj[1], gj[2]], gj_inverse_err_vs_f64=gj_err, card=smi)
+
+
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
@@ -2659,6 +2929,12 @@ def main() -> int:
     check_ensemble_fallback(cfg, dev, smi, ens_main)
     check_ensemble_mixed(cfg, dev, smi)
     check_ensemble_demote(cfg, dev, smi)
+
+    # ---------------- smoothing and co-smoothing evaluation ----------------
+    check_smooth_pkalman(dev, smi)
+    cosmooth = check_cosmooth(dev, smi)
+    check_smooth_facade(dev, smi)
+    check_smooth_times(cosmooth, smi)
 
     # ---------------- bounds: the least time one card could take ----------------
     # each input read once and each output written once (step_mega_bounds)

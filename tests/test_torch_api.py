@@ -291,15 +291,24 @@ def test_save_load_roundtrip_is_bit_exact(tmp_path, backend):
     assert all(np.array_equal(a[k], b[k]) for k in a)
 
 
-@pytest.mark.parametrize("method,item", [("fit_ensemble", "13"), ("smooth", "12"),
-                                         ("evaluate", "12"), ("evaluate_kfold", "12")])
+@pytest.mark.parametrize("method,item", [
+    ("fit_ensemble", "13"),
+    # the ids keep the item that ported each method (12); what they refuse
+    # now is item 13
+    pytest.param("smooth", "13", id="smooth-12"),
+    pytest.param("evaluate", "13", id="evaluate-12"),
+    pytest.param("evaluate_kfold", "13", id="evaluate_kfold-12")])
 def test_deferred_methods_name_their_roadmap_item(method, item):
-    """What the facade leaves out raises naming its ROADMAP item; since the
-    ensemble is ported, ``fit_ensemble`` refuses only ``mesh``."""
+    """What the facade leaves out raises naming its ROADMAP item: since the
+    ensemble, the smoother and the evaluation are ported, each refuses only
+    ``mesh`` (trials or members over several cards), here on a (T, B, ydim)
+    batch."""
     model = VJF.make_model(YD, XD, device="cpu", **KW)
-    kw = dict(n_models=2, mesh=object()) if method == "fit_ensemble" else {}
+    args = {"fit_ensemble": (np.zeros((4, YD)),), "smooth": (np.zeros((4, 2, YD)),),
+            "evaluate": (np.zeros((4, 2, YD)), [1]), "evaluate_kfold": (np.zeros((4, 2, YD)),)}
+    kw = dict(n_models=2) if method == "fit_ensemble" else {}
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}$"):
-        getattr(model, method)(np.zeros((4, YD)), **kw)
+        getattr(model, method)(*args[method], mesh=object(), **kw)
 
 
 def test_fit_mesh_names_item_13():

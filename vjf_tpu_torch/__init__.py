@@ -16,6 +16,10 @@ user-facing facade (``make_model``, ``fit``, ``fit_ensemble``, ``filter``,
 ``filter_stream``, ``forecast``, ``save``/``load``); ``native`` streams
 recordings from a file or FIFO to the card. ``parallel.fit_ensemble`` trains
 N independent members in one launch stream (a member axis on the kernels).
+A trained model is smoothed post hoc by the associative-scan Kalman smoother
+(``ops.pkalman``, ``models.smoothing``; iterated Laplace for Poisson) and
+scored by co-smoothing, the held-out channels' bits per spike
+(``models.evaluate``; ``VJF.smooth``, ``evaluate``, ``evaluate_kfold``).
 """
 from .api import VJF
 from .config import StepFlags, VJFConfig

@@ -3,7 +3,9 @@
 A stateful wrapper over the functional core in ``vjf_tpu_torch.models.vjf``
 with the reference's user-facing calls: ``VJF.make_model(...)``,
 ``.fit(...)``, ``.fit_ensemble(...)``, ``.filter(...)``,
-``.filter_stream(...)``, ``.forecast(...)``, ``.save``/``.load``. The model lives on the card unless the caller asks for
+``.filter_stream(...)``, ``.forecast(...)``, ``.smooth(...)``,
+``.evaluate(...)``, ``.evaluate_kfold(...)``, ``.save``/``.load``. The
+model lives on the card unless the caller asks for
 ``device="cpu"``; where the JAX facade keeps a PRNG key, this one keeps a
 CPU ``torch.Generator`` and draws a fresh seed from it for each call.
 """
@@ -18,6 +20,8 @@ import numpy as np
 import torch
 
 from .config import StepFlags, VJFConfig
+from .models import evaluate as EV
+from .models import smoothing
 from .models import vjf as core
 from .models.decoder import decode
 from .models.likelihoods import gaussian_lik_update
@@ -26,7 +30,7 @@ from .ops.functional import finite_or_zero, gaussian_entropy
 from .types import Gaussian
 
 _EXHAUSTED = object()  # filter_stream: a side iterable that ran dry
-_SMOOTHING_TODO = "{}: ROADMAP Queue 1 item 12"
+_MESH_TODO = "smooth(mesh=...): ROADMAP Queue 1 item 13"
 
 logger = logging.getLogger(__name__)
 
@@ -536,15 +540,61 @@ class VJF:
         return core.forecast(self.cfg, self.state, self._t(x0), self._seed(), n_step=n_step,
                              u=None if u is None else self._t(u), noise=noise)
 
-    # -- smoothing and held-out evaluation: not ported yet ----------------
-    def smooth(self, *args, **kwargs):
-        raise NotImplementedError(_SMOOTHING_TODO.format("smooth"))
+    # -- post-hoc smoothing and held-out evaluation -------------------------
+    def smooth(self, y, x_ref=None, channel_mask=None, mesh=None, u=None):
+        """Parallel-in-time RTS smoothing under the trained model
+        (``models/smoothing.py``): the linearized dynamics for a Gaussian
+        likelihood, the iterated Laplace smoother for Poisson. Returns
+        ``(filtered, smoothed)`` with per-step means and covariances.
 
-    def evaluate(self, *args, **kwargs):
-        raise NotImplementedError(_SMOOTHING_TODO.format("evaluate"))
+        ``y``: one (T, ydim) sequence (:func:`smoothing.smooth`) or a (T, B,
+        ydim) batch of trials (:func:`smoothing.smooth_batch`, one batched
+        call; ``x_ref`` then (T, B, xdim), results gain a trial axis).
+        ``x_ref``: the linearization, one ``(xdim,)`` point (default the
+        origin) or a reference trajectory (the transition into step t
+        linearized at ``x_ref[t-1]``). ``u``: the controls, required when
+        ``udim > 0``, (T, udim), or (T, B, udim) per trial; ``u[t]`` drives
+        the transition into step t. ``channel_mask``: optional (T, ydim) or
+        (T, B, ydim) 0/1 missing-observation mask (exactly zero gain; the
+        stored values may be NaN). ``mesh`` is ROADMAP Queue 1 item 13."""
+        if not hasattr(y, "ndim"):
+            y = np.asarray(y)
+        if y.ndim == 3:
+            return smoothing.smooth_batch(self.cfg, self.state, y, x_ref=x_ref,
+                                          channel_mask=channel_mask, mesh=mesh, us=u)
+        if mesh is not None:
+            raise NotImplementedError(_MESH_TODO)
+        return smoothing.smooth(self.cfg, self.state, y, x_ref=x_ref,
+                                channel_mask=channel_mask, us=u)
 
-    def evaluate_kfold(self, *args, **kwargs):
-        raise NotImplementedError(_SMOOTHING_TODO.format("evaluate_kfold"))
+    def evaluate(self, y, heldout, x_ref=None, u=None, n_iter: Optional[int] = None,
+                 mesh=None, channel_mask=None):
+        """Co-smoothing evaluation (``models/evaluate.py:heldout_eval``):
+        infer the latents from the observed channels only (``heldout``
+        masked out of the smoother exactly) and score the predictive
+        log-likelihood of the held-out channels. Returns a ``HeldoutEval``
+        (``loglik`` against the constant-rate null, ``bits_per_spike`` for
+        Poisson, ``r2``, the predictions and the smoothed latents).
+
+        ``y``: (T, ydim) or a (T, B, ydim) batch. ``heldout``: int channel
+        indices or a boolean (ydim,) mask. ``u`` as in :meth:`smooth`.
+        ``channel_mask``: optional observed-entry 0/1 mask, composed with
+        ``heldout``. ``mesh`` is ROADMAP Queue 1 item 13 (with a single
+        sequence a ``ValueError``, as in the JAX package)."""
+        return EV.heldout_eval(self.cfg, self.state, y, heldout, x_ref=x_ref, us=u,
+                               n_iter=n_iter, mesh=mesh, channel_mask=channel_mask)
+
+    def evaluate_kfold(self, y, n_folds: int = 5, seed: int = 0, **kwargs):
+        """Population-level co-smoothing: :meth:`evaluate` rotated over
+        ``n_folds`` disjoint channel folds, so every channel is scored by a
+        smoother that never saw it (``models/evaluate.py:
+        kfold_channel_eval``). Returns a ``KFoldEval``. ``kwargs`` as in
+        :meth:`evaluate` (``u`` maps to the core's ``us``), and
+        ``vmap_folds``/``fold_chunk``."""
+        if "u" in kwargs:
+            kwargs["us"] = kwargs.pop("u")
+        return EV.kfold_channel_eval(self.cfg, self.state, y, n_folds=n_folds, seed=seed,
+                                     **kwargs)
 
     # -- persistence --------------------------------------------------------
     _BLR_BACKENDS = {"PrecisionBLR": "precision", "CovarianceBLR": "covariance",

@@ -1,4 +1,5 @@
 """Model components of the port (counterpart of ``vjf_tpu/models``)."""
+from . import evaluate, smoothing
 from .rbfn import RBFNParams, apply_rbfn, init_rbfn
 from .regression import (
     BLRState,
@@ -9,6 +10,8 @@ from .regression import (
 )
 
 __all__ = [
+    "evaluate",
+    "smoothing",
     "BLRState",
     "CovarianceBLR",
     "NonBayesLR",

@@ -97,5 +97,5 @@ def nan_where_failed(out: torch.Tensor, info: torch.Tensor) -> torch.Tensor:
     """The result of a ``torch.linalg.*_ex`` call (a Cholesky factor, an
     inverse) as JAX gives it: NaN throughout where LAPACK's ``info != 0``
     (``cholesky_ex`` returns a finite partial factor there), selected on the
-    device."""
-    return torch.where(info == 0, out, torch.full_like(out, float("nan")))
+    device; batched, matrix by matrix."""
+    return torch.where((info == 0)[..., None, None], out, torch.full_like(out, float("nan")))
