@@ -48,7 +48,16 @@ the kernels, then the 5-fold co-smoothing evaluation with the fold loop and
 with fold batches, one fold again in f64, and held-out channels left in the
 inference mask, which must be caught), the facade's ``smooth``,
 ``evaluate`` and ``evaluate_kfold``, and the times of a Laplace pass and of
-the small inverse.
+the small inverse. The ``multi`` phases train over ranks
+(``parallel.sharded``): ``multi.fit`` is exact-sync ``fit(mesh=...)`` at
+world size 1 over NCCL against the plain ``fit`` (each sharded step one
+launch of the phase-1 kernel); ``multi.sync_every`` one relaxed-sync epoch
+(four segments of the step and mega kernels, merged at each boundary)
+against the same segments chained through ``run_epoch``; ``multi.world2``
+two processes on the one card over gloo (``python3 chip_smoke.py
+--world2-rank R PORT DIR`` each), which run exact-sync ``fit``, a relaxed
+epoch, ``fit_ensemble`` with four members a rank and ``smooth_batch`` over
+the two ranks against the one-process runs.
 Phases print one line each; any failed check raises and the script exits
 non-zero. The last line is the result:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -69,6 +78,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -96,7 +106,10 @@ from vjf_tpu_torch.parallel import (
     make_dp_group,
     run_epoch_ensemble,
     run_epoch_fused_sharded,
+    run_epoch_sync_every,
+    shard_data,
 )
+from vjf_tpu_torch.parallel.sharded import segment_seeds
 from vjf_tpu_torch.utils.checkpoint import load_snapshot
 from vjf_tpu_torch.utils.evaluation import forecast_rmse, latent_r2
 
@@ -214,6 +227,21 @@ SMOOTH_TOL = 1e-3       # smooth.pkalman: parallel f32 against the sequential f6
 COSMOOTH_T, COSMOOTH_B, COSMOOTH_FOLDS = 300, 256, 5   # scripts/flagship_cosmooth.py
 COSMOOTH_MODE_TOL = 1e-3    # bits/spike and R² of the fold loop against the fold batches
 COSMOOTH_F64_TOL = 2e-3     # fold 0's bits/spike in f32 against f64 (absolute)
+# multi.*: training over ranks. multi.fit: exact-sync fit at world size 1,
+# fit.flagship's forgetting, 2 warm-up and 2 RLS epochs of MULTI_T steps
+MULTI_T, MULTI_EPOCHS = 256, 4
+MULTI_LOSS_RTOL, MULTI_R2 = 1e-2, 0.99   # tests/test_sharding.py:510-547's checks
+# multi.sync_every: one relaxed-sync epoch of SYNC_T steps in segments of
+# SYNC_K against the segments chained through run_epoch; at one rank the
+# merge rebuilds P and V = P^-1 by the floored eigh and sets w = V P w, so
+# the relaxed w may differ from the chained one by at most SYNC_W_TOL of the
+# epoch's own step in w (chosen before the first run)
+SYNC_T, SYNC_K = 1024, 256
+SYNC_W_TOL = 0.1
+# multi.world2: two processes on one card over gloo, one deadline for both
+WORLD2_DEADLINE = 120.0
+WORLD2_ENS_EPOCHS = 2        # ensemble.fit's workload cut to 1 warm-up + 1 RLS epoch
+WORLD2_SMOOTH_TOL = 1e-4     # smooth_batch over 2 ranks against 1 (normalised, f32)
 # one card's published peaks (H100 SXM data sheet, dense): HBM bytes/s,
 # FP32 outside the tensor cores, bf16 in them
 PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
@@ -2601,8 +2629,8 @@ def check_smooth_facade(dev, smi) -> None:
     """``VJF.smooth``/``evaluate``/``evaluate_kfold`` on a small model on the
     card (ydim 20, xdim 2, 2 fit epochs on counts of a rotating latent, T
     200, B 4): finite results; NaN at the entries a channel mask drops gives
-    the bits of a zero fill, bit for bit; ``mesh=`` raises naming ROADMAP
-    Queue 1 item 13."""
+    the bits of a zero fill, bit for bit; a ``mesh=`` that is not a dp
+    process group raises ``ValueError`` naming it."""
     rng = np.random.default_rng(5)
     t_len, b, ydim = 200, 4, 20
     th = 0.1 * np.arange(t_len)[:, None] + rng.uniform(0, 6.3, size=b)
@@ -2626,8 +2654,8 @@ def check_smooth_facade(dev, smi) -> None:
     for method, args in (("smooth", (y,)), ("evaluate", (y, [1])), ("evaluate_kfold", (y,))):
         try:
             getattr(model, method)(*args, mesh=object())
-        except NotImplementedError as e:
-            refused.append(str(e).endswith("ROADMAP Queue 1 item 13"))
+        except ValueError as e:
+            refused.append("dp process group" in str(e))
     check(refused == [True] * 3, f"smooth.facade: mesh refusals {refused}")
     phase("smooth.facade", config="ydim 20, xdim 2, n_rbf 20, poisson, T %d, B %d" % (t_len, b),
           fit_epochs=model.epochs_run, fit_loss=fit_loss, fit_s=fit_s,
@@ -2672,6 +2700,264 @@ def check_smooth_times(flag: dict, smi) -> None:
                         "share": e.self_device_time_total / 1e6 / device_s} for e in top],
           gj_inverse_batch=list(m.shape), gj_inverse_ms=[gj[0], gj[3]],
           linalg_inv_ms=[gj[1], gj[2]], gj_inverse_err_vs_f64=gj_err, card=smi)
+
+
+def multi_cfg(cfg) -> VJFConfig:
+    """The multi phases' fit knobs: fit.flagship's forgetting, warm-up
+    forced to end after 2 epochs, no plateau (rtol 1e-12, as JAX's test)."""
+    return cfg.replace(warmup_max=2, rtol=1e-12, **FIT_FORGET)
+
+
+def fit_checks(name: str, got, ref, xdim: int) -> float:
+    """tests/test_sharding.py:510-547's checks of a fit over ranks against
+    another: the same epochs_run and warm_up, the loss within
+    MULTI_LOSS_RTOL, the affine-aligned latent R² above MULTI_R2 (returned)."""
+    check(got.epochs_run == ref.epochs_run and got.warm_up == ref.warm_up,
+          f"{name}: epochs_run/warm_up {got.epochs_run}/{got.warm_up} against "
+          f"{ref.epochs_run}/{ref.warm_up}")
+    check(math.isfinite(got.loss) and abs(got.loss - ref.loss) <= MULTI_LOSS_RTOL * abs(ref.loss),
+          f"{name}: loss {got.loss} against {ref.loss}")
+    r2 = latent_r2(got.mu.reshape(-1, xdim), ref.mu.reshape(-1, xdim).cpu().double().numpy())
+    check(r2 > MULTI_R2, f"{name}: latent R2 {r2} against the other fit")
+    return r2
+
+
+def check_multi_fit(cfg, ys, group, smi) -> dict:
+    """Exact-sync ``fit(mesh=group)`` at world size 1 (NCCL) against the
+    plain ``fit`` on the same seed and data (:func:`fit_checks`); the phase-1
+    kernel launched once per sharded step and no other kernel; seconds per
+    step of both. Returns the launches and both results."""
+    cfg = multi_cfg(cfg)
+    y = ys[:MULTI_T]
+    state = core.init_state(3, cfg, device=ys.device)
+    plain, p_s = synced(lambda: core.fit(cfg, state, y, seed=9, max_iter=MULTI_EPOCHS))
+    F.reset_launches()
+    multi, m_s = synced(lambda: core.fit(cfg, state, y, seed=9, max_iter=MULTI_EPOCHS,
+                                         mesh=group))
+    launches, steps_ = dict(F.launches), dict(F.steps)
+    n_steps = multi.epochs_run * MULTI_T
+    check(launches == {**dict.fromkeys(F.launches, 0), "forward_sums": n_steps},
+          f"multi.fit: launches {launches}, {n_steps} sharded steps")
+    r2 = fit_checks("multi.fit", multi, plain, cfg.xdim)
+    phase("multi.fit", world_size=1, backend="nccl",
+          config="bench.py flagship, B %d, T %d, rls_shrink 0.999, chol_jitter 1e-3, "
+          "warmup_max 2" % (ys.shape[1], MULTI_T), epochs_run=multi.epochs_run,
+          warm_up=multi.warm_up, loss=multi.loss, plain_loss=plain.loss, latent_r2=r2,
+          seconds=m_s, s_per_step=m_s / n_steps, plain_seconds=p_s,
+          plain_s_per_step=p_s / n_steps, launches=launches, card=smi)
+    return {"launches": launches, "steps": steps_, "result": multi, "plain": plain,
+            "state": state, "cfg": cfg}
+
+
+def check_multi_sync_every(cfg, state, ys, us, lr, group, smi) -> dict:
+    """One relaxed-sync epoch (``run_epoch_sync_every``, world size 1, NCCL,
+    segments of SYNC_K over SYNC_T steps) from the post-warm-up flagship
+    state against the same segments chained through ``run_epoch`` on the
+    same seeds (``segment_seeds``): its w within SYNC_W_TOL of the epoch's
+    own step in w (the merge at one rank rebuilds V = P^-1 exactly where
+    the chain tracks it by Newton-Schulz), everything finite; the step and
+    mega launches (the first segment lies inside the prefix, each later one
+    is one mega launch); its seconds beside the chain's and one exact-sync
+    epoch's over the same steps. Returns the launches."""
+    y, u, flags = ys[:SYNC_T], us[:SYNC_T], StepFlags()
+    n_seg = SYNC_T // SYNC_K
+    F.reset_launches()
+    res, secs = synced(lambda: run_epoch_sync_every(cfg, flags, state, y, u, 31, lr, group,
+                                                    SYNC_K))
+    launches, steps_ = dict(F.launches), dict(F.steps)
+    check(launches["fused_step"] == min(cfg.ns_prefix, SYNC_K)
+          and launches["mega_epoch"] == n_seg - 1 and launches["forward_sums"] == 0,
+          f"multi.sync_every: launches {launches}")
+    check(bool(torch.isfinite(res.q_means).all() and torch.isfinite(res.metrics.loss).all()
+               and torch.isfinite(res.state.dynamics.blr.w_mean).all()),
+          "multi.sync_every: not finite")
+    st, q, chain_s = state, None, 0.0
+    for i, seed in enumerate(segment_seeds(31, n_seg, 0)):
+        rows = slice(i * SYNC_K, (i + 1) * SYNC_K)
+        c = cfg if i == 0 else cfg.replace(ns_prefix=0)
+        r, s_ = synced(lambda: core.run_epoch(c, flags, st, y[rows], u[rows], seed, lr, q0=q))
+        st, q, chain_s = r.state, core.Gaussian(r.q_means[-1], r.q_logvars[-1]), chain_s + s_
+    w0, wc = state.dynamics.blr.w_mean, st.dynamics.blr.w_mean
+    w_err = float(torch.linalg.vector_norm(res.state.dynamics.blr.w_mean - wc)
+                  / torch.linalg.vector_norm(wc - w0))
+    check(w_err <= SYNC_W_TOL, f"multi.sync_every: w {w_err} of the epoch's step from the chain")
+    _, exact_s = synced(lambda: run_epoch_fused_sharded(cfg, flags, state, y, u, 31, lr, group))
+    phase("multi.sync_every", world_size=1, backend="nccl", steps=SYNC_T, sync_every=SYNC_K,
+          segments=n_seg, seconds=secs, chained_seconds=chain_s, exact_sync_seconds=exact_s,
+          exact_over_relaxed=exact_s / secs, w_err_of_step=w_err, tol=SYNC_W_TOL,
+          loss_first_last=[float(res.metrics.loss[0]), float(res.metrics.loss[-1])],
+          launches=launches, timesteps=steps_, card=smi)
+    return {"launches": launches, "steps": steps_}
+
+
+def world2_worker(rank: int, port: str, path: str) -> int:
+    """One rank of "multi.world2": gloo over ``localhost:port`` on cuda:0,
+    the jobs of ``path/job.pt``, the results (and each job's launches and
+    seconds) to ``path/out<rank>.pt``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    _build.load_library()
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=2, timeout=datetime.timedelta(seconds=60))
+    try:
+        group = make_dp_group()
+        job = torch.load(os.path.join(path, "job.pt"), map_location="cuda:0",
+                         weights_only=False)
+        out = {}
+
+        def run(name, fn):
+            torch.cuda.synchronize()
+            F.reset_launches()
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            out[name] = {"seconds": time.perf_counter() - t0, "launches": dict(F.launches)}
+            return res
+
+        f = job["fit"]
+        res = run("fit", lambda: core.fit(f["cfg"], f["state"], f["y"], seed=f["seed"],
+                                          max_iter=f["max_iter"], mesh=group))
+        out["fit"].update(loss=res.loss, epochs_run=res.epochs_run, warm_up=res.warm_up,
+                          mu=res.mu.cpu(), state=state_leaves(res.state))
+        # the exact-sync step's flat sums at this rank's batch, all-reduced alone
+        y_l = shard_data(f["y"], f["y"][..., :0], group)[0]
+        q0 = core.prior(f["state"].params, y_l.shape[1])
+        flat, _ = F.forward_sums_call(f["cfg"], StepFlags(), F.pad_carry(f["cfg"], f["state"]),
+                                      q0.mean.contiguous(), q0.logvar.contiguous(), y_l[0],
+                                      None, None, None, 1.0 / f["y"].shape[1])
+        out["gloo_all_reduce_ms"] = cuda_ms(lambda: dist.all_reduce(flat, group=group), 20)
+        out["gloo_floats"] = flat.numel()
+        s = job["sync"]
+        ys_l, us_l = shard_data(s["ys"], s["us"], group)
+        res = run("sync", lambda: run_epoch_sync_every(s["cfg"], StepFlags(), s["state"], ys_l,
+                                                       us_l, 31, s["lr"], group, SYNC_K))
+        out["sync"].update(state=state_leaves(res.state),
+                           finite=bool(torch.isfinite(res.q_means).all()
+                                       and torch.isfinite(res.metrics.loss).all()))
+        e = job["ens"]
+        res = run("ens", lambda: fit_ensemble(e["cfg"], e["states"], e["y"], seeds=e["seeds"],
+                                              max_iter=WORLD2_ENS_EPOCHS, mesh=group))
+        out["ens"].update(states=[state_leaves(st) for st in res.states], mu=res.mu.cpu(),
+                          loss=res.loss)
+        m = job["smooth"]
+        filt, sm = run("smooth", lambda: smoothing.smooth_batch(m["cfg"], m["state"], m["y"],
+                                                                mesh=group))
+        out["smooth"].update(means=sm.means.cpu(), covs=sm.covs.cpu(),
+                             filtered=filt.means.cpu())
+        torch.save(out, os.path.join(path, f"out{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def normalised_err(got, ref) -> float:
+    return float((got.double() - ref.double()).abs().max() / ref.double().abs().max())
+
+
+def check_multi_world2(cfg, sync_state, ys, us, lr, multi, cosmooth, smi) -> dict:
+    """Two processes on cuda:0 (:func:`world2_worker`) over gloo: NCCL
+    refuses two ranks on one device. One deadline of WORLD2_DEADLINE s for
+    both; whatever happens both are killed and reaped; any failure fails
+    the run. Jobs: exact-sync ``fit(mesh=...)`` against "multi.fit"'s
+    world-1 run (:func:`fit_checks`), every rank's state bit-equal to rank
+    0's; one relaxed-sync epoch (SYNC_T, SYNC_K, B 128 a rank), finite and
+    bit-equal across the ranks; ``fit_ensemble(mesh=...)`` on "ensemble.fit"'s
+    workload (ENS_N members x ENS_B trials, T ENS_T, 1 warm-up + 1 RLS
+    epoch), four members a rank, each member bit-identical to the one-process
+    ``fit_ensemble``; ``smooth_batch(mesh=...)`` on "smooth.flagship"'s
+    trained state and data (B 256, T 300) within WORLD2_SMOOTH_TOL
+    (normalised) of the one-process call. Times are two processes sharing
+    one card, not scaling numbers."""
+    dev = ys.device
+    e_cfg = ensemble_cfg(cfg).replace(ns_prefix_free="off")
+    e_states = init_ensemble(0, e_cfg, ENS_N, device=dev)
+    e_y = spikes(ENS_T, ENS_B, cfg.ydim, dev, seed=60)
+    e_seeds = [20 + m for m in range(ENS_N)]
+    ens_ref, ens_s = synced(lambda: fit_ensemble(e_cfg, e_states, e_y, seeds=e_seeds,
+                                                 max_iter=WORLD2_ENS_EPOCHS))
+    c = cosmooth
+    (_, sm_ref), sm_s = synced(lambda: smoothing.smooth_batch(c["cfg"], c["state"], c["y"]))
+    f = multi
+    job = {"fit": dict(cfg=f["cfg"], state=f["state"], y=ys[:MULTI_T], seed=9,
+                       max_iter=MULTI_EPOCHS),
+           "sync": dict(cfg=cfg, state=sync_state, ys=ys[:SYNC_T], us=us[:SYNC_T], lr=lr),
+           "ens": dict(cfg=e_cfg, states=e_states, y=e_y, seeds=e_seeds),
+           "smooth": dict(cfg=c["cfg"], state=c["state"], y=c["y"])}
+    tmp = tempfile.mkdtemp(prefix="vjf_world2_")
+    torch.save(job, os.path.join(tmp, "job.pt"))
+    port = str(free_port())
+    script = os.path.abspath(__file__)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, script, "--world2-rank", str(r), port, tmp],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    deadline = time.monotonic() + WORLD2_DEADLINE
+    try:
+        logs = [p.communicate(timeout=max(deadline - time.monotonic(), 1.0))[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.communicate()
+    wall = time.perf_counter() - t0
+    check(all(p.returncode == 0 for p in procs),
+          "multi.world2: a rank failed:\n" + "\n".join(l[-4000:] for l in logs))
+    outs = [torch.load(os.path.join(tmp, f"out{r}.pt"), weights_only=False) for r in range(2)]
+
+    def same(a, b):
+        return all(torch.equal(a[k].cpu(), b[k].cpu()) for k in a)
+
+    fit_got = types.SimpleNamespace(**{k: outs[0]["fit"][k] for k in
+                                       ("loss", "epochs_run", "warm_up", "mu")})
+    r2 = fit_checks("multi.world2.fit", fit_got, f["result"], cfg.xdim)
+    check(same(outs[0]["fit"]["state"], outs[1]["fit"]["state"]),
+          "multi.world2.fit: rank 1's state differs from rank 0's")
+    n_steps = fit_got.epochs_run * MULTI_T
+    for o in outs:
+        check(o["fit"]["launches"]["forward_sums"] == n_steps,
+              f"multi.world2.fit: launches {o['fit']['launches']}")
+    check(all(o["sync"]["finite"] for o in outs), "multi.world2.sync: not finite")
+    check(same(outs[0]["sync"]["state"], outs[1]["sync"]["state"]),
+          "multi.world2.sync: rank 1's state differs from rank 0's")
+    for r, o in enumerate(outs):
+        check(torch.equal(o["ens"]["mu"], ens_ref.mu.cpu()),
+              f"multi.world2.ens: rank {r}'s posteriors differ from the one-process fit")
+        check(np.array_equal(o["ens"]["loss"], ens_ref.loss),
+              f"multi.world2.ens: rank {r}'s losses differ")
+        for m, st in enumerate(ens_ref.states):
+            check(same(state_leaves(st), o["ens"]["states"][m]),
+                  f"multi.world2.ens: member {m} on rank {r} differs from the one-process fit")
+        launched = o["ens"]["launches"]
+        check(launched["fused_step.ensemble"] > 0 and launched["mega_epoch.ensemble"] > 0,
+              f"multi.world2.ens: launches {launched}")
+    sm_err = max(normalised_err(o["smooth"][k], getattr(sm_ref, k).cpu())
+                 for o in outs for k in ("means", "covs"))
+    check(sm_err <= WORLD2_SMOOTH_TOL, f"multi.world2.smooth: {sm_err} from the one-process call")
+    phase("multi.world2", world_size=2, backend="gloo", device="cuda:0 shared by both ranks",
+          note="two processes sharing one card: not a scaling number", wall_seconds=wall,
+          deadline=WORLD2_DEADLINE,
+          fit=dict(seconds=outs[0]["fit"]["seconds"], s_per_step=outs[0]["fit"]["seconds"]
+                   / n_steps, loss=fit_got.loss, world1_loss=f["result"].loss,
+                   latent_r2=r2, ranks_bit_equal=True, launches=outs[0]["fit"]["launches"]),
+          gloo_all_reduce_us=[1e3 * o["gloo_all_reduce_ms"] for o in outs],
+          gloo_floats=outs[0]["gloo_floats"],
+          sync=dict(seconds=[o["sync"]["seconds"] for o in outs], ranks_bit_equal=True,
+                    launches=outs[0]["sync"]["launches"]),
+          ens=dict(members=ENS_N, per_rank=ENS_N // 2, epochs=WORLD2_ENS_EPOCHS,
+                   seconds=[o["ens"]["seconds"] for o in outs], one_process_seconds=ens_s,
+                   members_bit_identical=True, launches=outs[0]["ens"]["launches"]),
+          smooth=dict(seconds=[o["smooth"]["seconds"] for o in outs],
+                      one_process_seconds=sm_s, max_err=sm_err, tol=WORLD2_SMOOTH_TOL),
+          card=smi)
+    return {"launches": [o["fit"]["launches"] for o in outs]}
 
 
 def nbytes(*ts) -> int:
@@ -2936,6 +3222,20 @@ def main() -> int:
     check_smooth_facade(dev, smi)
     check_smooth_times(cosmooth, smi)
 
+    # ---------------- multi: training over ranks ----------------
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        group = make_dp_group()
+        # NCCL sets up its communicator at the first collective: not timed
+        dist.all_reduce(torch.zeros(1, device=dev), group=group)
+        multi = check_multi_fit(cfg, ys, group, smi)
+        sync = check_multi_sync_every(cfg, wu.state, ys, us, lr, group, smi)
+    finally:
+        dist.destroy_process_group()
+    check_multi_world2(cfg, wu.state, ys, us, lr, multi, cosmooth, smi)
+
     # ---------------- bounds: the least time one card could take ----------------
     # each input read once and each output written once (step_mega_bounds)
     nfp = carry_t.p_mat.shape[0]
@@ -3033,6 +3333,13 @@ def main() -> int:
         row("mega_epoch.ensemble", 1767, ens_main["launches"]["mega_epoch.ensemble"],
             ens_main["steps"]["mega_epoch.ensemble"], ens_k["errs"]["mega_epoch"],
             *ens_k["ms"]["mega_epoch"], ens_mega_bound),
+        # the multi paths run the flagship shapes of rows 1-3 (B 256 a rank)
+        row("forward_sums.multi", 1437, multi["launches"]["forward_sums"],
+            multi["steps"]["forward_sums"], sums_err, sums_ms, sums_plain_ms, sums_bound),
+        row("fused_step.sync_every", 1104, sync["launches"]["fused_step"],
+            sync["steps"]["fused_step"], step_err, step_ms, step_plain_ms, step_bound),
+        row("mega_epoch.sync_every", 1767, sync["launches"]["mega_epoch"],
+            sync["steps"]["mega_epoch"], mega_err, mega_ms, mega_plain_ms, mega_bound),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -3072,4 +3379,6 @@ def profile_epoch(cfg, state, ys, us, lr, smi) -> None:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 5 and sys.argv[1] == "--world2-rank":
+        sys.exit(world2_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     sys.exit(main())

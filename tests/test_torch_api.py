@@ -293,28 +293,31 @@ def test_save_load_roundtrip_is_bit_exact(tmp_path, backend):
 
 @pytest.mark.parametrize("method,item", [
     ("fit_ensemble", "13"),
-    # the ids keep the item that ported each method (12); what they refuse
-    # now is item 13
+    # the ids keep the items that ported each method (12, then 13 for mesh=)
     pytest.param("smooth", "13", id="smooth-12"),
     pytest.param("evaluate", "13", id="evaluate-12"),
     pytest.param("evaluate_kfold", "13", id="evaluate_kfold-12")])
 def test_deferred_methods_name_their_roadmap_item(method, item):
-    """What the facade leaves out raises naming its ROADMAP item: since the
-    ensemble, the smoother and the evaluation are ported, each refuses only
-    ``mesh`` (trials or members over several cards), here on a (T, B, ydim)
-    batch."""
+    """``mesh=`` of the facade is ported (members or trials over several
+    cards, item 13): what is not a dp process group raises ``ValueError``
+    naming it, here on a (T, B, ydim) batch."""
     model = VJF.make_model(YD, XD, device="cpu", **KW)
     args = {"fit_ensemble": (np.zeros((4, YD)),), "smooth": (np.zeros((4, 2, YD)),),
             "evaluate": (np.zeros((4, 2, YD)), [1]), "evaluate_kfold": (np.zeros((4, 2, YD)),)}
     kw = dict(n_models=2) if method == "fit_ensemble" else {}
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}$"):
+    with pytest.raises(ValueError, match="dp process group"):
         getattr(model, method)(*args[method], mesh=object(), **kw)
 
 
 def test_fit_mesh_names_item_13():
+    """``VJF.fit(mesh=...)`` is ported (item 13): a mesh that is not a dp
+    process group raises ``ValueError`` naming it, as does one sequence's
+    ``smooth`` with such a mesh."""
     model = VJF.make_model(YD, XD, device="cpu", **KW)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13$"):
+    with pytest.raises(ValueError, match="dp process group"):
         model.fit(np.zeros((4, YD)), mesh=object(), max_iter=1)
+    with pytest.raises(ValueError, match="dp process group"):
+        model.smooth(np.zeros((4, YD)), mesh=object())
 
 
 def test_vjf_defaults_to_the_card():

@@ -80,20 +80,20 @@ def test_run_epoch_refuses_the_unported_xla_step():
 
 
 _DEFERRED = {
-    "mesh": (dict(mesh=object()), "item 13"),
-    "fit_ensemble_mesh": (dict(mesh=object()), "item 13"),
+    "mesh": (dict(mesh=object()), "process group"),
+    "fit_ensemble_mesh": (dict(mesh=object()), "process group"),
 }
 
 
 @pytest.mark.parametrize("branch", list(_DEFERRED))
 def test_deferred_branches_name_their_roadmap_item(branch):
-    """Each branch this slice leaves out raises NotImplementedError naming
-    the ROADMAP Queue 1 item that will port it."""
+    """``mesh=`` is ported (training over several cards): what is not a dp
+    process group raises ``ValueError`` naming it, before any epoch runs."""
     cfg = tcfg.VJFConfig(ydim=4, xdim=2, n_rbf=5, hidden_sizes=(3,), rls_backend="nsv")
     state = _state(cfg)
     ys = torch.zeros(6, 2, 4)
-    kw, item = _DEFERRED[branch]
-    with pytest.raises(NotImplementedError, match=f"Queue 1 {item}$|Queue 1 {item}[^0-9]"):
+    kw, what = _DEFERRED[branch]
+    with pytest.raises(ValueError, match=what):
         if branch == "fit_ensemble_mesh":
             from vjf_tpu_torch.parallel import fit_ensemble
 

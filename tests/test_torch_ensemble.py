@@ -376,8 +376,10 @@ def test_snapshot_resumes_bit_for_bit(k_block, tmp_path):
 
 
 def test_fit_ensemble_mesh_names_item_13():
+    """``fit_ensemble(mesh=...)`` is ported (item 13): a mesh that is not a
+    dp process group raises ``ValueError`` naming it."""
     cfg = _port_cfg(_cfg())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13$"):
+    with pytest.raises(ValueError, match="dp process group"):
         fit_ensemble(cfg, init_ensemble(0, cfg, 2, device="cpu"), _ring(0), seed=0,
                      mesh=object())
 

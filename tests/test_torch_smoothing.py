@@ -445,13 +445,13 @@ def test_validation_errors_are_those_of_jax(gauss, pois):
 
 
 def test_mesh_names_roadmap_item_13(pois):
-    """Trials over several cards are not ported: ``mesh=`` on a batch raises
-    naming the item; on one sequence ``heldout_eval`` raises JAX's
-    ``ValueError``."""
+    """Trials over several cards are ported (item 13): ``mesh=`` on a batch
+    that is not a dp process group raises ``ValueError`` naming it; on one
+    sequence ``heldout_eval`` raises JAX's ``ValueError``."""
     _, _, tc, ts, d, _, _ = pois
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13$"):
+    with pytest.raises(ValueError, match="dp process group"):
         tsm.smooth_batch(tc, ts, d["y"], mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13$"):
+    with pytest.raises(ValueError, match="dp process group"):
         tev.kfold_channel_eval(tc, ts, d["y"], n_folds=2, mesh=object())
     with pytest.raises(ValueError, match="mesh= applies only to batched"):
         tev.heldout_eval(tc, ts, d["y"][:, 0], [1], mesh=object())

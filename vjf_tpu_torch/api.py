@@ -30,7 +30,6 @@ from .ops.functional import finite_or_zero, gaussian_entropy
 from .types import Gaussian
 
 _EXHAUSTED = object()  # filter_stream: a side iterable that ran dry
-_MESH_TODO = "smooth(mesh=...): ROADMAP Queue 1 item 13"
 
 logger = logging.getLogger(__name__)
 
@@ -444,7 +443,8 @@ class VJF:
         learning-rate schedule of earlier calls; ``beta``/``rtol`` default
         to the config's. ``epochs_per_dispatch > 1``: the blocked mode.
         ``mask``/``channel_mask``: ragged trials and missing channels.
-        ``mesh`` raises ``NotImplementedError`` (ROADMAP Queue 1 item 13).
+        ``mesh``: the ``dp`` process group to train over several cards
+        (``models.vjf.fit``: every rank calls with the whole ``y``).
 
         ``y`` may be a list of (T_i, ydim) trials of unequal lengths: they
         are padded and masked (``utils.ragged.pad_trials``; ``u`` and
@@ -500,8 +500,9 @@ class VJF:
         seed ensembles, per-subject sweeps. This instance is the template;
         its own state is untouched. ``y``: (T, B, ydim) shared data or (N,
         T, B, ydim) per member; ``epochs_per_dispatch`` K > 1: K epochs a
-        dispatch, transitions at block boundaries. ``mesh`` is ROADMAP
-        Queue 1 item 13. The init and fit seeds come from ``seed`` or, by
+        dispatch, transitions at block boundaries. ``mesh``: a ``dp``
+        process group; each rank runs its slice of the members and every
+        rank gets all N. The init and fit seeds come from ``seed`` or, by
         default, from the model's generator. Returns ``(result,
         members)``: the ``EnsembleFitResult`` and ``n_models`` fitted
         :class:`VJF` instances ready for ``forecast`` and ``filter``."""
@@ -556,14 +557,18 @@ class VJF:
         ``udim > 0``, (T, udim), or (T, B, udim) per trial; ``u[t]`` drives
         the transition into step t. ``channel_mask``: optional (T, ydim) or
         (T, B, ydim) 0/1 missing-observation mask (exactly zero gain; the
-        stored values may be NaN). ``mesh`` is ROADMAP Queue 1 item 13."""
+        stored values may be NaN). ``mesh``: a ``dp`` process group; a batch's
+        trials are smoothed over its ranks (:func:`smoothing.smooth_batch`),
+        one sequence is smoothed whole, as in the JAX package."""
         if not hasattr(y, "ndim"):
             y = np.asarray(y)
         if y.ndim == 3:
             return smoothing.smooth_batch(self.cfg, self.state, y, x_ref=x_ref,
                                           channel_mask=channel_mask, mesh=mesh, us=u)
         if mesh is not None:
-            raise NotImplementedError(_MESH_TODO)
+            from .parallel.sharded import _rank_and_size
+
+            _rank_and_size(mesh)
         return smoothing.smooth(self.cfg, self.state, y, x_ref=x_ref,
                                 channel_mask=channel_mask, us=u)
 
@@ -579,8 +584,9 @@ class VJF:
         ``y``: (T, ydim) or a (T, B, ydim) batch. ``heldout``: int channel
         indices or a boolean (ydim,) mask. ``u`` as in :meth:`smooth`.
         ``channel_mask``: optional observed-entry 0/1 mask, composed with
-        ``heldout``. ``mesh`` is ROADMAP Queue 1 item 13 (with a single
-        sequence a ``ValueError``, as in the JAX package)."""
+        ``heldout``. ``mesh``: a ``dp`` process group over which a batch's
+        trials are smoothed (with a single sequence a ``ValueError``, as in
+        the JAX package)."""
         return EV.heldout_eval(self.cfg, self.state, y, heldout, x_ref=x_ref, us=u,
                                n_iter=n_iter, mesh=mesh, channel_mask=channel_mask)
 

@@ -112,7 +112,8 @@ def heldout_eval(
     ``x_ref`` / ``us`` / ``n_iter`` pass through to the smoother;
     ``n_iter=None`` is 8 for Poisson and 1 for Gaussian for both shapes.
     ``mesh`` with a 2-d ``ys`` raises ``ValueError``, as in the JAX package;
-    with a batch, :func:`smoothing.smooth_batch` refuses it (ROADMAP).
+    with a batch, :func:`smoothing.smooth_batch` spreads the trials over
+    the ranks and the scoring runs on the gathered result.
 
     ``channel_mask``: optional (T, ydim) or (T, B, ydim) 0/1 observed-entry
     mask (electrode dropout). Inference sees entries observed AND not held

@@ -10,8 +10,9 @@ iterated-Laplace variant.
 
 Every smoother here runs natively batched: :func:`smooth_batch` smooths
 (T, B, ydim) trials in one call of the batched scan, where the JAX package
-``vmap``s the single-sequence smoother over trials. The whole smoother runs
-with TF32 off.
+``vmap``s the single-sequence smoother over trials; over a ``dp`` process
+group (``mesh=``) each rank smooths its slice of the trials and the results
+are gathered. The whole smoother runs with TF32 off.
 """
 from __future__ import annotations
 
@@ -23,9 +24,6 @@ from ..config import VJFConfig
 from ..ops import pkalman
 from ..ops.fused_step import full_f32_matmul
 from .vjf import TrainState, _transition, wire_ingest
-
-_MESH_TODO = "smooth_batch(mesh=...): ROADMAP Queue 1 item 13"
-
 
 def _device(state: TrainState) -> torch.device:
     return state.params.prior.mean.device
@@ -311,13 +309,22 @@ def smooth_batch(
     ``x_ref``: optional (T, B, xdim) per-trial linearization trajectories
     (e.g. ``FitResult.mu``). ``us``: (T, B, udim) per trial or (T, udim)
     shared, required when ``cfg.udim > 0``. ``channel_mask``: (T, ydim)
-    shared over trials or (T, B, ydim) per trial. ``mesh`` (trials over
-    several cards) raises ``NotImplementedError`` naming its ROADMAP item.
+    shared over trials or (T, B, ydim) per trial.
+
+    ``mesh``: a ``dp`` process group (``parallel.make_dp_group``). Every
+    rank passes the same state and the whole batch; when B divides over the
+    ranks each rank smooths its slice of the trials (``[r B/n, (r + 1)
+    B/n)``, with its rows of ``x_ref``, a per-trial ``channel_mask`` and
+    ``us``) and the results are gathered, so every rank returns the whole
+    batch; otherwise every rank smooths the whole batch, as the JAX package
+    does when the trials do not divide.
 
     The returned covariances are (T, B, xdim, xdim), twice over.
     """
     if mesh is not None:
-        raise NotImplementedError(_MESH_TODO)
+        from ..parallel.sharded import _rank_and_size
+
+        rank, world = _rank_and_size(mesh)
     if n_iter is None:
         n_iter = 8 if cfg.likelihood == "poisson" else 1
     ys = _ingest(cfg, state, ys)
@@ -365,7 +372,19 @@ def smooth_batch(
                 "smooth_batch: us must be (T, udim) shared or (T, B, udim) "
                 f"per-trial, got {tuple(us.shape)}"
             )
-    return _smooth_iterated(cfg, state, ys, n_iter, x_ref, channel_mask, us)
+    if mesh is None or n_batch % world:
+        return _smooth_iterated(cfg, state, ys, n_iter, x_ref, channel_mask, us)
+    from ..parallel.sharded import gather_rows
+
+    rows = slice(rank * (n_batch // world), (rank + 1) * (n_batch // world))
+
+    def cut(v):
+        return v[:, rows] if v is not None and v.ndim == 3 else v
+
+    filtered, smoothed = _smooth_iterated(cfg, state, ys[:, rows], n_iter, cut(x_ref),
+                                          cut(channel_mask), cut(us))
+    return (pkalman.FilterResult(*(gather_rows(t, mesh, 1) for t in filtered)),
+            pkalman.SmoothResult(*(gather_rows(t, mesh, 1) for t in smoothed)))
 
 
 def _smooth_iterated(cfg, state, ys, n_iter, x_ref, channel_mask, us):

@@ -4,11 +4,12 @@
 ``run_epoch`` sends an epoch through the fused kernels
 (``ops.fused_step.run_epoch_fused``) where ``fused_enabled`` says so, and
 otherwise through :func:`filter_step`, the whole step as plain tensor code
-with torch autograd, one Python call per timestep. The multi-rank route is
-``parallel.sharded.run_epoch_fused_sharded``. :func:`fit` is the host-side
-training loop: warm-up, the plateau that freezes the decoder and
-bootstraps the dynamics, RLS epochs, hot-tau demotion to the autograd
-epoch, convergence, ``select='forecast'``, and in blocked mode
+with torch autograd, one Python call per timestep. Over several ranks
+(``fit(mesh=...)``) the epochs are ``parallel.sharded``'s exact-sync and
+relaxed-sync ones. :func:`fit` is the host-side training loop: warm-up,
+the plateau that freezes the decoder and bootstraps the dynamics, RLS
+epochs, hot-tau demotion to the autograd epoch, convergence,
+``select='forecast'``, and in blocked mode
 (:func:`_fit_blocked`) prefix-free continuation, and with SGP dynamics the
 epoch-granular kernel hyperparameter step. The dynamics are the RBF system
 (``models.dynamics``) or the sparse GP (``gp.sgp``), one transition
@@ -53,8 +54,6 @@ from .likelihoods import (
 from .recognition import Recognition, init_recognition, linear_from, map_linears
 
 logger = logging.getLogger(__name__)
-
-_MESH_TODO = "fit(mesh=...): ROADMAP Queue 1 item 13"
 
 
 class PriorParams(NamedTuple):
@@ -973,6 +972,80 @@ def _reprobe_log(epoch: int, left: int) -> None:
                 "demoted hot-tau regime may have been a transient.", epoch, left)
 
 
+class _Solo:
+    """The single-card counterpart of ``parallel.sharded.FitGroup``, what the
+    fit loops do over a ``dp`` group: here every method leaves its argument
+    as it is."""
+
+    def state(self, cfg: VJFConfig, state: TrainState) -> TrainState:
+        return state
+
+    def whole(self, res):
+        return res
+
+    def agree(self, vals) -> list:
+        return list(vals)
+
+    def save(self, save_fn, path: str, snapshot) -> None:
+        save_fn(path, snapshot)
+
+
+_SOLO = _Solo()
+
+
+def _fit_group(mesh, state: TrainState):
+    """``parallel.sharded.FitGroup`` over ``mesh`` on the state's device; a
+    ``mesh`` that is not a process group raises ``ValueError``."""
+    from ..parallel.sharded import FitGroup
+
+    return FitGroup(mesh, state.dynamics.blr.w_mean.device)
+
+
+def _epoch_runner(cfg: VJFConfig, mesh, y: torch.Tensor, us: torch.Tensor, masks: dict):
+    """``(run(cfg_run, flags, state, seed, lr, noise) -> EpochResult, local
+    batch)`` of the per-epoch :func:`fit`: :func:`run_epoch` on one card;
+    over ``mesh`` the exact-sync sharded epoch on this rank's trials, or
+    with ``cfg.sync_every != 1`` the relaxed-sync one, which refuses masks
+    and warns where the JAX package warns."""
+    if mesh is None:
+        def run(c, flags, st, seed, lr, noise):
+            return run_epoch(c, flags, st, y, us, seed, lr, noise=noise, **masks)
+
+        return run, y.shape[1]
+    from ..parallel import sharded
+
+    y_l, us_l = sharded.shard_data(y, us, mesh)
+    b_local = y_l.shape[1]
+    if cfg.sync_every == 1:
+        def run(c, flags, st, seed, lr, noise):
+            return sharded.make_sharded_epoch(c, flags, mesh)(st, y_l, us_l, seed, lr, **masks)
+
+        return run, b_local
+    if masks["mask"] is not None or masks["channel_mask"] is not None:
+        raise ValueError("sync_every != 1 does not support masks; use the exact per-step-sync "
+                         "path (cfg.sync_every=1) for ragged trials")
+    if cfg.rls_shrink >= 1.0:
+        logger.warning(
+            "sync_every=%d with rls_shrink=1.0: the per-chip RLS between merges is a pure "
+            "accumulation over B_local=%d trials -- measured to destabilize the merged "
+            "dynamics. Set cfg.rls_shrink<1 (e.g. 0.999) + chol_jitter (e.g. 1e-3); "
+            "cfg.sync_trust damping is active but only bounds the per-merge step, not the "
+            "accumulation.", cfg.sync_every, b_local)
+    if cfg.select != "forecast":
+        logger.warning(
+            "sync_every=%d without select='forecast': relaxed-sync merges can destroy "
+            "forecast skill while latent reconstruction looks healthy (measured: VdP K=8 "
+            "rollout RMSE 12.2 vs 0.91 persistence). Set cfg.select='forecast' to snapshot "
+            "the best post-merge state, or gate your own quality checks on forecast skill, "
+            "never latent R^2.", cfg.sync_every)
+
+    def run(c, flags, st, seed, lr, noise):
+        return sharded.run_epoch_sync_every(c, flags, st, y_l, us_l, seed, lr, mesh,
+                                            cfg.sync_every)
+
+    return run, b_local
+
+
 @_fused.full_f32_matmul()
 def fit(
     cfg: VJFConfig,
@@ -1032,8 +1105,7 @@ def fit(
     only the pairs whose two ends are observed; a ragged SGP fit with fewer
     than ``sgp_fused_min_batch`` valid trials at some step takes the
     autograd epoch (:func:`_demote_masked_small_sgp`); ``select='forecast'``
-    refuses masks. ``mesh`` raises ``NotImplementedError`` naming its
-    ROADMAP item. ``cfg.multistep_refine > 0`` (deprecated, with a warning)
+    refuses masks. ``cfg.multistep_refine > 0`` (deprecated, with a warning)
     blends :func:`multistep_refine` into the weights after each RLS epoch
     (block) that does not end the fit; it refuses controls and masks.
 
@@ -1050,11 +1122,30 @@ def fit(
     covariance backend, or ``dynamics_update='kalman'``, trains every epoch
     on the autograd route, and no demotion, repair or prefix logic runs
     (as in the JAX package, whose fused gate asks for the nsv backend).
+
+    ``mesh``: the ``dp`` process group (``parallel.make_dp_group``) to train
+    over several cards, one rank a process. Every rank calls ``fit`` with
+    the whole ``y``, the whole masks and the same seed; each runs its own
+    trials (``parallel.shard_data``) from rank 0's state
+    (``parallel.shard_state``) under the same host loop. With
+    ``cfg.sync_every == 1`` every epoch (block) is the exact-sync sharded
+    epoch (``parallel.make_sharded_epoch``: one all-reduce a step, masks
+    ride along, no hot-tau demotion); a configuration the kernels refuse
+    raises (Queue 1 item 4). With ``cfg.sync_every != 1`` (per-epoch mode
+    only; the blocked mode always syncs exactly, as in the JAX package)
+    every epoch is ``parallel.run_epoch_sync_every``: masks raise, the
+    demotion watch is judged on the local batch and a demoted epoch re-runs
+    the relaxed path on the autograd route. The bootstrap, the SGP step,
+    ``multistep_refine``, selection and the result read the whole batch's
+    posteriors (gathered), and rank 0's state is broadcast after each such
+    step; rank 0 writes the snapshots. ``callback`` gets this rank's
+    posteriors. Not with ``noise_hook``.
     """
     beta = cfg.beta if beta is None else beta
     rtol = cfg.rtol if rtol is None else rtol
-    if mesh is not None:
-        raise NotImplementedError(_MESH_TODO)
+    group = _SOLO if mesh is None else _fit_group(mesh, state)
+    if mesh is not None and noise_hook is not None:
+        raise ValueError("mesh and noise_hook are mutually exclusive")
     _validate_multistep(cfg, mask)
     select_on = _validate_select(cfg, mask, channel_mask)
     if resume_from is not None and noise_hook is not None:
@@ -1066,7 +1157,7 @@ def fit(
                 "noise_hook requires epochs_per_dispatch=1")
         return _fit_blocked(cfg, state, y, u, seed=seed, max_iter=max_iter, beta=beta,
                             rtol=rtol, callback=callback, k_block=int(epochs_per_dispatch),
-                            lr0=lr0, mask=mask, channel_mask=channel_mask,
+                            lr0=lr0, mask=mask, channel_mask=channel_mask, mesh=mesh,
                             checkpoint_path=checkpoint_path,
                             checkpoint_every=checkpoint_every, resume_from=resume_from)
     gen = _generator(seed)
@@ -1083,16 +1174,19 @@ def fit(
     snap = None if resume_from is None else _load_fit_snapshot(cfg, resume_from, 1, dev)
     if snap is not None:
         state, gen = snap.state, snap.generator
+    state = group.state(cfg, state)
     if select_on:
         _validate_select(cfg, t_len=t_len)
         sel_base = _select_base(gen)
     best_sel = float("inf")
     best_snap = None  # (state, mu, logvar, loss, epoch) at the best metric
+    epoch_fn, local_batch = _epoch_runner(cfg, mesh, y, us, masks)
 
-    # the fused route with the mega layout can demote; the states kept for a
-    # re-run are never written by either route (both build new tensors)
-    mega_possible = (cfg.fused_epoch == "mega"
-                     and _fused.fused_enabled(cfg, state, n_batch=n_batch,
+    # the fused route with the mega layout can demote (not the exact-sync
+    # sharded epoch); the states kept for a re-run are never written by
+    # either route (both build new tensors)
+    mega_possible = ((mesh is None or cfg.sync_every != 1) and cfg.fused_epoch == "mega"
+                     and _fused.fused_enabled(cfg, state, n_batch=local_batch,
                                               mask=mask is not None,
                                               channel_mask=channel_mask is not None))
     warm_up = True
@@ -1129,13 +1223,13 @@ def fit(
         flags = StepFlags(sgd=True, update=True, warm_up=warm_up, train_decoder=warm_up)
         noise = noise_hook(epoch) if noise_hook is not None else None
         backup = state if (mega_guard and not warm_up) else None
-        result = run_epoch(cfg_run, flags, state, y, us, seed_e, lr, noise=noise, **masks)
+        result = epoch_fn(cfg_run, flags, state, seed_e, lr, noise)
         if (mega_guard and not warm_up and result.metrics.tau is not None
                 and result.metrics.tau.shape[0] > cfg.ns_prefix):
             max_tau, hot = epoch_tau_stats(cfg, result.metrics, t_len, cfg.tdtype)
             # one host read for the loss and the tau statistics
-            epoch_loss, max_tau, hot_frac = torch.stack(
-                [torch.mean(result.metrics.loss), max_tau, hot]).tolist()
+            epoch_loss, max_tau, hot_frac = group.agree(torch.stack(
+                [torch.mean(result.metrics.loss), max_tau, hot]).tolist())
             if hot_frac > cfg.demote_hot_frac:
                 _demote_log(hot_frac, max_tau, epoch, "epoch")
                 cfg_run = cfg_run.replace(fused_step="off")
@@ -1143,16 +1237,15 @@ def fit(
                 demote_epoch = epoch
                 # the autograd re-run's exact fallback factors P directly: it
                 # must not start from an unrepaired indefinite backup
-                backup = _fused.maybe_epoch_repair(cfg, flags, backup, n_batch)
-                result = run_epoch(cfg_run, flags, backup, y, us, seed_e, lr, noise=noise,
-                                   **masks)
-                epoch_loss = float(torch.mean(result.metrics.loss))
+                backup = _fused.maybe_epoch_repair(cfg, flags, backup, local_batch)
+                result = epoch_fn(cfg_run, flags, backup, seed_e, lr, noise)
+                epoch_loss = group.agree([float(torch.mean(result.metrics.loss))])[0]
             elif hot_frac > 0:
                 logger.info("Rare Newton-Schulz ceiling hits (%.2f%% of steps, max finite "
                             "tau=%.3f, epoch %d): samples dropped in-kernel; staying on "
                             "the mega layout.", 100 * hot_frac, max_tau, epoch)
         else:
-            epoch_loss = float(torch.mean(result.metrics.loss))
+            epoch_loss = group.agree([float(torch.mean(result.metrics.loss))])[0]
         state = result.state
 
         if callback is not None:
@@ -1171,8 +1264,8 @@ def fit(
                 warm_up = False
                 running_loss = epoch_loss
                 logger.info("Warm up stopped at epoch %d.", epoch)
-                state = _bootstrap_dynamics(cfg, state, result.q_means, us,
-                                            _draw_generator(gen), pair_w)
+                state = group.state(cfg, _bootstrap_dynamics(
+                    cfg, state, group.whole(result).q_means, us, _draw_generator(gen), pair_w))
         else:
             if _isclose(epoch_loss, running_loss, rtol):
                 plateau_hits += 1
@@ -1180,16 +1273,19 @@ def fit(
             else:
                 plateau_hits = 0
             if not converged_now and cfg.dynamics == "sgp" and cfg.sgp_adapt_lr > 0:
-                state = _sgp_adapt_step(cfg, state, result.q_means, us, pair_w)
+                state = group.state(cfg, _sgp_adapt_step(cfg, state, group.whole(result).q_means,
+                                                         us, pair_w))
             if not converged_now and cfg.multistep_refine > 0:
-                state = multistep_refine(cfg, state, result.q_means)
+                state = group.state(cfg, multistep_refine(cfg, state,
+                                                          group.whole(result).q_means))
 
         if select_on and not warm_up:
-            sel = float(rollout_rmse(cfg, state, result.q_means, y, us,
-                                     _select_generator(sel_base, epoch)))
+            whole = group.whole(result)
+            sel = group.agree([float(rollout_rmse(cfg, state, whole.q_means, y, us,
+                                                  _select_generator(sel_base, epoch)))])[0]
             if sel < best_sel:                  # a NaN metric never selects
                 best_sel = sel
-                best_snap = (state, result.q_means, result.q_logvars, epoch_loss, epoch)
+                best_snap = (state, whole.q_means, whole.q_logvars, epoch_loss, epoch)
         if converged_now:
             logger.info("Converged at epoch %d.", epoch)
             break
@@ -1200,28 +1296,30 @@ def fit(
                 and (epoch + 1) % checkpoint_every == 0):
             from ..utils.checkpoint import save_snapshot
 
-            save_snapshot(checkpoint_path, _make_fit_snapshot(
-                cfg, epoch + 1, warm_up, lr, running_loss, plateau_hits, gen, state, result,
-                epoch_loss, cfg_run != cfg, demote_epoch, repromotes_left,
-                best_snap if select_on else None, best_sel,
+            group.save(save_snapshot, checkpoint_path, _make_fit_snapshot(
+                cfg, epoch + 1, warm_up, lr, running_loss, plateau_hits, gen, state,
+                group.whole(result), epoch_loss, cfg_run != cfg, demote_epoch,
+                repromotes_left, best_snap if select_on else None, best_sel,
                 sel_base=sel_base if select_on else None))
 
     epochs_total = start_epoch if result is None else epoch + 1
     return _fit_result(select_on, best_snap, best_sel, result, snap, epoch_loss, state,
-                       warm_up, lr, epochs_total)
+                       warm_up, lr, epochs_total, cfg, group)
 
 
 def _fit_result(select_on, best_snap, best_sel, result, snap, epoch_loss, state, warm_up, lr,
-                epochs_run) -> FitResult:
+                epochs_run, cfg, group) -> FitResult:
     """The :class:`FitResult` both fit loops return: the selected epoch's
-    under ``select='forecast'``; the snapshot's posteriors when a resume
-    landed at or past ``max_iter`` and ran nothing."""
+    under ``select='forecast'`` (its state rank 0's over a group); the
+    snapshot's posteriors when a resume landed at or past ``max_iter`` and
+    ran nothing; the whole batch's posteriors over a group."""
     if select_on and best_snap is not None:
         b_state, b_mu, b_lv, b_loss, b_epoch = best_snap
-        return FitResult(mu=b_mu, logvar=b_lv, loss=b_loss, state=b_state, warm_up=warm_up,
-                         lr=lr, epochs_run=epochs_run, selected_epoch=b_epoch,
+        return FitResult(mu=b_mu, logvar=b_lv, loss=b_loss, state=group.state(cfg, b_state),
+                         warm_up=warm_up, lr=lr, epochs_run=epochs_run, selected_epoch=b_epoch,
                          selected_metric=best_sel)
     if result is not None:
+        result = group.whole(result)
         mu, logvar = result.q_means, result.q_logvars
     elif snap is not None:
         mu, logvar = snap.mu, snap.logvar
@@ -1234,7 +1332,7 @@ def _fit_result(select_on, best_snap, best_sel, result, snap, epoch_loss, state,
 def _fit_blocked(cfg: VJFConfig, state: TrainState, y, u=None, *,
                  seed: Union[int, torch.Generator], max_iter: int, beta: float, rtol: float,
                  callback=None, k_block: int, lr0: Optional[float] = None, mask=None,
-                 channel_mask=None, checkpoint_path: Optional[str] = None,
+                 channel_mask=None, mesh=None, checkpoint_path: Optional[str] = None,
                  checkpoint_every: int = 0, resume_from: Optional[str] = None) -> FitResult:
     """Block-dispatch fit: ``k_block`` epochs per :func:`run_epochs` call,
     with :func:`fit`'s plateau state machine replayed on the host over the
@@ -1254,8 +1352,15 @@ def _fit_blocked(cfg: VJFConfig, state: TrainState, y, u=None, *,
     prefix engages it structurally. The masks ride every block whole, as in
     :func:`fit`. A snapshot is saved at the first block boundary at or past
     each multiple of ``checkpoint_every`` epochs.
+
+    ``mesh``: every block is K exact-sync sharded epochs
+    (``parallel.make_sharded_epochs``) whatever ``cfg.sync_every`` says, as
+    in the JAX package; the sharded epoch keeps the per-step exact-inverse
+    fallback and has no mega layout, so neither the demotion nor prefix-free
+    continuation applies. The rest as in :func:`fit` over a group.
     """
     select_on = cfg.select == "forecast"
+    group = _SOLO if mesh is None else _fit_group(mesh, state)
     gen = _generator(seed)
     dev = state.dynamics.blr.w_mean.device
     y = _promote_y(y, cfg.tdtype, dev)
@@ -1269,13 +1374,25 @@ def _fit_blocked(cfg: VJFConfig, state: TrainState, y, u=None, *,
     snap = None if resume_from is None else _load_fit_snapshot(cfg, resume_from, k_block, dev)
     if snap is not None:
         state, gen = snap.state, snap.generator
+    state = group.state(cfg, state)
     if select_on:
         _validate_select(cfg, t_len=t_len)
         sel_base = _select_base(gen)
     best_sel = float("inf")
     best_snap = None
 
-    mega_possible = (cfg.fused_epoch == "mega"
+    if mesh is None:
+        def epochs_fn(c, flags, st, seeds, lrs):
+            return run_epochs(c, flags, st, y, us, seeds, lrs, **masks)
+    else:
+        from ..parallel import sharded
+
+        y_l, us_l = sharded.shard_data(y, us, mesh)
+
+        def epochs_fn(c, flags, st, seeds, lrs):
+            return sharded.make_sharded_epochs(c, flags, mesh)(st, y_l, us_l, seeds, lrs,
+                                                               **masks)
+    mega_possible = (mesh is None and cfg.fused_epoch == "mega"
                      and _fused.fused_enabled(cfg, state, n_batch=n_batch,
                                               mask=mask is not None,
                                               channel_mask=channel_mask is not None))
@@ -1323,9 +1440,9 @@ def _fit_blocked(cfg: VJFConfig, state: TrainState, y, u=None, *,
             pf_logged = True
             logger.info("blocked fit: carry contracted (max tau < %.2f); continuing "
                         "prefix-free from the epoch-%d block.", _fused.NS_TAU_ESCALATE, epoch)
-        res = run_epochs(cfg_disp, flags, state, y, us, seeds, lrs, **masks)
+        res = epochs_fn(cfg_disp, flags, state, seeds, lrs)
         # one host read per block for the control signals
-        vals = torch.cat([res.epoch_loss, res.max_tau, res.hot_frac]).tolist()
+        vals = group.agree(torch.cat([res.epoch_loss, res.max_tau, res.hot_frac]).tolist())
         losses, max_taus, hot_fracs = vals[:k], vals[k:2 * k], vals[2 * k:]
         if mega_guard and not warm_up:
             if t_len > cfg_disp.ns_prefix:
@@ -1342,7 +1459,7 @@ def _fit_blocked(cfg: VJFConfig, state: TrainState, y, u=None, *,
             mega_guard = False
             demote_epoch = epoch + j
             backup = _fused.maybe_epoch_repair(cfg, flags, backup, n_batch)
-            res = run_epochs(cfg_run, flags, backup, y, us, seeds, lrs, **masks)
+            res = epochs_fn(cfg_run, flags, backup, seeds, lrs)
             losses = res.epoch_loss.tolist()
         state = res.state
 
@@ -1382,35 +1499,38 @@ def _fit_blocked(cfg: VJFConfig, state: TrainState, y, u=None, *,
         if warm_up and warmup_plateau:
             warm_up = False
             running_loss = epoch_loss
-            state = _bootstrap_dynamics(cfg, state, res.q_means, us, _draw_generator(gen),
-                                        pair_w)
+            state = group.state(cfg, _bootstrap_dynamics(cfg, state, group.whole(res).q_means,
+                                                         us, _draw_generator(gen), pair_w))
         elif not warm_up and not converged:
             if cfg.dynamics == "sgp" and cfg.sgp_adapt_lr > 0:
-                state = _sgp_adapt_step(cfg, state, res.q_means, us, pair_w)
+                state = group.state(cfg, _sgp_adapt_step(cfg, state, group.whole(res).q_means,
+                                                         us, pair_w))
             if cfg.multistep_refine > 0:
                 # block-granular, like every phase action here
-                state = multistep_refine(cfg, state, res.q_means)
+                state = group.state(cfg, multistep_refine(cfg, state,
+                                                          group.whole(res).q_means))
         if select_on and not warm_up:
-            sel = float(rollout_rmse(cfg, state, res.q_means, y, us,
-                                     _select_generator(sel_base, epoch - 1)))
+            whole = group.whole(res)
+            sel = group.agree([float(rollout_rmse(cfg, state, whole.q_means, y, us,
+                                                  _select_generator(sel_base, epoch - 1)))])[0]
             if sel < best_sel:
                 best_sel = sel
-                best_snap = (state, res.q_means, res.q_logvars, epoch_loss, epoch - 1)
+                best_snap = (state, whole.q_means, whole.q_logvars, epoch_loss, epoch - 1)
         if converged:
             break
         if (checkpoint_path is not None and checkpoint_every > 0
                 and epoch // checkpoint_every > (epoch - k) // checkpoint_every):
             from ..utils.checkpoint import save_snapshot
 
-            save_snapshot(checkpoint_path, _make_fit_snapshot(
-                cfg, epoch, warm_up, lr, running_loss, plateau_hits, gen, state, res,
-                epoch_loss, cfg_run != cfg, demote_epoch, repromotes_left,
+            group.save(save_snapshot, checkpoint_path, _make_fit_snapshot(
+                cfg, epoch, warm_up, lr, running_loss, plateau_hits, gen, state,
+                group.whole(res), epoch_loss, cfg_run != cfg, demote_epoch, repromotes_left,
                 best_snap if select_on else None, best_sel,
                 sel_base=sel_base if select_on else None, k_block=k_block,
                 prefix_free=prefix_free))
 
     return _fit_result(select_on, best_snap, best_sel, res, snap, epoch_loss, state, warm_up,
-                       lr, epoch)
+                       lr, epoch, cfg, group)
 
 
 # ---------------------------------------------------------------------------

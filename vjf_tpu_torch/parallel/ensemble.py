@@ -29,8 +29,18 @@ The members are a list of ``TrainState``s; ``y`` may be (T, B, ydim), one
 data set for every member (a seed ensemble), or (N, T, B, ydim), one per
 member. Where the JAX package splits PRNG keys, each member here has a CPU
 ``torch.Generator``: one int seed is drawn from it per epoch, one more at
-its bootstrap, as the solo ``fit`` draws from its own. Spreading the
-members over several cards (``mesh``) is ROADMAP Queue 1 item 13.
+its bootstrap, as the solo ``fit`` draws from its own.
+
+Over several cards (``mesh``, a ``dp`` process group), rank r of n runs
+members ``[r N/n, (r + 1) N/n)`` (``replicated.shard_ensemble``) in one
+member-axis launch, each from its own seed chain, and every rank replays
+the host state machine for all N members: the per-member scalars an epoch
+(block) reads (losses, tau statistics, selection metrics) are gathered with
+one small all-reduce (:class:`_Members`), so that the decisions that read
+every member (all done, the uniform phase, prefix-free, the all-hot
+demotion) come out alike on every rank and member k's bits do not depend on
+the ranks. The result and the snapshots hold all N members, each broadcast
+from the rank that ran it.
 """
 from __future__ import annotations
 
@@ -43,11 +53,9 @@ import torch
 from ..config import StepFlags, VJFConfig
 from ..models import vjf as core
 from ..ops import fused_step as _fused
-from .replicated import member_data, member_seeds, run_epoch_ensemble
+from .replicated import member_data, member_range, member_seeds, run_epoch_ensemble
 
 logger = logging.getLogger(__name__)
-
-_MESH_TODO = "fit_ensemble(mesh=...): ROADMAP Queue 1 item 13"
 
 # a module attribute, so that tests can force the decision
 _prefix_free_next = _fused.prefix_free_next
@@ -69,6 +77,61 @@ class EnsembleFitResult(NamedTuple):
     # (-1: none) and its rollout RMSE (nan likewise)
     selected_epoch: Optional[np.ndarray] = None
     selected_metric: Optional[np.ndarray] = None
+
+
+class _Members:
+    """The members this process runs, a slice ``sl`` of the N, and the
+    collectives that make the host's per-member values whole: on one card
+    (``group`` None) every member and no collective; over a ``dp`` group
+    :func:`replicated.member_range`'s slice, per-member vectors gathered
+    with one all-reduce (``parallel.sharded.gather_rows``), states and
+    posteriors assembled from their owners, snapshots written by rank 0."""
+
+    def __init__(self, n_models: int, group=None, device=None):
+        r = member_range(n_models, group)
+        self.n, self.group, self.device = n_models, group, device
+        self.sl = slice(r.start, r.stop)
+        self.lo, self.per = r.start, len(r)
+
+    def gather(self, local) -> np.ndarray:
+        """(n_local, ...) host values of this rank's members -> (N, ...)."""
+        local = np.asarray(local, dtype=float)
+        if self.group is None:
+            return local
+        from .sharded import gather_rows
+
+        t = torch.as_tensor(local, dtype=torch.float64, device=self.device)
+        return gather_rows(t, self.group, 0).cpu().numpy()
+
+    def rows(self, t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """A tensor led by this rank's members -> led by all N."""
+        if self.group is None or t is None:
+            return t
+        from .sharded import gather_rows
+
+        return gather_rows(t, self.group, 0)
+
+    def states(self, local: list) -> list:
+        """This rank's member states -> all N, each from its owner."""
+        if self.group is None:
+            return list(local)
+        from .sharded import _rank_and_size, broadcast_tree
+
+        rank, _ = _rank_and_size(self.group)
+        out = []
+        for m in range(self.n):
+            owner = m // self.per
+            out.append(broadcast_tree(local[m - self.lo] if owner == rank else local[0],
+                                      owner, self.group))
+        return out
+
+    def save(self, save_fn, path: str, snapshot) -> None:
+        if self.group is None:
+            save_fn(path, snapshot)
+            return
+        from .sharded import save_on_rank0
+
+        save_on_rank0(save_fn, path, snapshot, self.group)
 
 
 def _member_select(take, new, old):
@@ -135,12 +198,15 @@ def _ensemble_epochs(cfg, flags, states, y, us, seeds, lrs, warms=None, mask=Non
                              hot_frac=torch.stack(hots, dim=1))
 
 
-def _ensemble_boot(cfg, states, q_means, us, gens, trans, pair_w):
-    """The end of warm-up for the members in ``trans``: each draws its
-    bootstrap generator from its own chain (the solo fit's draw)."""
-    return [core._bootstrap_dynamics(cfg, st, q_means[i], member_data(us, i),
-                                     core._draw_generator(gens[i]), pair_w) if trans[i] else st
-            for i, st in enumerate(states)]
+def _ensemble_boot(cfg, states, q_means, us, gens, trans, pair_w, lo: int = 0):
+    """The end of warm-up for the members in ``trans`` (all N): each draws
+    its bootstrap generator from its own chain (the solo fit's draw), on
+    every rank, so that every chain stays alike; the members run here are
+    ``states``, from member ``lo`` on."""
+    draws = {i: core._draw_generator(gens[i]) for i in np.flatnonzero(trans)}
+    return [core._bootstrap_dynamics(cfg, st, q_means[j], member_data(us, j), draws[lo + j],
+                                     pair_w) if lo + j in draws else st
+            for j, st in enumerate(states)]
 
 
 def _ensemble_adapt(cfg, states, q_means, us, take, pair_w):
@@ -184,6 +250,8 @@ def _rerun_hot_members(cfg, flags, n_batch, backup, y, us, seeds, lr, mask, chan
     reports no tau, so the kernel's tau stream (already read) is kept, and
     the hot members' block statistics read 0."""
     idx = _hot_indices(hot)
+    if not len(idx):
+        return result, losses
     it = torch.as_tensor(idx, device=result.q_means.device)
     sub_states = _ensemble_repair(cfg, flags, n_batch, [backup[i] for i in idx])
     sub_y = y[it] if y.dim() == 4 else y
@@ -239,7 +307,10 @@ class _SelectTracker:
     """Each member's best-forecast snapshot (``select='forecast'`` of the
     solo fit, per member), shared by both ensemble fit loops."""
 
-    def __init__(self, n_models: int, sel_base: Sequence[int]):
+    def __init__(self, n_models: int, sel_base: Sequence[int], members: _Members):
+        # the N-member arrays are whole on every rank; the states and
+        # posteriors kept are this rank's members' (``members.sl``)
+        self.members = members
         self.sel_base = [int(b) for b in sel_base]
         self.best_sel = np.full(n_models, np.inf)
         self.best_loss = np.full(n_models, np.nan)
@@ -253,35 +324,42 @@ class _SelectTracker:
                 eligible: np.ndarray, losses: np.ndarray) -> None:
         if not eligible.any():
             return
-        sel = _ensemble_select_metric(cfg, states, result_mu, y, us, self.sel_base, epoch,
-                                      eligible)
+        sl = self.members.sl
+        sel = self.members.gather(_ensemble_select_metric(
+            cfg, states, result_mu, y, us, self.sel_base[sl], epoch, eligible[sl]))
         sel = np.where(np.isfinite(sel), sel, np.inf)   # a NaN never selects
         take = eligible & (sel < self.best_sel)
         if not take.any():
             return
         if self.states is None:
             self.states, self.mu, self.lv = list(states), result_mu, result_lv
-        self.states = _member_select(take, states, self.states)
-        self.mu = _member_select(take, result_mu, self.mu)
-        self.lv = _member_select(take, result_lv, self.lv)
+        self.states = _member_select(take[sl], states, self.states)
+        self.mu = _member_select(take[sl], result_mu, self.mu)
+        self.lv = _member_select(take[sl], result_lv, self.lv)
         self.best_sel = np.where(take, sel, self.best_sel)
         self.best_loss = np.where(take, losses, self.best_loss)
         self.sel_epoch = np.where(take, epoch, self.sel_epoch)
         self.have |= take
 
     def snapshot(self) -> tuple:
-        """The tracker in plain containers, for :class:`EnsembleSnapshot`."""
+        """The tracker in plain containers with all N members' states and
+        posteriors, for :class:`EnsembleSnapshot`."""
+        m = self.members
+        states = None if self.states is None else m.states(self.states)
         return (list(self.sel_base), self.best_sel.tolist(), self.best_loss.tolist(),
-                self.sel_epoch.tolist(), self.have.tolist(), self.states, self.mu, self.lv)
+                self.sel_epoch.tolist(), self.have.tolist(), states, m.rows(self.mu),
+                m.rows(self.lv))
 
     @classmethod
-    def restore(cls, n_models: int, snap) -> "_SelectTracker":
-        t = cls(n_models, snap[0])
+    def restore(cls, n_models: int, snap, members: _Members) -> "_SelectTracker":
+        t = cls(n_models, snap[0], members)
+        sl = t.members.sl
         t.best_sel = np.asarray(snap[1], dtype=float)
         t.best_loss = np.asarray(snap[2], dtype=float)
         t.sel_epoch = np.asarray(snap[3], dtype=np.int64)
         t.have = np.asarray(snap[4], dtype=bool)
-        t.states, t.mu, t.lv = snap[5], snap[6], snap[7]
+        if snap[5] is not None:
+            t.states, t.mu, t.lv = list(snap[5][sl]), snap[6][sl], snap[7][sl]
         return t
 
     def finalize(self, states, mu_store, lv_store, losses_final):
@@ -290,9 +368,10 @@ class _SelectTracker:
         metric = np.where(self.have, self.best_sel, np.nan)
         if not self.have.any():
             return states, mu_store, lv_store, losses_final, self.sel_epoch, metric
-        return (_member_select(self.have, self.states, states),
-                _member_select(self.have, self.mu, mu_store),
-                _member_select(self.have, self.lv, lv_store),
+        have = self.have[self.members.sl]
+        return (_member_select(have, self.states, states),
+                _member_select(have, self.mu, mu_store),
+                _member_select(have, self.lv, lv_store),
                 np.where(self.have, self.best_loss, losses_final), self.sel_epoch, metric)
 
 
@@ -389,12 +468,16 @@ def _copy_generators(gens) -> list:
 
 def _make_snapshot(epoch, warm, done, running, losses_final, plateau_hits, lr, epochs_run,
                    gens, states, mu_store, lv_store, demoted, demote_epoch, repromotes_left,
-                   tracker, n_models, k_block, cfg, prefix_free=False) -> EnsembleSnapshot:
+                   tracker, n_models, k_block, cfg, members: _Members,
+                   prefix_free=False) -> EnsembleSnapshot:
+    """The snapshot of all N members; ``states`` and the posteriors are
+    this rank's members', assembled through ``members``."""
     return EnsembleSnapshot(
         epoch=int(epoch), warm=warm.tolist(), done=done.tolist(), running=running.tolist(),
         losses_final=losses_final.tolist(), plateau_hits=plateau_hits.tolist(),
         lr=lr.tolist(), epochs_run=epochs_run.tolist(), generators=_copy_generators(gens),
-        states=list(states), mu_store=mu_store, lv_store=lv_store, demoted=bool(demoted),
+        states=members.states(states), mu_store=members.rows(mu_store),
+        lv_store=members.rows(lv_store), demoted=bool(demoted),
         demote_epoch=-1 if demote_epoch is None else int(demote_epoch),
         repromotes_left=int(repromotes_left),
         tracker=None if tracker is None else tracker.snapshot(), n_models=int(n_models),
@@ -466,7 +549,11 @@ def fit_ensemble(
         for seed (member k's chain is then that of ``fit(seed=seeds[k])``)
     :param mask: (T,)/(T, B) trial mask and ``channel_mask`` (T[, B],
         ydim), shared by every member
-    :param mesh: ROADMAP Queue 1 item 13 (raises ``NotImplementedError``)
+    :param mesh: a ``dp`` process group (``parallel.make_dp_group``): every
+        rank calls with all N ``states`` and the same seeds and data, runs
+        its slice of the members (N must divide over the ranks) and returns
+        all N (module docstring); ``callback`` gets this rank's members'
+        results beside all N losses
     :param epochs_per_dispatch: K > 1 runs K epochs a dispatch per member
         with the plateau machine replayed on the host at block boundaries
         (member k equals ``fit(epochs_per_dispatch=K)`` of member k)
@@ -476,8 +563,6 @@ def fit_ensemble(
         snapshot bit-identically (same cfg, data and ``epochs_per_dispatch``;
         the snapshot supersedes ``states`` and the seeds)
     """
-    if mesh is not None:
-        raise NotImplementedError(_MESH_TODO)
     beta = cfg.beta if beta is None else beta
     rtol = cfg.rtol if rtol is None else rtol
     states = list(states)
@@ -490,6 +575,7 @@ def fit_ensemble(
         raise ValueError(f"seeds has {len(seeds)} entries, n_models is {n_models}")
     gens = [s if isinstance(s, torch.Generator) else core._generator(s) for s in seeds]
     dev = states[0].dynamics.blr.w_mean.device
+    members = _Members(n_models, mesh, dev)
 
     y = core.wire_ingest(y, cfg.tdtype, dev)
     if y.dim() == 2:
@@ -522,22 +608,29 @@ def fit_ensemble(
     tracker = None
     if select_on:
         if snap is not None and snap.tracker is not None:
-            tracker = _SelectTracker.restore(n_models, snap.tracker)
+            tracker = _SelectTracker.restore(n_models, snap.tracker, members)
         else:
             # each member's selection stream from its chain at the start,
             # without drawing from it (the solo fit's)
-            tracker = _SelectTracker(n_models, [core._select_base(g) for g in gens])
+            tracker = _SelectTracker(n_models, [core._select_base(g) for g in gens], members)
 
+    # this rank's members and their data
+    states = states[members.sl]
+    if per_member:
+        y = y[members.sl]
+    if us.dim() == 4:
+        us = us[members.sl]
     run = _fit_ensemble_blocked if k_block > 1 else _fit_ensemble_epochs
     return run(cfg, states, y, us, gens, mask, channel_mask, pair_w, n_batch,
                k_block=k_block, max_iter=max_iter, beta=beta, rtol=rtol, callback=callback,
                lr0=lr0, tracker=tracker, checkpoint_path=checkpoint_path,
-               checkpoint_every=checkpoint_every, snap=snap)
+               checkpoint_every=checkpoint_every, snap=snap, members=members)
 
 
-def _start(cfg, states, n_batch, mask, channel_mask, lr0, snap):
-    """The loop variables both fit loops start from, fresh or from ``snap``."""
-    n = len(states)
+def _start(cfg, states, n_batch, mask, channel_mask, lr0, snap, members):
+    """The loop variables both fit loops start from, fresh or from ``snap``:
+    host arrays over all N members, the posteriors of this rank's."""
+    n = members.n
     mega_possible = (cfg.fused_epoch == "mega"
                      and _fused.fused_enabled(cfg, states[0], n_batch=n_batch,
                                               mask=mask is not None,
@@ -555,6 +648,9 @@ def _start(cfg, states, n_batch, mask, channel_mask, lr0, snap):
         (v["epoch"], v["warm"], v["done"], v["running"], v["losses_final"],
          v["plateau_hits"], v["lr"], v["epochs_run"], v["mu_store"], v["lv_store"], demoted,
          v["demote_epoch"], v["repromotes_left"], v["prefix_free"]) = _restore_host_state(snap)
+        if v["mu_store"] is not None:
+            v["mu_store"], v["lv_store"] = (v["mu_store"][members.sl],
+                                            v["lv_store"][members.sl])
         if demoted:
             v["cfg_run"] = cfg.replace(fused_step="off")
             v["mega_guard"] = False
@@ -571,13 +667,15 @@ def _store(mu_store, lv_store, active, res):
 
 def _fit_ensemble_epochs(cfg, states, y, us, gens, mask, channel_mask, pair_w, n_batch, *,
                          k_block, max_iter, beta, rtol, callback, lr0, tracker,
-                         checkpoint_path, checkpoint_every, snap) -> EnsembleFitResult:
-    """The per-epoch fit loop: one dispatch of every member per epoch, the
-    plateau machine per member on the host (solo ``fit`` semantics)."""
-    n_models = len(states)
+                         checkpoint_path, checkpoint_every, snap, members) -> EnsembleFitResult:
+    """The per-epoch fit loop: one dispatch of this rank's members per epoch,
+    the plateau machine per member on the host (solo ``fit`` semantics) over
+    all N, from the gathered losses. ``states``, ``y`` and ``us`` are this
+    rank's members' (``members.sl``); ``gens`` every member's chain."""
+    n_models, sl = members.n, members.sl
     use_adapt = cfg.dynamics == "sgp" and cfg.sgp_adapt_lr > 0
     masks = dict(mask=mask, channel_mask=channel_mask)
-    v = _start(cfg, states, n_batch, mask, channel_mask, lr0, snap)
+    v = _start(cfg, states, n_batch, mask, channel_mask, lr0, snap, members)
     warm, done, running = v["warm"], v["done"], v["running"]
     losses_final, plateau_hits, lr = v["losses_final"], v["plateau_hits"], v["lr"]
     epochs_run, mu_store, lv_store = v["epochs_run"], v["mu_store"], v["lv_store"]
@@ -596,7 +694,7 @@ def _fit_ensemble_epochs(cfg, states, y, us, gens, mask, channel_mask, pair_w, n
             cfg_run = cfg
             mega_guard = True
             _reprobe(epoch, repromotes_left)
-        seeds_e = _draw_members(gens)
+        seeds_e = _draw_members(gens)[sl]
         uniform = warm.all() or not warm.any()
         all_warm = bool(warm.all())
         backup = states if (mega_guard and not all_warm) else None
@@ -616,21 +714,21 @@ def _fit_ensemble_epochs(cfg, states, y, us, gens, mask, channel_mask, pair_w, n
         else:
             flags = StepFlags(sgd=True, update=True, warm_up=False, train_decoder=False)
             result = _ensemble_epoch(cfg_run, flags, states, y, us, seeds_e, lr_shared,
-                                     warms=warm.astype(float).tolist(), **masks)
+                                     warms=warm[sl].astype(float).tolist(), **masks)
         tau = result.metrics.tau
         watch_hot = (mega_guard and uniform and not all_warm and tau is not None
                      and tau.shape[1] > cfg_disp.ns_prefix)
         if watch_hot:
-            max_t, hot_d = _member_tau_stats(cfg_disp, tau, tau.shape[1], n_models, cfg.tdtype,
-                                             tau.device)
-            # one host read for the losses and the tau statistics
-            stats = np.asarray(torch.stack([_row_means(result.metrics.loss), hot_d,
-                                            max_t]).tolist())
+            max_t, hot_d = _member_tau_stats(cfg_disp, tau, tau.shape[1], len(states),
+                                             cfg.tdtype, tau.device)
+            # one host read (and one gather) for the losses and the tau statistics
+            stats = members.gather(np.asarray(torch.stack([
+                _row_means(result.metrics.loss), hot_d, max_t]).tolist()).T).T
             losses, hot_frac, max_taus = stats[0], stats[1], stats[2]
             prefix_free = _prefix_free_next(prefix_free, float(hot_frac.max()),
                                             float(max_taus.max()))
         else:
-            losses = np.asarray(_row_means(result.metrics.loss).tolist())
+            losses = members.gather(_row_means(result.metrics.loss).tolist())
             if (mega_guard and uniform and not all_warm and tau is not None
                     and tau.shape[1] <= cfg_disp.ns_prefix):
                 # the whole epoch ran inside the protected prefix: engage
@@ -650,7 +748,7 @@ def _fit_ensemble_epochs(cfg, states, y, us, gens, mask, channel_mask, pair_w, n
                 backup = _ensemble_repair(cfg, flags, n_batch, backup)
                 result = _ensemble_epoch(cfg_run, flags, backup, y, us, seeds_e, lr_shared,
                                          **masks)
-                losses = np.asarray(_row_means(result.metrics.loss).tolist())
+                losses = members.gather(_row_means(result.metrics.loss).tolist())
             else:
                 newly = hot & ~member_demoted
                 if newly.any():
@@ -660,9 +758,10 @@ def _fit_ensemble_epochs(cfg, states, y, us, gens, mask, channel_mask, pair_w, n
                         "autograd route from their repaired pre-epoch states (per epoch, "
                         "until their kernel epoch runs clean).",
                         np.flatnonzero(newly).tolist(), 100 * hot_frac.max(), epoch)
-                result, losses = _rerun_hot_members(
+                result, local = _rerun_hot_members(
                     cfg, flags, n_batch, backup, y, us, seeds_e, lr_shared, mask,
-                    channel_mask, hot, result, losses)
+                    channel_mask, hot[sl], result, losses[sl])
+                losses = members.gather(local)
         if watch_hot:
             recovered = member_demoted & ~hot
             if recovered.any():
@@ -672,8 +771,8 @@ def _fit_ensemble_epochs(cfg, states, y, us, gens, mask, channel_mask, pair_w, n
             member_demoted = hot.copy()
 
         active = ~done
-        states = _member_select(active, result.state, states)
-        mu_store, lv_store = _store(mu_store, lv_store, active, result)
+        states = _member_select(active[sl], result.state, states)
+        mu_store, lv_store = _store(mu_store, lv_store, active[sl], result)
         losses_final = np.where(active, losses, losses_final)
         epochs_run = np.where(active, epoch + 1, epochs_run)
         if callback is not None:
@@ -694,7 +793,8 @@ def _fit_ensemble_epochs(cfg, states, y, us, gens, mask, channel_mask, pair_w, n
                 plateau_hits[i] = 0
         post = active & ~warm & ~newly_done
         if trans.any():
-            states = _ensemble_boot(cfg, states, result.q_means, us, gens, trans, pair_w)
+            states = _ensemble_boot(cfg, states, result.q_means, us, gens, trans, pair_w,
+                                    members.lo)
             warm[trans] = False
             running[trans] = losses[trans]
             for i in np.flatnonzero(trans):
@@ -704,9 +804,9 @@ def _fit_ensemble_epochs(cfg, states, y, us, gens, mask, channel_mask, pair_w, n
             for i in np.flatnonzero(newly_done):
                 logger.info("ensemble: member %d converged at epoch %d.", i, epoch)
         if use_adapt and post.any():
-            states = _ensemble_adapt(cfg, states, result.q_means, us, post, pair_w)
+            states = _ensemble_adapt(cfg, states, result.q_means, us, post[sl], pair_w)
         if cfg.multistep_refine > 0 and post.any():
-            states = _ensemble_msrefine(cfg, states, result.q_means, post)
+            states = _ensemble_msrefine(cfg, states, result.q_means, post[sl])
         if tracker is not None:
             tracker.observe(cfg, states, result.q_means, result.q_logvars, y, us, epoch,
                             active & ~warm, losses)
@@ -722,37 +822,40 @@ def _fit_ensemble_epochs(cfg, states, y, us, gens, mask, channel_mask, pair_w, n
                 and (epoch + 1) % checkpoint_every == 0):
             from ..utils.checkpoint import save_ensemble_checkpoint
 
-            save_ensemble_checkpoint(checkpoint_path, _make_snapshot(
+            members.save(save_ensemble_checkpoint, checkpoint_path, _make_snapshot(
                 epoch + 1, warm, done, running, losses_final, plateau_hits, lr, epochs_run,
                 gens, states, mu_store, lv_store, cfg_run != cfg, demote_epoch,
-                repromotes_left, tracker, n_models, 1, cfg, prefix_free=prefix_free))
+                repromotes_left, tracker, n_models, 1, cfg, members, prefix_free=prefix_free))
 
-    return _result(tracker, states, mu_store, lv_store, losses_final, warm, lr, epochs_run)
+    return _result(tracker, states, mu_store, lv_store, losses_final, warm, lr, epochs_run,
+                   members)
 
 
 def _result(tracker, states, mu_store, lv_store, losses_final, warm, lr,
-            epochs_run) -> EnsembleFitResult:
+            epochs_run, members: _Members) -> EnsembleFitResult:
+    """All N members' result, each from the rank that ran it."""
     sel_ep = sel_m = None
     if tracker is not None:
         states, mu_store, lv_store, losses_final, sel_ep, sel_m = tracker.finalize(
             states, mu_store, lv_store, losses_final)
-    return EnsembleFitResult(mu=mu_store, logvar=lv_store, loss=losses_final, states=states,
-                             warm_up=warm, lr=lr, epochs_run=epochs_run,
-                             selected_epoch=sel_ep, selected_metric=sel_m)
+    return EnsembleFitResult(mu=members.rows(mu_store), logvar=members.rows(lv_store),
+                             loss=losses_final, states=members.states(states), warm_up=warm,
+                             lr=lr, epochs_run=epochs_run, selected_epoch=sel_ep,
+                             selected_metric=sel_m)
 
 
 def _fit_ensemble_blocked(cfg, states, y, us, gens, mask, channel_mask, pair_w, n_batch, *,
                           k_block, max_iter, beta, rtol, callback, lr0, tracker,
-                          checkpoint_path, checkpoint_every, snap) -> EnsembleFitResult:
-    """The blocked fit loop: K epochs of every member a dispatch, the plateau
-    machine replayed per member on the host over the block's (N, K) losses,
-    transitions at block boundaries (``models.vjf._fit_blocked`` per
-    member)."""
-    n_models = len(states)
+                          checkpoint_path, checkpoint_every, snap, members) -> EnsembleFitResult:
+    """The blocked fit loop: K epochs of this rank's members a dispatch, the
+    plateau machine replayed per member on the host over the block's
+    gathered (N, K) losses, transitions at block boundaries
+    (``models.vjf._fit_blocked`` per member)."""
+    n_models, sl = members.n, members.sl
     use_adapt = cfg.dynamics == "sgp" and cfg.sgp_adapt_lr > 0
     masks = dict(mask=mask, channel_mask=channel_mask)
     t_len = y.shape[-3]
-    v = _start(cfg, states, n_batch, mask, channel_mask, lr0, snap)
+    v = _start(cfg, states, n_batch, mask, channel_mask, lr0, snap, members)
     epoch, warm, done, running = v["epoch"], v["warm"], v["done"], v["running"]
     losses_final, plateau_hits, lr = v["losses_final"], v["plateau_hits"], v["lr"]
     epochs_run, mu_store, lv_store = v["epochs_run"], v["mu_store"], v["lv_store"]
@@ -770,7 +873,7 @@ def _fit_ensemble_blocked(cfg, states, y, us, gens, mask, channel_mask, pair_w, 
             mega_guard = True
             _reprobe(epoch, repromotes_left)
         k = min(k_block, max_iter - epoch)
-        seeds_b = [[core.epoch_seed(g) for _ in range(k)] for g in gens]
+        seeds_b = [[core.epoch_seed(g) for _ in range(k)] for g in gens][sl]
         lr_shared = float(lr[~done][0])
         lrs = [lr_shared * cfg.lr_decay ** j for j in range(k)]
         uniform = warm.all() or not warm.any()
@@ -789,14 +892,11 @@ def _fit_ensemble_blocked(cfg, states, y, us, gens, mask, channel_mask, pair_w, 
         else:
             flags = StepFlags(sgd=True, update=True, warm_up=False, train_decoder=False)
             res = _ensemble_epochs(cfg_run, flags, states, y, us, seeds_b, lrs,
-                                   warms=warm.astype(float).tolist(), **masks)
-        # one host read per block for the control signals
-        vals = np.asarray(torch.cat([res.epoch_loss.reshape(-1), res.max_tau.reshape(-1),
-                                     res.hot_frac.reshape(-1)]).tolist())
-        nk = n_models * k
-        losses_blk = vals[:nk].reshape(n_models, k)
-        tau_blk = vals[nk:2 * nk].reshape(n_models, k)
-        hot_blk = vals[2 * nk:].reshape(n_models, k)
+                                   warms=warm[sl].astype(float).tolist(), **masks)
+        # one host read (and one gather) per block for the control signals
+        vals = members.gather(np.asarray(torch.stack(
+            [res.epoch_loss, res.max_tau, res.hot_frac], dim=1).tolist()))
+        losses_blk, tau_blk, hot_blk = vals[:, 0], vals[:, 1], vals[:, 2]
         watched = mega_guard and uniform and not all_warm
         if watched:
             if t_len > cfg_disp.ns_prefix:
@@ -821,7 +921,7 @@ def _fit_ensemble_blocked(cfg, states, y, us, gens, mask, channel_mask, pair_w, 
                 demote_epoch = epoch + int(j)
                 backup = _ensemble_repair(cfg, flags, n_batch, backup)
                 res = _ensemble_epochs(cfg_run, flags, backup, y, us, seeds_b, lrs, **masks)
-                losses_blk = np.asarray(res.epoch_loss.tolist())
+                losses_blk = members.gather(res.epoch_loss.tolist())
             else:
                 newly = hot & ~member_demoted
                 if newly.any():
@@ -832,9 +932,10 @@ def _fit_ensemble_blocked(cfg, states, y, us, gens, mask, channel_mask, pair_w, 
                         "block, until their kernel block runs clean).",
                         np.flatnonzero(newly).tolist(), 100 * float(hot_blk.max()),
                         epoch + int(j))
-                res, losses_blk = _rerun_hot_members(
+                res, local = _rerun_hot_members(
                     cfg, flags, n_batch, backup, y, us, seeds_b, None, mask, channel_mask,
-                    hot, res, losses_blk, epochs_mode=True, lrs=lrs)
+                    hot[sl], res, losses_blk[sl], epochs_mode=True, lrs=lrs)
+                losses_blk = members.gather(local)
         if watched:
             recovered = member_demoted & ~hot
             if recovered.any():
@@ -844,8 +945,8 @@ def _fit_ensemble_blocked(cfg, states, y, us, gens, mask, channel_mask, pair_w, 
             member_demoted = hot.copy()
 
         active = ~done
-        states = _member_select(active, res.state, states)
-        mu_store, lv_store = _store(mu_store, lv_store, active, res)
+        states = _member_select(active[sl], res.state, states)
+        mu_store, lv_store = _store(mu_store, lv_store, active[sl], res)
         losses_final = np.where(active, losses_blk[:, -1], losses_final)
         epochs_run = np.where(active, epoch + k, epochs_run)
         if callback is not None:
@@ -879,7 +980,8 @@ def _fit_ensemble_blocked(cfg, states, y, us, gens, mask, channel_mask, pair_w, 
 
         trans = active & warm & warmup_plateau
         if trans.any():
-            states = _ensemble_boot(cfg, states, res.q_means, us, gens, trans, pair_w)
+            states = _ensemble_boot(cfg, states, res.q_means, us, gens, trans, pair_w,
+                                    members.lo)
             warm[trans] = False
             running[trans] = losses_blk[trans, -1]
             for i in np.flatnonzero(trans):
@@ -892,9 +994,9 @@ def _fit_ensemble_blocked(cfg, states, y, us, gens, mask, channel_mask, pair_w, 
                 logger.info("ensemble: member %d converged by epoch %d.", i, epoch)
         post = active & ~warm & ~newly_done & ~trans
         if use_adapt and post.any():
-            states = _ensemble_adapt(cfg, states, res.q_means, us, post, pair_w)
+            states = _ensemble_adapt(cfg, states, res.q_means, us, post[sl], pair_w)
         if cfg.multistep_refine > 0 and post.any():
-            states = _ensemble_msrefine(cfg, states, res.q_means, post)
+            states = _ensemble_msrefine(cfg, states, res.q_means, post[sl])
         if tracker is not None:
             # block-granular: each block's final state and posteriors
             tracker.observe(cfg, states, res.q_means, res.q_logvars, y, us, epoch - 1,
@@ -904,9 +1006,10 @@ def _fit_ensemble_blocked(cfg, states, y, us, gens, mask, channel_mask, pair_w, 
                 and epoch // checkpoint_every > (epoch - k) // checkpoint_every):
             from ..utils.checkpoint import save_ensemble_checkpoint
 
-            save_ensemble_checkpoint(checkpoint_path, _make_snapshot(
+            members.save(save_ensemble_checkpoint, checkpoint_path, _make_snapshot(
                 epoch, warm, done, running, losses_final, plateau_hits, lr, epochs_run, gens,
                 states, mu_store, lv_store, cfg_run != cfg, demote_epoch, repromotes_left,
-                tracker, n_models, k_block, cfg, prefix_free=prefix_free))
+                tracker, n_models, k_block, cfg, members, prefix_free=prefix_free))
 
-    return _result(tracker, states, mu_store, lv_store, losses_final, warm, lr, epochs_run)
+    return _result(tracker, states, mu_store, lv_store, losses_final, warm, lr, epochs_run,
+                   members)

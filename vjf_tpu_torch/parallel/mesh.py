@@ -1,12 +1,13 @@
 """The ``dp`` process group (counterpart of ``vjf_tpu/parallel/mesh.py``).
 
 JAX lays devices out on named mesh axes and lets SPMD insert the
-collectives. Here each rank is a process and the sharded step's one
-collective, an all-reduce of the flat ``FusedSums`` buffer, is explicit. The
-``dp`` axis is a plain ``torch.distributed`` process group rather than a
-``DeviceMesh``: the port has one axis and one collective, and a group is
-what ``all_reduce`` takes. The ``tp`` axis (channel sharding) is not ported
-(ROADMAP Queue 1 item 13).
+collectives. Here each rank is a process and every collective is explicit
+(``parallel.sharded``: the exact-sync step's all-reduce of the flat
+``FusedSums`` buffer, the relaxed-sync merge, the gathers). The ``dp`` axis
+is a plain ``torch.distributed`` process group rather than a
+``DeviceMesh``: the port has one axis, and a group is what the collectives
+take. It is what every entry point's ``mesh=`` names. The ``tp`` axis
+(channel sharding) is not ported (ROADMAP Queue 1 item 13).
 """
 from __future__ import annotations
 

@@ -8,8 +8,9 @@ for a launch: on the fused route one N-member launch per step of the
 prefix and one N-member mega launch run every member
 (``ops.fused_step.run_epoch_fused`` on a list of states); elsewhere each member runs
 the autograd epoch in turn. Typical uses: seed ensembles, per-subject
-models, hyperparameter sweeps. Spreading the members over several cards
-(``shard_ensemble``) is ROADMAP Queue 1 item 13.
+models, hyperparameter sweeps. Over several cards (:func:`shard_ensemble`)
+each rank runs a contiguous slice of the members: whole filters, no
+collective inside an epoch.
 """
 from __future__ import annotations
 
@@ -36,6 +37,29 @@ def init_ensemble(seed: Union[int, torch.Generator], cfg: VJFConfig, n_models: i
     seed of :func:`member_seeds`."""
     return [core.init_state(s, cfg, device=device, backend=backend)
             for s in member_seeds(seed, n_models)]
+
+
+def member_range(n_models: int, group) -> range:
+    """The members rank ``r`` of ``n`` runs: ``[r N/n, (r + 1) N/n)``; all
+    of them without a group. N must divide over the ranks."""
+    if group is None:
+        return range(n_models)
+    from .sharded import _rank_and_size
+
+    rank, world = _rank_and_size(group)
+    if n_models % world:
+        raise ValueError(f"{n_models} members do not divide over {world} ranks")
+    per = n_models // world
+    return range(rank * per, (rank + 1) * per)
+
+
+def shard_ensemble(states: Sequence, group) -> list:
+    """This rank's members of ``states`` (all N, the same on every rank), as
+    :func:`member_range` assigns them: the counterpart of the JAX package's
+    placement of the member axis over devices. Each rank then runs its
+    members as an ensemble of its own."""
+    r = member_range(len(states), group)
+    return list(states[r.start:r.stop])
 
 
 def member_data(x: Optional[torch.Tensor], m: int, ndim: int = 3):
