@@ -101,15 +101,18 @@ from vjf_tpu_torch.ops import pkalman as PK
 from vjf_tpu_torch.ops import fused_step as F
 from vjf_tpu_torch.parallel import ensemble as E
 from vjf_tpu_torch.parallel import (
+    Mesh,
     fit_ensemble,
     init_ensemble,
     make_dp_group,
+    make_mesh,
+    make_sharded_epoch,
     run_epoch_ensemble,
     run_epoch_fused_sharded,
     run_epoch_sync_every,
     shard_data,
 )
-from vjf_tpu_torch.parallel.sharded import segment_seeds
+from vjf_tpu_torch.parallel.sharded import fused_route, segment_seeds
 from vjf_tpu_torch.utils.checkpoint import load_snapshot
 from vjf_tpu_torch.utils.evaluation import forecast_rmse, latent_r2
 
@@ -238,8 +241,18 @@ MULTI_LOSS_RTOL, MULTI_R2 = 1e-2, 0.99   # tests/test_sharding.py:510-547's chec
 # epoch's own step in w (chosen before the first run)
 SYNC_T, SYNC_K = 1024, 256
 SYNC_W_TOL = 0.1
+# multi.autograd: exact-sync fit(mesh=...) on the autograd route (the
+# precision form at float32, no kernel) at multi.fit's cut, and
+# MULTI_XLA_STEPS steps of the sharded autograd epoch (fused_step='off')
+# from the post-warm-up state against run_epoch on the same seed, at one
+# rank and (multi.world2.autograd, multi.world2.tp) over the (2, 1) and
+# (1, 2) meshes. MULTI_XLA_TOL is compare()'s normalised limit: float32,
+# the same math summed in another order; it must sit between the sound
+# readings and the planted faults' (no SGD, no decoder update)
+MULTI_XLA_STEPS = 64
+MULTI_XLA_TOL = 1e-3
 # multi.world2: two processes on one card over gloo, one deadline for both
-WORLD2_DEADLINE = 120.0
+WORLD2_DEADLINE = 240.0
 WORLD2_ENS_EPOCHS = 2        # ensemble.fit's workload cut to 1 warm-up + 1 RLS epoch
 WORLD2_SMOOTH_TOL = 1e-4     # smooth_batch over 2 ranks against 1 (normalised, f32)
 # one card's published peaks (H100 SXM data sheet, dense): HBM bytes/s,
@@ -2790,6 +2803,83 @@ def check_multi_sync_every(cfg, state, ys, us, lr, group, smi) -> dict:
     return {"launches": launches, "steps": steps_}
 
 
+def autograd_leaves(res, rows=slice(None)) -> dict:
+    """:func:`xla_leaves` with the posterior rows ``rows``, on the CPU."""
+    out = dict(xla_leaves(res), q_means=res.q_means[:, rows])
+    return {k: v.detach().cpu().clone() for k, v in out.items()}
+
+
+def check_multi_autograd(cfg, post_warm, ys, us, lr, group, smi) -> dict:
+    """The exact-sync epoch's autograd route at world size 1 (NCCL): no
+    kernel launched. ``fit(mesh=group)`` with the precision form at float32
+    (a state the kernels refuse) against the plain ``fit``
+    (:func:`fit_checks`); then MULTI_XLA_STEPS steps of
+    ``make_sharded_epoch`` with ``fused_step='off'`` from the post-warm-up
+    state against ``run_epoch`` on the same seed (:func:`compare`, the
+    planted faults rejected). Returns the one-process epoch and its faults
+    for "multi.world2"."""
+    pcfg = multi_cfg(cfg).replace(rls_backend="precision")
+    y = ys[:MULTI_T]
+    state = core.init_state(3, pcfg, device=ys.device)
+    check(isinstance(state.dynamics.blr, R.PrecisionBLR), "multi.autograd: not the precision form")
+    plain, p_s = synced(lambda: core.fit(pcfg, state, y, seed=9, max_iter=MULTI_EPOCHS))
+    F.reset_launches()
+    multi, m_s = synced(lambda: core.fit(pcfg, state, y, seed=9, max_iter=MULTI_EPOCHS,
+                                         mesh=group))
+    fit_launches = dict(F.launches)
+    check(sum(fit_launches.values()) == 0, f"multi.autograd: fit launches {fit_launches}")
+    r2 = fit_checks("multi.autograd.fit", multi, plain, cfg.xdim)
+    n_fit = multi.epochs_run * MULTI_T
+
+    off, flags = flagship("float32").replace(fused_step="off"), StepFlags()
+    y64, u64 = ys[:MULTI_XLA_STEPS], us[:MULTI_XLA_STEPS]
+    one, o_s = synced(lambda: core.run_epoch(off, flags, post_warm, y64, u64, 41, lr))
+    F.reset_launches()
+    got, g_s = synced(lambda: make_sharded_epoch(off, flags, group)(post_warm, y64, u64, 41, lr))
+    check(sum(F.launches.values()) == 0, f"multi.autograd: epoch launches {dict(F.launches)}")
+    start = {k: v.cpu() for k, v in trained_leaves(post_warm).items()}
+    ref = autograd_leaves(one)
+    err = compare("multi.autograd.epoch", ref, autograd_leaves(got), MULTI_XLA_TOL, start)
+    faults_ = {}
+    for fault, fl in {"no_sgd": dataclasses.replace(flags, sgd=False),
+                      "no_decoder_update": dataclasses.replace(flags, train_decoder=False)
+                      }.items():
+        faults_[fault] = autograd_leaves(core.run_epoch(off, fl, post_warm, y64, u64, 41, lr))
+        compare(f"multi.autograd.epoch.fault.{fault}", faults_[fault], autograd_leaves(got),
+                MULTI_XLA_TOL, start, reject=True)
+    phase("multi.autograd", world_size=1, backend="nccl",
+          fit=dict(config="bench.py flagship widths, B %d, T %d, rls_backend precision, "
+                   "float32, rls_shrink 0.999, chol_jitter 1e-3, warmup_max 2"
+                   % (ys.shape[1], MULTI_T), epochs_run=multi.epochs_run, loss=multi.loss,
+                   plain_loss=plain.loss, latent_r2=r2, ms_per_step=1e3 * m_s / n_fit,
+                   plain_ms_per_step=1e3 * p_s / n_fit, launches=fit_launches),
+          epoch=dict(steps=MULTI_XLA_STEPS, config="flagship, float32, fused_step off",
+                     tol=MULTI_XLA_TOL, max_abs_err=err,
+                     ms_per_step=1e3 * g_s / MULTI_XLA_STEPS,
+                     plain_ms_per_step=1e3 * o_s / MULTI_XLA_STEPS),
+          card=smi)
+    return {"cfg": off, "state": post_warm, "ys": y64, "us": u64, "lr": lr, "ref": ref,
+            "faults": faults_, "start": start}
+
+
+@contextlib.contextmanager
+def counted_all_reduces(mesh: Mesh):
+    """``dist.all_reduce`` counted for the duration: yields a list of
+    (axis, floats) a call, the axis ``tp`` on the mesh's ``tp`` group and
+    ``mesh`` elsewhere."""
+    real, seen = dist.all_reduce, []
+
+    def counting(t, *args, group=None, **kw):
+        seen.append(("tp" if mesh.tp is not None and group is mesh.tp else "mesh", t.numel()))
+        return real(t, *args, group=group, **kw)
+
+    dist.all_reduce = counting
+    try:
+        yield seen
+    finally:
+        dist.all_reduce = real
+
+
 def world2_worker(rank: int, port: str, path: str) -> int:
     """One rank of "multi.world2": gloo over ``localhost:port`` on cuda:0,
     the jobs of ``path/job.pt``, the results (and each job's launches and
@@ -2845,10 +2935,36 @@ def world2_worker(rank: int, port: str, path: str) -> int:
                                                                 mesh=group))
         out["smooth"].update(means=sm.means.cpu(), covs=sm.covs.cpu(),
                              filtered=filt.means.cpu())
+        world2_autograd_jobs(job, group, run, out)
         torch.save(out, os.path.join(path, f"out{rank}.pt"))
     finally:
         dist.destroy_process_group()
     return 0
+
+
+def world2_autograd_jobs(job, group, run, out) -> None:
+    """The world-2 jobs of the exact-sync autograd route and of the route
+    decision (:func:`check_world2_autograd`, "multi.world2.route"): ``run(name,
+    fn)`` times ``fn`` into ``out[name]`` with its launches."""
+    a = job["autograd"]
+    for name, shape in (("autograd", (2, 1)), ("tp", (1, 2))):
+        mesh = make_mesh(shape=shape)
+        epoch = make_sharded_epoch(a["cfg"], StepFlags(), mesh)
+        with counted_all_reduces(mesh) as seen:
+            res = run(name, lambda: epoch(a["state"], a["ys"], a["us"], 41, a["lr"]))
+        groups = {"tp": mesh.tp, "mesh": mesh.everyone}
+        dev = a["ys"].device
+        out[name].update(leaves=autograd_leaves(res), state=state_leaves(res.state),
+                         coords=mesh.coords, collectives=seen,
+                         all_reduce_us={f"{ax}:{n}": 1e3 * cuda_ms(
+                             lambda: dist.all_reduce(torch.zeros(n, device=dev),
+                                                     group=groups[ax]), 10)
+                             for ax, n in sorted(set(seen))})
+    r = job["route"]
+    res = run("route", lambda: make_sharded_epoch(r["cfg"], StepFlags(), group)(
+        r["state"], r["ys"], r["us"], 43, r["lr"]))
+    out["route"].update(tau_stream=res.metrics.tau is not None,
+                        finite=bool(torch.isfinite(res.metrics.loss).all()))
 
 
 def free_port() -> int:
@@ -2863,7 +2979,7 @@ def normalised_err(got, ref) -> float:
     return float((got.double() - ref.double()).abs().max() / ref.double().abs().max())
 
 
-def check_multi_world2(cfg, sync_state, ys, us, lr, multi, cosmooth, smi) -> dict:
+def check_multi_world2(cfg, sync_state, ys, us, lr, multi, cosmooth, autograd, smi) -> dict:
     """Two processes on cuda:0 (:func:`world2_worker`) over gloo: NCCL
     refuses two ranks on one device. One deadline of WORLD2_DEADLINE s for
     both; whatever happens both are killed and reaped; any failure fails
@@ -2875,8 +2991,14 @@ def check_multi_world2(cfg, sync_state, ys, us, lr, multi, cosmooth, smi) -> dic
     epoch), four members a rank, each member bit-identical to the one-process
     ``fit_ensemble``; ``smooth_batch(mesh=...)`` on "smooth.flagship"'s
     trained state and data (B 256, T 300) within WORLD2_SMOOTH_TOL
-    (normalised) of the one-process call. Times are two processes sharing
-    one card, not scaling numbers."""
+    (normalised) of the one-process call; the sharded autograd epoch
+    ("multi.autograd"'s MULTI_XLA_STEPS steps) over the (2, 1) mesh (128
+    trials a rank) and the (1, 2) mesh (100 channels a rank) against the
+    one-process epoch within MULTI_XLA_TOL, its planted faults rejected,
+    every rank's state bit-equal, the all-reduces per step by axis and
+    their gloo times; SGP at B 8 over the two ranks on the fused route (the
+    route decided on the whole batch). Times are two processes sharing one
+    card, not scaling numbers."""
     dev = ys.device
     e_cfg = ensemble_cfg(cfg).replace(ns_prefix_free="off")
     e_states = init_ensemble(0, e_cfg, ENS_N, device=dev)
@@ -2891,7 +3013,9 @@ def check_multi_world2(cfg, sync_state, ys, us, lr, multi, cosmooth, smi) -> dic
                        max_iter=MULTI_EPOCHS),
            "sync": dict(cfg=cfg, state=sync_state, ys=ys[:SYNC_T], us=us[:SYNC_T], lr=lr),
            "ens": dict(cfg=e_cfg, states=e_states, y=e_y, seeds=e_seeds),
-           "smooth": dict(cfg=c["cfg"], state=c["state"], y=c["y"])}
+           "smooth": dict(cfg=c["cfg"], state=c["state"], y=c["y"]),
+           "autograd": {k: autograd[k] for k in ("cfg", "state", "ys", "us", "lr")},
+           "route": route_job(ys, us, lr)}
     tmp = tempfile.mkdtemp(prefix="vjf_world2_")
     torch.save(job, os.path.join(tmp, "job.pt"))
     port = str(free_port())
@@ -2941,6 +3065,16 @@ def check_multi_world2(cfg, sync_state, ys, us, lr, multi, cosmooth, smi) -> dic
     sm_err = max(normalised_err(o["smooth"][k], getattr(sm_ref, k).cpu())
                  for o in outs for k in ("means", "covs"))
     check(sm_err <= WORLD2_SMOOTH_TOL, f"multi.world2.smooth: {sm_err} from the one-process call")
+    check_world2_autograd(outs, autograd, smi)
+    route = job["route"]
+    for o in outs:
+        check(o["route"]["launches"]["forward_sums"] == route["ys"].shape[0]
+              and o["route"]["tau_stream"] and o["route"]["finite"],
+              f"multi.world2.route: SGP at B 8 over two ranks, {o['route']}")
+    phase("multi.world2.route", config="sgp flagship widths, B %d over 2 ranks, T %d"
+          % tuple(route["ys"].shape[1::-1]), route="fused sharded", launches=[
+              o["route"]["launches"] for o in outs], rank_batch_gate_refused=True,
+          seconds=[o["route"]["seconds"] for o in outs], card=smi)
     phase("multi.world2", world_size=2, backend="gloo", device="cuda:0 shared by both ranks",
           note="two processes sharing one card: not a scaling number", wall_seconds=wall,
           deadline=WORLD2_DEADLINE,
@@ -2958,6 +3092,59 @@ def check_multi_world2(cfg, sync_state, ys, us, lr, multi, cosmooth, smi) -> dic
                       one_process_seconds=sm_s, max_err=sm_err, tol=WORLD2_SMOOTH_TOL),
           card=smi)
     return {"launches": [o["fit"]["launches"] for o in outs]}
+
+
+def route_job(ys, us, lr) -> dict:
+    """SGP at the flagship widths, B 8, T 8: over two ranks the whole
+    batch's 8 trials pass SGP's small-batch gate, so the exact-sync epoch
+    takes the fused route (the rank's 4 trials would not); checked here on
+    the gate, then driven by "multi.world2"."""
+    cfg = sgp_flagship()
+    state = core.init_state(0, cfg, device=ys.device)
+    check(fused_route(cfg, state, 8, Mesh(None, None, None, (0, 0), (2, 1)))
+          and not F.fused_enabled(cfg, state, n_batch=4),
+          "route: SGP at B 8 over two ranks is not the fused route")
+    return dict(cfg=cfg, state=state, ys=ys[:8, :8].contiguous(),
+                us=us[:8, :8].contiguous(), lr=lr)
+
+
+def check_world2_autograd(outs: list, autograd: dict, smi) -> None:
+    """"multi.world2.autograd" (the (2, 1) mesh) and "multi.world2.tp" (the
+    (1, 2) mesh): each rank's epoch against the one-process epoch (its
+    posterior rows), the planted faults rejected, the ranks' states bit for
+    bit; the all-reduces a step on each axis and their gloo times."""
+    ref, start, steps = autograd["ref"], autograd["start"], MULTI_XLA_STEPS
+    b = ref["q_means"].shape[1]
+    for name, shape in (("autograd", (2, 1)), ("tp", (1, 2))):
+        per, errs = b // shape[0], []
+        for r, o in enumerate(outs):
+            got = o[name]
+            d = got["coords"][0]
+            want = dict(ref, q_means=ref["q_means"][:, d * per:(d + 1) * per])
+            errs.append(compare(f"multi.world2.{name}[rank {r}]", want, got["leaves"],
+                                MULTI_XLA_TOL, start))
+            check(sum(got["launches"].values()) == 0,
+                  f"multi.world2.{name}: launches {got['launches']}")
+        for fault, bad in autograd["faults"].items():
+            compare(f"multi.world2.{name}.fault.{fault}",
+                    dict(bad, q_means=bad["q_means"][:, :per]), outs[0][name]["leaves"],
+                    MULTI_XLA_TOL, start, reject=True)
+        a, c = outs[0][name]["state"], outs[1][name]["state"]
+        check(all(torch.equal(a[k], c[k]) for k in a),
+              f"multi.world2.{name}: rank 1's state differs from rank 0's")
+        calls = outs[0][name]["collectives"]
+        phase(f"multi.world2.{name}", mesh=list(shape), world_size=2, backend="gloo",
+              device="cuda:0 shared by both ranks",
+              config="flagship, float32, fused_step off, %d steps, %d trials and %d channels "
+              "a rank" % (steps, per, autograd["cfg"].ydim // shape[1]), tol=MULTI_XLA_TOL,
+              max_abs_err=max(errs), ranks_bit_equal=True,
+              us_per_step=[1e6 * o[name]["seconds"] / steps for o in outs],
+              all_reduces_per_step={ax: sum(1 for x, _ in calls if x == ax) / steps
+                                    for ax in ("mesh", "tp")},
+              all_reduce_floats=sorted(set(calls)),
+              gloo_all_reduce_us={k: [o[name]["all_reduce_us"][k] for o in outs]
+                                  for k in outs[0][name]["all_reduce_us"]},
+              card=smi)
 
 
 def nbytes(*ts) -> int:
@@ -3232,9 +3419,10 @@ def main() -> int:
         dist.all_reduce(torch.zeros(1, device=dev), group=group)
         multi = check_multi_fit(cfg, ys, group, smi)
         sync = check_multi_sync_every(cfg, wu.state, ys, us, lr, group, smi)
+        autograd = check_multi_autograd(cfg, post_warm, ys, us, lr, group, smi)
     finally:
         dist.destroy_process_group()
-    check_multi_world2(cfg, wu.state, ys, us, lr, multi, cosmooth, smi)
+    check_multi_world2(cfg, wu.state, ys, us, lr, multi, cosmooth, autograd, smi)
 
     # ---------------- bounds: the least time one card could take ----------------
     # each input read once and each output written once (step_mega_bounds)

@@ -16,10 +16,12 @@ deadline, both ranks killed and reaped in ``finally``) runs the world-2
 cases: the relaxed-sync epoch against JAX's on 2 devices, exact-sync
 ``fit(mesh=...)`` against the single-process fit with every rank's state
 bit-equal to rank 0's, ``fit_ensemble(mesh=...)`` member by member bit for
-bit, the smoother and the k-fold evaluation, and a checkpoint written at
-world size 2 and resumed. The workers import torch and the port only; the
-parent writes their inputs, computes every reference while they run and
-compares."""
+bit, the smoother and the k-fold evaluation, a checkpoint written at
+world size 2 and resumed, and the autograd epoch and ``fit`` over the
+``(2, 1)`` and ``(1, 2)`` meshes (``tests/test_torch_tp.py``'s jobs and
+checks, whose four-process spawn runs ``(2, 2)``). The workers import
+torch and the port only; the parent writes their inputs, computes every
+reference while they run and compares."""
 import logging
 import socket
 import subprocess
@@ -45,6 +47,17 @@ from vjf_tpu_torch.parallel.sharded import (
     run_epoch_sync_every,
 )
 from vjf_tpu_torch.types import Gaussian
+
+from test_torch_tp import (
+    CASES,
+    FIT_CASES,
+    TP_JOBS,
+    check_fit_case,
+    check_others,
+    check_tp_case,
+    tp_job,
+    tp_refs,
+)
 
 torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parents[1]
@@ -385,8 +398,9 @@ def test_sync_every_without_forecast_select_warns(group1, caplog):
 
 def test_relaxed_sync_refuses_masks_and_mesh_refusals(group1):
     """JAX's ``test_sync_every_8dev_trains`` refusal (masks under relaxed
-    sync), ``mesh`` with ``noise_hook``, and a configuration the kernels
-    refuse under exact sync, which still names Queue 1 item 4."""
+    sync) and ``mesh`` with ``noise_hook``; a configuration the kernels
+    refuse trains under exact sync on the autograd route over the group,
+    per epoch and blocked, as the one-process fit does."""
     cfg = tcfg.VJFConfig(ydim=6, xdim=2, n_rbf=8, hidden_sizes=(5,), rls_backend="nsv",
                          sync_every=0, warmup_max=2)
     state = tcore.init_state(0, cfg, device="cpu")
@@ -395,11 +409,16 @@ def test_relaxed_sync_refuses_masks_and_mesh_refusals(group1):
         tcore.fit(cfg, state, y, seed=0, max_iter=2, mesh=group1, mask=np.ones((16, 4)))
     with pytest.raises(ValueError, match="mutually exclusive"):
         tcore.fit(cfg, state, y, seed=0, max_iter=2, mesh=group1, noise_hook=lambda e: None)
-    exact = cfg.replace(sync_every=1, fused_step="off")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tcore.fit(exact, state, y, seed=0, max_iter=1, mesh=group1)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tcore.fit(exact, state, y, seed=0, max_iter=2, mesh=group1, epochs_per_dispatch=2)
+    exact = cfg.replace(sync_every=1, fused_step="off", dtype="float64")
+    state = tcore.init_state(0, exact, device="cpu")
+    y = np.random.default_rng(0).normal(size=(16, 4, 6))
+    for k, max_iter in ((1, 1), (2, 2)):
+        got = tcore.fit(exact, state, y, seed=0, max_iter=max_iter, mesh=group1,
+                        epochs_per_dispatch=k)
+        want = tcore.fit(exact, state, y, seed=0, max_iter=max_iter, epochs_per_dispatch=k)
+        assert got.epochs_run == want.epochs_run == max_iter
+        _close_leaves(_leaves(got.state), _leaves(want.state), TOL, f"k={k}")
+        np.testing.assert_allclose(got.mu.numpy(), want.mu.numpy(), **TOL)
 
 
 # ---------------------------------------------------------------------------
@@ -416,8 +435,8 @@ from vjf_tpu_torch.config import StepFlags
 from vjf_tpu_torch.models import evaluate as tev
 from vjf_tpu_torch.models import smoothing as tsm
 from vjf_tpu_torch.models import vjf as tcore
-from vjf_tpu_torch.parallel import (fit_ensemble, make_dp_group, run_epoch_sync_every,
-                                    shard_data)
+from vjf_tpu_torch.parallel import (fit_ensemble, make_dp_group, make_mesh,
+                                    run_epoch_sync_every, shard_data)
 
 rank, world, port, path = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
 torch.set_num_threads(1)
@@ -428,7 +447,7 @@ dist.init_process_group("gloo", timeout=datetime.timedelta(seconds=60),
 def leaves(st):
     return convert.flatten(convert.state_to_numpy(st))
 
-
+""" + TP_JOBS + r"""
 try:
     group = make_dp_group()
     job = torch.load(f"{path}/job.pt", weights_only=False)
@@ -478,6 +497,8 @@ try:
                                     vmap_folds=vm, mesh=group)
         outs[f"kfold{int(vm)}"] = [kf.loglik, kf.loglik_null, kf.bits_per_spike]
     out["smooth"] = outs
+    for shape in job["tp"]["layouts"]:
+        out[f"tp{shape}"] = run_tp_jobs(job["tp"], make_mesh(shape=shape), leaves)
     torch.save(out, f"{path}/out{rank}.pt")
 finally:
     dist.destroy_process_group()
@@ -581,7 +602,8 @@ def world2(jx, tmp_path_factory):
     noise = [_jax_draws(jx, key, t_len // k, k, b // 2, dev, kw["xdim"]) for dev in range(2)]
     job = {"sync": dict(cfg=tcfg.VJFConfig(**kw), state=ts, ys=torch.tensor(ys),
                         us=torch.tensor(us), lr=lr, k=k, noise=noise),
-           "fit": _fit_job(), **_ens_jobs(), "smooth": _smooth_job()}
+           "fit": _fit_job(), **_ens_jobs(), "smooth": _smooth_job(),
+           "tp": tp_job(TP_LAYOUTS)}
     torch.save(job, tmp / "job.pt")
     port = str(_free_port())
     procs = [subprocess.Popen([sys.executable, "-c", _WORKER, str(r), "2", port, str(tmp)],
@@ -598,6 +620,7 @@ def world2(jx, tmp_path_factory):
         refs = _solo_refs(job)
         refs["sync"] = {"state": _jax_leaves(jx, ref.state), "q_means": np.asarray(ref.q_means),
                         "loss": np.asarray(ref.metrics.loss)}
+        refs["tp"] = tp_refs(_tp_jx(jx), job["tp"], gspmd_layouts=TP_LAYOUTS)
         logs = [p.communicate(timeout=max(deadline - time.monotonic(), 1.0))[0] for p in procs]
     finally:
         for p in procs:
@@ -679,6 +702,49 @@ def test_world2_smoothing_and_kfold_match_unsharded(world2):
         for name in ("kfold0", "kfold1"):
             np.testing.assert_allclose(out["smooth"][name], want[name], rtol=1e-10,
                                        err_msg=name)
+
+
+TP_LAYOUTS = [(2, 1), (1, 2)]
+
+
+def _tp_jx(jx):
+    """``tests/test_torch_tp.py``'s JAX namespace from this file's."""
+    epoch = jx.jax.jit(jx.core.run_epoch, static_argnames=("cfg", "flags"))
+    return types.SimpleNamespace(**vars(jx), epoch=epoch)
+
+
+def _tp_outs(world2, shape):
+    outs, refs = world2
+    return [o[f"tp{shape}"] for o in outs], refs["tp"]
+
+
+@pytest.mark.parametrize("shape", TP_LAYOUTS)
+@pytest.mark.parametrize("name", list(CASES))
+def test_world2_tp_epoch_matches(world2, name, shape):
+    """The autograd epoch over the (2, 1) and (1, 2) meshes against JAX (one
+    device, and GSPMD on the same CPU mesh for the GSPMD cases) and the
+    port in one process; both ranks bit-equal; the decoder rows cut over
+    ``tp`` inside the epoch, whole outside (``tests/test_torch_tp.py``)."""
+    outs, refs = _tp_outs(world2, shape)
+    assert all(o["shape"] == shape for o in outs)
+    check_tp_case(outs, refs, name, shape)
+
+
+@pytest.mark.parametrize("shape", TP_LAYOUTS)
+def test_world2_tp_ensemble_and_smoother_take_the_mesh(world2, shape):
+    """``fit_ensemble`` and ``smooth_batch`` over the (2, 1) and (1, 2)
+    meshes: the one-process results (the ensemble bit for bit)."""
+    outs, refs = _tp_outs(world2, shape)
+    check_others(outs, refs)
+
+
+@pytest.mark.parametrize("shape", TP_LAYOUTS)
+@pytest.mark.parametrize("name", list(FIT_CASES))
+def test_world2_tp_fit_matches_the_solo_fit(world2, name, shape):
+    """Exact-sync ``fit(mesh=...)`` over the (2, 1) and (1, 2) meshes on the
+    configurations the kernels refuse, against the one-process fit."""
+    outs, refs = _tp_outs(world2, shape)
+    check_fit_case(outs, refs, name)
 
 
 def test_world1_exact_fit_over_a_group_matches_the_solo_fit(group1):

@@ -395,9 +395,14 @@ def test_make_sharded_epoch_routes(jax_epochs, group1):
         e["state"], ys, us, [0, 1], [e["lr"], e["lr"]])
     assert torch.equal(epochs.epoch_loss[0], torch.mean(res.metrics.loss))
     assert epochs.epoch_loss.shape == (2,) and torch.isfinite(epochs.epoch_loss).all()
-    xla = make_sharded_epoch(e["cfg"].replace(fused_step="off"), tcfg.StepFlags(), group1)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        xla(e["state"], ys, us, 0, e["lr"])
+    # a configuration the fused route does not take runs the autograd route
+    # over the group, as the one-device autograd epoch on the same seed
+    off = e["cfg"].replace(fused_step="off")
+    xla = make_sharded_epoch(off, tcfg.StepFlags(), group1)(e["state"], ys, us, 0, e["lr"])
+    one = tcore.run_epoch(off, tcfg.StepFlags(), e["state"], ys, us, 0, e["lr"])
+    assert xla.metrics.tau is None and torch.isfinite(xla.metrics.loss).all()
+    for k in ("loss", "q_means", "w_mean"):
+        _close(_epoch_outputs(xla)[k], _epoch_outputs(one)[k], _tol("float32", k), k)
     with pytest.raises(ValueError, match="process group"):
         run_epoch_fused_sharded(e["cfg"], tcfg.StepFlags(), e["state"], ys, us, 0, e["lr"], None)
     assert shard_data(ys, us, group1)[0].shape == ys.shape

@@ -443,8 +443,11 @@ class VJF:
         learning-rate schedule of earlier calls; ``beta``/``rtol`` default
         to the config's. ``epochs_per_dispatch > 1``: the blocked mode.
         ``mask``/``channel_mask``: ragged trials and missing channels.
-        ``mesh``: the ``dp`` process group to train over several cards
-        (``models.vjf.fit``: every rank calls with the whole ``y``).
+        ``mesh``: a ``dp`` process group or a ``dp`` x ``tp`` mesh
+        (``parallel.make_mesh``) to train over several cards
+        (``models.vjf.fit``: every rank calls with the whole ``y``; every
+        configuration trains, the trials over ``dp`` and, on the autograd
+        route, the channels over ``tp``).
 
         ``y`` may be a list of (T_i, ydim) trials of unequal lengths: they
         are padded and masked (``utils.ragged.pad_trials``; ``u`` and
@@ -501,8 +504,9 @@ class VJF:
         its own state is untouched. ``y``: (T, B, ydim) shared data or (N,
         T, B, ydim) per member; ``epochs_per_dispatch`` K > 1: K epochs a
         dispatch, transitions at block boundaries. ``mesh``: a ``dp``
-        process group; each rank runs its slice of the members and every
-        rank gets all N. The init and fit seeds come from ``seed`` or, by
+        process group or a mesh; each rank runs its slice of the members
+        (over ``dp``; its ``tp`` peers run the same) and every rank gets all
+        N. The init and fit seeds come from ``seed`` or, by
         default, from the model's generator. Returns ``(result,
         members)``: the ``EnsembleFitResult`` and ``n_models`` fitted
         :class:`VJF` instances ready for ``forecast`` and ``filter``."""
@@ -557,9 +561,10 @@ class VJF:
         ``udim > 0``, (T, udim), or (T, B, udim) per trial; ``u[t]`` drives
         the transition into step t. ``channel_mask``: optional (T, ydim) or
         (T, B, ydim) 0/1 missing-observation mask (exactly zero gain; the
-        stored values may be NaN). ``mesh``: a ``dp`` process group; a batch's
-        trials are smoothed over its ranks (:func:`smoothing.smooth_batch`),
-        one sequence is smoothed whole, as in the JAX package."""
+        stored values may be NaN). ``mesh``: a ``dp`` process group or a
+        mesh; a batch's trials are smoothed over its ``dp`` ranks
+        (:func:`smoothing.smooth_batch`), one sequence is smoothed whole, as
+        in the JAX package."""
         if not hasattr(y, "ndim"):
             y = np.asarray(y)
         if y.ndim == 3:
@@ -584,9 +589,9 @@ class VJF:
         ``y``: (T, ydim) or a (T, B, ydim) batch. ``heldout``: int channel
         indices or a boolean (ydim,) mask. ``u`` as in :meth:`smooth`.
         ``channel_mask``: optional observed-entry 0/1 mask, composed with
-        ``heldout``. ``mesh``: a ``dp`` process group over which a batch's
-        trials are smoothed (with a single sequence a ``ValueError``, as in
-        the JAX package)."""
+        ``heldout``. ``mesh``: a ``dp`` process group or a mesh over whose
+        ``dp`` ranks a batch's trials are smoothed (with a single sequence
+        a ``ValueError``, as in the JAX package)."""
         return EV.heldout_eval(self.cfg, self.state, y, heldout, x_ref=x_ref, us=u,
                                n_iter=n_iter, mesh=mesh, channel_mask=channel_mask)
 

@@ -209,9 +209,10 @@ def dynamics_initialize(cfg: VJFConfig, generator: Optional[torch.Generator],
 
 
 def dynamics_loss(state: SGPDynamicsState, pt: Gaussian, qt: Gaussian,
-                  trace_quirk: bool = True,
-                  weights: Optional[torch.Tensor] = None) -> torch.Tensor:
-    return gaussian_loss(pt, qt, state.logvar, trace_quirk=trace_quirk, weights=weights)
+                  trace_quirk: bool = True, weights: Optional[torch.Tensor] = None,
+                  count=None) -> torch.Tensor:
+    return gaussian_loss(pt, qt, state.logvar, trace_quirk=trace_quirk, weights=weights,
+                         count=count)
 
 
 @full_f32_matmul()

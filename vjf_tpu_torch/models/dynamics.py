@@ -188,12 +188,7 @@ def blr_residual_update(cfg: VJFConfig, blr, logvar: torch.Tensor, n_sample: tor
         feat = feat * weights.to(feat.dtype)[:, None]
     dx = xt - xs
     if not warm_up or warm_gate is not None:
-        if update_rule == "kalman":
-            new = regression.kalman(blr, feat, dx, torch.exp(logvar),
-                                    diffusion=cfg.kalman_diffusion, quirk=cfg.joseph_quirk)
-        else:
-            new = regression.rls(blr, feat, dx, torch.exp(logvar),
-                                 shrink=cfg.rls_shrink, jitter=cfg.chol_jitter)
+        new = closed_form_update(cfg, blr, feat, dx, torch.exp(logvar), update_rule)
         blr = new if warm_gate is None else tree_where(warm_gate > 0, blr, new)
     residual = dx - regression.predict_gaussian(blr, feat).mean
     if weights is None:
@@ -201,12 +196,28 @@ def blr_residual_update(cfg: VJFConfig, blr, logvar: torch.Tensor, n_sample: tor
     else:
         mse = batch_weighted_mean(torch.mean(torch.square(residual), dim=-1), weights)
         count = torch.sum(weights.to(feat.dtype))
+    return (blr, *state_noise_update(cfg, logvar, n_sample, mse, count))
+
+
+def closed_form_update(cfg: VJFConfig, blr, feat: torch.Tensor, dx: torch.Tensor,
+                       v: torch.Tensor, update_rule: str = "rls"):
+    """The weight posterior after one step on ``dx ~ F w + N(0, v)``: RLS,
+    or with ``update_rule='kalman'`` the weight-diffusion Kalman step."""
+    if update_rule == "kalman":
+        return regression.kalman(blr, feat, dx, v, diffusion=cfg.kalman_diffusion,
+                                 quirk=cfg.joseph_quirk)
+    return regression.rls(blr, feat, dx, v, shrink=cfg.rls_shrink, jitter=cfg.chol_jitter)
+
+
+def state_noise_update(cfg: VJFConfig, logvar: torch.Tensor, n_sample: torch.Tensor, mse,
+                       count):
+    """``(logvar, n_sample)`` after the running variance of the residual
+    ``mse`` over ``count`` rows; kept where that variance is not finite."""
     var, n_new = running_var(torch.exp(logvar), n_sample, mse, count,
                              size_cap=cfg.state_var_cap)
     new_logvar = torch.clamp(torch.log(var), -cfg.logvar_clamp, cfg.logvar_clamp)
     ok = torch.isfinite(var)
-    return (blr, torch.where(ok, new_logvar, logvar),
-            torch.where(ok, n_new.to(torch.int32), n_sample))
+    return torch.where(ok, new_logvar, logvar), torch.where(ok, n_new.to(torch.int32), n_sample)
 
 
 def dynamics_update(cfg: VJFConfig, state: DynamicsState, xt: torch.Tensor, xs: torch.Tensor,
@@ -251,7 +262,9 @@ def _pair_mse(r: torch.Tensor, weights: Optional[torch.Tensor]) -> torch.Tensor:
 
 
 def dynamics_loss(state: DynamicsState, pt: Gaussian, qt: Gaussian,
-                  trace_quirk: bool = True,
-                  weights: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``gaussian_loss(pt, qt, state_logvar)`` over the valid trials."""
-    return gaussian_loss(pt, qt, state.logvar, trace_quirk=trace_quirk, weights=weights)
+                  trace_quirk: bool = True, weights: Optional[torch.Tensor] = None,
+                  count=None) -> torch.Tensor:
+    """``gaussian_loss(pt, qt, state_logvar)`` over the valid trials
+    (``count``: this rank's part, as in ``gaussian_loss``)."""
+    return gaussian_loss(pt, qt, state.logvar, trace_quirk=trace_quirk, weights=weights,
+                         count=count)

@@ -17,6 +17,7 @@ from typing import Callable, Optional, Sequence
 import torch
 from torch import nn
 
+from ..ops.tp import TPSlice, reduce_from
 from ..types import Gaussian
 from .rbf import uniform
 
@@ -53,11 +54,33 @@ class Recognition(nn.Module):
         self.logvar = logvar
 
     def forward(self, y: torch.Tensor, qs: Gaussian, u: Optional[torch.Tensor] = None,
-                activation: str = "tanh") -> Gaussian:
+                activation: str = "tanh", tp: Optional[TPSlice] = None) -> Gaussian:
+        """With ``tp``, ``y`` holds this rank's channels ``[tp.lo, tp.hi)``:
+        the input layer contracts them with its columns of the replicated
+        weight and sums the partial products over the ``tp`` ranks
+        (:func:`~..ops.tp.reduce_from`); the rest is replicated."""
         act = ACTIVATIONS[activation]
         parts = [y] + ([u] if u is not None and u.shape[-1] > 0 else [])
+        if tp is not None:
+            return self._forward_tp(parts[1:] + [qs.mean, qs.logvar], y, act, tp)
         h = torch.cat(parts + [qs.mean, qs.logvar], dim=-1)
         for layer in self.layers:
+            h = act(layer(h))
+        return Gaussian(self.mean(h), self.logvar(h))
+
+    def _forward_tp(self, rest, y, act, tp: TPSlice) -> Gaussian:
+        rest = torch.cat(rest, dim=-1)
+
+        def first(lin: nn.Linear) -> torch.Tensor:
+            w = lin.weight
+            n_y = w.shape[1] - rest.shape[-1]
+            out = reduce_from(y @ w[:, tp.lo:tp.hi].T, tp.group) + rest @ w[:, n_y:].T
+            return out if lin.bias is None else out + lin.bias
+
+        if not self.layers:
+            return Gaussian(first(self.mean), first(self.logvar))
+        h = act(first(self.layers[0]))
+        for layer in self.layers[1:]:
             h = act(layer(h))
         return Gaussian(self.mean(h), self.logvar(h))
 

@@ -117,17 +117,36 @@ def predict_sample(state: BLRState, feat: torch.Tensor, eps: torch.Tensor) -> to
     return feat @ (state.w_mean + weight_sqrt(state) @ eps)
 
 
-def _rls_stats(state, feat, target, v, shrink: float, jitter: float):
-    """``(g, P_new)`` of the update on ``target ~ F w + N(0, v)`` from a state
-    that carries P."""
+def rls_products(feat: torch.Tensor, target: torch.Tensor, v: torch.Tensor):
+    """``(F^T F / v, F^T target / v)``: the batch's statistics of the update,
+    sums over the trials (over several ranks each rank's part, which the
+    ranks' sum completes)."""
     s = torch.sqrt(v)
     sf, st = feat / s, target / s
-    g = (state.precision @ state.w_mean) * shrink + sf.T @ st
-    p_new = state.precision * shrink + sf.T @ sf
+    return sf.T @ sf, sf.T @ st
+
+
+def _rls_from_products(state, ff, fd, shrink: float, jitter: float):
+    """``(g, P_new)`` of the update from :func:`rls_products` and a state
+    that carries P."""
+    g = (state.precision @ state.w_mean) * shrink + fd
+    p_new = state.precision * shrink + ff
     if jitter:
         p_new = p_new + jitter * torch.eye(p_new.shape[0], dtype=p_new.dtype,
                                            device=p_new.device)
     return g, p_new
+
+
+def _rls_stats(state, feat, target, v, shrink: float, jitter: float):
+    """``(g, P_new)`` of the update on ``target ~ F w + N(0, v)`` from a state
+    that carries P."""
+    return _rls_from_products(state, *rls_products(feat, target, v), shrink, jitter)
+
+
+def nsv_trace_sum(state: NSVBLR, feat: torch.Tensor, shrink: float) -> torch.Tensor:
+    """``sum(F V_old * F)`` with ``V_old = V / shrink``: the nsv trace bound
+    times ``v``, a sum over the trials like :func:`rls_products`."""
+    return torch.sum((feat @ (state.cov / shrink)) * feat)
 
 
 @full_f32_matmul()
@@ -151,29 +170,10 @@ def rls(state: BLRState, feat: torch.Tensor, target: torch.Tensor, v: torch.Tens
       ``jitter`` (a full-rank precision ridge is not a rank-B update) and
       raises ``ValueError`` for it.
     """
-    if isinstance(state, PrecisionBLR):
-        g, p_new = _rls_stats(state, feat, target, v, shrink, jitter)
-        chol = safe_cholesky(p_new)
-        u = inv_tril_transpose(chol)
-        return PrecisionBLR(u @ (u.T @ g), p_new, chol, u)
-
-    if isinstance(state, NSVBLR):
-        g, p_new = _rls_stats(state, feat, target, v, shrink, jitter)
-        v_old = state.cov / shrink
-        # the trace bound leaves out jitter * tr(V_old), as the JAX package
-        # and the kernels do: the escalation bands were tuned on this
-        # definition
-        tau = torch.sum((feat @ v_old) * feat) / v
-        eye2 = 2.0 * torch.eye(p_new.shape[0], dtype=p_new.dtype, device=p_new.device)
-        x = v_old
-        for _ in range(NS_ITERS):
-            x = x @ (eye2 - p_new @ x)
-        v_ns = 0.5 * (x + x.T)
-        chol, info = cholesky_f32(p_new)
-        inv_l = tri_inv_newton(chol)
-        v_new = torch.where(tau < NS_TAU_THRESHOLD, v_ns,
-                            nan_where_failed(inv_l.T @ inv_l, info))
-        return NSVBLR(v_new @ g, p_new, v_new)
+    if isinstance(state, (PrecisionBLR, NSVBLR)):
+        ff, fd = rls_products(feat, target, v)
+        tau_sum = nsv_trace_sum(state, feat, shrink) if isinstance(state, NSVBLR) else None
+        return rls_from_sums(state, ff, fd, tau_sum, v, shrink, jitter)
 
     if jitter:
         raise ValueError("the covariance RLS backend does not support chol_jitter; "
@@ -185,6 +185,34 @@ def rls(state: BLRState, feat: torch.Tensor, target: torch.Tensor, v: torch.Tens
     w_new = state.w_mean + k @ (target - feat @ state.w_mean)
     i_kf = torch.eye(v1.shape[0], dtype=v1.dtype, device=v1.device) - k @ feat
     return CovarianceBLR(w_new, i_kf @ v1 @ i_kf.T + v * (k @ k.T))
+
+
+@full_f32_matmul()
+def rls_from_sums(state: Union[PrecisionBLR, NSVBLR], ff: torch.Tensor, fd: torch.Tensor,
+                  tau_sum, v: torch.Tensor, shrink: float = 1.0,
+                  jitter: float = 0.0) -> BLRState:
+    """:func:`rls` of the precision and nsv forms from the batch's sums
+    (:func:`rls_products`; for nsv :func:`nsv_trace_sum`, else None), so
+    that over several ranks every rank applies the same update from the
+    summed statistics."""
+    g, p_new = _rls_from_products(state, ff, fd, shrink, jitter)
+    if isinstance(state, PrecisionBLR):
+        chol = safe_cholesky(p_new)
+        u = inv_tril_transpose(chol)
+        return PrecisionBLR(u @ (u.T @ g), p_new, chol, u)
+    v_old = state.cov / shrink
+    # the trace bound leaves out jitter * tr(V_old), as the JAX package and
+    # the kernels do: the escalation bands were tuned on this definition
+    tau = tau_sum / v
+    eye2 = 2.0 * torch.eye(p_new.shape[0], dtype=p_new.dtype, device=p_new.device)
+    x = v_old
+    for _ in range(NS_ITERS):
+        x = x @ (eye2 - p_new @ x)
+    v_ns = 0.5 * (x + x.T)
+    chol, info = cholesky_f32(p_new)
+    inv_l = tri_inv_newton(chol)
+    v_new = torch.where(tau < NS_TAU_THRESHOLD, v_ns, nan_where_failed(inv_l.T @ inv_l, info))
+    return NSVBLR(v_new @ g, p_new, v_new)
 
 
 @full_f32_matmul()

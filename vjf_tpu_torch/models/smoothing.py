@@ -11,8 +11,9 @@ iterated-Laplace variant.
 Every smoother here runs natively batched: :func:`smooth_batch` smooths
 (T, B, ydim) trials in one call of the batched scan, where the JAX package
 ``vmap``s the single-sequence smoother over trials; over a ``dp`` process
-group (``mesh=``) each rank smooths its slice of the trials and the results
-are gathered. The whole smoother runs with TF32 off.
+group or a mesh (``mesh=``) each ``dp`` rank smooths its slice of the
+trials (its ``tp`` peers the same slice) and the results are gathered.
+The whole smoother runs with TF32 off.
 """
 from __future__ import annotations
 
@@ -311,7 +312,8 @@ def smooth_batch(
     shared, required when ``cfg.udim > 0``. ``channel_mask``: (T, ydim)
     shared over trials or (T, B, ydim) per trial.
 
-    ``mesh``: a ``dp`` process group (``parallel.make_dp_group``). Every
+    ``mesh``: a ``dp`` process group (``parallel.make_dp_group``) or a mesh
+    (``parallel.make_mesh``, its ``dp`` axis). Every
     rank passes the same state and the whole batch; when B divides over the
     ranks each rank smooths its slice of the trials (``[r B/n, (r + 1)
     B/n)``, with its rows of ``x_ref``, a per-trial ``channel_mask`` and

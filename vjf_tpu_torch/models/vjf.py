@@ -148,11 +148,12 @@ def prior(params: Params, n_batch: int) -> Gaussian:
 
 def _likelihood_loss(cfg: VJFConfig, lik_params, py: torch.Tensor, y: torch.Tensor,
                      weights: Optional[torch.Tensor] = None,
-                     channel_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     channel_mask: Optional[torch.Tensor] = None, count=None) -> torch.Tensor:
     if cfg.likelihood == "gaussian":
-        return gaussian_nll(lik_params, py, y, weights=weights, channel_mask=channel_mask)
+        return gaussian_nll(lik_params, py, y, weights=weights, channel_mask=channel_mask,
+                            count=count)
     return poisson_nll(py, y, clamp=cfg.poisson_clamp, weights=weights,
-                       channel_mask=channel_mask)
+                       channel_mask=channel_mask, count=count)
 
 
 def _impute_y(cfg: VJFConfig, params: Params, qs: Gaussian, y: torch.Tensor,
@@ -293,30 +294,7 @@ def filter_step(cfg: VJFConfig, flags: StepFlags, state: TrainState, qs: Gaussia
     with torch.no_grad():
         new_params = state.params
         if flags.sgd:
-            ok = torch.stack([torch.isfinite(g).all() for g in grads]).all()
-            new = {id(p): torch.where(ok, p - lr * torch.clamp(g, -cfg.clip, cfg.clip), p)
-                   for p, g in zip(leaves, grads)}
-
-            def stepped(lin):
-                return linear_from(new[id(lin.weight)],
-                                   None if lin.bias is None else new[id(lin.bias)])
-
-            if warm_gate is not None:
-                # the decoder trains only while warm (the fit loop's freeze)
-                trained, kept = stepped(params.decoder), state.params.decoder
-                decoder = linear_from(torch.where(warm_gate > 0, trained.weight, kept.weight),
-                                      torch.where(warm_gate > 0, trained.bias, kept.bias))
-            elif flags.train_decoder:
-                decoder = stepped(params.decoder)
-            else:
-                decoder = state.params.decoder
-            new_params = Params(
-                recognition=map_linears(params.recognition, stepped),
-                decoder=decoder,
-                likelihood=(GaussianLikParams(new[id(params.likelihood.logvar)])
-                            if cfg.likelihood == "gaussian" else state.params.likelihood),
-                prior=state.params.prior,
-            )
+            new_params = sgd_params(cfg, flags, state, params, grads, lr, warm_gate)
         lik_n = state.lik_n_sample
         if flags.update and cfg.likelihood == "gaussian" and flags.update_likelihood:
             lik, lik_n = gaussian_lik_update(new_params.likelihood, lik_n, py, y,
@@ -339,6 +317,41 @@ def filter_step(cfg: VJFConfig, flags: StepFlags, state: TrainState, qs: Gaussia
             qt = Gaussian(torch.where(mb[:, None], qt.mean, qs.mean),
                           torch.where(mb[:, None], qt.logvar, qs.logvar))
     return TrainState(new_params, dynamics, lik_n), qt, metrics
+
+
+def sgd_params(cfg: VJFConfig, flags: StepFlags, state: TrainState, params: Params, grads,
+               lr, warm_gate=None, decoder_rows: Optional[slice] = None) -> Params:
+    """:func:`filter_step`'s clipped SGD step of the trainable ``params``
+    (:func:`_trainable`) by ``grads`` (of :func:`_trained_leaves`), skipped
+    unless every gradient is finite; the decoder steps with
+    ``flags.train_decoder`` or, with ``warm_gate``, where the gate is warm.
+    ``decoder_rows``: the decoder holds these rows of the whole one, whose
+    gradient ``grads`` carries."""
+    ok = torch.stack([torch.isfinite(g).all() for g in grads]).all()
+    dec = {id(t) for t in params.decoder.parameters()} if decoder_rows is not None else ()
+    new = {id(p): torch.where(ok, p - lr * torch.clamp(g[decoder_rows] if id(p) in dec else g,
+                                                       -cfg.clip, cfg.clip), p)
+           for p, g in zip(_trained_leaves(cfg, params), grads)}
+
+    def stepped(lin):
+        return linear_from(new[id(lin.weight)], None if lin.bias is None else new[id(lin.bias)])
+
+    if warm_gate is not None:
+        # the decoder trains only while warm (the fit loop's freeze)
+        trained, kept = stepped(params.decoder), state.params.decoder
+        decoder = linear_from(torch.where(warm_gate > 0, trained.weight, kept.weight),
+                              torch.where(warm_gate > 0, trained.bias, kept.bias))
+    elif flags.train_decoder:
+        decoder = stepped(params.decoder)
+    else:
+        decoder = state.params.decoder
+    return Params(
+        recognition=map_linears(params.recognition, stepped),
+        decoder=decoder,
+        likelihood=(GaussianLikParams(new[id(params.likelihood.logvar)])
+                    if cfg.likelihood == "gaussian" else state.params.likelihood),
+        prior=state.params.prior,
+    )
 
 
 class EpochResult(NamedTuple):
@@ -995,7 +1008,8 @@ _SOLO = _Solo()
 
 def _fit_group(mesh, state: TrainState):
     """``parallel.sharded.FitGroup`` over ``mesh`` on the state's device; a
-    ``mesh`` that is not a process group raises ``ValueError``."""
+    ``mesh`` that is neither a process group nor a ``parallel.Mesh`` raises
+    ``ValueError``."""
     from ..parallel.sharded import FitGroup
 
     return FitGroup(mesh, state.dynamics.blr.w_mean.device)
@@ -1004,9 +1018,12 @@ def _fit_group(mesh, state: TrainState):
 def _epoch_runner(cfg: VJFConfig, mesh, y: torch.Tensor, us: torch.Tensor, masks: dict):
     """``(run(cfg_run, flags, state, seed, lr, noise) -> EpochResult, local
     batch)`` of the per-epoch :func:`fit`: :func:`run_epoch` on one card;
-    over ``mesh`` the exact-sync sharded epoch on this rank's trials, or
-    with ``cfg.sync_every != 1`` the relaxed-sync one, which refuses masks
-    and warns where the JAX package warns."""
+    over ``mesh`` the exact-sync sharded epoch on the whole batch (its
+    route decided on it), or with ``cfg.sync_every != 1`` the relaxed-sync
+    one on this rank's trials, which refuses masks and warns where the JAX
+    package warns. The local batch is the trials one rank carries, the
+    batch over the ``dp`` axis (a deliberate deviation: the JAX package
+    divides by every device of the mesh, ``tp`` too)."""
     if mesh is None:
         def run(c, flags, st, seed, lr, noise):
             return run_epoch(c, flags, st, y, us, seed, lr, noise=noise, **masks)
@@ -1014,13 +1031,13 @@ def _epoch_runner(cfg: VJFConfig, mesh, y: torch.Tensor, us: torch.Tensor, masks
         return run, y.shape[1]
     from ..parallel import sharded
 
-    y_l, us_l = sharded.shard_data(y, us, mesh)
-    b_local = y_l.shape[1]
     if cfg.sync_every == 1:
         def run(c, flags, st, seed, lr, noise):
-            return sharded.make_sharded_epoch(c, flags, mesh)(st, y_l, us_l, seed, lr, **masks)
+            return sharded.make_sharded_epoch(c, flags, mesh)(st, y, us, seed, lr, **masks)
 
-        return run, b_local
+        return run, y.shape[1] // sharded._rank_and_size(mesh)[1]
+    y_l, us_l = sharded.shard_trials(y, us, mesh)
+    b_local = y_l.shape[1]
     if masks["mask"] is not None or masks["channel_mask"] is not None:
         raise ValueError("sync_every != 1 does not support masks; use the exact per-step-sync "
                          "path (cfg.sync_every=1) for ragged trials")
@@ -1123,23 +1140,26 @@ def fit(
     on the autograd route, and no demotion, repair or prefix logic runs
     (as in the JAX package, whose fused gate asks for the nsv backend).
 
-    ``mesh``: the ``dp`` process group (``parallel.make_dp_group``) to train
-    over several cards, one rank a process. Every rank calls ``fit`` with
-    the whole ``y``, the whole masks and the same seed; each runs its own
-    trials (``parallel.shard_data``) from rank 0's state
-    (``parallel.shard_state``) under the same host loop. With
+    ``mesh``: a ``dp`` process group (``parallel.make_dp_group``) or a
+    ``dp`` x ``tp`` mesh (``parallel.make_mesh``) to train over several
+    cards, one rank a process. Every rank calls ``fit`` with the whole
+    ``y``, the whole masks and the same seed; each runs its part from rank
+    0's state (``parallel.shard_state``) under the same host loop. With
     ``cfg.sync_every == 1`` every epoch (block) is the exact-sync sharded
-    epoch (``parallel.make_sharded_epoch``: one all-reduce a step, masks
-    ride along, no hot-tau demotion); a configuration the kernels refuse
-    raises (Queue 1 item 4). With ``cfg.sync_every != 1`` (per-epoch mode
-    only; the blocked mode always syncs exactly, as in the JAX package)
-    every epoch is ``parallel.run_epoch_sync_every``: masks raise, the
-    demotion watch is judged on the local batch and a demoted epoch re-runs
-    the relaxed path on the autograd route. The bootstrap, the SGP step,
-    ``multistep_refine``, selection and the result read the whole batch's
-    posteriors (gathered), and rank 0's state is broadcast after each such
-    step; rank 0 writes the snapshots. ``callback`` gets this rank's
-    posteriors. Not with ``noise_hook``.
+    epoch (``parallel.make_sharded_epoch``, masks ride along, no hot-tau
+    demotion), which trains every configuration: where the kernels take it
+    the fused route (its trials a rank over ``dp``, one all-reduce a step),
+    else the autograd route (its trials over ``dp`` and its channels over
+    ``tp``, two all-reduces a step). With ``cfg.sync_every != 1``
+    (per-epoch mode only; the blocked mode always syncs exactly, as in the
+    JAX package) every epoch is ``parallel.run_epoch_sync_every`` over the
+    ``dp`` axis: masks raise, the demotion watch is judged on the rank's
+    batch and a demoted epoch re-runs the relaxed path on the autograd
+    route. The bootstrap, the SGP step, ``multistep_refine``, selection and
+    the result read the whole batch's posteriors (gathered), and rank 0's
+    state is broadcast after each such step; rank 0 writes the snapshots.
+    The state and ``FitResult`` returned are whole on every rank.
+    ``callback`` gets this rank's posteriors. Not with ``noise_hook``.
     """
     beta = cfg.beta if beta is None else beta
     rtol = cfg.rtol if rtol is None else rtol
@@ -1354,10 +1374,11 @@ def _fit_blocked(cfg: VJFConfig, state: TrainState, y, u=None, *,
     each multiple of ``checkpoint_every`` epochs.
 
     ``mesh``: every block is K exact-sync sharded epochs
-    (``parallel.make_sharded_epochs``) whatever ``cfg.sync_every`` says, as
-    in the JAX package; the sharded epoch keeps the per-step exact-inverse
-    fallback and has no mega layout, so neither the demotion nor prefix-free
-    continuation applies. The rest as in :func:`fit` over a group.
+    (``parallel.make_sharded_epochs``, either route) whatever
+    ``cfg.sync_every`` says, as in the JAX package; the sharded epoch keeps
+    the per-step exact-inverse fallback and has no mega layout, so neither
+    the demotion nor prefix-free continuation applies. The rest as in
+    :func:`fit` over a mesh.
     """
     select_on = cfg.select == "forecast"
     group = _SOLO if mesh is None else _fit_group(mesh, state)
@@ -1387,11 +1408,8 @@ def _fit_blocked(cfg: VJFConfig, state: TrainState, y, u=None, *,
     else:
         from ..parallel import sharded
 
-        y_l, us_l = sharded.shard_data(y, us, mesh)
-
         def epochs_fn(c, flags, st, seeds, lrs):
-            return sharded.make_sharded_epochs(c, flags, mesh)(st, y_l, us_l, seeds, lrs,
-                                                               **masks)
+            return sharded.make_sharded_epochs(c, flags, mesh)(st, y, us, seeds, lrs, **masks)
     mega_possible = (mesh is None and cfg.fused_epoch == "mega"
                      and _fused.fused_enabled(cfg, state, n_batch=n_batch,
                                               mask=mask is not None,

@@ -21,11 +21,20 @@ def rbf(x: torch.Tensor, centroid: torch.Tensor, width: torch.Tensor) -> torch.T
     return torch.exp(-0.5 * d2 / (width * width))
 
 
-def batch_weighted_mean(per_trial: torch.Tensor,
-                        weights: Optional[torch.Tensor]) -> torch.Tensor:
+def batch_weighted_mean(per_trial: torch.Tensor, weights: Optional[torch.Tensor],
+                        count=None) -> torch.Tensor:
     """Mean over trials; with 0/1 ``weights`` the masked entries are
     selected out (NaN-safe) and the mean runs over the valid count (an
-    all-masked batch gives 0)."""
+    all-masked batch gives 0).
+
+    ``count``: over several ranks, the whole batch's (valid) trial count,
+    at least 1: this rank's part of the mean, its sum over ``count``, which
+    the ranks' sum completes."""
+    if count is not None:
+        if weights is not None:
+            w = weights.to(per_trial.dtype)
+            per_trial = torch.where(w > 0, per_trial, torch.zeros_like(per_trial)) * w
+        return torch.sum(per_trial) / count
     if weights is None:
         return torch.mean(per_trial)
     w = weights.to(per_trial.dtype)
@@ -33,9 +42,12 @@ def batch_weighted_mean(per_trial: torch.Tensor,
     return torch.sum(kept) / torch.clamp(torch.sum(w), min=1.0)
 
 
-def gaussian_entropy(q: Gaussian, weights: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``0.5 * sum_dim logvar`` averaged over the batch (constants dropped)."""
-    return batch_weighted_mean(0.5 * torch.sum(torch.atleast_2d(q.logvar), dim=-1), weights)
+def gaussian_entropy(q: Gaussian, weights: Optional[torch.Tensor] = None,
+                     count=None) -> torch.Tensor:
+    """``0.5 * sum_dim logvar`` averaged over the batch (constants dropped);
+    ``count`` as in :func:`batch_weighted_mean`."""
+    return batch_weighted_mean(0.5 * torch.sum(torch.atleast_2d(q.logvar), dim=-1), weights,
+                               count)
 
 
 def gaussian_loss(
@@ -46,14 +58,17 @@ def gaussian_loss(
     trace_quirk: bool = True,
     weights: Optional[torch.Tensor] = None,
     channel_mask: Optional[torch.Tensor] = None,
+    count=None,
 ) -> torch.Tensor:
     """Expected negative Gaussian log-likelihood, constants dropped, summed
     over the last axis and averaged over the batch. A Gaussian argument adds
     its trace term; with both Gaussian, ``trace_quirk`` keeps the reference's
     ``exp(lv1 + lv2 - logvar)`` (the corrected form adds the two).
-    ``weights``: (B,) 0/1 trial mask (:func:`batch_weighted_mean`);
-    ``channel_mask``: (B, d) 0/1, a masked entry is selected out of the sum
-    over the last axis (no renormalisation)."""
+    ``weights``: (B,) 0/1 trial mask and ``count`` as in
+    :func:`batch_weighted_mean`; ``channel_mask``: (B, d) 0/1, a masked
+    entry is selected out of the sum over the last axis (no
+    renormalisation). Over ``tp`` the last axis may be this rank's
+    channels: the sum is then partial too."""
     m1, lv1 = (a.mean, a.logvar) if isinstance(a, Gaussian) else (a, None)
     m2, lv2 = (b.mean, b.logvar) if isinstance(b, Gaussian) else (b, None)
     m1, m2 = torch.atleast_2d(m1), torch.atleast_2d(m2)
@@ -70,7 +85,7 @@ def gaussian_loss(
         nll = nll + 0.5 * torch.exp(torch.atleast_2d(lv) - logvar)
     if channel_mask is not None:
         nll = torch.where(torch.atleast_2d(channel_mask) > 0, nll, torch.zeros_like(nll))
-    return batch_weighted_mean(torch.sum(nll, dim=-1), weights)
+    return batch_weighted_mean(torch.sum(nll, dim=-1), weights, count)
 
 
 def reparametrize(q: Gaussian, eps: torch.Tensor) -> torch.Tensor:

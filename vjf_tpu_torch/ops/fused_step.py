@@ -1725,7 +1725,8 @@ _routed_away = set()
 
 
 def fused_enabled(cfg: VJFConfig, state, n_batch: Optional[int] = None,
-                  mask: bool = False, channel_mask: bool = False) -> bool:
+                  mask: bool = False, channel_mask: bool = False,
+                  launch_batch: Optional[int] = None) -> bool:
     """Whether ``run_epoch`` takes the fused path. 'auto' means float32, a
     state on a CUDA device (the JAX gate asks for a TPU backend) and a
     configuration within :func:`kernel_limits` at ``n_batch`` trials.
@@ -1738,7 +1739,12 @@ def fused_enabled(cfg: VJFConfig, state, n_batch: Optional[int] = None,
     'auto': a tiny batch keeps the Newton-Schulz trace bound hot, and that
     route has the per-step exact-inverse fallback. ``mask`` and
     ``channel_mask`` say whether the epoch carries them (their staging
-    counts against the shared memory)."""
+    counts against the shared memory).
+
+    ``launch_batch``: the trials one launch carries, where they are fewer
+    than the batch ``n_batch`` (one rank's over several, the JAX package's
+    ``shard_map`` block): the SGP gate and ``fused_step`` read the whole
+    batch, the shared memory the launch's."""
     from ..models.regression import NSVBLR
 
     if cfg.fused_step == "off":
@@ -1756,7 +1762,8 @@ def fused_enabled(cfg: VJFConfig, state, n_batch: Optional[int] = None,
         return True
     if not (cfg.dtype == "float32" and _on_cuda(state.dynamics.blr.precision)):
         return False
-    reason = kernel_limits(cfg, n_batch, on_card=n_batch is not None, mask=mask,
+    launch = n_batch if launch_batch is None else launch_batch
+    reason = kernel_limits(cfg, launch, on_card=launch is not None, mask=mask,
                            channel_mask=channel_mask)
     if reason is not None:
         if reason not in _routed_away:

@@ -31,7 +31,9 @@ member. Where the JAX package splits PRNG keys, each member here has a CPU
 ``torch.Generator``: one int seed is drawn from it per epoch, one more at
 its bootstrap, as the solo ``fit`` draws from its own.
 
-Over several cards (``mesh``, a ``dp`` process group), rank r of n runs
+Over several cards (``mesh``, a ``dp`` process group or a mesh, whose
+``tp`` peers run the same members, as the JAX package replicates the
+member axis over ``tp``), ``dp`` rank r of n runs
 members ``[r N/n, (r + 1) N/n)`` (``replicated.shard_ensemble``) in one
 member-axis launch, each from its own seed chain, and every rank replays
 the host state machine for all N members: the per-member scalars an epoch
@@ -549,7 +551,8 @@ def fit_ensemble(
         for seed (member k's chain is then that of ``fit(seed=seeds[k])``)
     :param mask: (T,)/(T, B) trial mask and ``channel_mask`` (T[, B],
         ydim), shared by every member
-    :param mesh: a ``dp`` process group (``parallel.make_dp_group``): every
+    :param mesh: a ``dp`` process group (``parallel.make_dp_group``) or a
+        mesh (``parallel.make_mesh``, its ``dp`` axis): every
         rank calls with all N ``states`` and the same seeds and data, runs
         its slice of the members (N must divide over the ranks) and returns
         all N (module docstring); ``callback`` gets this rank's members'

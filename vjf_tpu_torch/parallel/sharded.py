@@ -1,9 +1,14 @@
-"""Exact-sync sharded training over a ``dp`` process group (counterpart of
-``vjf_tpu/parallel/sharded.py``, its fused path).
+"""Exact-sync sharded training over a ``dp`` x ``tp`` mesh (counterpart of
+``vjf_tpu/parallel/sharded.py``).
 
-Trials split over the ranks; the model and dynamics state are replicated. A
-step couples trials only through its batch sums, so each step runs in three
-parts:
+Trials split over ``dp``; the model and dynamics state are replicated (the
+autograd route cuts the decoder rows over ``tp`` inside an epoch). A step
+couples trials only through its batch sums. The exact-sync epoch takes one
+of two routes, decided as the JAX package decides it (:func:`fused_route`):
+
+**The fused route** (:func:`run_epoch_fused_sharded`, where the kernels
+take the configuration), over ``dp`` alone with whole channels on every
+rank, each step in three parts:
 
 1. phase 1 on this rank's trials, :func:`~..ops.fused_step.forward_sums_call`
    (the ``vjf_forward_sums`` kernel on the card), every batch mean scaled by
@@ -14,77 +19,113 @@ parts:
    then the stats-based exact-inverse fallback. Every rank applies the same
    update to the same state, so the state stays replicated.
 
+**The autograd route** (:func:`run_epoch_autograd_sharded`, every other
+configuration: ``fused_step='off'``, float64, the precision and covariance
+forms, the Kalman learner, small-batch SGP, shapes past the kernels'
+limits), the JAX package's ``core.run_epoch`` under GSPMD: the trials over
+``dp`` and, where ``tp`` divides ``ydim``, the channels and decoder rows
+over ``tp`` (:func:`channel_rows`); per step :func:`filter_step_sharded`,
+two all-reduces over the mesh and, under a channel cut, two over ``tp``.
+
 Each rank holds its own slice of the trials: :func:`shard_data` gives rank
-``r`` rows ``[r B_local, (r + 1) B_local)``, and the in-kernel noise draws
-the same rows of the whole batch's Philox draw, so an epoch at any world
-size uses the single-device epoch's noise for the same seed. The posteriors
-returned are this rank's rows; the metrics and the state are the global,
-replicated ones.
+``r`` rows ``[r B_local, (r + 1) B_local)``, and the noise is the same
+rows of the whole batch's draw (the in-kernel Philox, or the autograd
+epoch's CPU draw), so an epoch at any layout uses the single-device
+epoch's noise for the same seed. The posteriors returned are this rank's
+rows; the metrics and the state are the global, replicated ones.
 
 Ragged trials and missing channels: the trial mask is given whole (every
-rank holds it); the per-step global valid counts are taken from it once an
-epoch on the host, each rank's phase-1 kernel gets its rows of the mask and
-the global ``1 / max(count, 1)``, ``step_apply`` the global count, and a
-masked row's posterior is frozen at its last valid value. The channel mask
-is given whole too and cut to the rank's rows; its observed-entry count
-rides the all-reduce in the flat sums.
+rank holds it); the per-step global valid counts are taken from it, each
+rank gets its rows of the mask, the batch means divide by the global
+count, and a masked row's posterior is frozen at its last valid value. The
+channel mask is given whole too and cut to the rank's part; its
+observed-entry count rides an all-reduce.
 
 The relaxed-sync epoch (:func:`run_epoch_sync_every`, ``cfg.sync_every !=
 1``) runs each rank's trials through the single-card epoch (the step and
 mega kernels) for K steps and merges the ranks' states at each segment
-boundary with one all-reduce (:func:`_merge_local_states`).
+boundary with one all-reduce (:func:`_merge_local_states`), over ``dp``.
 
 Only ``dist.all_reduce``, ``dist.broadcast`` and ``dist.barrier`` are used:
 gloo takes CUDA tensors for those three, and NCCL refuses two ranks on one
 device, so two ranks on one card run over gloo and the same code runs over
 NCCL on several. A gather (:func:`gather_rows`) is an all-reduce of a
 zero-filled buffer into which each rank wrote its rows; adding zeros is
-exact. :class:`FitGroup` is what ``models.vjf.fit`` does over a group.
-
-Not ported: the ``tp`` axis and the autograd route over ranks (ROADMAP
-Queue 1 items 13 and 4).
+exact. :class:`FitGroup` is what ``models.vjf.fit`` does over a mesh.
 """
 from __future__ import annotations
 
 import copy
-from typing import Optional, Sequence, Union
+from typing import NamedTuple, Optional, Sequence, Union
 
 import torch
 import torch.distributed as dist
 from torch import nn
 
 from ..config import StepFlags, VJFConfig
+from ..models import dynamics as D
 from ..models import regression as R
 from ..models import vjf as core
+from ..models.decoder import decode
+from ..models.likelihoods import gaussian_lik_apply, gaussian_lik_from_sums, gaussian_lik_sums
+from ..models.recognition import linear_from
 from ..ops import fused_step as F
+from ..ops.functional import all_finite, finite_or_zero, gaussian_entropy, reparametrize, tree_where
+from ..ops.tp import TPSlice
 from ..types import Gaussian
+from .mesh import Mesh, as_mesh
 
 
 def _rank_and_size(group) -> tuple:
-    """(rank in ``group``, world size); raises without a usable group, so
+    """(``dp`` index, ``dp`` size) of this rank in ``group``, a ``dp`` process
+    group or a :class:`~.mesh.Mesh`; anything else raises ``ValueError``, so
     the all-reduce is never skipped quietly. ``mesh=`` of every entry point
-    is such a group."""
-    if group is None:
-        raise ValueError("the sharded path needs a dp process group (parallel.make_dp_group)")
-    if not isinstance(group, dist.ProcessGroup):
-        raise ValueError("mesh must be a dp process group (parallel.make_dp_group), not a "
-                         f"{type(group).__name__}")
-    if not (dist.is_available() and dist.is_initialized()):
-        raise RuntimeError("torch.distributed is not initialised")
-    rank = dist.get_rank(group)
-    if rank < 0:
-        raise ValueError("this process is not a member of the dp group")
-    return rank, dist.get_world_size(group)
+    is such a group or mesh."""
+    m = as_mesh(group)
+    return m.coords[0], m.shape[0]
 
 
-def shard_data(ys: torch.Tensor, us: torch.Tensor, group):
-    """This rank's trials of ``ys`` (T, B, ydim) and ``us`` (T, B, udim):
-    rows ``[r B/n, (r + 1) B/n)`` for rank ``r`` of ``n``."""
-    rank, world = _rank_and_size(group)
-    b = ys.shape[1]
-    if b % world:
-        raise ValueError(f"batch {b} does not split over {world} ranks")
-    rows = slice(rank * (b // world), (rank + 1) * (b // world))
+def _dp(group) -> dist.ProcessGroup:
+    """The ``dp`` process group of ``group`` (a group or a mesh)."""
+    return as_mesh(group).dp
+
+
+def channel_rows(ydim: int, mesh) -> Optional[TPSlice]:
+    """This rank's channels of the ``tp`` axis, or None where the channels
+    stay whole: without a ``tp`` axis, or where ``tp`` does not divide
+    ``ydim`` (the JAX package's ``data_sharding`` rule). The decoder rows
+    split the same way."""
+    m = as_mesh(mesh)
+    n_tp = m.shape[1]
+    if m.tp is None or ydim % n_tp:
+        return None
+    per = ydim // n_tp
+    return TPSlice(m.tp, m.coords[1] * per, (m.coords[1] + 1) * per)
+
+
+def _trial_rows(n_batch: int, mesh) -> slice:
+    rank, world = _rank_and_size(mesh)
+    if n_batch % world:
+        raise ValueError(f"batch {n_batch} does not split over {world} ranks")
+    per = n_batch // world
+    return slice(rank * per, (rank + 1) * per)
+
+
+def shard_data(ys: torch.Tensor, us: torch.Tensor, mesh):
+    """This rank's part of ``ys`` (T, B, ydim) and ``us`` (T, B, udim): the
+    trials ``[r B/n, (r + 1) B/n)`` of its ``dp`` index ``r`` of ``n``, and
+    of ``ys`` its channels of :func:`channel_rows` (all of them where the
+    channels stay whole). The controls are never cut by channel."""
+    rows = _trial_rows(ys.shape[1], mesh)
+    chans = channel_rows(ys.shape[-1], mesh)
+    ys = ys[:, rows] if chans is None else ys[:, rows, chans.lo:chans.hi]
+    return ys.contiguous(), us[:, rows].contiguous()
+
+
+def shard_trials(ys: torch.Tensor, us: torch.Tensor, mesh):
+    """This rank's trials of ``ys`` and ``us`` (T, B, ...) with every
+    column: the fused and relaxed routes' part, and an injected noise's."""
+    rows = _trial_rows(ys.shape[1], mesh)
     return ys[:, rows].contiguous(), us[:, rows].contiguous()
 
 
@@ -102,7 +143,9 @@ def gather_rows(x: torch.Tensor, group, axis: int = 0) -> torch.Tensor:
     """Every rank's ``x`` in one tensor, in rank order along ``axis``: rank
     ``r`` writes its ``n`` rows at ``[r n, (r + 1) n)`` of a zero-filled
     buffer and the ranks sum it (adding zeros is exact). Every rank holds
-    the same number of rows and receives the whole."""
+    the same number of rows and receives the whole. Over a mesh the ranks
+    are its ``dp`` axis."""
+    group = _dp(group)
     rank, world = _rank_and_size(group)
     n = x.shape[axis]
     shape = list(x.shape)
@@ -116,20 +159,30 @@ def gather_rows(x: torch.Tensor, group, axis: int = 0) -> torch.Tensor:
 def broadcast_tree(tree, owner: int, group):
     """``tree`` (a state, a tensor) of rank ``owner`` on every rank: the
     owner sends its own, every other rank a copy of its ``tree`` (the same
-    structure and shapes) overwritten with the owner's values."""
+    structure and shapes) overwritten with the owner's values. Over a mesh
+    ``owner`` is a ``dp`` index and the ranks are its ``dp`` axis. A leaf
+    that is not contiguous (a transposed factor) travels through a
+    contiguous copy: NCCL takes no other."""
+    group = _dp(group)
     rank, _ = _rank_and_size(group)
     out = tree if rank == owner else copy.deepcopy(tree)
     src = dist.get_global_rank(group, owner)
     for t in _tensors(out):
-        dist.broadcast(t, src, group=group)
+        buf = t if t.is_contiguous() else t.contiguous()
+        dist.broadcast(buf, src, group=group)
+        if buf is not t and rank != owner:
+            t.copy_(buf)
     return out
 
 
-def shard_state(cfg: VJFConfig, state: core.TrainState, group) -> core.TrainState:
-    """``state`` with every leaf broadcast from the group's rank 0
-    (:func:`broadcast_tree`), as JAX's replicated ``device_put`` does.
-    ``cfg`` names no sharded leaf yet (the ``tp`` axis is not ported)."""
-    return broadcast_tree(state, 0, group)
+def shard_state(cfg: VJFConfig, state: core.TrainState, mesh) -> core.TrainState:
+    """``state`` with every leaf broadcast from the mesh's rank 0 to every
+    rank (:func:`broadcast_tree`), as JAX's ``device_put`` of a replicated
+    state. The state stays whole between epochs; the autograd epoch cuts
+    the decoder rows over ``tp`` inside itself (:func:`channel_rows`) and
+    gathers them at its end, as the JAX package's ``state_shardings`` shard
+    them, so every caller sees the global state."""
+    return broadcast_tree(state, 0, as_mesh(mesh).everyone)
 
 
 # ---------------------------------------------------------------------------
@@ -239,7 +292,9 @@ def _merge_local_states(cfg: VJFConfig, st0: core.TrainState, st_loc: core.Train
     :func:`merge_from_sums` (the counterpart of the JAX package's
     ``_merge_local_states``). ``extra``, a flat tensor of this rank's, rides
     the same all-reduce. Returns ``(merged state, the ranks' sum of extra or
-    None)``. The covariance backend raises ``NotImplementedError``."""
+    None)``. The covariance backend raises ``NotImplementedError``. Over a
+    mesh the ranks are its ``dp`` axis (its ``tp`` peers merge the same)."""
+    group = _dp(group)
     _, world = _rank_and_size(group)
     contrib = merge_contribution(st0, st_loc)
     n = contrib.numel()
@@ -349,7 +404,11 @@ def run_epoch_fused_sharded(
     instead. ``mask`` ((T,) or (T, B), every trial of the group) and
     ``channel_mask`` ((T, ydim) or (T, B, ydim), every trial) are the same
     on every rank; each rank cuts its rows (module docstring). Returns this
-    rank's posteriors and the global metrics."""
+    rank's posteriors and the global metrics. Over a mesh the all-reduce
+    runs over its ``dp`` axis, with whole channels on every rank: the
+    ``tp`` peers compute the same, as under the JAX package's ``shard_map``,
+    which names ``dp`` alone."""
+    group = _dp(group)
     rank, world = _rank_and_size(group)
     if ys.dtype != cfg.tdtype:
         ys = ys.to(cfg.tdtype)
@@ -440,82 +499,450 @@ def run_epochs_fused_sharded(
     return core.chain_epochs(cfg, epoch, state, ys.shape[0], seeds, lrs)
 
 
-_XLA_TODO = "the sharded autograd epoch: ROADMAP Queue 1 item 4 (its multi-rank route)"
+# ---------------------------------------------------------------------------
+# exact sync, the autograd route: the step over a dp x tp mesh
+# ---------------------------------------------------------------------------
 
 
-def _fused_or_raise(cfg: VJFConfig, state, n_batch: int, mask=None,
-                    channel_mask=None) -> None:
-    if not F.fused_enabled(cfg, state, n_batch=n_batch, mask=mask is not None,
-                           channel_mask=channel_mask is not None):
-        raise NotImplementedError(_XLA_TODO)
+class _Shard(NamedTuple):
+    """What one rank of the autograd epoch over a mesh holds."""
+
+    mesh: Mesh
+    chans: Optional[TPSlice]   # its channels, None where they stay whole
+    lead: bool                 # tp index 0: adds what the tp peers replicate
 
 
-def make_sharded_epoch(cfg: VJFConfig, flags: StepFlags, group):
+def _all_reduce(parts: list, group) -> list:
+    """``parts`` summed over ``group`` in one all-reduce of their
+    concatenation."""
+    flat = torch.cat([p.reshape(-1) for p in parts])
+    dist.all_reduce(flat, group=group)
+    return [v.reshape(p.shape) for v, p in zip(torch.split(flat, [p.numel() for p in parts]),
+                                                parts)]
+
+
+def _replicated(t: torch.Tensor, sh: _Shard) -> torch.Tensor:
+    """A sum the ``tp`` peers compute alike enters the mesh's all-reduce
+    once, from the lead rank (zeros elsewhere: never ``0 * x``, which keeps
+    a NaN)."""
+    return t if sh.lead else torch.zeros_like(t)
+
+
+def _by_channel(t: torch.Tensor, sh: _Shard) -> torch.Tensor:
+    """A sum over this rank's channels: partial over ``tp`` under a channel
+    cut, else replicated (:func:`_replicated`)."""
+    return t if sh.chans is not None else _replicated(t, sh)
+
+
+def _input_linears(rec) -> list:
+    """The recognition network's layers that read the channels."""
+    return [rec.layers[0]] if len(rec.layers) else [rec.mean, rec.logvar]
+
+
+def _grad_parts(cfg: VJFConfig, params, grads, sh: _Shard) -> list:
+    """The step's gradients as they enter the mesh's all-reduce: a
+    replicated leaf's from the lead rank; under a channel cut the input
+    layer's weight with its channel columns (this rank's alone are non-zero)
+    from every rank and the rest from the lead, the decoder's rows at their
+    place in a zero-filled whole, and the Gaussian likelihood's log-variance
+    (read by this rank's channels alone) from every rank."""
+    inputs = {id(lin.weight) for lin in _input_linears(params.recognition)}
+    dec = {id(t) for t in params.decoder.parameters()}
+    lik = id(params.likelihood.logvar) if cfg.likelihood == "gaussian" else None
+    parts = []
+    for p, g in zip(core._trained_leaves(cfg, params), grads):
+        if sh.chans is None:
+            parts.append(_replicated(g, sh))
+        elif id(p) == lik:
+            parts.append(g)
+        elif id(p) in dec:
+            whole = torch.zeros((cfg.ydim,) + tuple(g.shape[1:]), dtype=g.dtype, device=g.device)
+            whole[sh.chans.lo:sh.chans.hi] = g
+            parts.append(whole)
+        elif id(p) in inputs and not sh.lead:
+            parts.append(torch.cat([g[:, :cfg.ydim], torch.zeros_like(g[:, cfg.ydim:])], dim=1))
+        else:
+            parts.append(_replicated(g, sh))
+    return parts
+
+
+def filter_step_sharded(cfg: VJFConfig, flags: StepFlags, state: core.TrainState, qs: Gaussian,
+                        y: torch.Tensor, u: torch.Tensor, eps_s: torch.Tensor,
+                        eps_t: torch.Tensor, lr, sh: _Shard, n_valid, mask=None,
+                        channel_mask=None):
+    """``models.vjf.filter_step`` on this rank's trials (and under a channel
+    cut its channels; the decoder then holds its rows) over a mesh:
+    ``(state, qt, Metrics)``, the state and the metrics the same on every
+    rank. ``n_valid``: the whole batch's valid trial count at this step (an
+    int B without a trial mask).
+
+    Every batch mean is this rank's sum over the whole batch's count, which
+    the ranks' sum completes. The mesh's collectives, in the step's order:
+
+    1. over ``tp``, under a channel cut: the input layer's partial product
+       in the forward pass (``ops.tp.reduce_from``) and the latent sample's
+       gradient in the backward pass (``ops.tp.copy_to``);
+    2. ONE all-reduce over the mesh of the three ELBO terms and every
+       statistic taken before the update: the obs-noise mse, the RLS sums
+       (``F^T F``, ``F^T dx``, nsv's trace sum) or for the covariance form
+       and the Kalman learner the whole batch's ``F`` and ``dx`` rows (each
+       rank factors the same B x B innovation), and the non-finite count of
+       the samples;
+    3. ONE all-reduce over the mesh of the gradients and the state noise's
+       residual after the update.
+
+    A non-finite term is dropped from the loss on every rank, as one device
+    drops it (each term's gate reads its global value); the backward pass
+    then runs on this rank's part of the gated loss. What the ``tp`` peers
+    compute alike enters the all-reduces from the lead rank alone
+    (:func:`_replicated`, :func:`_grad_parts`), so the sums count it once.
+    The closed-form update runs before the SGD step here (it reads nothing
+    the SGD step writes), so that its residual rides the gradients'
+    all-reduce."""
+    tr = core._transition(cfg)
+    group = sh.mesh.everyone
+    qs = Gaussian(qs.mean.detach(), qs.logvar.detach())
+    dtype, dev = y.dtype, y.device
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    weights = mb = None
+    if channel_mask is not None:
+        cm = channel_mask > 0
+        y = torch.where(cm, y, zero)
+        channel_mask = cm.to(dtype)
+    if mask is not None:
+        mb = mask > 0
+        weights = mb.to(dtype)
+        y = torch.where(mb[:, None], y, zero)
+        if u is not None and u.shape[-1] > 0:
+            u = torch.where(mb[:, None], u, zero)
+    count = n_valid if isinstance(n_valid, int) else torch.clamp(n_valid, min=1.0)
+    params = core._trainable(cfg, state.params) if flags.sgd else state.params
+    dyn_on = flags.update and flags.update_transition
+    rls_on = dyn_on and not flags.warm_up
+    lik_on = flags.update and cfg.likelihood == "gaussian" and flags.update_likelihood
+    rule = "rls" if cfg.dynamics == "sgp" else cfg.dynamics_update
+    blr = state.dynamics.blr
+    rows_whole = rule == "kalman" or isinstance(blr, R.CovarianceBLR)
+
+    with torch.set_grad_enabled(flags.sgd):
+        xs = reparametrize(qs, eps_s)
+        feat = tr.features(state.dynamics, xs, u)
+        pt = tr.predict_from_features(state.dynamics, xs, feat, cfg.leak)
+        y_rec = y if channel_mask is None else core._impute_y(cfg, params, qs, y, channel_mask)
+        qt = params.recognition(y_rec, qs, u, activation=cfg.recognition_activation,
+                                tp=sh.chans)
+        qt = Gaussian(qt.mean, torch.clamp(qt.logvar, -cfg.logvar_clamp, cfg.logvar_clamp))
+        xt = reparametrize(qt, eps_t)
+        py = decode(params.decoder, xt, tp=sh.chans)
+        l_recon = core._likelihood_loss(cfg, params.likelihood, py, y, weights=weights,
+                                        channel_mask=channel_mask, count=count)
+        l_dyn = tr.dynamics_loss(state.dynamics, pt, qt, trace_quirk=cfg.trace_quirk,
+                                 weights=weights, count=count)
+        h = gaussian_entropy(qt, weights=weights, count=count)
+
+    # the first all-reduce: the terms and the statistics before the update
+    xt, xs, py, feat = (a.detach() for a in (xt, xs, py, feat))
+    parts = [torch.stack([_by_channel(l_recon.detach(), sh), _replicated(l_dyn.detach(), sh),
+                          _replicated(h.detach(), sh)])]
+    if lik_on:
+        parts.append(_by_channel(gaussian_lik_sums(py, y, cfg.ydim, weights, channel_mask), sh))
+    if dyn_on:
+        feat_w = feat if weights is None else feat * weights[:, None]
+        dx = xt - xs
+        bad = torch.sum((~torch.isfinite(xt)).to(dtype)) + torch.sum((~torch.isfinite(xs))
+                                                                     .to(dtype))
+        parts.append(_replicated(bad.reshape(1), sh))
+        v = torch.exp(state.dynamics.logvar)
+        if rls_on and rows_whole:
+            n_batch, rows = feat.shape[0] * sh.mesh.shape[0], feat.shape[0]
+            lo = sh.mesh.coords[0] * rows
+            for a in (feat_w, dx):
+                whole = torch.zeros((n_batch, a.shape[1]), dtype=dtype, device=dev)
+                whole[lo:lo + rows] = a
+                parts.append(_replicated(whole, sh))
+        elif rls_on:
+            ff, fd = R.rls_products(feat_w, dx, v)
+            parts += [_replicated(ff, sh), _replicated(fd, sh)]
+            if isinstance(blr, R.NSVBLR):
+                parts.append(_replicated(R.nsv_trace_sum(blr, feat_w, cfg.rls_shrink)
+                                         .reshape(1), sh))
+    sums = _all_reduce(parts, group)
+    terms, rest = sums[0], sums[1:]
+    lik_sums = rest.pop(0) if lik_on else None
+    t_recon, t_dyn, t_h = (finite_or_zero(t) for t in terms.unbind(0))
+    loss = t_recon - t_h
+    if not flags.warm_up:
+        loss = loss + t_dyn
+    metrics = core.Metrics(loss, -t_recon, -t_dyn, t_h)
+
+    # the closed-form update from the summed statistics, the same on every
+    # rank, and this rank's residual after it
+    res_parts = []
+    if dyn_on:
+        bad = rest.pop(0)[0]
+        blr_new = blr
+        if rls_on and rows_whole:
+            blr_new = D.closed_form_update(cfg, blr, rest[0], rest[1], v, rule)
+        elif rls_on:
+            tau_sum = rest[2][0] if isinstance(blr, R.NSVBLR) else None
+            blr_new = R.rls_from_sums(blr, rest[0], rest[1], tau_sum, v, cfg.rls_shrink,
+                                      cfg.chol_jitter)
+        resid = dx - feat_w @ blr_new.w_mean
+        rows = torch.sum(torch.square(resid), dim=-1) / cfg.xdim
+        if weights is not None:
+            rows = torch.where(weights > 0, rows, torch.zeros_like(rows)) * weights
+        res_parts.append(_replicated(torch.sum(rows).reshape(1), sh))
+
+    # the backward pass on this rank's part of the gated loss
+    grads = []
+    if flags.sgd:
+        gated = (torch.where(torch.isfinite(terms[0]), l_recon, torch.zeros_like(l_recon))
+                 - torch.where(torch.isfinite(terms[2]), h, torch.zeros_like(h)))
+        if not flags.warm_up:
+            gated = gated + torch.where(torch.isfinite(terms[1]), l_dyn, torch.zeros_like(l_dyn))
+        grads = list(torch.autograd.grad(gated, core._trained_leaves(cfg, params)))
+        res_parts = _grad_parts(cfg, params, grads, sh) + res_parts
+
+    # the second all-reduce: the gradients and the residual
+    if res_parts:
+        res_parts = _all_reduce(res_parts, group)
+    with torch.no_grad():
+        new_params = state.params
+        if flags.sgd:
+            new_params = core.sgd_params(
+                cfg, flags, state, params, res_parts[:len(grads)], lr,
+                decoder_rows=None if sh.chans is None else slice(sh.chans.lo, sh.chans.hi))
+        lik_n = state.lik_n_sample
+        if lik_on:
+            mse, n_rows = gaussian_lik_from_sums(lik_sums, cfg.ydim, n_valid,
+                                                 channel_mask is not None)
+            lik, lik_n = gaussian_lik_apply(new_params.likelihood, lik_n, mse, n_rows,
+                                            size_cap=cfg.obs_var_cap,
+                                            logvar_clamp=cfg.logvar_clamp)
+            new_params = new_params._replace(likelihood=lik)
+        dynamics = state.dynamics
+        if dyn_on:
+            mse = res_parts[-1][0] / count
+            logvar, n_sample = D.state_noise_update(cfg, dynamics.logvar, dynamics.n_sample,
+                                                    mse, n_valid)
+            upd = dynamics._replace(blr=blr_new, logvar=logvar, n_sample=n_sample)
+            upd_ok = (bad == 0) & all_finite(upd)
+            if weights is not None:
+                upd_ok = upd_ok & (n_valid > 0)
+            dynamics = tree_where(upd_ok, upd, dynamics)
+        qt = Gaussian(qt.mean.detach(), qt.logvar.detach())
+        if mb is not None:
+            qt = Gaussian(torch.where(mb[:, None], qt.mean, qs.mean),
+                          torch.where(mb[:, None], qt.logvar, qs.logvar))
+    return core.TrainState(new_params, dynamics, lik_n), qt, metrics
+
+
+def _decoder_rows(state: core.TrainState, chans: Optional[TPSlice]) -> core.TrainState:
+    """``state`` with this rank's decoder rows (views, never written)."""
+    if chans is None:
+        return state
+    dec = state.params.decoder
+    cut = linear_from(dec.weight[chans.lo:chans.hi],
+                      None if dec.bias is None else dec.bias[chans.lo:chans.hi])
+    return state._replace(params=state.params._replace(decoder=cut))
+
+
+def _whole_decoder(state: core.TrainState, chans: Optional[TPSlice]) -> core.TrainState:
+    """The decoder rows of every ``tp`` rank gathered, in order."""
+    if chans is None:
+        return state
+    dec = state.params.decoder
+    whole = linear_from(gather_rows(dec.weight, chans.group, 0),
+                        None if dec.bias is None else gather_rows(dec.bias, chans.group, 0))
+    return state._replace(params=state.params._replace(decoder=whole))
+
+
+@F.full_f32_matmul()
+def run_epoch_autograd_sharded(
+    cfg: VJFConfig,
+    flags: StepFlags,
+    state: core.TrainState,
+    ys: torch.Tensor,
+    us: torch.Tensor,
+    seed: Union[int, torch.Generator],
+    lr,
+    mesh,
+    noise=None,
+    q0=None,
+    mask=None,
+    channel_mask=None,
+) -> core.EpochResult:
+    """One exact-sync epoch over ``mesh`` on the autograd route: the
+    counterpart of the JAX package's ``core.run_epoch`` under GSPMD, for
+    every configuration the fused route does not take. Per step
+    :func:`filter_step_sharded`.
+
+    ``ys``/``us`` are this rank's part (:func:`shard_data`: its trials, and
+    its channels where ``tp`` cuts them); ``state`` the whole, replicated
+    state (:func:`shard_state`), whose decoder rows the epoch cuts over
+    ``tp`` and gathers again at its end, so the state returned is whole and
+    the same on every rank. Every rank passes the same ``seed``: each takes
+    its trials' rows of the whole batch's (T, 2, B, xdim) draw, so an epoch
+    at any layout uses the one-card autograd epoch's noise.
+    ``noise=(eps_s, eps_t)``, each this rank's (T, B_local, xdim), injects
+    it instead. ``mask`` ((T,) or (T, B)) and ``channel_mask`` ((T, ydim)
+    or (T, B, ydim)) are whole on every rank; each rank cuts its part, and
+    the per-step valid counts come from the whole mask. Returns this rank's
+    posteriors and the global metrics."""
+    m = as_mesh(mesh)
+    if ys.dtype != cfg.tdtype:
+        ys = ys.to(cfg.tdtype)
+    if us.dtype != cfg.tdtype:
+        us = us.to(cfg.tdtype)
+    t_len, b_local, _ = ys.shape
+    n_batch = b_local * m.shape[0]
+    rows = _trial_rows(n_batch, m)
+    sh = _Shard(m, channel_rows(cfg.ydim, m), m.coords[1] == 0)
+    dtype, dev = ys.dtype, ys.device
+    n_valid, m_local, cm_local = [n_batch] * t_len, None, None
+    if mask is not None:
+        full = core._promote_mask(mask, t_len, n_batch, dtype, dev) > 0
+        n_valid = full.sum(dim=1).to(dtype)
+        m_local = full[:, rows].to(dtype)
+    if channel_mask is not None:
+        cm = core._promote_channel_mask(channel_mask, (t_len, n_batch, cfg.ydim), dtype, dev)
+        cm_local = cm[:, rows] if sh.chans is None else cm[:, rows, sh.chans.lo:sh.chans.hi]
+    if noise is None:
+        gen = torch.Generator().manual_seed(core.epoch_seed(seed))
+        eps = torch.randn((t_len, 2, n_batch, cfg.xdim), generator=gen, dtype=dtype)
+        eps = eps[:, :, rows].to(dev)
+        noise = (eps[:, 0], eps[:, 1])
+    lr = F._lr_tensor(lr, dtype, dev)
+    q = core.prior(state.params, b_local) if q0 is None else q0
+    st = _decoder_rows(state, sh.chans)
+    qs, steps = [], []
+    for t in range(t_len):
+        st, q, met = filter_step_sharded(
+            cfg, flags, st, q, ys[t], us[t], noise[0][t], noise[1][t], lr, sh, n_valid[t],
+            mask=None if m_local is None else m_local[t],
+            channel_mask=None if cm_local is None else cm_local[t])
+        qs.append(q)
+        steps.append(met[:4])
+    return core.EpochResult(_whole_decoder(st, sh.chans), torch.stack([q.mean for q in qs]),
+                            torch.stack([q.logvar for q in qs]),
+                            core.Metrics(*(torch.stack(f) for f in zip(*steps))))
+
+
+def run_epochs_autograd_sharded(cfg: VJFConfig, flags: StepFlags, state: core.TrainState,
+                                ys: torch.Tensor, us: torch.Tensor,
+                                seeds: Sequence[Union[int, torch.Generator]], lrs, mesh,
+                                mask=None, channel_mask=None) -> core.EpochsResult:
+    """``len(seeds)`` consecutive :func:`run_epoch_autograd_sharded` epochs
+    over the same part of the data (``models.vjf.chain_epochs``), each from
+    the prior."""
+    q0 = core.prior(state.params, ys.shape[1])
+
+    def epoch(st, seed, lr):
+        return run_epoch_autograd_sharded(cfg, flags, st, ys, us, seed, lr, mesh, q0=q0,
+                                          mask=mask, channel_mask=channel_mask)
+
+    return core.chain_epochs(cfg, epoch, state, ys.shape[0], seeds, lrs)
+
+
+# ---------------------------------------------------------------------------
+# the route
+# ---------------------------------------------------------------------------
+
+
+def fused_route(cfg: VJFConfig, state, n_batch: int, mesh, mask: bool = False,
+                channel_mask: bool = False) -> bool:
+    """Whether the exact-sync epoch over ``mesh`` takes the fused route, as
+    the JAX package decides it: SGP's small-batch gate and ``fused_step``
+    on the whole batch ``n_batch``, the card's shared memory on the trials
+    one launch carries (the rank's)."""
+    _, world = _rank_and_size(mesh)
+    return F.fused_enabled(cfg, state, n_batch=n_batch, launch_batch=n_batch // world,
+                           mask=mask, channel_mask=channel_mask)
+
+
+def make_sharded_epoch(cfg: VJFConfig, flags: StepFlags, mesh):
     """``fn(state, ys, us, seed, lr, mask=None, channel_mask=None) ->
-    EpochResult`` over ``group``: the fused route,
-    :func:`run_epoch_fused_sharded`. The XLA-step route (a configuration the
-    fused step does not take) raises."""
-    _rank_and_size(group)
+    EpochResult`` over ``mesh`` (a ``dp`` process group or a ``Mesh``), on
+    the whole batch ``ys`` (T, B, ydim), as the JAX package's: the fused
+    route (:func:`run_epoch_fused_sharded`, whole channels over ``dp``)
+    where :func:`fused_route` says so, else the autograd route
+    (:func:`run_epoch_autograd_sharded` on :func:`shard_data`'s part). The
+    masks are whole; the posteriors returned are this rank's trials."""
+    as_mesh(mesh)
 
     def call(state, ys, us, seed, lr, mask=None, channel_mask=None):
-        _fused_or_raise(cfg, state, ys.shape[1], mask, channel_mask)
-        return run_epoch_fused_sharded(cfg, flags, state, ys, us, seed, lr, group, mask=mask,
-                                       channel_mask=channel_mask)
+        if fused_route(cfg, state, ys.shape[1], mesh, mask is not None,
+                       channel_mask is not None):
+            y_l, u_l = shard_trials(ys, us, mesh)
+            return run_epoch_fused_sharded(cfg, flags, state, y_l, u_l, seed, lr, mesh,
+                                           mask=mask, channel_mask=channel_mask)
+        y_l, u_l = shard_data(ys, us, mesh)
+        return run_epoch_autograd_sharded(cfg, flags, state, y_l, u_l, seed, lr, mesh,
+                                          mask=mask, channel_mask=channel_mask)
 
     return call
 
 
-def make_sharded_epochs(cfg: VJFConfig, flags: StepFlags, group):
+def make_sharded_epochs(cfg: VJFConfig, flags: StepFlags, mesh):
     """``fn(state, ys, us, seeds, lrs, mask=None, channel_mask=None) ->
     EpochsResult``: the multi-epoch counterpart of :func:`make_sharded_epoch`
-    (:func:`run_epochs_fused_sharded`)."""
-    _rank_and_size(group)
+    (:func:`run_epochs_fused_sharded` or :func:`run_epochs_autograd_sharded`)."""
+    as_mesh(mesh)
 
     def call(state, ys, us, seeds, lrs, mask=None, channel_mask=None):
-        _fused_or_raise(cfg, state, ys.shape[1], mask, channel_mask)
-        return run_epochs_fused_sharded(cfg, flags, state, ys, us, seeds, lrs, group,
-                                        mask=mask, channel_mask=channel_mask)
+        if fused_route(cfg, state, ys.shape[1], mesh, mask is not None,
+                       channel_mask is not None):
+            y_l, u_l = shard_trials(ys, us, mesh)
+            return run_epochs_fused_sharded(cfg, flags, state, y_l, u_l, seeds, lrs, mesh,
+                                            mask=mask, channel_mask=channel_mask)
+        y_l, u_l = shard_data(ys, us, mesh)
+        return run_epochs_autograd_sharded(cfg, flags, state, y_l, u_l, seeds, lrs, mesh,
+                                           mask=mask, channel_mask=channel_mask)
 
     return call
 
 
 class FitGroup:
-    """What ``models.vjf.fit`` and ``_fit_blocked`` do over a ``dp`` group
+    """What ``models.vjf.fit`` and ``_fit_blocked`` do over a mesh
     (``mesh=``), beside their single-card ``models.vjf._Solo``: the
-    replicated state broadcast from rank 0 after each host-side step, the
-    whole batch's posteriors gathered where a consumer reads every trial,
-    the host's control values taken from rank 0 so that every rank decides
+    replicated state broadcast from rank 0 to every rank after each
+    host-side step, the whole batch's posteriors gathered over ``dp`` where
+    a consumer reads every trial (the ``tp`` peers hold the same rows), the
+    host's control values taken from rank 0 so that every rank decides
     alike, and snapshots written by rank 0 alone (then every rank waits)."""
 
-    def __init__(self, group, device):
-        self.rank, self.world = _rank_and_size(group)
-        self.group, self.device = group, device
+    def __init__(self, mesh, device):
+        self.mesh = as_mesh(mesh)
+        self.rank, self.world = self.mesh.coords[0], self.mesh.shape[0]
+        self.device = device
         self._whole = (None, None)
 
     def state(self, cfg: VJFConfig, state: core.TrainState) -> core.TrainState:
-        return shard_state(cfg, state, self.group)
+        return shard_state(cfg, state, self.mesh)
 
     def whole(self, res):
         """``res`` (an ``EpochResult`` or ``EpochsResult`` of this rank's
         trials) with the whole batch's posteriors, gathered once a result."""
         if self._whole[0] is not res:
-            self._whole = (res, res._replace(q_means=gather_rows(res.q_means, self.group, 1),
-                                             q_logvars=gather_rows(res.q_logvars, self.group, 1)))
+            self._whole = (res, res._replace(q_means=gather_rows(res.q_means, self.mesh, 1),
+                                             q_logvars=gather_rows(res.q_logvars, self.mesh, 1)))
         return self._whole[1]
 
     def agree(self, vals) -> list:
         t = torch.tensor(list(vals), dtype=torch.float64, device=self.device)
-        dist.broadcast(t, dist.get_global_rank(self.group, 0), group=self.group)
+        everyone = self.mesh.everyone
+        dist.broadcast(t, dist.get_global_rank(everyone, 0), group=everyone)
         return t.tolist()
 
     def save(self, save_fn, path: str, snapshot) -> None:
-        save_on_rank0(save_fn, path, snapshot, self.group)
+        save_on_rank0(save_fn, path, snapshot, self.mesh)
 
 
-def save_on_rank0(save_fn, path: str, snapshot, group) -> None:
-    """``save_fn(path, snapshot)`` on the group's rank 0 alone (one file,
+def save_on_rank0(save_fn, path: str, snapshot, mesh) -> None:
+    """``save_fn(path, snapshot)`` on the mesh's rank 0 alone (one file,
     written atomically), then every rank waits for it: a rank that resumes
     reads what rank 0 wrote."""
-    if _rank_and_size(group)[0] == 0:
+    everyone = as_mesh(mesh).everyone
+    if dist.get_rank(everyone) == 0:
         save_fn(path, snapshot)
-    dist.barrier(group=group)
+    dist.barrier(group=everyone)
