@@ -22,8 +22,16 @@ against their plain versions with the whitening and the DTC correction
 (each of the two faults planted must be rejected), a sharded SGP epoch,
 the main path (``run_epochs``: warm-up, bootstrap, two RLS epochs) and a
 blocked ``fit`` with hyperparameter adaptation. ``route`` drives a
-configuration past the kernels' limits: the autograd epoch under
-``fused_step='auto'``, ``ValueError`` under ``'on'``. The ``mask`` phases
+configuration past the kernels' limits (512 padded features): the autograd
+epoch under ``fused_step='auto'``, ``ValueError`` under ``'on'``. The
+``shapes`` phases close the script: shapes the kernels take since phase 1
+runs over tiles of a block's trials (512 and 1024 trials, 512 with both
+masks, 256 padded features for RBF and SGP, hidden (64, 64, 64, 64) and
+(128,)), each with a main path under ``'auto'`` (no routing warning, the
+step and mega kernels launched), the three kernels against their plain
+versions in both matmul modes with the planted faults, the tile plan
+against the library's, the times beside the autograd epoch's, and 16
+sharded steps. The ``mask`` phases
 run ragged trials and missing channels at the flagship widths (trial
 lengths in [T/2, T], 10% of y dropped, 8 channels dead over a quarter of the
 epoch, NaN at every masked entry): the three launchers with either mask and
@@ -249,6 +257,18 @@ SYNC_W_TOL = 0.1
 # (1, 2) meshes. MULTI_XLA_TOL is compare()'s normalised limit: float32,
 # the same math summed in another order; it must sit between the sound
 # readings and the planted faults' (no SGD, no decoder update)
+SHAPE_T = 512           # shapes.*: steps of the warm-up and of each RLS epoch of a main path
+SHAPE_SHARD_T = 16      # shapes.*.sharded: sharded steps at each shape, world size 1
+# Limits by leaf that replace TOL at one shape, kernel and precision. The bf16
+# mega segment at hidden (64, 64, 64, 64): a last-bit difference of the two
+# sums' orders flips a bf16 rounding now and then, four tanh layers pass it on
+# and 64 steps amplify it in the last posterior's log-variance. On an H100 the
+# sound kernel read 2.243e-3 there (every run the same bits; every other leaf
+# 4.5e-4 or less) and the other matmul precision 2.724e-3 (PERF.md): the limit
+# sits between, and every other leaf keeps TOL.
+SHAPE_LIMITS = {("h64x4", "mega_epoch", "bfloat16"): {"q_logvar": 2.5e-3}}
+DEPTH_WIDTH = 8         # shapes.depths: the width of each of 1 to _MAX_LAYERS hidden layers
+DEPTH_WARM = 64         # shapes.depths: warm-up steps before the comparisons
 MULTI_XLA_STEPS = 64
 MULTI_XLA_TOL = 1e-3
 # multi.world2: two processes on one card over gloo, one deadline for both
@@ -1214,14 +1234,15 @@ def check_fit_sgp(ys, smi) -> None:
 
 
 def check_route(ys, us, lr) -> None:
-    """A configuration past the kernels' limits (n_rbf 200 pads to 256
-    features): under ``fused_step='auto'`` 8 steps take the autograd epoch,
-    with one warning naming the limit and no launch; under ``'on'`` the
-    launch raises ValueError."""
-    cfg = flagship().replace(n_rbf=200)
+    """A configuration past the kernels' limits (n_rbf 400 pads to 512
+    features: two Newton-Schulz panels of 132,096 bytes a block): under
+    ``fused_step='auto'`` 8 steps take the autograd epoch, with one warning
+    naming the limit and no launch; under ``'on'`` the launch raises
+    ValueError."""
+    cfg = flagship().replace(n_rbf=400)
     state = core.init_state(0, cfg, device=ys.device)
     reason = F.kernel_limits(cfg, ys.shape[1])
-    check(reason is not None, "route: n_rbf 200 is within the kernels' limits")
+    check(reason is not None, "route: n_rbf 400 is within the kernels' limits")
     seen = []
     handler = logging.Handler()
     handler.emit = lambda rec: seen.append(rec.getMessage())
@@ -1248,8 +1269,355 @@ def check_route(ys, us, lr) -> None:
     else:
         raised = None
     check(raised is not None and reason in raised, f"route: 'on' did not raise ({raised})")
-    phase("route", config="flagship, n_rbf 200", limit=reason, auto="autograd, 8 steps",
+    phase("route", config="flagship, n_rbf 400", limit=reason, auto="autograd, 8 steps",
           autograd_us_per_step=1e6 * secs / 8, warnings=len(warned), on_raised=raised)
+
+
+# ---------------------------------------------------------------------------
+# Shapes the TPU kernels take that the CUDA kernels took only once phase 1 ran
+# over tiles of a block's trials: more trials, 256 padded features, deeper and
+# wider recognition networks
+# ---------------------------------------------------------------------------
+
+
+def shape_cases() -> dict:
+    """Each shape of the "shapes" phase: (config, trials, both masks, RLS
+    epochs of its main path)."""
+    return {
+        "b512": (flagship(), 512, False, 1),
+        "b1024": (flagship(), 1024, False, 2),
+        "b512.mask": (flagship(), 512, True, 1),
+        "nrbf200": (flagship().replace(n_rbf=200), 256, False, 2),
+        "sgp200": (sgp_flagship().replace(n_inducing=200), 256, False, 1),
+        "h64x4": (flagship().replace(hidden_sizes=(64, 64, 64, 64)), 256, False, 1),
+        "h128": (flagship().replace(hidden_sizes=(128,)), 256, False, 1),
+    }
+
+
+def shape_times(cfg, carry, qm, qlv, ys, eps, lr, mask=None, cmask=None) -> dict:
+    """us per step of the three kernels beside their plain versions at a
+    shape, timed in turns (plain, kernel, kernel, plain), from ``carry``
+    (left as it was): one step and one phase-1 launch on ``ys[0]``, the mega
+    kernel over ``ys``; and one step's and one phase-1 launch's outputs for
+    the bounds."""
+    flags, n = StepFlags(), ys.shape[0]
+    m0 = None if mask is None else mask[0]
+    c0 = None if cmask is None else cmask[0]
+    inv_b = 1.0 / (float(m0.sum()) if m0 is not None else ys.shape[1])
+    carry_s, carry_m, carry_p = clone(carry), clone(carry), clone(carry)
+    args = (qm, qlv, ys[0], None, eps[0, 0], eps[1, 0])
+    calls = {
+        "fused_step": (lambda: F.fused_step_call(cfg, flags, carry_s, *args, lr, mask=m0, cmask=c0),
+                       lambda: F.fused_step_plain(cfg, flags, carry_p, *args, lr, mask=m0,
+                                                  cmask=c0), 20, 1),
+        "forward_sums": (lambda: F.forward_sums_call(cfg, flags, carry, *args, inv_b, mask=m0,
+                                                     cmask=c0),
+                         lambda: F.forward_sums_plain(cfg, flags, carry, *args, inv_b, mask=m0,
+                                                      cmask=c0), 20, 1),
+        "mega_epoch": (lambda: F.mega_epoch_call(cfg, flags, carry_m, qm, qlv, ys, None, eps[0],
+                                                 eps[1], lr, mask=mask, cmask=cmask),
+                       lambda: F.mega_epoch_plain(cfg, flags, carry_p, qm, qlv, ys, None, eps[0],
+                                                  eps[1], lr, mask=mask, cmask=cmask), 3, n),
+    }
+    out = {}
+    for name, (k, p, reps, steps) in calls.items():
+        p1, k1 = cuda_ms(p, max(reps // 3, 1)), cuda_ms(k, reps)
+        k2, p2 = cuda_ms(k, reps), cuda_ms(p, max(reps // 3, 1))
+        out[name] = (1e3 * (k1 + k2) / 2 / steps, 1e3 * (p1 + p2) / 2 / steps)
+    out["stepped"] = calls["fused_step"][0]()
+    out["flat"] = calls["forward_sums"][0]()
+    return out
+
+
+def shape_bounds(cfg, b, carry, qm, qlv, y0, e_s, e_t, lr, stepped, flat, seg_tau,
+                 mask=None, cmask=None) -> dict:
+    """The bounds of a step launch, a mega step and a phase-1 launch at a
+    shape, as the main path's rows count them (each input read once, each
+    output written once; the mega segment's carry once per MEGA_STEPS steps
+    and its Newton-Schulz iterations as its tau asked for; with masks the
+    products of the valid trials, the masks read once more and the
+    imputation's decoder product over every trial)."""
+    nfp = carry.p_mat.shape[0]
+    read, written = carry_bytes(carry), carry_bytes(carry, written=True)
+    data = nbytes(y0, qm, qlv, e_s, e_t, lr)
+    m_bytes, n_step, n_seg, impute = 0, b, b, 0
+    if mask is not None:
+        m_bytes = nbytes(mask[0], cmask[0])
+        n_step, n_seg = float(mask[0].sum()), float(mask.sum(dim=1).mean())
+        impute = 2 * b * cfg.ydim * cfg.xdim
+
+    def ops(n_valid, ns_iters=None):
+        f32_ops, mm_ops = step_ops(cfg, max(int(round(n_valid)), 1), nfp, ns_iters)
+        return f32_ops, mm_ops + impute
+
+    iters = torch.where(seg_tau < F.NS_TAU_MAX,
+                        F.mega_ns_base_iters(cfg, b, masked=mask is not None)
+                        + (seg_tau >= F.NS_TAU_ESCALATE).int()
+                        + F.NS_EXTRA_ITERS * (seg_tau >= F.NS_TAU_THRESHOLD).int(), 0)
+    return {
+        "fused_step": bound(cfg, read + written + data + m_bytes + nbytes(
+            stepped.q_pack, stepped.g_vec, stepped.xt, stepped.xs, stepped.scal),
+            ops(n_step, F.NS_ITERS)),
+        "mega_epoch": bound(cfg, (read + written + nbytes(qm, qlv)) / MEGA_STEPS
+                            + nbytes(y0, e_s, e_t) + m_bytes + nbytes(stepped.q_pack) + 4 * 8,
+                            ops(n_seg, float(iters.float().mean()))),
+        "forward_sums": bound(cfg, read - nbytes(carry.p_mat, lr) + data + m_bytes
+                              + nbytes(*flat), ops(n_step)),
+    }
+
+
+def shape_limit(tag: str, kernel: str, mm: str, leaves: dict):
+    """``compare``'s limit for a kernel at a shape: TOL, or TOL by leaf with
+    the leaves of SHAPE_LIMITS replaced."""
+    over = SHAPE_LIMITS.get((tag, kernel, mm))
+    return {**dict.fromkeys(leaves, TOL[mm]), **over} if over else TOL[mm]
+
+
+def depth_runs(n_layers: int, mm: str, dev, mega: bool = True) -> dict:
+    """The three kernels and their plain versions at the flagship with
+    ``n_layers`` hidden layers of DEPTH_WIDTH, on the same inputs from a
+    state after DEPTH_WARM warm-up steps: one step, one phase-1 launch and,
+    with ``mega``, a MEGA_STEPS mega segment, as ``{kernel: (plain, kernel,
+    start)}``, the arguments of ``compare``."""
+    cfg = flagship(mm).replace(hidden_sizes=(DEPTH_WIDTH,) * n_layers)
+    flags, t_len = StepFlags(), DEPTH_WARM + MEGA_STEPS
+    ys = spikes(t_len, B, cfg.ydim, dev, seed=90 + n_layers)
+    us = torch.zeros((t_len, B, 0), device=dev)
+    lr = torch.tensor(cfg.lr, device=dev)
+    eps = torch.randn((2, MEGA_STEPS, B, cfg.xdim), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(91))
+    warm = core.run_epoch(cfg, StepFlags(warm_up=True), core.init_state(0, cfg, device=dev),
+                          ys[:DEPTH_WARM], us[:DEPTH_WARM], 92, lr)
+    qm, qlv = warm.q_means[-1].contiguous(), warm.q_logvars[-1].contiguous()
+    carry = F.pad_carry(cfg, warm.state)
+    start = flatten(carry._asdict())
+    y0, e_s, e_t = ys[DEPTH_WARM], eps[0, 0], eps[1, 0]
+    step = [packed(prefix_step(fn, cfg, flags, clone(carry), qm, qlv, y0, e_s, e_t, lr))
+            for fn in (F.fused_step_plain, F.fused_step_call)]
+    sums_args = (qm, qlv, y0, None, e_s, e_t, 1.0 / B)
+    sums = [sums_leaves(*fn(cfg, flags, carry, *sums_args), carry)
+            for fn in (F.forward_sums_plain, F.forward_sums_call)]
+    runs = {"fused_step": (*step, start), "forward_sums": (*sums, {})}
+    if mega:
+        runs["mega_epoch"] = (*[segment(*fn(cfg, flags, clone(carry), qm, qlv, ys[DEPTH_WARM:],
+                                            None, eps[0], eps[1], lr))
+                                for fn in (F.mega_epoch_plain, F.mega_epoch_call)], start)
+    return runs
+
+
+def check_depths(dev) -> dict:
+    """Every hidden-layer count the kernels take, 1 to ``_MAX_LAYERS``, at
+    DEPTH_WIDTH (:func:`depth_runs`), each kernel held against its plain
+    version within TOL: the step and phase-1 kernels in both matmul
+    precisions, the mega kernel in f32. A bf16 mega segment through several
+    tanh layers is no test at TOL: rounding flips grow over its 64 steps to
+    2.1e-3 to 3.0e-3 in the posterior means of a sound kernel at 3, 5, 7
+    and 8 layers of 8 on an H100 (PERF.md); its code is the step kernel's,
+    held here in bf16 at every depth, and the mega loop's own code is held
+    in f32. Returns the largest max abs diff of each kernel."""
+    errs = dict.fromkeys(("fused_step", "forward_sums", "mega_epoch"), 0.0)
+    for n in range(1, F._MAX_LAYERS + 1):
+        for mm in ("float32", "bfloat16"):
+            runs = depth_runs(n, mm, dev, mega=mm == "float32")
+            for kernel, (ref, got, start) in runs.items():
+                errs[kernel] = max(errs[kernel], compare(
+                    f"shapes.depths.h{DEPTH_WIDTH}x{n}.{kernel}[{mm}]", ref, got, TOL[mm],
+                    start))
+    return errs
+
+
+def check_shape(tag, cfg, b, masked, rls_epochs, dev, group, smi) -> dict:
+    """One shape the kernels take since phase 1 runs in trial tiles. The main
+    path through ``run_epochs`` under ``fused_step='auto'`` (a warm-up epoch
+    of SHAPE_T steps, for SGP the bootstrap, then ``rls_epochs`` RLS epochs):
+    finite, the step and mega kernels launched, no routing warning. The three
+    kernels against their plain versions in both matmul modes (``compare``
+    at TOL, the planted faults rejected), from the flagship checks' states:
+    one step with the exact fallback and one phase-1 launch after a warm-up
+    epoch of WARM_STEPS, MEGA_STEPS mega steps after ``ns_prefix`` more
+    steps through the kernels (whose tau lies between the escalation bands,
+    as the flagship's does); SGP from :func:`sgp_check_state`. The tile plan
+    against the library's, the times beside the plain versions' and the
+    autograd epoch's, the bounds, and SHAPE_SHARD_T sharded steps at world
+    size 1 (the phase-1 kernel's launches on that path)."""
+    flags, t_len = StepFlags(), SHAPE_T
+    # the masked data as the flagship's (MASK_T steps, trial lengths in
+    # [MASK_T / 2, MASK_T]): about half the trials have ended in the mega segment
+    t_data = max(t_len, WARM_STEPS + cfg.ns_prefix + MEGA_STEPS, MASK_T if masked else 0)
+    ys = spikes(t_data, b, cfg.ydim, dev, seed=60)
+    us = torch.zeros((t_data, b, 0), device=dev)
+    lr = torch.tensor(cfg.lr, device=dev)
+    eps = torch.randn((2, MEGA_STEPS, b, cfg.xdim), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(61))
+    mask = cmask = None
+    if masked:
+        ys, _, mask, cmask, _ = masked_data(ys, seed=62)
+    masks = {} if mask is None else dict(mask=mask[:t_len], channel_mask=cmask[:t_len])
+    sgp_cfg = cfg.dynamics == "sgp"
+
+    # ---- the main path under 'auto': no routing warning
+    seen = []
+    handler = logging.Handler()
+    handler.emit = lambda rec: seen.append(rec.getMessage())
+    F.logger.addHandler(handler)
+    try:
+        state = core.init_state(0, cfg, device=dev)
+        lrs = [cfg.lr * cfg.lr_decay ** i for i in range(rls_epochs)]
+        F.reset_launches()
+        wu, t_warm = synced(lambda: core.run_epochs(cfg, StepFlags(warm_up=True), state,
+                                                    ys[:t_len], us[:t_len], [70], lrs[:1],
+                                                    **masks))
+        boot = (core._bootstrap_dynamics(cfg, wu.state, wu.q_means, us[:t_len],
+                                         torch.Generator().manual_seed(71))
+                if sgp_cfg else wu.state)
+        out, t_rls = synced(lambda: core.run_epochs(cfg, flags, boot, ys[:t_len], us[:t_len],
+                                                    list(range(72, 72 + rls_epochs)), lrs,
+                                                    **masks))
+        launches, timesteps = dict(F.launches), dict(F.steps)
+    finally:
+        F.logger.removeHandler(handler)
+    check(launches["fused_step"] > 0 and launches["mega_epoch"] > 0,
+          f"shapes.{tag}.main: launches {launches}")
+    check(not seen, f"shapes.{tag}.main: routing warnings {seen}")
+    check(bool(torch.isfinite(out.epoch_loss).all()) and bool(torch.isfinite(out.q_means).all()),
+          f"shapes.{tag}.main: loss or posterior not finite")
+    phase(f"shapes.{tag}.main", config=f"{tag}: B {b}, T {t_len}, "
+          f"{'both masks, ' if masked else ''}1 warm-up + {rls_epochs} RLS epochs",
+          warmup_epoch_s=t_warm, rls_epochs_s=t_rls, epoch_loss=out.epoch_loss.tolist(),
+          max_tau=out.max_tau.tolist(), launches=launches, timesteps=timesteps,
+          warnings=len(seen), card=smi)
+
+    # ---- the three kernels against their plain versions
+    def mk(rows):
+        return {} if mask is None else dict(mask=mask[rows], channel_mask=cmask[rows])
+
+    if sgp_cfg:
+        check_state, qm_w, qlv_w = sgp_check_state(cfg, ys, us, lr)
+        post, qm_p, qlv_p = check_state, qm_w, qlv_w
+        lo = WARM_STEPS
+    else:
+        warm_rows, lo = slice(0, WARM_STEPS), WARM_STEPS + cfg.ns_prefix
+        warm = core.run_epoch(cfg, StepFlags(warm_up=True), core.init_state(0, cfg, device=dev),
+                              ys[warm_rows], us[warm_rows], 5, lr, **mk(warm_rows))
+        check_state, qm_w, qlv_w = (warm.state, warm.q_means[-1].contiguous(),
+                                    warm.q_logvars[-1].contiguous())
+        pre = slice(WARM_STEPS, lo)
+        prefix = core.run_epoch(cfg, flags, check_state, ys[pre], us[pre], 6, lr,
+                                q0=core.Gaussian(qm_w, qlv_w), **mk(pre))
+        post, qm_p, qlv_p = (prefix.state, prefix.q_means[-1].contiguous(),
+                             prefix.q_logvars[-1].contiguous())
+    y0, e_s, e_t = ys[lo], eps[0, 0], eps[1, 0]
+    seg = slice(lo, lo + MEGA_STEPS)
+    m0, c0 = (None, None) if mask is None else (mask[lo], cmask[lo])
+    m_seg, c_seg = (None, None) if mask is None else (mask[seg], cmask[seg])
+    inv_b = 1.0 / (float(m0.sum()) if m0 is not None else b)
+    errs = dict.fromkeys(("fused_step", "mega_epoch", "forward_sums"), 0.0)
+    for mm in ("float32", "bfloat16"):
+        c = cfg.replace(matmul_dtype=mm)
+        tol = TOL[mm]
+        carry = F.pad_carry(c, check_state)
+        start = flatten(carry._asdict())
+        s_args = (qm_w, qlv_w, y0, e_s, e_t, lr)
+        ref = masked_prefix_step(F.fused_step_plain, c, flags, clone(carry), *s_args, mask=m0,
+                                 cmask=c0)
+        got = masked_prefix_step(F.fused_step_call, c, flags, clone(carry), *s_args, mask=m0,
+                                 cmask=c0)
+        phase(f"shapes.{tag}.step[{mm}].tau", plain=float(ref.scal[0, 4]),
+              kernel=float(got.scal[0, 4]))
+        errs["fused_step"] = max(errs["fused_step"], compare(
+            f"shapes.{tag}.step[{mm}]", packed(ref), packed(got), tol, start))
+        for fault, (fcfg, fflags) in faults(c, flags).items():
+            bad = masked_prefix_step(F.fused_step_call, fcfg, fflags, clone(carry), *s_args,
+                                     mask=m0, cmask=c0)
+            compare(f"shapes.{tag}.step[{mm}].fault.{fault}", packed(ref), packed(bad), tol,
+                    start, reject=True)
+        sums_args = (qm_w, qlv_w, y0, None, e_s, e_t, inv_b)
+        s_ref = sums_leaves(*F.forward_sums_plain(c, flags, carry, *sums_args, mask=m0,
+                                                  cmask=c0), carry, c0 is not None)
+        s_got = sums_leaves(*F.forward_sums_call(c, flags, carry, *sums_args, mask=m0, cmask=c0),
+                            carry, c0 is not None)
+        errs["forward_sums"] = max(errs["forward_sums"], compare(
+            f"shapes.{tag}.forward_sums[{mm}]", s_ref, s_got, tol, {}))
+        for fault, (fcfg, fflags) in (("other_precision", (c.replace(
+                matmul_dtype=other_precision(mm)), flags)),
+                ("no_sgd", (c, dataclasses.replace(flags, sgd=False)))):
+            bad = sums_leaves(*F.forward_sums_call(fcfg, fflags, carry, *sums_args, mask=m0,
+                                                   cmask=c0), carry, c0 is not None)
+            compare(f"shapes.{tag}.forward_sums[{mm}].fault.{fault}", s_ref, bad, tol, {},
+                    reject=True)
+        carry = F.pad_carry(c, post)
+        start = flatten(carry._asdict())
+        m_args = (qm_p, qlv_p, ys[seg], None, eps[0], eps[1], lr)
+        m_ref = F.mega_epoch_plain(c, flags, clone(carry), *m_args, mask=m_seg, cmask=c_seg)
+        m_got = F.mega_epoch_call(c, flags, clone(carry), *m_args, mask=m_seg, cmask=c_seg)
+        phase(f"shapes.{tag}.mega[{mm}].tau", plain_min=float(m_ref[2][:, 4].min()),
+              plain_max=float(m_ref[2][:, 4].max()), kernel_max=float(m_got[2][:, 4].max()),
+              base_iters=F.mega_ns_base_iters(c, b, masked=mask is not None))
+        m_tol = shape_limit(tag, "mega_epoch", mm, segment(*m_ref))
+        errs["mega_epoch"] = max(errs["mega_epoch"], compare(
+            f"shapes.{tag}.mega[{mm}]", segment(*m_ref), segment(*m_got), m_tol, start))
+        for fault, (fcfg, fflags) in faults(c, flags).items():
+            bad = F.mega_epoch_call(fcfg, fflags, clone(carry), *m_args, mask=m_seg, cmask=c_seg)
+            compare(f"shapes.{tag}.mega[{mm}].fault.{fault}", segment(*m_ref), segment(*bad),
+                    m_tol, start, reject=True)
+        if mm == cfg.matmul_dtype:
+            seg_tau = m_got[2][:, 4]
+
+    # ---- the tile plan, the times and the bounds (the main path's products)
+    carry = F.pad_carry(cfg, post)
+    info = F.cluster_info(cfg, flags, carry, qm_p, qlv_p, ys[seg], None, lr, mask=m_seg,
+                          cmask=c_seg)
+    need = F._library().vjf_smem_bytes(ctypes.byref(F._dims(cfg, b, mask=masked, cmask=masked)))
+    check(need == info["smem_bytes"], f"shapes.{tag}: vjf_smem_bytes {need}, the launch {info}")
+    times = shape_times(cfg, carry, qm_p, qlv_p, ys[seg], eps, lr, m_seg, c_seg)
+    auto_masks = {} if mask is None else dict(mask=mask[:8], channel_mask=cmask[:8])
+    _, auto_s = synced(lambda: core.run_epoch(cfg.replace(fused_step="off"), flags, post,
+                                              ys[:8], us[:8], 3, lr, **auto_masks))
+    bounds = shape_bounds(cfg, b, carry, qm_p, qlv_p, y0, e_s, e_t, lr, times["stepped"],
+                          times["flat"], seg_tau, m_seg, c_seg)
+    phase(f"shapes.{tag}.times", unit="us per timestep", card=smi,
+          tile_rows=info["tile_rows"], stage_rows=info["stage_rows"],
+          smem_bytes=info["smem_bytes"],
+          tiles_by_block=[max(-(-len(F.cluster_rows(r, b)) // info["tile_rows"]), 1)
+                          for r in range(F.cluster_size())],
+          registers=info["registers"], local_bytes=info["local_bytes"],
+          autograd_us_per_step=1e6 * auto_s / 8,
+          **{f"{k}{suffix}": times[k][i] for k in bounds
+             for i, suffix in ((0, ""), (1, "_plain"))},
+          **{f"{k}_bound": bounds[k][0] * 1e3 for k in bounds})
+
+    # ---- the phase-1 kernel on the sharded path, world size 1
+    sh_masks = {} if mask is None else dict(mask=mask[:SHAPE_SHARD_T],
+                                            channel_mask=cmask[:SHAPE_SHARD_T])
+    F.reset_launches()
+    sh = run_epoch_fused_sharded(cfg, flags, post, ys[:SHAPE_SHARD_T], us[:SHAPE_SHARD_T], 73,
+                                 lr, group, **sh_masks)
+    sh_launches, sh_steps = dict(F.launches), dict(F.steps)
+    check(sh_launches == {**dict.fromkeys(F.launches, 0), "forward_sums": SHAPE_SHARD_T},
+          f"shapes.{tag}.sharded: launches {sh_launches}")
+    check(bool(torch.isfinite(sh.metrics.loss).all()), f"shapes.{tag}.sharded: loss not finite")
+    phase(f"shapes.{tag}.sharded", world_size=1, backend="nccl", steps=SHAPE_SHARD_T,
+          launches=sh_launches["forward_sums"])
+    launches["forward_sums"], timesteps["forward_sums"] = (sh_launches["forward_sums"],
+                                                           sh_steps["forward_sums"])
+    return {"launches": launches, "steps": timesteps, "errs": errs, "us": times,
+            "bounds": bounds}
+
+
+def check_shapes(dev, smi) -> dict:
+    """Every shape of :func:`shape_cases` (:func:`check_shape`), inside one
+    world-size-1 NCCL group for their sharded steps. Returns each shape's
+    launches, errors, times and bounds by tag."""
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        group = make_dp_group()
+        dist.all_reduce(torch.zeros(1, device=dev), group=group)
+        return {tag: check_shape(tag, *case, dev, group, smi)
+                for tag, case in shape_cases().items()}
+    finally:
+        dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------
@@ -3424,6 +3792,13 @@ def main() -> int:
         dist.destroy_process_group()
     check_multi_world2(cfg, wu.state, ys, us, lr, multi, cosmooth, autograd, smi)
 
+    # ---------------- shapes: trial tiles, 256 padded features, deeper and wider layers -----
+    shapes = check_shapes(dev, smi)
+    t_depths = time.perf_counter()
+    depths = check_depths(dev)
+    phase("shapes.depths", layers=list(range(1, F._MAX_LAYERS + 1)), width=DEPTH_WIDTH,
+          max_abs_err=depths, seconds=time.perf_counter() - t_depths)
+
     # ---------------- bounds: the least time one card could take ----------------
     # each input read once and each output written once (step_mega_bounds)
     nfp = carry_t.p_mat.shape[0]
@@ -3528,6 +3903,13 @@ def main() -> int:
             sync["steps"]["fused_step"], step_err, step_ms, step_plain_ms, step_bound),
         row("mega_epoch.sync_every", 1767, sync["launches"]["mega_epoch"],
             sync["steps"]["mega_epoch"], mega_err, mega_ms, mega_plain_ms, mega_bound),
+    ] + [
+        # the shapes: the step and mega launches from each shape's main path, the
+        # phase-1 launches from its sharded steps
+        row(f"{k}.{tag}", replaces, sh["launches"][k], sh["steps"][k], sh["errs"][k],
+            sh["us"][k][0] / 1e3, sh["us"][k][1] / 1e3, sh["bounds"][k])
+        for tag, sh in shapes.items()
+        for k, replaces in (("fused_step", 1104), ("mega_epoch", 1767), ("forward_sums", 1437))
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

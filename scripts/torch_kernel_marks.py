@@ -61,7 +61,7 @@ MARKS = [
     (7, "ELBO loop + block_sum", "before",
      "// ---------------- manual backward"),
     (8, "g_xt, g_w_dec, g_b_dec", "before",
-     "for (int i = tid; i < nb * xd; i += NTHREADS) {\n      const int b = i / xd, k = i % xd;\n"
+     "for (int i = tid; i < nb * xd; i += NTHREADS) {\n      const int b = i / xd, kk = i % xd;\n"
      "      const float lv = qt_lv[i];"),
     (9, "g_q elementwise", "before",
      "mm(xd, hl, nb, trans(s.g_qm, xd), h_last, slab + c.so.wm"),
@@ -75,11 +75,11 @@ MARKS = [
      "for (int idx = tid; idx < frn * nfp; idx += NTHREADS) {\n"
      "        const int il = idx / nfp, col = idx % nfp, r = fr0 + il;"),
     (14, "grad_check, scalars", "before",
-     "if (t + 1 < a.T) fetch_inputs(a, c, t + 1);\n  cluster_sync();"),
+     "if (t + 1 < a.T) fetch_inputs<TILED>(a, c, t + 1);\n  cluster_sync();"),
     (15, "prefetch + cluster barrier 1", "after",
-     "if (t + 1 < a.T) fetch_inputs(a, c, t + 1);\n  cluster_sync();"),
+     "if (t + 1 < a.T) fetch_inputs<TILED>(a, c, t + 1);\n  cluster_sync();"),
     (16, "reduce scalars", "after",
-     "const StepSums p = reduce_scalars(a, c, cs, inv_b);"),
+     "const StepSums p = reduce_scalars(a, c, cs, inv_b, valid);"),
     (17, "ELBO consts, SGD slices", "before",
      "// ---------------- RLS with Newton-Schulz tracking of V"),
     (18, "P_new rows, iterate rows, fxd rows", "before",

@@ -14,6 +14,8 @@ from vjf_tpu_torch import config as tcfg
 from vjf_tpu_torch.models import vjf as tcore
 from vjf_tpu_torch.ops import fused_step as TF
 
+import torch_tile_plan as TP
+
 torch.set_num_threads(1)
 
 BATCHES = [1, 5, 8, 250, 256]
@@ -159,13 +161,51 @@ def test_launch_refuses_a_cpu_tensor():
 
 
 @pytest.mark.parametrize("kw, what", [
-    (dict(hidden_sizes=(8, 8, 8, 8)), "hidden layers"),
-    (dict(hidden_sizes=(96,)), "hidden layers"),
-    (dict(n_rbf=200), "padded features"),
+    (dict(hidden_sizes=(8,) * 9), "hidden layers"),
+    (dict(hidden_sizes=(3,) * 16), "hidden layers"),
+    (dict(n_rbf=400), "shared memory"),
 ])
-def test_launch_refuses_a_shape_the_kernel_does_not_take(kw, what):
+def test_launch_refuses_a_shape_the_kernel_does_not_take(kw, what, monkeypatch):
+    """More hidden layers than the kernel unrolls, or a block past the
+    card's shared memory at the smallest trial tile (512 padded features),
+    with host tensors standing in for the card's."""
+    monkeypatch.setattr(TF, "_library", lambda: TP.MirrorLib())
+    monkeypatch.setattr(TF, "_ptr", lambda t, *a, **k: None if t is None else t.data_ptr())
     with pytest.raises(ValueError, match=what):
         TF._launch("mega_epoch", *_launch_args(_cfg(dtype="float32", **kw)))
+
+
+MIRROR_SHAPES = [
+    (dict(), 256, False, False), (dict(), 256, True, True), (dict(), 512, False, False),
+    (dict(), 1024, False, False), (dict(), 512, True, True), (dict(n_rbf=200), 256, False, True),
+    (dict(dynamics="sgp", n_inducing=200), 256, False, False),
+    (dict(hidden_sizes=(64, 64, 64, 64)), 256, False, False),
+    (dict(hidden_sizes=(128,)), 256, False, False), (dict(hidden_sizes=(8,) * 8), 300, True, False),
+    (dict(udim=3, hidden_sizes=(32, 16)), 2048, False, False), (dict(n_rbf=400), 256, False, False),
+]
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("kw, b, mask, cmask", MIRROR_SHAPES)
+def test_tile_plan_mirror_matches_the_library(kw, b, mask, cmask):
+    """The tests' mirror of the kernels' tile plan and shared-memory layout
+    (``tests/torch_tile_plan.py``) against the library's own answers:
+    ``vjf_smem_bytes`` and the tile and chunk of ``vjf_cluster_info``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the library's size queries)")
+    import ctypes
+
+    base = dict(ydim=200, xdim=10, n_rbf=100, hidden_sizes=(32,), likelihood="poisson",
+                dtype="float32", rls_backend="nsv")
+    cfg = tcfg.VJFConfig(**{**base, **kw})
+    lib = TF._library()
+    a = TF._dims(cfg, b, mask=mask, cmask=cmask)
+    plan = TP.plan_of(a)
+    assert lib.vjf_smem_bytes(ctypes.byref(a)) == plan.smem_bytes
+    if plan.smem_bytes <= lib.vjf_smem_limit():
+        out = (ctypes.c_int * 8)()
+        assert lib.vjf_cluster_info(ctypes.byref(a), out) == 0
+        assert (out[2], out[6], out[7]) == (plan.smem_bytes, plan.tile, plan.kc)
 
 
 @pytest.mark.card

@@ -13,6 +13,8 @@ from vjf_tpu_torch import config as tcfg
 from vjf_tpu_torch.models import vjf as tcore
 from vjf_tpu_torch.ops import fused_step as TF
 
+import torch_tile_plan as TP
+
 torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parents[1]
 
@@ -131,42 +133,49 @@ def test_kernel_wrapper_rejects_cpu_tensors():
 
 
 class _StagingLib:
-    """The kernels' two size queries, without a build: a block needs
-    ``base`` bytes, plus ``extra[0]`` with the trial mask's operand set and
-    ``extra[1]`` with the channel mask's (the staging the kernel adds)."""
+    """The kernels' two size queries, without a build, answered by the
+    mirror of their tile plan (``tests/torch_tile_plan.py``), which counts
+    the staging of a trial mask's row and a tile's channel mask rows; it
+    records each query and its answer."""
 
-    def __init__(self, base, extra):
-        self.base, self.extra = base, extra
-        self.seen = []
+    def __init__(self):
+        self.seen, self.answers = [], []
 
     def vjf_smem_bytes(self, args):
         a = args._obj
         self.seen.append((bool(a.mask), bool(a.cmask)))
-        return self.base + self.extra[0] * bool(a.mask) + self.extra[1] * bool(a.cmask)
+        self.answers.append(TP.plan_of(a).smem_bytes)
+        return self.answers[-1]
 
     def vjf_smem_limit(self):
         return 232448
 
 
 def test_kernel_limits_count_the_mask_staging(monkeypatch, caplog):
-    """A shape that fits unmasked but not with the channel mask's staging:
-    ``kernel_limits`` asks the library with the mask operands set, and under
-    'auto' only the masked epoch takes the autograd route."""
+    """A shape that fits unmasked and with the trial mask but not with the
+    channel mask's staging (the flagship widths at 256 padded features and
+    256 trials: one tile of 32 trials a block, 16 with the channel mask's
+    two buffers): ``kernel_limits`` asks the library with the mask operands
+    set, and under 'auto' only the channel-masked epoch takes the autograd
+    route."""
     import logging
 
-    lib = _StagingLib(210000, (1152, 26112))
+    lib = _StagingLib()
     monkeypatch.setattr(TF, "_on_cuda", lambda t: True)
     monkeypatch.setattr(TF, "_routed_away", set())
     monkeypatch.setattr(TF, "_library", lambda: lib)
-    cfg = tcfg.VJFConfig(ydim=4, xdim=2, n_rbf=5, hidden_sizes=(3,), rls_backend="nsv",
+    cfg = tcfg.VJFConfig(ydim=200, xdim=10, n_rbf=200, hidden_sizes=(32,), rls_backend="nsv",
                          dtype="float32")
     st = _state(cfg)
-    assert TF.kernel_limits(cfg, 8) is None
-    assert TF.kernel_limits(cfg, 8, mask=True) is None
-    reason = TF.kernel_limits(cfg, 8, channel_mask=True)
-    assert reason is not None and "channel mask" in reason and "236112" in reason
+    assert TF.kernel_limits(cfg, 256) is None
+    assert TF.kernel_limits(cfg, 256, mask=True) is None
+    reason = TF.kernel_limits(cfg, 256, channel_mask=True)
     assert lib.seen == [(False, False), (True, False), (False, True)]
+    assert lib.answers[0] <= lib.answers[1] <= 232448 < lib.answers[2]
+    assert reason is not None and "channel mask" in reason and str(lib.answers[2]) in reason
+    # the plan behind the refusal: the smallest tile, 16 trials a block
+    assert TP.tile_plan(cfg, 256, channel_mask=True).tile == 16
     with caplog.at_level(logging.WARNING, logger=TF.__name__):
-        assert TF.fused_enabled(cfg, st, n_batch=8, mask=True)
-        assert not TF.fused_enabled(cfg, st, n_batch=8, mask=True, channel_mask=True)
+        assert TF.fused_enabled(cfg, st, n_batch=256, mask=True)
+        assert not TF.fused_enabled(cfg, st, n_batch=256, mask=True, channel_mask=True)
     assert any("channel mask" in r.getMessage() for r in caplog.records)

@@ -30,6 +30,8 @@ from vjf_tpu_torch.models import dynamics as tdyn
 from vjf_tpu_torch.models import regression as treg
 from vjf_tpu_torch.models import vjf as tcore
 from vjf_tpu_torch.ops import fused_step as TF
+
+import torch_tile_plan as TP
 from vjf_tpu_torch.ops.functional import all_finite
 from vjf_tpu_torch.parallel import make_dp_group, run_epoch_fused_sharded
 from vjf_tpu_torch.types import Gaussian as TG
@@ -611,13 +613,15 @@ def test_blocked_fit_adapts_and_forecasts():
 
 
 class _FakeLib:
-    """The two size queries of the kernels' library, without a build."""
+    """The two size queries of the kernels' library, without a build:
+    ``need`` bytes, or with ``need=None`` the mirror of the kernels' tile
+    plan (``tests/torch_tile_plan.py:plan_of``)."""
 
     def __init__(self, need):
         self.need = need
 
     def vjf_smem_bytes(self, args):
-        return self.need
+        return TP.plan_of(args._obj).smem_bytes if self.need is None else self.need
 
     def vjf_smem_limit(self):
         return 232448
@@ -626,7 +630,8 @@ class _FakeLib:
 @pytest.fixture
 def on_card(monkeypatch):
     """The port's gate sees a state on the card; the library answers the
-    shared-memory query with ``on_card(need)``'s bytes."""
+    shared-memory query with ``on_card(need)``'s bytes (``None``: the
+    mirror's)."""
     monkeypatch.setattr(TF, "_on_cuda", lambda t: True)
     monkeypatch.setattr(TF, "_routed_away", set())
 
@@ -657,6 +662,8 @@ def test_sgp_routes_small_batches_as_the_reference_does(on_card):
     assert not TF.fused_enabled(cfg.replace(fused_step="off"), state, n_batch=64)
 
 
+# Shapes the TPU kernels take that the CUDA kernels refused until phase 1
+# ran in trial tiles and the Newton-Schulz operand was staged in chunks
 LIMIT_CASES = {
     "n_rbf=200": dict(n_rbf=200),
     "n_inducing=200": dict(dynamics="sgp", n_inducing=200),
@@ -667,13 +674,48 @@ LIMIT_CASES = {
 
 @pytest.mark.parametrize("case", list(LIMIT_CASES))
 def test_kernel_limits_gate_agrees_with_launch(case, on_card, caplog):
-    """Under 'auto' a configuration past a kernel limit takes the autograd
-    epoch with one warning naming the limit; the launch raises ValueError
-    with the same limit, which is what 'on' reaches on the card."""
+    """These configurations take the kernel route: within every limit off
+    the card and within the card's shared memory (the query answered by
+    the mirror of the kernels' tile plan), and under 'auto' the fused epoch
+    with no warning."""
     cfg = _small(**LIMIT_CASES[case])
     b = 8
-    reason = TF.kernel_limits(cfg, b, on_card=False)
+    assert TF.kernel_limits(cfg, b, on_card=False) is None
+    on_card(None)
+    assert TF.kernel_limits(cfg, b) is None
+    state = tcore.init_state(0, cfg, device="cpu")
+    with caplog.at_level(logging.WARNING, logger=TF.__name__):
+        assert TF.fused_enabled(cfg, state, n_batch=b)
+        assert TF.fused_enabled(cfg.replace(fused_step="on"), state, n_batch=b)
+    assert not caplog.records
+
+
+# Configurations still past the kernels' limits: more layers than the kernel
+# unrolls, 512 padded features (two 132,096-byte Newton-Schulz panels a
+# block), and a carry of 8,192 trials a block
+REFUSED_CASES = {
+    "nine_layers": (dict(hidden_sizes=(5,) * 9), 8),
+    "n_rbf=400": (dict(n_rbf=400), 8),
+    "n_inducing=400": (dict(dynamics="sgp", n_inducing=400), 8),
+    "B=65536": (dict(), 65536),
+}
+
+
+@pytest.mark.parametrize("case", list(REFUSED_CASES))
+def test_kernel_limits_refuse_past_the_smallest_tile(case, on_card, caplog, monkeypatch):
+    """Under 'auto' a configuration past a kernel limit takes the autograd
+    epoch with one warning naming the limit; the launch raises ValueError
+    with the same limit, which is what 'on' reaches on the card. The shared
+    memory is the mirror's, at the smallest trial tile."""
+    kw, b = REFUSED_CASES[case]
+    cfg = _small(**kw)
+    on_card(None)
+    reason = TF.kernel_limits(cfg, b)
     assert reason is not None
+    if case != "nine_layers":
+        assert TF.kernel_limits(cfg, b, on_card=False) is None
+        assert "shared memory" in reason and "smallest trial tile" in reason
+        assert str(TP.tile_plan(cfg, b).smem_bytes) in reason
     state = tcore.init_state(0, cfg, device="cpu")
     with caplog.at_level(logging.WARNING, logger=TF.__name__):
         assert not TF.fused_enabled(cfg, state, n_batch=b)
@@ -681,6 +723,8 @@ def test_kernel_limits_gate_agrees_with_launch(case, on_card, caplog):
     warned = [r for r in caplog.records if reason in r.getMessage()]
     assert len(warned) == 1
     assert TF.fused_enabled(cfg.replace(fused_step="on"), state, n_batch=b)
+    # host tensors stand in for the card's: the launch checks the shapes
+    monkeypatch.setattr(TF, "_ptr", lambda t, *a, **k: None if t is None else t.data_ptr())
     carry = TF.pad_carry(cfg, state)
     q = torch.zeros(b, 2)
     with pytest.raises(ValueError, match="do not take") as err:

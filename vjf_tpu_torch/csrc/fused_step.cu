@@ -35,11 +35,22 @@
 //     ops/fused_step.py mirrors the split) and a contiguous panel of the
 //     rows of P, V and w. Phase 1 is per trial except for its batch sums, so
 //     each block runs it on its own trials with the global 1/B.
-//   * A block's activations (y[t], the features, every layer, every xd-wide
-//     leaf, the posterior carried from step to step) live in its shared
-//     memory, with the RBF constants (loaded once) and the biases (loaded
-//     every step). y[t+1], u[t+1] and injected noise are fetched with
-//     cp.async while phase 2 of step t runs. The weights change every step
+//   * What a block keeps from step to step for each of its trials lives in
+//     its shared memory: the posterior carried from step to step, the noise,
+//     the 0/1 trial mask column, with the RBF constants (loaded once) and the
+//     biases (loaded every step). Phase 1 runs over tiles of R of the block's
+//     trials (plan_tiles: all of them where that fits, else the largest
+//     multiple of 16 that does): a tile's y, u and channel mask, its
+//     features, every layer and every xd-wide leaf live in shared memory
+//     that phase 2's scratch overlays. y[t+1], u[t+1] and the noise for tile
+//     0 are fetched with cp.async while phase 2 of step t runs; with several
+//     tiles the inputs have two buffers, and tile k+1's arrive while tile k
+//     computes. Batch sums gather tile by tile, in order, into the block's
+//     slab; each tile's features and dx go to L2, where the RLS statistics
+//     and the post-update residual read them. Each kernel is compiled twice
+//     (template TILED): the launch takes the instantiation without the tile
+//     and chunk loops where a block's trials are one tile and the panel
+//     operand is staged whole. The weights change every step
 //     (SGD) and are read from L2 where they live. The arguments and the
 //     layouts sit in the head of the shared memory, one copy a block: in
 //     the threads' local memory they fell out of L1 and every pointer came
@@ -61,15 +72,23 @@
 //     publishes its trials' features and dx through L2, and block r takes
 //     its rows of both over all the trials. No floating-point atomics.
 //   * The feedback chain stays full f32, no TF32: P w, V g and the
-//     Newton-Schulz products run by row panels. Block r stages the full
-//     right-hand matrix into shared memory with 16-byte cp.async, multiplies
-//     its panel with 4 x 4 register tiles split over K, and publishes its
-//     rows with a cluster barrier (two per iteration). P_new, the iterate and
+//     Newton-Schulz products run by row panels. Block r stages the
+//     right-hand matrix into shared memory with 16-byte cp.async (whole up
+//     to 128 padded features; past that in double-buffered chunks of
+//     STAGE_ROWS rows), multiplies its panel with 4 x 4 register tiles split
+//     over K, and publishes its rows with a cluster barrier (two per
+//     iteration). P_new, the iterate and
 //     V_new stay in the block's shared memory; the carry's P, V, w rows are
 //     overwritten once, after the barrier behind the last reader.
 //   * The carry scalars (state and observation log-variance, their counts)
 //     are computed by every block from the same reduced sums, kept in
 //     registers from step to step, and written once at the end by block 0.
+//
+// Shapes: any multiple of 128 padded features, 1 to MAX_LAYERS hidden
+// layers of any width, any number of trials, as long as a block's shared
+// memory fits MAX_SMEM_BYTES at the smallest trial tile (plan_tiles). 512
+// padded features do not: phase 2's two row panels of P and of the iterate
+// take 132,096 bytes each at 64 rows a block.
 //
 // wgmma is not used: a block's trials (32 at the flagship) are fewer than
 // its 64 rows, and it has no f32 input type for the feedback chain.
@@ -136,8 +155,12 @@
 #ifndef VJF_CLUSTER
 #define VJF_CLUSTER 8
 #endif
-#define MAX_LAYERS 3
+#define MAX_LAYERS 8
+#ifndef MAX_SMEM_BYTES
 #define MAX_SMEM_BYTES 232448  // what one block may use on sm_90
+#endif
+#define TILE_QUANTUM 16  // a trial tile smaller than the block's trials: a multiple of this
+#define STAGE_ROWS 16    // rows of a staged chunk past 128 padded features
 
 #define NS_ITERS 3
 #define NS_TAU_THRESHOLD 0.25f
@@ -197,6 +220,7 @@ struct VJFArgs {
   // dims
   int T, B, yd, ud, xd, nfp, nf, n_layers;
   int h[MAX_LAYERS];
+  int tile, kc;        // set by plan_tiles: trials a phase-1 tile, rows a staged chunk
   // flags
   int sgd, update, warm_up, train_decoder, update_likelihood, update_transition;
   int poisson, trace_quirk, bf16, mega, ns_iters;
@@ -325,15 +349,19 @@ __host__ __device__ static inline int panel_ksplit(int prow, int nfp) {
 }
 
 // A block's shared memory. The first group lives across both phases and
-// from step to step; phase 1's temporaries and phase 2's scratch overlay
-// each other.
+// from step to step, for every trial of the block; then the inputs of one
+// tile of phase 1 (tile 0 of step t + 1 arrives while phase 2 of step t
+// runs; with several tiles a second buffer takes tile k + 1 while tile k
+// computes); phase 1's temporaries, for one tile, and phase 2's scratch
+// overlay each other.
 struct SM {
-  float *y, *u, *eps, *q[2][2], *feat, *dx, *tmp, *red, *bc;
-  float *cm, *mrow, *mcol;  // channel mask rows, the trial mask's row, this block's 0/1 column
+  float *eps, *q[2][2], *red, *bc, *esum;  // esum: the ELBO sums over the tiles
+  float *mrow, *mcol;                         // the trial mask's row, this block's 0/1 column
   float *cent_x, *cent_u, *c2, *inv_w2;        // the RBF constants (centroids transposed)
   float *b_dec, *b_logvar, *b_hid[MAX_LAYERS];  // the biases, loaded every step
-  float *xs, *xt, *x2, *z, *fvf, *ptlv, *pt_m, *raw, *py, *g_xt, *g_qm, *g_qlv, *g_h, *g_a;
-  float* hs[MAX_LAYERS];
+  float *y[2], *u[2], *cm[2];                  // a tile's inputs; [1] with several tiles only
+  float *feat, *tmp, *xs, *xt, *x2, *z, *fvf, *ptlv, *pt_m, *raw, *py, *g_xt, *g_qm, *g_qlv;
+  float *g_h, *g_a, *hs[MAX_LAYERS];
   float *stage, *pan_p, *pan_x, *part, *vnew, *wnew, *gown, *small;
   int ldy, ldu, ldf, ldg;
   int ldh[MAX_LAYERS];
@@ -377,12 +405,14 @@ struct Header {
 };
 #define HEADER_FLOATS ((sizeof(Header) + 15) / 16 * 4)
 
+// Mirrored for the tests by tests/torch_tile_plan.py:smem_floats.
 __host__ __device__ static SM carve_smem(const VJFArgs& a, float* base) {
   SM s;
   Carver cv{base, 0, 4};  // 16-byte aligned buffers
   cv.take(HEADER_FLOATS);
   const size_t xd = a.xd, nfp = a.nfp;
-  const size_t rows = cdiv(a.B, VJF_CLUSTER), prow = cdiv(a.nfp, VJF_CLUSTER);
+  const size_t rows = cdiv(a.B, VJF_CLUSTER), prow = cdiv(a.nfp, VJF_CLUSTER), tile = a.tile;
+  const int nbuf = a.tile < (int)rows ? 2 : 1;
   int hmax = 0;
   for (int i = 0; i < a.n_layers; ++i) hmax = a.h[i] > hmax ? a.h[i] : hmax;
   // leading dimensions: a multiple of 4 floats (16-byte rows) plus 4, so that
@@ -391,17 +421,12 @@ __host__ __device__ static SM carve_smem(const VJFArgs& a, float* base) {
   s.ldu = (a.ud + 3) / 4 * 4 + 4;
   s.ldf = (a.nfp + 3) / 4 * 4 + 4;
   s.ldg = (hmax + 3) / 4 * 4 + 4;
-  s.y = cv.take(rows * s.ldy);
-  s.u = a.ud > 0 ? cv.take(rows * s.ldu) : nullptr;
   s.eps = cv.take(rows * 2 * xd);
   for (int i = 0; i < 2; ++i)
     for (int j = 0; j < 2; ++j) s.q[i][j] = cv.take(rows * xd);
-  s.feat = cv.take(rows * s.ldf);
-  s.dx = cv.take(rows * xd);
-  s.tmp = cv.take(rows * xd);
   s.red = cv.take(8 * NWARPS);
   s.bc = cv.take(32);
-  s.cm = a.cmask ? cv.take(rows * s.ldy) : nullptr;
+  s.esum = cv.take(8);
   s.mrow = a.mask ? cv.take(a.B) : nullptr;
   s.mcol = cv.take(rows);
   s.cent_x = cv.take(nfp * xd);
@@ -411,30 +436,38 @@ __host__ __device__ static SM carve_smem(const VJFArgs& a, float* base) {
   s.b_dec = cv.take(a.yd);
   s.b_logvar = cv.take(xd);
   for (int i = 0; i < MAX_LAYERS; ++i) s.b_hid[i] = i < a.n_layers ? cv.take(a.h[i]) : nullptr;
+  for (int i = 0; i < 2; ++i) {
+    const bool on = i < nbuf;
+    s.y[i] = on ? cv.take(tile * s.ldy) : nullptr;
+    s.u[i] = on && a.ud > 0 ? cv.take(tile * s.ldu) : nullptr;
+    s.cm[i] = on && a.cmask ? cv.take(tile * s.ldy) : nullptr;
+  }
   const size_t mark = cv.off;
-  // phase 1
-  s.xs = cv.take(rows * xd);
-  s.xt = cv.take(rows * xd);
-  s.x2 = cv.take(rows);
-  s.z = cv.take(rows * s.ldf);
-  s.fvf = cv.take(rows);
-  s.ptlv = cv.take(rows);
-  s.pt_m = cv.take(rows * xd);
-  s.raw = cv.take(rows * xd);
-  s.py = cv.take(rows * s.ldy);
-  s.g_xt = cv.take(rows * xd);
-  s.g_qm = cv.take(rows * xd);
-  s.g_qlv = cv.take(rows * xd);
-  s.g_h = cv.take(rows * s.ldg);
-  s.g_a = cv.take(rows * s.ldg);
+  // phase 1, one tile (tmp also takes the post-update residual, behind phase 2)
+  s.feat = cv.take(tile * s.ldf);
+  s.tmp = cv.take(tile * xd);
+  s.xs = cv.take(tile * xd);
+  s.xt = cv.take(tile * xd);
+  s.x2 = cv.take(tile);
+  s.z = cv.take(tile * s.ldf);
+  s.fvf = cv.take(tile);
+  s.ptlv = cv.take(tile);
+  s.pt_m = cv.take(tile * xd);
+  s.raw = cv.take(tile * xd);
+  s.py = cv.take(tile * s.ldy);
+  s.g_xt = cv.take(tile * xd);
+  s.g_qm = cv.take(tile * xd);
+  s.g_qlv = cv.take(tile * xd);
+  s.g_h = cv.take(tile * s.ldg);
+  s.g_a = cv.take(tile * s.ldg);
   for (int i = 0; i < MAX_LAYERS; ++i) {
     s.ldh[i] = i < a.n_layers ? (a.h[i] + 3) / 4 * 4 + 4 : 0;
-    s.hs[i] = i < a.n_layers ? cv.take(rows * s.ldh[i]) : nullptr;
+    s.hs[i] = i < a.n_layers ? cv.take(tile * s.ldh[i]) : nullptr;
   }
   const size_t end1 = cv.off;
   // phase 2
   cv.off = mark;
-  s.stage = cv.take(nfp * nfp);
+  s.stage = cv.take(a.kc < a.nfp ? 2 * (size_t)a.kc * nfp : nfp * nfp);
   s.pan_p = cv.take(prow * s.ldf);
   s.pan_x = cv.take(prow * s.ldf);
   s.part = cv.take((size_t)panel_ksplit((int)prow, a.nfp) * cdiv((int)prow, 4) * 4 * nfp);
@@ -444,6 +477,25 @@ __host__ __device__ static SM carve_smem(const VJFArgs& a, float* base) {
   s.small = cv.take(nfp * xd);
   s.total = cv.off > end1 ? cv.off : end1;
   return s;
+}
+
+// The tiles of phase 1 and the staging of phase 2 at these shapes, which
+// vjf_smem_bytes and the launch both take: `tile` is every trial of a block
+// where the block's shared memory then fits (one tile, the bits of the
+// kernel before it had tiles), else the largest multiple of TILE_QUANTUM
+// that fits, else the smallest tile, which the launch refuses; `kc` stages
+// the right-hand matrix of a panel product whole up to 128 padded features,
+// in chunks of STAGE_ROWS rows past that. Mirrored by
+// tests/torch_tile_plan.py:plan_of.
+static VJFArgs plan_tiles(VJFArgs a) {
+  const int rows = cdiv(a.B, VJF_CLUSTER);
+  a.kc = a.nfp <= 128 ? a.nfp : STAGE_ROWS;
+  a.tile = rows;
+  for (int r = (rows - 1) / TILE_QUANTUM * TILE_QUANTUM;
+       r >= TILE_QUANTUM && carve_smem(a, nullptr).total * sizeof(float) > MAX_SMEM_BYTES;
+       r -= TILE_QUANTUM)
+    a.tile = r;
+  return a;
 }
 
 // ---------------------------------------------------------------------------
@@ -637,18 +689,31 @@ __device__ void block_sum(float* red, float (&v)[N]) {
   __syncthreads();
 }
 
-// Column sums of the first `rows` rows of x (leading dim ld) into out (cols).
-__device__ void col_sum(const float* x, int ld, int rows, int cols, float* out) {
+// Column sums of the first `rows` rows of x (leading dim ld) into out
+// (cols), or added to out with `acc`.
+__device__ void col_sum(const float* x, int ld, int rows, int cols, float* out, bool acc) {
   for (int j = threadIdx.x; j < cols; j += NTHREADS) {
     float s = 0.f;
     for (int r = 0; r < rows; ++r) s += x[(size_t)r * ld + j];
-    out[j] = s;
+    out[j] = acc ? out[j] + s : s;
   }
 }
 
+// A thread's sum of x[tid], x[tid + NTHREADS], ... in that order; four loads
+// are in flight ahead of their adds (x may lie in L2), so the order and the
+// bits are those of the plain loop.
 __device__ __forceinline__ float sum_of(const float* x, size_t n) {
   float s = 0.f;
-  for (size_t i = threadIdx.x; i < n; i += NTHREADS) s += x[i];
+  size_t i = threadIdx.x;
+  for (; i + 3 * NTHREADS < n; i += 4 * NTHREADS) {
+    const float v0 = x[i], v1 = x[i + NTHREADS], v2 = x[i + 2 * NTHREADS],
+                v3 = x[i + 3 * NTHREADS];
+    s += v0;
+    s += v1;
+    s += v2;
+    s += v3;
+  }
+  for (; i < n; i += NTHREADS) s += x[i];
   return s;
 }
 
@@ -672,8 +737,12 @@ struct StepSums {
 // Element `off` of the flat buffer summed over the blocks' slabs, in rank
 // order.
 __device__ __forceinline__ float rank_sum(const Ctx& c, size_t off) {
-  float s = c.g.slab[off];
-  for (int r = 1; r < VJF_CLUSTER; ++r) s += c.g.slab[(size_t)r * c.g.slab_stride + off];
+  float v[VJF_CLUSTER];  // every load in flight before the first add
+#pragma unroll
+  for (int r = 0; r < VJF_CLUSTER; ++r) v[r] = c.g.slab[(size_t)r * c.g.slab_stride + off];
+  float s = v[0];
+#pragma unroll
+  for (int r = 1; r < VJF_CLUSTER; ++r) s += v[r];
   return s;
 }
 
@@ -692,22 +761,58 @@ __device__ __forceinline__ void stage_rows(float* dst, int ld, const float* src,
   }
 }
 
-// Starts the copy of step t's y, u, injected noise and masks for this
-// block's trials into shared memory (the trial mask's whole row: every block
-// counts the step's valid trials).
+// A tile of phase 1: trials [r0, r0 + n) of this block, its inputs in
+// buffer `buf`.
+struct Tile {
+  int r0, n, buf;
+};
+
+// TILED: the instantiation of the kernels for shapes whose phase 1 may take
+// several tiles or whose panel products stage in chunks; the other one (every
+// shape the kernels took before tiles: a block's trials one tile, a panel's
+// operand staged whole) folds the tile and chunk loops to one pass
+// (one_pass picks it at the launch).
+template <bool TILED>
+__device__ __forceinline__ Tile tile_of(const VJFArgs& a, const Ctx& c, int k) {
+  if (!TILED) return Tile{0, c.tr.n, 0};
+  const int r0 = k * a.tile, left = c.tr.n - r0;
+  return Tile{r0, left < a.tile ? left : a.tile, k & 1};
+}
+
+// The tiles of this block's trials: at least one, so that a block without
+// trials still writes its sums (zero).
+template <bool TILED>
+__device__ __forceinline__ int n_tiles(const VJFArgs& a, const Ctx& c) {
+  if (!TILED) return 1;
+  const int n = cdiv(c.tr.n, a.tile);
+  return n > 0 ? n : 1;
+}
+
+// Starts the copy of step t's y, u and channel mask for tile k into its
+// buffer (no commit).
+__device__ __forceinline__ void fetch_tile(const VJFArgs& a, const Ctx& c, int t, const Tile& k) {
+  const int yd = a.yd, ud = a.ud;
+  const size_t row = (size_t)t * a.B + c.tr.first + k.r0;
+  stage_rows(c.s.y[k.buf], c.s.ldy, a.y + row * yd, k.n, yd);
+  if (a.cmask) stage_rows(c.s.cm[k.buf], c.s.ldy, a.cmask + row * yd, k.n, yd);
+  if (ud > 0) {
+    const float* usrc = a.u + row * ud;
+    for (int i = threadIdx.x; i < k.n * ud; i += NTHREADS)
+      cp_async4(c.s.u[k.buf] + (size_t)(i / ud) * c.s.ldu + i % ud, usrc + i);
+  }
+}
+
+// Starts the copy of step t's inputs of tile 0, the trial mask's whole row
+// (every block counts the step's valid trials) and the injected noise of
+// every trial of this block into shared memory.
+template <bool TILED>
 __device__ __forceinline__ void fetch_inputs(const VJFArgs& a, const Ctx& c, int t) {
-  const int nb = c.tr.n, yd = a.yd, ud = a.ud, xd = a.xd;
+  const int nb = c.tr.n, xd = a.xd;
   const size_t row = (size_t)t * a.B + c.tr.first;
-  stage_rows(c.s.y, c.s.ldy, a.y + row * yd, nb, yd);
-  if (a.cmask) stage_rows(c.s.cm, c.s.ldy, a.cmask + row * yd, nb, yd);
+  fetch_tile(a, c, t, tile_of<TILED>(a, c, 0));
   if (a.mask)
     for (int i = threadIdx.x; i < a.B; i += NTHREADS)
       cp_async4(c.s.mrow + i, a.mask + (size_t)t * a.B + i);
-  if (ud > 0) {
-    const float* usrc = a.u + row * ud;
-    for (int i = threadIdx.x; i < nb * ud; i += NTHREADS)
-      cp_async4(c.s.u + (size_t)(i / ud) * c.s.ldu + i % ud, usrc + i);
-  }
   if (a.eps_s) {
     // the (rows, 2 xd) noise: columns [:xd] are eps_s, [xd:] eps_t
     for (int i = threadIdx.x; i < nb * xd; i += NTHREADS) {
@@ -719,13 +824,36 @@ __device__ __forceinline__ void fetch_inputs(const VJFArgs& a, const Ctx& c, int
   cp_async_commit();
 }
 
+// With masks: tile k's y and u replaced by 0 where masked (channel holes
+// first: NaN padding never enters) and its channel mask made 0/1. Reads
+// mcol, which a barrier has published.
+__device__ __forceinline__ void mask_tile(const VJFArgs& a, const Ctx& c, const Tile& k) {
+  const float* mcol = c.s.mcol + k.r0;
+  float *y = c.s.y[k.buf], *cm = c.s.cm[k.buf];
+  for (int i = threadIdx.x; i < k.n * a.yd; i += NTHREADS) {
+    const size_t e = (size_t)(i / a.yd) * c.s.ldy + i % a.yd;
+    float v = y[e];
+    if (a.cmask) {
+      const float cmv = cm[e] > 0.f ? 1.f : 0.f;
+      cm[e] = cmv;
+      v = cmv > 0.f ? v : 0.f;
+    }
+    y[e] = mcol[i / a.yd] > 0.f ? v : 0.f;
+  }
+  if (a.mask)
+    for (int i = threadIdx.x; i < k.n * a.ud; i += NTHREADS) {
+      float* p = c.s.u[k.buf] + (size_t)(i / a.ud) * c.s.ldu + i % a.ud;
+      *p = mcol[i / a.ud] > 0.f ? *p : 0.f;
+    }
+}
+
 // Waits for step t's inputs; loads the posterior entering step 0; draws the
 // noise unless it is given: rows [row0 + first, ...) of the whole batch's
 // draw, at counter `count`. `cur` is the buffer that holds the posterior
-// entering the step. With masks: this block's 0/1 column of the trial mask
-// and its channel mask as 0/1, y and u replaced by 0 where masked (channel
-// holes first), and the step's valid trials over the whole batch, which it
-// returns (B without a trial mask).
+// entering the step. With masks: this block's 0/1 column of the trial mask,
+// tile 0's inputs masked (mask_tile), and the step's valid trials over the
+// whole batch, which it returns (B without a trial mask).
+template <bool TILED>
 __device__ __forceinline__ float step_begin(const VJFArgs& a, const Ctx& c, int t, int cur,
                                             uint32_t count) {
   const int nb = c.tr.n, xd = a.xd;
@@ -736,11 +864,21 @@ __device__ __forceinline__ float step_begin(const VJFArgs& a, const Ctx& c, int 
       c.s.q[cur][1][i] = a.qs_lv[(size_t)c.tr.first * xd + i];
     }
   }
-  // the biases as the last step's SGD left them
-  for (int i = threadIdx.x; i < a.yd; i += NTHREADS) c.s.b_dec[i] = a.b_dec[i];
-  for (int i = threadIdx.x; i < xd; i += NTHREADS) c.s.b_logvar[i] = a.b_logvar[i];
-  for (int l = 0; l < a.n_layers; ++l)
-    for (int i = threadIdx.x; i < a.h[l]; i += NTHREADS) c.s.b_hid[l][i] = a.b_hidden[l][i];
+  // the biases as the last step's SGD left them, all leaves in one pass (a
+  // thread's loads from L2 overlap instead of waiting leaf by leaf)
+  int nbias = a.yd + xd;
+  for (int l = 0; l < a.n_layers; ++l) nbias += a.h[l];
+  for (int i = threadIdx.x; i < nbias; i += NTHREADS) {
+    if (i < a.yd) {
+      c.s.b_dec[i] = a.b_dec[i];
+    } else if (i < a.yd + xd) {
+      c.s.b_logvar[i - a.yd] = a.b_logvar[i - a.yd];
+    } else {
+      int j = i - a.yd - xd, l = 0;
+      while (j >= a.h[l]) j -= a.h[l++];
+      c.s.b_hid[l][j] = a.b_hidden[l][j];
+    }
+  }
   if (!a.eps_s) {
     const uint32_t j0 = (uint32_t)(a.row0 + c.tr.first) * (uint32_t)xd;
     for (int j = threadIdx.x; j < nb * xd; j += NTHREADS) {
@@ -762,38 +900,26 @@ __device__ __forceinline__ float step_begin(const VJFArgs& a, const Ctx& c, int 
   } else {
     valid[0] = (float)a.B;
   }
-  for (int i = threadIdx.x; i < nb * a.yd; i += NTHREADS) {
-    const size_t e = (size_t)(i / a.yd) * c.s.ldy + i % a.yd;
-    float v = c.s.y[e];
-    if (a.cmask) {
-      const float cmv = c.s.cm[e] > 0.f ? 1.f : 0.f;
-      c.s.cm[e] = cmv;
-      v = cmv > 0.f ? v : 0.f;
-    }
-    c.s.y[e] = c.s.mcol[i / a.yd] > 0.f ? v : 0.f;
-  }
-  if (a.mask)
-    for (int i = threadIdx.x; i < nb * a.ud; i += NTHREADS) {
-      float* p = c.s.u + (size_t)(i / a.ud) * c.s.ldu + i % a.ud;
-      *p = c.s.mcol[i / a.ud] > 0.f ? *p : 0.f;
-    }
+  mask_tile(a, c, tile_of<TILED>(a, c, 0));
   __syncthreads();
   return valid[0];
 }
 
-// SGP whitening of this block's features: s.feat (nb x nfp) times w_white
-// (nfp x nfp, row-major, in L2) in full f32, through s.z (free until F V),
-// back into s.feat and, with `stats`, into the workspace that the RLS
-// statistics read. A thread owns one column and up to 8 rows of a pass, so
-// a block loads each entry of w_white once a pass and a warp reads a row of
-// w_white coalesced; the features are broadcast from shared memory, 16-byte
-// loads at a time. WHITEN_K rows of w_white are loaded into registers before
-// their products, so that their L2 latency overlaps; each sum still runs over
-// k in order.
+// SGP whitening of tile rows [first, first + nb) of the whole batch's
+// features: s.feat (nb x nfp) times w_white (nfp x nfp, row-major, in L2) in
+// full f32, through s.z (free until F V), back into s.feat and, with
+// `publish`, into the workspace that the RLS statistics and the residual
+// read. A thread owns one column and up to 8 rows of a pass, so a block
+// loads each entry of w_white once a pass and a warp reads a row of w_white
+// coalesced; the features are broadcast from shared memory, 16-byte loads at
+// a time. WHITEN_K rows of w_white are loaded into registers before their
+// products, so that their L2 latency overlaps; each sum still runs over k in
+// order.
 #define WHITEN_K 16
-__device__ __forceinline__ void whiten_features(const VJFArgs& a, const Ctx& c, bool stats) {
+__device__ __forceinline__ void whiten_features(const VJFArgs& a, const Ctx& c, bool publish,
+                                                int nb, int first, const float* mcol) {
   const SM& s = c.s;
-  const int nb = c.tr.n, nfp = a.nfp;
+  const int nfp = a.nfp;
   const int groups = NTHREADS >= nfp ? NTHREADS / nfp : 1;
   const int kfull = nfp - nfp % WHITEN_K;
   for (int idx = threadIdx.x; idx < nfp * groups; idx += NTHREADS) {
@@ -840,66 +966,66 @@ __device__ __forceinline__ void whiten_features(const VJFArgs& a, const Ctx& c, 
     const int b = i / nfp, j = i % nfp;
     const float v = s.z[(size_t)b * s.ldf + j];
     s.feat[(size_t)b * s.ldf + j] = v;
-    if (stats) c.g.feat[(size_t)(c.tr.first + b) * nfp + j] = v * s.mcol[b];
+    if (publish) c.g.feat[(size_t)(first + b) * nfp + j] = v * mcol[b];
   }
   __syncthreads();
 }
 
-// Phase 1 on this block's trials: forward, ELBO sums, manual backward, every
-// batch mean scaled by `inv_b` (1 / the step's valid trials of the whole
-// batch). The gradient sums land in this block's slab in the flat order, its
-// raw scalar sums behind them; with `stats` every trial's features (a masked
-// trial's as 0) and dx go to the workspace, for stat_rows. Writes the
-// posterior (shared memory buffer 1 - cur, and q_pack; with `freeze` a
-// masked trial's is its input) and xs, xt where asked; updates no carry
-// leaf. Ends with the prefetch of step t + 1 and a cluster barrier that
-// publishes the slabs.
-__device__ __forceinline__ void step_forward_sums(const VJFArgs& a, const Ctx& c,
+// Phase 1 on tile k of this block's trials (see step_forward_sums): the
+// forward, the tile's ELBO sums into s.esum (thread 0 writes them at the
+// first tile and adds them at the others), and the manual backward into the
+// slab, which the first tile writes and the others add to.
+template <bool TILED>
+__device__ __forceinline__ void tile_forward_sums(const VJFArgs& a, const Ctx& c,
                                                   const CarryScalars& cs, int t, int cur,
-                                                  float inv_b, bool stats, bool freeze) {
+                                                  float inv_b, bool publish, bool freeze,
+                                                  const Tile& k) {
   const int tid = threadIdx.x;
   const SM& s = c.s;
-  const int nb = c.tr.n, first = c.tr.first;
+  const int nb = k.n, first = c.tr.first + k.r0;
+  const bool acc = TILED && k.r0 > 0;
   const int yd = a.yd, ud = a.ud, xd = a.xd, nfp = a.nfp, L = a.n_layers;
   const int h0 = a.h[0], hl = a.h[L - 1];
   const bool bf = a.bf16 != 0;
-  const float *y = s.y, *u = ud > 0 ? s.u : nullptr;
-  const float *qs_m = s.q[cur][0], *qs_lv = s.q[cur][1];
-  float *qt_m = s.q[1 - cur][0], *qt_lv = s.q[1 - cur][1];
-  const float *eps_s = s.eps, *eps_t = s.eps + xd;
+  float* y = s.y[k.buf];
+  const float* u = ud > 0 ? s.u[k.buf] : nullptr;
+  const float* cm = s.cm[k.buf];
+  const float *qs_m = s.q[cur][0] + (size_t)k.r0 * xd, *qs_lv = s.q[cur][1] + (size_t)k.r0 * xd;
+  float *qt_m = s.q[1 - cur][0] + (size_t)k.r0 * xd, *qt_lv = s.q[1 - cur][1] + (size_t)k.r0 * xd;
+  const float *eps_s = s.eps + (size_t)k.r0 * 2 * xd, *eps_t = eps_s + xd;
   const int eps_ld = 2 * xd;
   const float slv = cs.slv, lik_lv = cs.lik_lv;
   float* slab = c.slab;
+  const float* mcol = s.mcol + k.r0;
 
-  const float* mcol = s.mcol;
   if (a.cmask) {
     // the recognition input at a masked channel: the decoder's prediction
-    // from the previous posterior mean (the rate for Poisson), into s.y
+    // from the previous posterior mean (the rate for Poisson), into y
     mm(nb, yd, xd, rowmaj(qs_m, xd), trans(a.w_dec, xd), s.py, s.ldy, false, bf, true);
     for (int i = tid; i < nb * yd; i += NTHREADS) {
-      const size_t e = (size_t)(i / yd) * s.ldy + i % yd;
-      if (!(s.cm[e] > 0.f)) {
-        float p = s.py[e] + s.b_dec[i % yd];
+      const size_t ei = (size_t)(i / yd) * s.ldy + i % yd;
+      if (!(cm[ei] > 0.f)) {
+        float p = s.py[ei] + s.b_dec[i % yd];
         if (a.poisson) p = expf(p > a.poisson_clamp ? a.poisson_clamp : p);
-        s.y[e] = p;
+        y[ei] = p;
       }
     }
   }
 
   // ---------------- forward ----------------
   for (int i = tid; i < nb * xd; i += NTHREADS) {
-    const int b = i / xd, k = i % xd;
-    const float v = qs_m[i] + eps_s[b * eps_ld + k] * expf(0.5f * qs_lv[i]);
+    const int b = i / xd, kk = i % xd;
+    const float v = qs_m[i] + eps_s[b * eps_ld + kk] * expf(0.5f * qs_lv[i]);
     s.xs[i] = v;
     if (a.xs) a.xs[(size_t)first * xd + i] = v;
   }
   __syncthreads();
   for (int b = tid; b < nb; b += NTHREADS) {
     float v = 0.f;
-    for (int k = 0; k < xd; ++k) v += s.xs[b * xd + k] * s.xs[b * xd + k];
+    for (int kk = 0; kk < xd; ++kk) v += s.xs[b * xd + kk] * s.xs[b * xd + kk];
     if (u) {
       float su = 0.f;
-      for (int k = 0; k < ud; ++k) su += u[b * s.ldu + k] * u[b * s.ldu + k];
+      for (int kk = 0; kk < ud; ++kk) su += u[b * s.ldu + kk] * u[b * s.ldu + kk];
       v += su;
     }
     s.x2[b] = v;
@@ -910,21 +1036,21 @@ __device__ __forceinline__ void step_forward_sums(const VJFArgs& a, const Ctx& c
   for (int b = tid >> 5; b < nb; b += NWARPS) {
     for (int j = tid & 31; j < nfp; j += 32) {
       float cross = 0.f;
-      for (int k = 0; k < xd; ++k) cross += s.xs[b * xd + k] * s.cent_x[k * nfp + j];
+      for (int kk = 0; kk < xd; ++kk) cross += s.xs[b * xd + kk] * s.cent_x[kk * nfp + j];
       if (u) {
         float cu = 0.f;
-        for (int k = 0; k < ud; ++k) cu += u[b * s.ldu + k] * s.cent_u[k * nfp + j];
+        for (int kk = 0; kk < ud; ++kk) cu += u[b * s.ldu + kk] * s.cent_u[kk * nfp + j];
         cross += cu;
       }
       float d2 = s.x2[b] + s.c2[j] - 2.0f * cross;
       d2 = d2 < 0.f ? 0.f : d2;
       const float f = expf(-0.5f * d2 * s.inv_w2[j]);
       s.feat[(size_t)b * s.ldf + j] = f;
-      if (stats && !a.w_white) c.g.feat[(size_t)(first + b) * nfp + j] = f * mcol[b];
+      if (publish && !a.w_white) c.g.feat[(size_t)(first + b) * nfp + j] = f * mcol[b];
     }
   }
   __syncthreads();
-  if (a.w_white) whiten_features(a, c, stats);
+  if (a.w_white) whiten_features(a, c, publish, nb, first, mcol);
   const Mat feat = rowmaj(s.feat, s.ldf);
   mm(nb, nfp, nfp, feat, rowmaj(a.v_mat, nfp), s.z, s.ldf, false, bf, false);
   mm(nb, xd, nfp, feat, rowmaj(a.w_dyn, xd), s.pt_m, xd, false, bf, false);
@@ -982,12 +1108,12 @@ __device__ __forceinline__ void step_forward_sums(const VJFArgs& a, const Ctx& c
   {
     float* qp = a.q_pack + (size_t)t * 2 * a.B * xd + (size_t)first * xd;
     for (int i = tid; i < nb * xd; i += NTHREADS) {
-      const int b = i / xd, k = i % xd;
-      const float raw = s.raw[i] + s.b_logvar[k];
+      const int b = i / xd, kk = i % xd;
+      const float raw = s.raw[i] + s.b_logvar[kk];
       s.raw[i] = raw;
       const float lv = clampf(raw, -a.logvar_clamp, a.logvar_clamp);
       qt_lv[i] = lv;
-      const float xt = qt_m[i] + eps_t[b * eps_ld + k] * expf(0.5f * lv);
+      const float xt = qt_m[i] + eps_t[b * eps_ld + kk] * expf(0.5f * lv);
       s.xt[i] = xt;
       s.pt_m[i] = (1.0f - a.leak) * s.xs[i] + s.pt_m[i];
       const bool keep = !freeze || mcol[b] > 0.f;
@@ -1009,9 +1135,9 @@ __device__ __forceinline__ void step_forward_sums(const VJFArgs& a, const Ctx& c
   for (int b = tid >> 5; b < nb; b += NWARPS) {
     float* row = s.py + (size_t)b * s.ldy;
     const float* yrow = y + (size_t)b * s.ldy;
-    const float* cmrow = a.cmask ? s.cm + (size_t)b * s.ldy : nullptr;
+    const float* cmrow = a.cmask ? cm + (size_t)b * s.ldy : nullptr;
     for (int j = tid & 31; j < yd; j += 32) {
-      // s.y holds the recognition input; the likelihood sees 0 at a hole
+      // y holds the recognition input; the likelihood sees 0 at a hole
       const float cmv = cmrow ? cmrow[j] : 1.f;
       const float w = cmv * mcol[b];
       const float py = row[j] + s.b_dec[j], yv = cmv > 0.f ? yrow[j] : 0.f;
@@ -1039,32 +1165,33 @@ __device__ __forceinline__ void step_forward_sums(const VJFArgs& a, const Ctx& c
                            : expf(s.ptlv[b] - slv) + expf(qt_lv[i] - slv)) * m;
     e[3] += qt_lv[i] * m;
     const float dx = s.xt[i] - s.xs[i];
-    s.dx[i] = dx;
-    if (stats) c.g.dx[(size_t)first * xd + i] = dx;
+    if (publish) c.g.dx[(size_t)first * xd + i] = dx;
     e[4] += dx * m;
     e[5] += dx * m * dx;
   }
   for (int b = tid; b < nb; b += NTHREADS) e[6] += s.fvf[b] * mcol[b];
-  block_sum<8>(s.red, e);
+  block_sum<8>(s.red, e);  // its barriers publish g_py
+  if (tid == 0)
+    for (int i = 0; i < 8; ++i) s.esum[i] = acc ? s.esum[i] + e[i] : e[i];
 
   // ---------------- manual backward (gradient batch-sums) ----------------
   // every product that contracts over the trials writes this block's
-  // partial sum straight into its slab
+  // partial sum straight into its slab (adds to it past the first tile)
   const Mat g_py = rowmaj(s.py, s.ldy);
   if (a.sgd) {
     mm(nb, xd, yd, g_py, rowmaj(a.w_dec, xd), s.g_xt, xd, false, bf, false);
     if (a.train_decoder) {
-      mm(yd, xd, nb, trans(s.py, s.ldy), rowmaj(s.xt, xd), slab + c.so.w_dec, xd, false, bf,
+      mm(yd, xd, nb, trans(s.py, s.ldy), rowmaj(s.xt, xd), slab + c.so.w_dec, xd, acc, bf,
          false, wf);
-      col_sum(s.py, s.ldy, nb, yd, slab + c.so.b_dec);
+      col_sum(s.py, s.ldy, nb, yd, slab + c.so.b_dec, acc);
     }
     __syncthreads();
     for (int i = tid; i < nb * xd; i += NTHREADS) {
-      const int b = i / xd, k = i % xd;
+      const int b = i / xd, kk = i % xd;
       const float lv = qt_lv[i];
       const float gx = s.g_xt[i];
       float gm = gx;
-      float glv = gx * eps_t[b * eps_ld + k] * (0.5f * expf(0.5f * lv)) - 0.5f * inv_b;
+      float glv = gx * eps_t[b * eps_ld + kk] * (0.5f * expf(0.5f * lv)) - 0.5f * inv_b;
       if (!a.warm_up) {
         gm = gm - (s.pt_m[i] - qt_m[i]) * (inv_sv * inv_b);
         if (a.trace_quirk)
@@ -1078,13 +1205,13 @@ __device__ __forceinline__ void step_forward_sums(const VJFArgs& a, const Ctx& c
     }
     __syncthreads();
     const int wh = cdiv(xd, 16) * cdiv(hl, 8);
-    mm(xd, hl, nb, trans(s.g_qm, xd), h_last, slab + c.so.wm, hl, false, bf, false);
-    mm(xd, hl, nb, trans(s.g_qlv, xd), h_last, slab + c.so.wlv, hl, false, bf, false, wh);
+    mm(xd, hl, nb, trans(s.g_qm, xd), h_last, slab + c.so.wm, hl, acc, bf, false);
+    mm(xd, hl, nb, trans(s.g_qlv, xd), h_last, slab + c.so.wlv, hl, acc, bf, false, wh);
     mm(nb, hl, xd, rowmaj(s.g_qm, xd), rowmaj(a.w_mean, hl), s.g_h, s.ldg, false, bf, false,
        2 * wh);
     mm(nb, hl, xd, rowmaj(s.g_qlv, xd), rowmaj(a.w_logvar, hl), s.g_h, s.ldg, true, bf, false,
        2 * wh);
-    col_sum(s.g_qlv, xd, nb, xd, slab + c.so.blv);
+    col_sum(s.g_qlv, xd, nb, xd, slab + c.so.blv, acc);
     __syncthreads();
     for (int l = L - 1; l >= 1; --l) {  // layers n..1
       const int hi = a.h[l], hp = a.h[l - 1];
@@ -1095,8 +1222,8 @@ __device__ __forceinline__ void step_forward_sums(const VJFArgs& a, const Ctx& c
       }
       __syncthreads();
       mm(hi, hp, nb, trans(s.g_a, s.ldg), rowmaj(s.hs[l - 1], s.ldh[l - 1]),
-         slab + c.so.w_hidden[l - 1], hp, false, bf, false);
-      col_sum(s.g_a, s.ldg, nb, hi, slab + c.so.b_hidden[l]);
+         slab + c.so.w_hidden[l - 1], hp, acc, bf, false);
+      col_sum(s.g_a, s.ldg, nb, hi, slab + c.so.b_hidden[l], acc);
       mm(nb, hp, hi, rowmaj(s.g_a, s.ldg), rowmaj(a.w_hidden[l - 1], hp), s.g_h, s.ldg, false,
          bf, true);
     }
@@ -1107,21 +1234,58 @@ __device__ __forceinline__ void step_forward_sums(const VJFArgs& a, const Ctx& c
     }
     __syncthreads();
     const Mat g_at = trans(s.g_a, s.ldg);
-    col_sum(s.g_a, s.ldg, nb, h0, slab + c.so.b_hidden[0]);
-    if (u) mm(h0, ud, nb, g_at, rowmaj(u, s.ldu), slab + c.so.w_in_u, ud, false, bf, false);
-    mm(h0, yd, nb, g_at, rowmaj(y, s.ldy), slab + c.so.w_in_y, yd, false, bf, false);
-    mm(h0, xd, nb, g_at, rowmaj(qs_m, xd), slab + c.so.w_in_m, xd, false, bf, false);
-    mm(h0, xd, nb, g_at, rowmaj(qs_lv, xd), slab + c.so.w_in_lv, xd, false, bf, false);
+    col_sum(s.g_a, s.ldg, nb, h0, slab + c.so.b_hidden[0], acc);
+    if (u) mm(h0, ud, nb, g_at, rowmaj(u, s.ldu), slab + c.so.w_in_u, ud, acc, bf, false);
+    mm(h0, yd, nb, g_at, rowmaj(y, s.ldy), slab + c.so.w_in_y, yd, acc, bf, false);
+    mm(h0, xd, nb, g_at, rowmaj(qs_m, xd), slab + c.so.w_in_m, xd, acc, bf, false);
+    mm(h0, xd, nb, g_at, rowmaj(qs_lv, xd), slab + c.so.w_in_lv, xd, acc, bf, false);
   }
+}
+
+// Phase 1 on this block's trials, tile by tile (tile_forward_sums): forward,
+// ELBO sums, manual backward, every batch mean scaled by `inv_b` (1 / the
+// step's valid trials of the whole batch). The gradient sums land in this
+// block's slab in the flat order, its raw scalar sums behind them; with
+// `publish` every trial's features (a masked trial's as 0) and dx go to the
+// workspace, for stat_rows and the post-update residual. Writes the
+// posterior (shared memory buffer 1 - cur, and q_pack; with `freeze` a
+// masked trial's is its input) and xs, xt where asked; updates no carry
+// leaf. Tile k + 1's inputs are fetched while tile k computes. Ends with the
+// prefetch of step t + 1 and a cluster barrier that publishes the slabs.
+template <bool TILED>
+__device__ __forceinline__ void step_forward_sums(const VJFArgs& a, const Ctx& c,
+                                                  const CarryScalars& cs, int t, int cur,
+                                                  float inv_b, bool publish, bool freeze) {
+  const int tid = threadIdx.x;
+  const SM& s = c.s;
+  const int nb = c.tr.n, xd = a.xd, tiles = n_tiles<TILED>(a, c);
+  for (int k = 0; k < tiles; ++k) {
+    const Tile tk = tile_of<TILED>(a, c, k);
+    if (k > 0) {  // tile k's inputs, behind every thread's last read of tile k - 2's
+      cp_async_wait_all();
+      __syncthreads();
+      if (a.mask || a.cmask) {
+        mask_tile(a, c, tk);
+        __syncthreads();
+      }
+    }
+    if (k + 1 < tiles) {
+      fetch_tile(a, c, t, tile_of<TILED>(a, c, k + 1));
+      cp_async_commit();
+    }
+    tile_forward_sums<TILED>(a, c, cs, t, cur, inv_b, publish, freeze, tk);
+  }
+  __syncthreads();
 
   // the RLS raw statistics F^T F and F^T dx are taken in phase 2 by rows, each
   // block over every trial (stat_rows), from the features and dx published
   // above: as a partial sum, each block's would have all nfp x nfp entries
-  __syncthreads();
   if (freeze && a.mask) {
     // the frozen carry: every read of this step's posterior is behind us
+    float *qt_m = s.q[1 - cur][0], *qt_lv = s.q[1 - cur][1];
+    const float *qs_m = s.q[cur][0], *qs_lv = s.q[cur][1];
     for (int i = tid; i < nb * xd; i += NTHREADS)
-      if (!(mcol[i / xd] > 0.f)) {
+      if (!(s.mcol[i / xd] > 0.f)) {
         qt_m[i] = qs_m[i];
         qt_lv[i] = qs_lv[i];
       }
@@ -1129,15 +1293,15 @@ __device__ __forceinline__ void step_forward_sums(const VJFArgs& a, const Ctx& c
 
   // grad_check: the sum of every gradient entry is finite iff each one is
   // (the leaves the flags leave uncomputed are 0 in the slab)
-  float gc[1] = {a.sgd ? sum_of(slab, c.so.ftf) : 0.f};
+  float gc[1] = {a.sgd ? sum_of(c.slab, c.so.ftf) : 0.f};
   block_sum<1>(s.red, gc);
   if (tid == 0) {
-    float* sc = slab + c.so.ftf;
-    for (int i = 0; i < 7; ++i) sc[SC_ELBO + i] = e[i];
+    float* sc = c.slab + c.so.ftf;
+    for (int i = 0; i < 7; ++i) sc[SC_ELBO + i] = s.esum[i];
     sc[SC_GRAD] = gc[0];
-    sc[SC_CM] = e[7];
+    sc[SC_CM] = s.esum[7];
   }
-  if (t + 1 < a.T) fetch_inputs(a, c, t + 1);
+  if (t + 1 < a.T) fetch_inputs<TILED>(a, c, t + 1);
   cluster_sync();
 }
 
@@ -1184,29 +1348,60 @@ __device__ __forceinline__ void sgd_slice(const VJFArgs& a, const Ctx& c) {
   }
 }
 
+// One thread's 4 x 4 tile of a panel product over k in [lo, hi), in k order:
+// rows r0.. of A (shared, leading dim lda; rows past n read as 0) times the
+// staged rows of B, row k at st + k nfp, columns c0..c0 + 3.
+__device__ __forceinline__ void panel_tile(float (&acc)[4][4], const float* A, int lda, int n,
+                                           const float* st, int nfp, int r0, int c0, int lo,
+                                           int hi) {
+  for (int k = lo; k < hi; k += 4) {
+    float av[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 v = r0 + i < n ? *reinterpret_cast<const float4*>(A + (size_t)(r0 + i) * lda + k)
+                                  : make_float4(0.f, 0.f, 0.f, 0.f);
+      av[i][0] = v.x, av[i][1] = v.y, av[i][2] = v.z, av[i][3] = v.w;
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float4 bv = *reinterpret_cast<const float4*>(st + (size_t)(k + kk) * nfp + c0);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        acc[i][0] += av[i][kk] * bv.x;
+        acc[i][1] += av[i][kk] * bv.y;
+        acc[i][2] += av[i][kk] * bv.z;
+        acc[i][3] += av[i][kk] * bv.w;
+      }
+    }
+  }
+}
+
 // out rows [fr.first, fr.first + fr.n) of alpha * A B + diag * I, all in
 // full f32: A is this block's row panel in shared memory (fr.n x nfp,
 // leading dim lda), B the whole nfp x nfp matrix in global memory. B is
-// staged into shared memory with 16-byte cp.async; each thread takes a 4 x 4
-// tile of the panel over one of `ks` slices of K, and the slices are added
-// in order. The rows go to out_g (global, leading dim nfp) and, if given, to
-// out_s (shared, leading dim lda; may be A itself). Ends with
+// staged into shared memory with 16-byte cp.async: whole when kc is nfp (up
+// to 128 padded features), else in chunks of kc rows through two buffers
+// (chunk i + 1 arrives while chunk i is multiplied), each thread's tiles in
+// rounds when they outnumber the threads. Each thread takes a 4 x 4 tile of
+// the panel over one of `ks` slices of K and accumulates it in k order, over
+// the chunks too, so the chunking leaves the bits as they are; the slices
+// are added in order. The rows go to out_g (global, leading dim nfp) and, if
+// given, to out_s (shared, leading dim lda; may be A itself). Ends with
 // __syncthreads(); the caller publishes out_g with a cluster barrier.
-__device__ __forceinline__ void panel_product(const Ctx& c, int nfp, const float* A, int lda,
-                                              const float* B, float alpha, float diag,
+template <bool TILED>
+__device__ __forceinline__ void panel_product(const Ctx& c, int nfp, int kc, const float* A,
+                                              int lda, const float* B, float alpha, float diag,
                                               float* out_g, float* out_s) {
   const SM& s = c.s;
   const int n = c.fr.n, prow = cdiv(nfp, VJF_CLUSTER);
-  for (int i = threadIdx.x; i < nfp * nfp / 4; i += NTHREADS)
-    cp_async16(s.stage + 4 * (size_t)i, B + 4 * (size_t)i);
-  cp_async_commit();
-  cp_async_wait_all();
-  __syncthreads();
   const int tiles_c = nfp / 4, tiles = cdiv(prow, 4) * tiles_c;
   const int ks = panel_ksplit(prow, nfp);
   const int kchunk = cdiv(cdiv(nfp, ks), 4) * 4;
   const size_t pstride = (size_t)cdiv(prow, 4) * 4 * nfp;
-  for (int item = threadIdx.x; item < tiles * ks; item += NTHREADS) {
+  const int chunks = TILED ? nfp / kc : 1;
+  for (int round = 0; round < tiles * ks; round += NTHREADS) {
+    const int item = round + threadIdx.x;
+    const bool active = item < tiles * ks;
     const int slice = item / tiles, tile = item % tiles;
     const int r0 = (tile / tiles_c) * 4, c0 = (tile % tiles_c) * 4;
     const int kb = slice * kchunk, ke = kb + kchunk < nfp ? kb + kchunk : nfp;
@@ -1215,32 +1410,40 @@ __device__ __forceinline__ void panel_product(const Ctx& c, int nfp, const float
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    for (int k = kb; k < ke; k += 4) {
-      float av[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 v = r0 + i < n
-                             ? *reinterpret_cast<const float4*>(A + (size_t)(r0 + i) * lda + k)
-                             : make_float4(0.f, 0.f, 0.f, 0.f);
-        av[i][0] = v.x, av[i][1] = v.y, av[i][2] = v.z, av[i][3] = v.w;
-      }
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const float4 bv = *reinterpret_cast<const float4*>(s.stage + (size_t)(k + kk) * nfp + c0);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[i][0] += av[i][kk] * bv.x;
-          acc[i][1] += av[i][kk] * bv.y;
-          acc[i][2] += av[i][kk] * bv.z;
-          acc[i][3] += av[i][kk] * bv.w;
+    for (int i = threadIdx.x; i < kc * nfp / 4; i += NTHREADS)
+      cp_async16(s.stage + 4 * (size_t)i, B + 4 * (size_t)i);
+    cp_async_commit();
+    if (chunks == 1) {  // the whole matrix at once
+      cp_async_wait_all();
+      __syncthreads();
+      if (active) panel_tile(acc, A, lda, n, s.stage, nfp, r0, c0, kb, ke);
+    } else {
+      for (int ch = 0; ch < chunks; ++ch) {
+        const float* stage = s.stage + (size_t)(ch & 1) * kc * nfp;
+        if (ch + 1 < chunks) {  // the next chunk into the other buffer
+          float* next = s.stage + (size_t)((ch + 1) & 1) * kc * nfp;
+          const float* src = B + (size_t)(ch + 1) * kc * nfp;
+          for (int i = threadIdx.x; i < kc * nfp / 4; i += NTHREADS)
+            cp_async16(next + 4 * (size_t)i, src + 4 * (size_t)i);
+          cp_async_commit();
+          cp_async_wait_group<1>();
+        } else {
+          cp_async_wait_all();
         }
+        __syncthreads();
+        const int k0 = ch * kc, lo = kb > k0 ? kb : k0, hi = ke < k0 + kc ? ke : k0 + kc;
+        if (active) panel_tile(acc, A, lda, n, stage - (size_t)k0 * nfp, nfp, r0, c0, lo, hi);
+        __syncthreads();  // every read of this buffer is done before its refill
       }
     }
-    float* p = s.part + slice * pstride + (size_t)r0 * nfp + c0;
+    if (active) {
+      float* p = s.part + slice * pstride + (size_t)r0 * nfp + c0;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      *reinterpret_cast<float4*>(p + (size_t)i * nfp) =
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      for (int i = 0; i < 4; ++i)
+        *reinterpret_cast<float4*>(p + (size_t)i * nfp) =
+            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    }
+    if (round + NTHREADS < tiles * ks) __syncthreads();  // the stage, before the next round's
   }
   __syncthreads();
   for (int idx = threadIdx.x; idx < n * nfp; idx += NTHREADS) {
@@ -1272,6 +1475,7 @@ __device__ __forceinline__ void stat_rows(const VJFArgs& a, const Ctx& c, float*
 // the state-noise running variance, all in place; then the scalar row of
 // step t. Every block has passed the barrier that ends phase 1. Ends behind
 // a cluster barrier: every carry leaf is published for the next step.
+template <bool TILED>
 __device__ __forceinline__ void step_apply(const VJFArgs& a, const Ctx& c, CarryScalars& cs,
                                            const StepSums& p, int t, float inv_b) {
   const int tid = threadIdx.x;
@@ -1354,7 +1558,10 @@ __device__ __forceinline__ void step_apply(const VJFArgs& a, const Ctx& c, Carry
       for (int idx = tid; idx < frn * nfp; idx += NTHREADS) {
         const int il = idx / nfp, col = idx % nfp, r = fr0 + il;
         const size_t gi = (size_t)r * nfp + col;
-        float pv = lam * a.p_mat[gi] + s.part[idx] * inv_sv_u;
+        // the fused multiply-add spelled out: left to the compiler, which
+        // product it fuses changed with unrelated code around it, and with it
+        // the last bit of P (and every later bit of V and w)
+        float pv = __fmaf_rn(lam, a.p_mat[gi], __fmul_rn(s.part[idx], inv_sv_u));
         if (lam != 1.0f || jit != 0.0f) {
           const float dg = r == col ? 1.f : 0.f;
           const float pad = r >= a.nf ? dg : 0.f;
@@ -1387,10 +1594,10 @@ __device__ __forceinline__ void step_apply(const VJFArgs& a, const Ctx& c, Carry
         }
         for (int it = 0; it < iters; ++it) {
           // X <- X (2I - P X), every product full f32
-          panel_product(c, nfp, s.pan_p, s.ldf, x, -1.f, 2.f, c.g.ns_t, nullptr);
+          panel_product<TILED>(c, nfp, a.kc, s.pan_p, s.ldf, x, -1.f, 2.f, c.g.ns_t, nullptr);
           cluster_sync();
           float* nx = (x == c.g.ns_a) ? c.g.ns_b : c.g.ns_a;
-          panel_product(c, nfp, s.pan_x, s.ldf, c.g.ns_t, 1.f, 0.f, nx, s.pan_x);
+          panel_product<TILED>(c, nfp, a.kc, s.pan_x, s.ldf, c.g.ns_t, 1.f, 0.f, nx, s.pan_x);
           cluster_sync();
           x = nx;
         }
@@ -1423,12 +1630,19 @@ __device__ __forceinline__ void step_apply(const VJFArgs& a, const Ctx& c, Carry
       tau = dyn_ok ? (ns_ok ? tau : __int_as_float(0x7f800000)) : 0.f;
       cluster_sync();  // the new w is whole
     }
-    // state-noise running variance from the post-update residual
-    mm(c.tr.n, xd, nfp, rowmaj(s.feat, s.ldf), rowmaj(a.w_dyn, xd), s.tmp, xd, false, bf, true);
+    // state-noise running variance from the post-update residual, tile by
+    // tile from the features and dx that phase 1 published
     float ms[1] = {0.f};
-    for (int i = tid; i < c.tr.n * xd; i += NTHREADS) {
-      const float r = s.dx[i] - s.tmp[i];
-      ms[0] += r * r * s.mcol[i / xd];
+    for (int k = 0, tiles = n_tiles<TILED>(a, c); k < tiles; ++k) {
+      const Tile tk = tile_of<TILED>(a, c, k);
+      const size_t first = (size_t)c.tr.first + tk.r0;
+      mm(tk.n, xd, nfp, rowmaj(c.g.feat + first * nfp, nfp), rowmaj(a.w_dyn, xd), s.tmp, xd,
+         false, bf, true);
+      for (int i = tid; i < tk.n * xd; i += NTHREADS) {
+        const float r = c.g.dx[first * xd + i] - s.tmp[i];
+        ms[0] += r * r * s.mcol[tk.r0 + i / xd];
+      }
+      if (k + 1 < tiles) __syncthreads();
     }
     block_sum<1>(s.red, ms);
     if (tid == 0) c.slab[c.so.ftf + SC_RESID] = ms[0];
@@ -1573,21 +1787,22 @@ __device__ const Header& make_header(const VJFArgs& args, float* smem) {
 }
 
 // The fused kernels' body: T steps, the carry updated in place.
+template <bool TILED>
 __device__ __forceinline__ void vjf_steps(const VJFArgs& args, float* smem) {
   const Header& h = make_header(args, smem);
   const VJFArgs& a = h.a;
   const Ctx& c = h.c;
   CarryScalars cs{a.state_logvar[0], a.lik_logvar[0], a.dyn_n[0], a.lik_n[0]};
   const uint32_t count0 = (uint32_t)a.rng_count[0];
-  const bool stats = a.update && a.update_transition && !a.warm_up;
-  fetch_inputs(a, c, 0);
+  const bool publish = a.update && a.update_transition;  // RLS: the statistics and the residual
+  fetch_inputs<TILED>(a, c, 0);
   for (int t = 0; t < a.T; ++t) {
     const int cur = t & 1;
-    const float valid = step_begin(a, c, t, cur, count0 + (uint32_t)t);
+    const float valid = step_begin<TILED>(a, c, t, cur, count0 + (uint32_t)t);
     const float inv_b = 1.0f / fmaxf(valid, 1.0f);  // 1 / B without a trial mask
-    step_forward_sums(a, c, cs, t, cur, inv_b, stats, true);
+    step_forward_sums<TILED>(a, c, cs, t, cur, inv_b, publish, true);
     const StepSums p = reduce_scalars(a, c, cs, inv_b, valid);
-    step_apply(a, c, cs, p, t, inv_b);
+    step_apply<TILED>(a, c, cs, p, t, inv_b);
   }
   // every block read these at its start, before the first barrier
   if (c.rank == 0 && threadIdx.x == 0) {
@@ -1603,14 +1818,15 @@ __device__ __forceinline__ void vjf_steps(const VJFArgs& args, float* smem) {
 // buffer and the q pack of this rank's B trials, with the caller's global
 // inv_b (under a trial mask, 1 / the global valid count) and row offset of the
 // noise; the q pack is not frozen. Reads the carry, writes none of it.
+template <bool TILED>
 __device__ __forceinline__ void vjf_sums(const VJFArgs& args, float* smem) {
   const Header& h = make_header(args, smem);
   const VJFArgs& a = h.a;
   const Ctx& c = h.c;
   const CarryScalars cs{a.state_logvar[0], a.lik_logvar[0], a.dyn_n[0], a.lik_n[0]};
-  fetch_inputs(a, c, 0);
-  const float valid = step_begin(a, c, 0, 0, (uint32_t)a.rng_count[0]);
-  step_forward_sums(a, c, cs, 0, 0, a.inv_b, a.update && a.update_transition, false);
+  fetch_inputs<TILED>(a, c, 0);
+  const float valid = step_begin<TILED>(a, c, 0, 0, (uint32_t)a.rng_count[0]);
+  step_forward_sums<TILED>(a, c, cs, 0, 0, a.inv_b, a.update && a.update_transition, false);
   const StepSums p = reduce_scalars(a, c, cs, a.inv_b, valid);
   const Blk b = block_of((int)c.so.ftf, c.rank);
   for (int i = b.first + threadIdx.x; i < b.first + b.n; i += NTHREADS)
@@ -1638,12 +1854,14 @@ __device__ __forceinline__ void vjf_sums(const VJFArgs& args, float* smem) {
 
 extern __shared__ float4 vjf_smem[];
 
+template <bool TILED>
 __global__ void __launch_bounds__(NTHREADS, 1) vjf_kernel(VJFArgs a) {
-  vjf_steps(a, reinterpret_cast<float*>(vjf_smem));
+  vjf_steps<TILED>(a, reinterpret_cast<float*>(vjf_smem));
 }
 
+template <bool TILED>
 __global__ void __launch_bounds__(NTHREADS, 1) vjf_sums_kernel(VJFArgs a) {
-  vjf_sums(a, reinterpret_cast<float*>(vjf_smem));
+  vjf_sums<TILED>(a, reinterpret_cast<float*>(vjf_smem));
 }
 
 __global__ void philox_kernel(uint32_t seed, uint32_t count, int n_pairs, float* u1,
@@ -1661,8 +1879,22 @@ __global__ void philox_kernel(uint32_t seed, uint32_t count, int n_pairs, float*
 
 typedef void (*vjf_kernel_t)(VJFArgs);
 
+// A planned launch takes the one-pass instantiation where a block's trials
+// are one tile and the panel operand is staged whole.
+static bool one_pass(const VJFArgs& a) {
+  return a.tile >= cdiv(a.B, VJF_CLUSTER) && a.kc == a.nfp;
+}
+
+static vjf_kernel_t steps_kernel(const VJFArgs& a) {
+  return one_pass(a) ? vjf_kernel<false> : vjf_kernel<true>;
+}
+
+static vjf_kernel_t sums_kernel(const VJFArgs& a) {
+  return one_pass(a) ? vjf_sums_kernel<false> : vjf_sums_kernel<true>;
+}
+
 // One cluster of VJF_CLUSTER blocks a member (n_members clusters along y) with
-// the dynamic shared memory the shapes ask for.
+// the dynamic shared memory the shapes ask for; `a` is planned (plan_tiles).
 static cudaError_t launch_config(vjf_kernel_t kernel, const VJFArgs& a, cudaStream_t stream,
                                  cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
   const size_t smem = carve_smem(a, nullptr).total * sizeof(float);
@@ -1690,7 +1922,9 @@ static cudaError_t launch_config(vjf_kernel_t kernel, const VJFArgs& a, cudaStre
   return cudaSuccess;
 }
 
-static int launch(vjf_kernel_t kernel, const VJFArgs& a, void* stream) {
+static int launch(bool sums, const VJFArgs& args, void* stream) {
+  const VJFArgs a = plan_tiles(args);
+  const vjf_kernel_t kernel = sums ? sums_kernel(a) : steps_kernel(a);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cudaError_t e = launch_config(kernel, a, (cudaStream_t)stream, &cfg, &attr);
@@ -1707,26 +1941,32 @@ size_t vjf_args_size(void) { return sizeof(VJFArgs); }
 
 size_t vjf_sums_floats(const VJFArgs* a) { return sums_offsets(*a).total; }
 
-// Bytes of dynamic shared memory a block needs at these shapes; a launch is
+// Bytes of dynamic shared memory a block needs at these shapes, at the
+// tile plan_tiles chooses (the smallest where none fits); a launch is
 // refused above vjf_smem_limit().
-size_t vjf_smem_bytes(const VJFArgs* a) { return carve_smem(*a, nullptr).total * sizeof(float); }
+size_t vjf_smem_bytes(const VJFArgs* a) {
+  return carve_smem(plan_tiles(*a), nullptr).total * sizeof(float);
+}
 
 size_t vjf_smem_limit(void) { return MAX_SMEM_BYTES; }
 
 // How the fused kernel launches at these shapes: out[0] blocks in the
 // cluster, [1] threads per block, [2] dynamic shared memory bytes, [3]
 // clusters the card can hold at once, [4] registers per thread, [5] bytes of
-// local memory per thread (spills). Returns a cudaError.
-int vjf_cluster_info(const VJFArgs* a, int* out) {
+// local memory per thread (spills), [6] trials a phase-1 tile, [7] rows a
+// staged chunk of a panel product. Returns a cudaError.
+int vjf_cluster_info(const VJFArgs* args, int* out) {
+  const VJFArgs a = plan_tiles(*args);
+  const vjf_kernel_t kernel = steps_kernel(a);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t e = launch_config(vjf_kernel, *a, nullptr, &cfg, &attr);
+  cudaError_t e = launch_config(kernel, a, nullptr, &cfg, &attr);
   if (e != cudaSuccess) return (int)e;
   int clusters = 0;
-  e = cudaOccupancyMaxActiveClusters(&clusters, (const void*)vjf_kernel, &cfg);
+  e = cudaOccupancyMaxActiveClusters(&clusters, (const void*)kernel, &cfg);
   if (e != cudaSuccess) return (int)e;
   cudaFuncAttributes fa;
-  e = cudaFuncGetAttributes(&fa, (const void*)vjf_kernel);
+  e = cudaFuncGetAttributes(&fa, (const void*)kernel);
   if (e != cudaSuccess) return (int)e;
   out[0] = VJF_CLUSTER;
   out[1] = NTHREADS;
@@ -1734,6 +1974,8 @@ int vjf_cluster_info(const VJFArgs* a, int* out) {
   out[3] = clusters;
   out[4] = fa.numRegs;
   out[5] = (int)fa.localSizeBytes;
+  out[6] = a.tile;
+  out[7] = a.kc;
   return 0;
 }
 
@@ -1744,7 +1986,7 @@ int vjf_fused_step(const VJFArgs* a, void* stream) {
   VJFArgs s = *a;
   s.mega = 0;
   s.ns_iters = NS_ITERS;
-  return launch(vjf_kernel, s, stream);
+  return launch(false, s, stream);
 }
 
 // T steps in one launch (mega_epoch_call): the caller's base iterations
@@ -1752,13 +1994,13 @@ int vjf_fused_step(const VJFArgs* a, void* stream) {
 int vjf_mega_epoch(const VJFArgs* a, void* stream) {
   VJFArgs m = *a;
   m.mega = 1;
-  return launch(vjf_kernel, m, stream);
+  return launch(false, m, stream);
 }
 
 // Phase 1 of the sharded step (forward_sums_call): the caller sets T = 1,
 // sums, inv_b and row0.
 int vjf_forward_sums(const VJFArgs* a, void* stream) {
-  return launch(vjf_sums_kernel, *a, stream);
+  return launch(true, *a, stream);
 }
 
 // The in-kernel sampler alone: (rows, cols) uniforms and normals of one

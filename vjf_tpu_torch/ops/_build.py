@@ -25,8 +25,14 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "vjf_tpu_torch"
 # csrc/fused_step.cu. 8 is the largest portable size; the environment
 # variable VJF_CLUSTER builds another (4 or 16) to compare.
 CLUSTER = int(os.environ.get("VJF_CLUSTER", "8"))
+# ptxas at -O1: at -O2 and -O3 (the default) the kernels, once they took up to 8
+# hidden layers, compute wrong sums at 3 and 4 hidden layers on the card (the
+# slab offsets in the block's shared-memory header read wrong mid-launch); a host
+# build of the same source and ptxas -O1 give the plain versions' results, at
+# every depth chip_smoke.py's "shapes.depths" holds (ROADMAP Queue 3)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", f"-DVJF_CLUSTER={CLUSTER}"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-Xptxas", "-O1",
+              f"-DVJF_CLUSTER={CLUSTER}"]
 
 
 class BuildInfo(NamedTuple):

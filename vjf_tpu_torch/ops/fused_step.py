@@ -31,9 +31,13 @@ With SGP dynamics (``cfg.dynamics='sgp'``) the carry holds the whitener
 ``w_white = scale^2 W`` and ``scale2``: the unit SE response at the inducing
 points is whitened before it feeds the prediction and the RLS statistics,
 and the predictive log-variance adds the DTC correction ``max(scale^2 -
-|phi|^2, 0)``. The kernels take at most ``_MAX_FEATURES`` padded features,
-1 to ``_MAX_LAYERS`` hidden layers of width at most ``_MAX_WIDTH``, and a
-block within the card's shared memory (:func:`kernel_limits`); under
+|phi|^2, 0)``. The kernels take any multiple of 128 padded features, 1 to
+``_MAX_LAYERS`` hidden layers of any width and any number of trials, as
+long as a block's shared memory fits the card's at the smallest trial tile
+(:func:`kernel_limits`; ``plan_tiles`` in csrc/fused_step.cu: a block runs
+phase 1 over tiles of its trials where all of them do not fit, and stages
+the Newton-Schulz right-hand matrix in chunks past 128 padded features;
+:func:`cluster_info` reports the plan of a launch); under
 ``fused_step='auto'`` a configuration past a limit takes the autograd
 epoch.
 
@@ -998,9 +1002,7 @@ def forward_sums_plain(cfg, flags, carry, qs_m, qs_lv, y, u, eps_s, eps_t, inv_b
 # ---------------------------------------------------------------------------
 
 _P = ctypes.c_void_p
-_MAX_LAYERS = 3
-_MAX_WIDTH = 64
-_MAX_FEATURES = 128     # a block stages the whole (nfp, nfp) iterate in shared memory
+_MAX_LAYERS = 8         # MAX_LAYERS of csrc/fused_step.cu
 
 
 def cluster_size() -> int:
@@ -1036,6 +1038,7 @@ class _Args(ctypes.Structure):
             "sums", "ws")]
         + [(n, ctypes.c_int) for n in ("T", "B", "yd", "ud", "xd", "nfp", "nf", "n_layers")]
         + [("h", ctypes.c_int * _MAX_LAYERS)]
+        + [(n, ctypes.c_int) for n in ("tile", "kc")]
         + [(n, ctypes.c_int) for n in (
             "sgd", "update", "warm_up", "train_decoder", "update_likelihood",
             "update_transition", "poisson", "trace_quirk", "bf16", "mega", "ns_iters",
@@ -1097,24 +1100,19 @@ def _dims(cfg: VJFConfig, n_batch: int, t_total: int = 1, mask: bool = False,
 def kernel_limits(cfg: VJFConfig, n_batch: int, on_card: bool = True, mask: bool = False,
                   channel_mask: bool = False) -> Optional[str]:
     """The first limit of the kernels that ``cfg`` at ``n_batch`` trials
-    exceeds, as a message, or None: at most ``_MAX_FEATURES`` padded
-    features, 1 to ``_MAX_LAYERS`` hidden layers, widths of at most
-    ``_MAX_WIDTH``, and with ``on_card`` a block's shared memory within the
-    card's (``vjf_smem_bytes`` against ``vjf_smem_limit``, which builds the
-    library), counting the staging of a trial ``mask`` and of a
-    ``channel_mask``. :func:`_launch` raises on it, and
-    :func:`fused_enabled` routes away from it under ``fused_step='auto'``.
-    The number of members of an ensemble launch has no limit: a member is
-    one cluster, and those past what the card holds at once
-    (:func:`cluster_info`'s ``active_clusters``) run in a later wave."""
-    nfp, widths = _round_up(cfg.feature_dim), list(cfg.hidden_sizes)
-    if nfp > _MAX_FEATURES:
-        return (f"{cfg.feature_dim} features pad to {nfp}, over the {_MAX_FEATURES} "
-                "padded features the kernels take")
+    exceeds, as a message, or None: 1 to ``_MAX_LAYERS`` hidden layers, and
+    with ``on_card`` a block's shared memory within the card's at the
+    kernels' tile plan (``vjf_smem_bytes`` against ``vjf_smem_limit``, which
+    builds the library; at the smallest trial tile where no tile fits),
+    counting the staging of a trial ``mask`` and of a ``channel_mask``.
+    :func:`_launch` raises on it, and :func:`fused_enabled` routes away from
+    it under ``fused_step='auto'``. The number of members of an ensemble
+    launch has no limit: a member is one cluster, and those past what the
+    card holds at once (:func:`cluster_info`'s ``active_clusters``) run in a
+    later wave."""
+    widths = list(cfg.hidden_sizes)
     if not 1 <= len(widths) <= _MAX_LAYERS:
         return f"{len(widths)} hidden layers, the kernels take 1 to {_MAX_LAYERS}"
-    if max(widths) > _MAX_WIDTH:
-        return f"hidden layers of widths {widths}, the kernels take widths of at most {_MAX_WIDTH}"
     if on_card:
         lib = _library()
         dims = _dims(cfg, n_batch, mask=mask, cmask=channel_mask)
@@ -1122,7 +1120,8 @@ def kernel_limits(cfg: VJFConfig, n_batch: int, on_card: bool = True, mask: bool
         if need > limit:
             what = " with a channel mask" if channel_mask else ""
             return (f"{n_batch} trials over {cluster_size()} blocks at these widths{what} need "
-                    f"{need} bytes of shared memory a block, over the card's {limit}")
+                    f"{need} bytes of shared memory a block at the smallest trial tile, over "
+                    f"the card's {limit}")
     return None
 
 
@@ -1260,12 +1259,12 @@ def _launch(kernel: str, cfg, flags, carry: FusedCarry, qs_m, qs_lv, ys, us, eps
     if reason is not None:
         raise ValueError(f"the kernels do not take this configuration: {reason}")
     if kernel == "info":
-        out = (ctypes.c_int * 6)()
+        out = (ctypes.c_int * 8)()
         rc = lib.vjf_cluster_info(ctypes.byref(a), out)
         if rc != 0:
             raise RuntimeError(f"vjf_cluster_info failed: cudaError {rc}")
         return dict(zip(("cluster", "threads", "smem_bytes", "active_clusters", "registers",
-                         "local_bytes"), out))
+                         "local_bytes", "tile_rows", "stage_rows"), out))
     if sums is not None:
         a.sums = c(sums, "sums", (lib.vjf_sums_floats(ctypes.byref(a)),))
     ws = torch.empty(max(n_mem, 1) * lib.vjf_workspace_floats(ctypes.byref(a)),
@@ -1278,21 +1277,24 @@ def _launch(kernel: str, cfg, flags, carry: FusedCarry, qs_m, qs_lv, ys, us, eps
         raise RuntimeError(f"{kernel} kernel launch failed: cudaError {rc}")
 
 
-def cluster_info(cfg, flags, carry: FusedCarry, qs_m, qs_lv, ys, us, lr) -> dict:
+def cluster_info(cfg, flags, carry: FusedCarry, qs_m, qs_lv, ys, us, lr, mask=None,
+                 cmask=None) -> dict:
     """How the fused kernel would launch on these operands, without
     launching it: blocks in the cluster, threads a block, bytes of dynamic
     shared memory a block, clusters the card holds at once, registers a
-    thread, and bytes of local memory a thread (register spills). With a
-    stacked carry (see :func:`_launch`) also the members and the waves
-    their clusters run in: a member is one cluster, and the card holds
-    ``active_clusters`` of them at once."""
+    thread, bytes of local memory a thread (register spills), and the tile
+    plan of ``plan_tiles`` in csrc/fused_step.cu (trials a phase-1 tile,
+    rows a staged chunk), with the staging of ``mask`` and ``cmask`` where
+    given. With a stacked carry (see :func:`_launch`) also the members and
+    the waves their clusters run in: a member is one cluster, and the card
+    holds ``active_clusters`` of them at once."""
     t_total, b, _ = ys.shape[-3:]
     n = n_members(carry)
     lead = carry.p_mat.shape[:-2]
     q_pack = torch.empty(lead + (t_total, 2, b, cfg.xdim), dtype=ys.dtype, device=ys.device)
     scal = torch.empty(lead + (t_total, 8), dtype=ys.dtype, device=ys.device)
     info = _launch("info", cfg, flags, carry, qs_m, qs_lv, ys, us, None, None, lr, q_pack,
-                   scal)
+                   scal, mask=mask, cmask=cmask)
     if n:
         info["members"] = n
         info["member_waves"] = -(-n // max(info["active_clusters"], 1))
