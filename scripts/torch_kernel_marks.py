@@ -75,9 +75,9 @@ MARKS = [
      "for (int idx = tid; idx < frn * nfp; idx += NTHREADS) {\n"
      "        const int il = idx / nfp, col = idx % nfp, r = fr0 + il;"),
     (14, "grad_check, scalars", "before",
-     "if (t + 1 < a.T) fetch_inputs<TILED>(a, c, t + 1);\n  cluster_sync();"),
+     "if (t + 1 < a.T) fetch_inputs<TILED, BIG>(a, c, t + 1);\n  cluster_sync();"),
     (15, "prefetch + cluster barrier 1", "after",
-     "if (t + 1 < a.T) fetch_inputs<TILED>(a, c, t + 1);\n  cluster_sync();"),
+     "if (t + 1 < a.T) fetch_inputs<TILED, BIG>(a, c, t + 1);\n  cluster_sync();"),
     (16, "reduce scalars", "after",
      "const StepSums p = reduce_scalars(a, c, cs, inv_b, valid);"),
     (17, "ELBO consts, SGD slices", "before",

@@ -163,12 +163,14 @@ def test_launch_refuses_a_cpu_tensor():
 @pytest.mark.parametrize("kw, what", [
     (dict(hidden_sizes=(8,) * 9), "hidden layers"),
     (dict(hidden_sizes=(3,) * 16), "hidden layers"),
-    (dict(n_rbf=400), "shared memory"),
+    (dict(hidden_sizes=(16000,)), "shared memory"),
 ])
 def test_launch_refuses_a_shape_the_kernel_does_not_take(kw, what, monkeypatch):
     """More hidden layers than the kernel unrolls, or a block past the
-    card's shared memory at the smallest trial tile (512 padded features),
-    with host tensors standing in for the card's."""
+    card's shared memory at the smallest plan (a hidden layer of 16,000: a
+    tile's activations alone; 512 padded features, refused until the panels
+    could live in L2, are taken), with host tensors standing in for the
+    card's."""
     monkeypatch.setattr(TF, "_library", lambda: TP.MirrorLib())
     monkeypatch.setattr(TF, "_ptr", lambda t, *a, **k: None if t is None else t.data_ptr())
     with pytest.raises(ValueError, match=what):
@@ -182,6 +184,8 @@ MIRROR_SHAPES = [
     (dict(hidden_sizes=(64, 64, 64, 64)), 256, False, False),
     (dict(hidden_sizes=(128,)), 256, False, False), (dict(hidden_sizes=(8,) * 8), 300, True, False),
     (dict(udim=3, hidden_sizes=(32, 16)), 2048, False, False), (dict(n_rbf=400), 256, False, False),
+    (dict(dynamics="sgp", n_inducing=400), 256, False, False), (dict(n_rbf=200), 256, True, True),
+    (dict(), 4096, False, False), (dict(), 8192, True, True), (dict(n_rbf=1000), 256, True, True),
 ]
 
 
@@ -190,7 +194,8 @@ MIRROR_SHAPES = [
 def test_tile_plan_mirror_matches_the_library(kw, b, mask, cmask):
     """The tests' mirror of the kernels' tile plan and shared-memory layout
     (``tests/torch_tile_plan.py``) against the library's own answers:
-    ``vjf_smem_bytes`` and the tile and chunk of ``vjf_cluster_info``."""
+    ``vjf_smem_bytes`` and the tile, chunk and sub-panel of
+    ``vjf_cluster_info``."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the library's size queries)")
     import ctypes
@@ -203,9 +208,9 @@ def test_tile_plan_mirror_matches_the_library(kw, b, mask, cmask):
     plan = TP.plan_of(a)
     assert lib.vjf_smem_bytes(ctypes.byref(a)) == plan.smem_bytes
     if plan.smem_bytes <= lib.vjf_smem_limit():
-        out = (ctypes.c_int * 8)()
+        out = (ctypes.c_int * 9)()
         assert lib.vjf_cluster_info(ctypes.byref(a), out) == 0
-        assert (out[2], out[6], out[7]) == (plan.smem_bytes, plan.tile, plan.kc)
+        assert (out[2], out[6], out[7], out[8]) == (plan.smem_bytes, plan.tile, plan.kc, plan.sp)
 
 
 @pytest.mark.card

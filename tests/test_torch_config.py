@@ -152,12 +152,14 @@ class _StagingLib:
 
 
 def test_kernel_limits_count_the_mask_staging(monkeypatch, caplog):
-    """A shape that fits unmasked and with the trial mask but not with the
-    channel mask's staging (the flagship widths at 256 padded features and
-    256 trials: one tile of 32 trials a block, 16 with the channel mask's
-    two buffers): ``kernel_limits`` asks the library with the mask operands
-    set, and under 'auto' only the channel-masked epoch takes the autograd
-    route."""
+    """``kernel_limits`` asks the library with the mask operands set, and
+    under 'auto' only an epoch whose staging is past the card takes the
+    autograd route. The flagship widths at 256 padded features and 256
+    trials, which the channel mask's two buffers once put past the card, now
+    take the L2 route with it (sub-panels, the trials' state in L2); at
+    ydim 2500 the unmasked and trial-masked epochs fit at a tile of 4 trials
+    a block on that route, the channel-masked one not even at the smallest
+    plan."""
     import logging
 
     lib = _StagingLib()
@@ -166,16 +168,23 @@ def test_kernel_limits_count_the_mask_staging(monkeypatch, caplog):
     monkeypatch.setattr(TF, "_library", lambda: lib)
     cfg = tcfg.VJFConfig(ydim=200, xdim=10, n_rbf=200, hidden_sizes=(32,), rls_backend="nsv",
                          dtype="float32")
-    st = _state(cfg)
-    assert TF.kernel_limits(cfg, 256) is None
-    assert TF.kernel_limits(cfg, 256, mask=True) is None
-    reason = TF.kernel_limits(cfg, 256, channel_mask=True)
+    for kw in ({}, {"mask": True}, {"channel_mask": True}):
+        assert TF.kernel_limits(cfg, 256, **kw) is None
+    assert lib.seen == [(False, False), (True, False), (False, True)]
+    assert max(lib.answers) <= 232448
+    assert TP.tile_plan(cfg, 256).sp == 0 and TP.tile_plan(cfg, 256, channel_mask=True).sp == 16
+    wide = cfg.replace(ydim=2500)
+    lib.seen, lib.answers = [], []
+    assert TF.kernel_limits(wide, 256) is None
+    assert TF.kernel_limits(wide, 256, mask=True) is None
+    reason = TF.kernel_limits(wide, 256, channel_mask=True)
     assert lib.seen == [(False, False), (True, False), (False, True)]
     assert lib.answers[0] <= lib.answers[1] <= 232448 < lib.answers[2]
     assert reason is not None and "channel mask" in reason and str(lib.answers[2]) in reason
-    # the plan behind the refusal: the smallest tile, 16 trials a block
-    assert TP.tile_plan(cfg, 256, channel_mask=True).tile == 16
+    # the plan behind the refusal: the smallest tile, chunk and sub-panel
+    assert TP.tile_plan(wide, 256, channel_mask=True)[:2] == (4, 4)
+    st = _state(wide)
     with caplog.at_level(logging.WARNING, logger=TF.__name__):
-        assert TF.fused_enabled(cfg, st, n_batch=256, mask=True)
-        assert not TF.fused_enabled(cfg, st, n_batch=256, mask=True, channel_mask=True)
+        assert TF.fused_enabled(wide, st, n_batch=256, mask=True)
+        assert not TF.fused_enabled(wide, st, n_batch=256, mask=True, channel_mask=True)
     assert any("channel mask" in r.getMessage() for r in caplog.records)

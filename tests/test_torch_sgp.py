@@ -663,12 +663,16 @@ def test_sgp_routes_small_batches_as_the_reference_does(on_card):
 
 
 # Shapes the TPU kernels take that the CUDA kernels refused until phase 1
-# ran in trial tiles and the Newton-Schulz operand was staged in chunks
+# ran in trial tiles and the Newton-Schulz operand was staged in chunks, and
+# (the last three) until the panels and the trials' state could live in L2
 LIMIT_CASES = {
-    "n_rbf=200": dict(n_rbf=200),
-    "n_inducing=200": dict(dynamics="sgp", n_inducing=200),
-    "hidden=(96,)": dict(hidden_sizes=(96,)),
-    "four_layers": dict(hidden_sizes=(8, 8, 8, 8)),
+    "n_rbf=200": (dict(n_rbf=200), 8),
+    "n_inducing=200": (dict(dynamics="sgp", n_inducing=200), 8),
+    "hidden=(96,)": (dict(hidden_sizes=(96,)), 8),
+    "four_layers": (dict(hidden_sizes=(8, 8, 8, 8)), 8),
+    "n_rbf=400": (dict(n_rbf=400), 8),
+    "n_inducing=400": (dict(dynamics="sgp", n_inducing=400), 8),
+    "B=65536": (dict(), 65536),
 }
 
 
@@ -678,8 +682,8 @@ def test_kernel_limits_gate_agrees_with_launch(case, on_card, caplog):
     the card and within the card's shared memory (the query answered by
     the mirror of the kernels' tile plan), and under 'auto' the fused epoch
     with no warning."""
-    cfg = _small(**LIMIT_CASES[case])
-    b = 8
+    kw, b = LIMIT_CASES[case]
+    cfg = _small(**kw)
     assert TF.kernel_limits(cfg, b, on_card=False) is None
     on_card(None)
     assert TF.kernel_limits(cfg, b) is None
@@ -691,13 +695,13 @@ def test_kernel_limits_gate_agrees_with_launch(case, on_card, caplog):
 
 
 # Configurations still past the kernels' limits: more layers than the kernel
-# unrolls, 512 padded features (two 132,096-byte Newton-Schulz panels a
-# block), and a carry of 8,192 trials a block
+# unrolls, and a block past the card's shared memory at the smallest plan of
+# the L2 route (one trial a tile, chunks and sub-panels of 4 rows), which
+# only an input or a layer far wider than any configuration reaches
 REFUSED_CASES = {
     "nine_layers": (dict(hidden_sizes=(5,) * 9), 8),
-    "n_rbf=400": (dict(n_rbf=400), 8),
-    "n_inducing=400": (dict(dynamics="sgp", n_inducing=400), 8),
-    "B=65536": (dict(), 65536),
+    "ydim=20000": (dict(ydim=20000), 8),
+    "hidden=(16000,)": (dict(hidden_sizes=(16000,)), 8),
 }
 
 
@@ -728,12 +732,12 @@ def test_kernel_limits_refuse_past_the_smallest_tile(case, on_card, caplog, monk
     carry = TF.pad_carry(cfg, state)
     q = torch.zeros(b, 2)
     with pytest.raises(ValueError, match="do not take") as err:
-        TF._launch("fused_step", cfg, tcfg.StepFlags(), carry, q, q, torch.zeros(1, b, 6),
+        TF._launch("fused_step", cfg, tcfg.StepFlags(), carry, q, q, torch.zeros(1, b, cfg.ydim),
                    None, None, None, torch.tensor(1e-3), torch.empty(2, b, 2),
                    torch.empty(1, 8))
     assert reason in str(err.value)
     # the epoch takes the autograd route (no tau stream) and runs
-    ys = torch.randn(3, b, 6, generator=torch.Generator().manual_seed(0))
+    ys = torch.randn(3, b, cfg.ydim, generator=torch.Generator().manual_seed(0))
     res = tcore.run_epoch(cfg, tcfg.StepFlags(), state, ys, torch.zeros(3, b, 0), 0, 1e-3)
     assert res.metrics.tau is None and torch.isfinite(res.metrics.loss).all()
 

@@ -1,13 +1,17 @@
 """Shapes the TPU kernels take that the CUDA kernels take since they run
 phase 1 over tiles of a block's trials and stage the Newton-Schulz operand
 in chunks: 256 padded features (RBF and SGP), a hidden layer of width 96 and
-four hidden layers. The port's plain versions of the three kernels at those
-shapes against the JAX package's Pallas kernels in interpret mode, on the
-same numpy inputs and injected noise; one epoch through
-``run_epoch(fused_step='on')`` at 256 padded features against JAX's fused
-epoch; and the mirror of the kernels' tile plan (``ops/fused_step.py:
-plan_of``, ``block_tiles``). The CUDA kernels at these shapes and at 512 and
-1024 trials run on the card: ``python3 chip_smoke.py``, phase "shapes"."""
+four hidden layers; and since the L2 route (the trials' state and phase 2's
+panels in the L2 workspace, the Newton-Schulz left operand staged in
+sub-panels): 384 and 512 padded features (RBF and SGP). The port's plain
+versions of the three kernels at those shapes against the JAX package's
+Pallas kernels in interpret mode, on the same numpy inputs and injected
+noise; one epoch through ``run_epoch(fused_step='on')`` at 256 padded
+features against JAX's fused epoch; and the mirror of the kernels' tile plan
+(``tests/torch_tile_plan.py``: ``plan_of``, ``block_tiles``). The CUDA
+kernels at these shapes, at 512, 1024 and 4096 trials and at 256 padded
+features with both masks run on the card: ``python3 chip_smoke.py``, phase
+"shapes"."""
 import dataclasses
 
 import jax
@@ -38,7 +42,14 @@ SHAPES = {
     "n_inducing=200": dict(dynamics="sgp", n_inducing=200),
     "hidden=(96,)": dict(hidden_sizes=(96,)),
     "four_layers": dict(hidden_sizes=(8, 8, 8, 8)),
+    "n_rbf=300": dict(n_rbf=300),
+    "n_inducing=300": dict(dynamics="sgp", n_inducing=300),
+    "n_rbf=400": dict(n_rbf=400),
+    "n_inducing=400": dict(dynamics="sgp", n_inducing=400),
 }
+# padded features of the shapes that set them; the L2 route past 256
+PADDED = {"n_rbf=200": 256, "n_inducing=200": 256, "n_rbf=300": 384, "n_inducing=300": 384,
+          "n_rbf=400": 512, "n_inducing=400": 512}
 _j_init_state = jax.jit(jcore.init_state, static_argnames=("cfg", "backend", "batch_hint"))
 
 
@@ -130,12 +141,15 @@ def shape_runs():
 @pytest.mark.parametrize("name", list(SHAPES))
 def test_shape_is_within_the_kernel_limits(shape_runs, name):
     """Each shape is one the CUDA kernels take (it was refused before they
-    had trial tiles and chunked staging); the first two pad to 256 features."""
+    had trial tiles and chunked staging, or, past 256 padded features, the
+    L2 route); the panels of 384 and 512 padded features live in L2."""
     tc = shape_runs[name]["cfg"]
     assert TF.kernel_limits(tc, B, on_card=False) is None
     nfp = shape_runs[name]["carry"].p_mat.shape[0]
-    assert nfp == (256 if name.startswith("n_") else 128)
-    assert TP.tile_plan(tc, B).kc == (16 if nfp > 128 else nfp)
+    assert nfp == PADDED.get(name, 128)
+    plan = TP.tile_plan(tc, B)
+    assert plan.kc == (16 if nfp > 128 else nfp)
+    assert (plan.sp > 0) == (nfp > 256) and plan.smem_bytes <= TP.SMEM_LIMIT
 
 
 @pytest.mark.parametrize("name", list(SHAPES))
@@ -262,7 +276,7 @@ def test_tile_plan_tiles_are_the_largest_multiple_of_16_that_fits(name):
             # the whole block, and every larger multiple of 16, does not fit
             for bigger in [rows] + list(range(plan.tile + 16, rows, 16)):
                 a = TF._dims(cfg, b, mask=mask, cmask=cmask)
-                a.tile, a.kc = bigger, plan.kc
+                a.tile, a.kc, a.sp = bigger, plan.kc, plan.sp
                 assert 4 * TP.smem_floats(a, 8) > TP.SMEM_LIMIT
 
 
@@ -289,7 +303,13 @@ CARD_SHAPES = {
     "n_inducing=200": (_flagship(dynamics="sgp", n_inducing=200), 256, False, False),
     "hidden=(64,)*4": (_flagship(hidden_sizes=(64, 64, 64, 64)), 256, False, False),
     "hidden=(128,)": (_flagship(hidden_sizes=(128,)), 256, False, False),
+    "n_rbf=400": (_flagship(n_rbf=400), 256, False, False),
+    "n_inducing=400": (_flagship(dynamics="sgp", n_inducing=400), 256, False, False),
+    "n_rbf=200,masks": (_flagship(n_rbf=200), 256, True, True),
+    "B=4096": (_flagship(), 4096, False, False),
 }
+# the card shapes that take the L2 route
+L2_SHAPES = ("n_rbf=400", "n_inducing=400", "n_rbf=200,masks", "B=4096")
 
 
 @pytest.mark.parametrize("name", list(CARD_SHAPES))
@@ -297,7 +317,7 @@ def test_card_shapes_take_the_kernels(name, monkeypatch, caplog):
     """The shapes ``chip_smoke.py`` drives in its "shapes" phase are within
     the card's shared memory (the query answered by the mirror), and
     'auto' takes the kernels with no warning; B 512 and 1024 and the masked
-    B 512 run in tiles."""
+    B 512 run in tiles, the last four on the L2 route."""
     import logging
 
     cfg, b, mask, cmask = CARD_SHAPES[name]
@@ -311,4 +331,84 @@ def test_card_shapes_take_the_kernels(name, monkeypatch, caplog):
                                 channel_mask=cmask)
     assert not caplog.records
     plan = TP.tile_plan(cfg, b, mask, cmask)
-    assert (plan.tile < -(-b // 8)) == (b > 256)
+    assert (plan.sp > 0) == (name in L2_SHAPES)
+    if not plan.sp:
+        assert (plan.tile < -(-b // 8)) == (b > 256)
+
+
+# ---------------------------------------------------------------------------
+# the L2 route: the plan where the trials' state and the panels do not fit
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n_rbf, nfp", [(400, 512), (500, 512), (1000, 1024), (1790, 1792)])
+def test_plan_takes_padded_features_on_the_l2_route(n_rbf, nfp):
+    """At the flagship widths and 256 trials, 512 padded features and more
+    fit a block on the L2 route (refused before: 679,536 bytes a block at
+    512); 1024 take chunks and sub-panels of 8 rows and tiles of 8 trials,
+    1792 are the most the plan admits."""
+    for sgp in (False, True):
+        cfg = (_flagship(dynamics="sgp", n_inducing=n_rbf) if sgp else _flagship(n_rbf=n_rbf))
+        assert TF._round_up(cfg.feature_dim) == nfp
+        plan = TP.tile_plan(cfg, 256)
+        assert plan.sp > 0 and plan.smem_bytes <= TP.SMEM_LIMIT
+        if nfp == 512:
+            assert (plan.tile, plan.kc, plan.sp) == (16, 16, 16)
+        if nfp == 1024:
+            assert (plan.tile, plan.kc, plan.sp) == (8, 8, 8)
+    over = TP.tile_plan(_flagship(n_rbf=1800), 256)
+    assert over.smem_bytes > TP.SMEM_LIMIT and over[:2] == (4, 4) and over.sp == 4
+
+
+@pytest.mark.parametrize("b", [4096, 8192, 65536])
+@pytest.mark.parametrize("mask, cmask", MASKS)
+def test_plan_takes_any_number_of_trials(b, mask, cmask):
+    """The flagship at 4096 trials and more, with and without the masks:
+    the trials' state and the trial mask's row stay out of shared memory,
+    so a block fits whatever its trials (2,184 was the most before, 1,176
+    with both masks); the tiles cover every trial once."""
+    cfg = _flagship()
+    plan = TP.tile_plan(cfg, b, mask, cmask)
+    assert plan.sp == 16 and plan.kc == 128 and plan.smem_bytes <= TP.SMEM_LIMIT
+    assert plan.tile % 16 == 0 and plan.tile < -(-b // 8)
+    assert plan == TP.tile_plan(cfg, 4096, mask, cmask)   # the same plan at any B past it
+    covered = []
+    for r in range(8):
+        rows = TF.cluster_rows(r, b, 8)
+        covered += [rows.start + i for t in TP.block_tiles(len(rows), plan.tile) for i in t]
+    assert covered == list(range(b))
+
+
+def test_plan_keeps_the_resident_route_where_it_fits():
+    """The L2 route is taken only where no tile fits with the trials' state
+    and the panels resident: the largest flagship batch of the resident
+    route (2,184 trials, tiles of 16) keeps it, one more block row takes
+    the L2 route; 256 padded features at 256 trials keep it unmasked and
+    with the trial mask, and take the L2 route with the channel mask (its
+    two staging buffers, 253,552 bytes a block on the resident route)."""
+    cfg = _flagship()
+    assert TP.tile_plan(cfg, 2184).sp == 0 and TP.tile_plan(cfg, 2184).tile == 16
+    assert TP.tile_plan(cfg, 2192).sp == 16
+    wide = _flagship(n_rbf=200)
+    assert TP.tile_plan(wide, 256).sp == 0 and TP.tile_plan(wide, 256, mask=True).sp == 0
+    plan = TP.tile_plan(wide, 256, False, True)
+    assert plan.sp == 16 and plan.tile == 32 and plan.smem_bytes <= TP.SMEM_LIMIT
+    resident = TF._dims(wide, 256, cmask=True)
+    resident.kc, resident.tile, resident.sp = 16, 16, 0
+    assert 4 * TP.smem_floats(resident, 8) > TP.SMEM_LIMIT
+
+
+def test_plan_tiles_below_the_quantum_only_on_the_l2_route():
+    """Tiles of 8 or 4 trials appear only on the L2 route, and only where no
+    multiple of 16 fits there."""
+    for name, cfg in PLAN_CFGS.items():
+        for b in BATCHES + (4096,):
+            for mask, cmask in MASKS:
+                plan = TP.tile_plan(cfg, b, mask, cmask)
+                if plan.tile < 16 and plan.tile < -(-b // 8):
+                    assert plan.sp > 0, (name, b, mask, cmask)
+    cfg = _flagship(n_rbf=1000)
+    plan = TP.tile_plan(cfg, 256)
+    a = TF._dims(cfg, 256)
+    a.tile, a.kc, a.sp = 16, plan.kc, plan.sp
+    assert plan.tile == 8 and 4 * TP.smem_floats(a, 8) > TP.SMEM_LIMIT

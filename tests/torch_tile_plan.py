@@ -15,19 +15,22 @@ from vjf_tpu_torch.ops.fused_step import _Args, _dims, _round_up, cluster_size
 
 # What ``carve_smem`` and ``plan_tiles`` need beyond the shapes:
 # sizeof(Header) (the head of a block's shared memory), the threads of a
-# block, the card's shared memory a block, the trial tile's quantum and the
-# rows of a staged chunk past 128 padded features.
-HEADER_BYTES = 1912
+# block, the card's shared memory a block, the trial tile's quantum, the
+# rows of a staged chunk past 128 padded features and the rows of a staged
+# sub-panel on the L2 route.
+HEADER_BYTES = 1936
 NTHREADS = 512
 SMEM_LIMIT = 232448
 TILE_QUANTUM = 16
 STAGE_ROWS = 16
+SUB_ROWS = 16
 
 
 class TilePlan(NamedTuple):
     tile: int         # trials of a block that phase 1 runs at once
     kc: int           # rows of the Newton-Schulz right-hand matrix staged at once
     smem_bytes: int   # dynamic shared memory a block takes at this plan
+    sp: int = 0       # rows of a staged sub-panel; 0: the panels and the trials' state resident
 
 
 def _panel_ksplit(prow: int, nfp: int) -> int:
@@ -37,23 +40,26 @@ def _panel_ksplit(prow: int, nfp: int) -> int:
 
 def smem_floats(a: _Args, cluster: int) -> int:
     """Floats of a block's shared memory at the shapes and plan (``tile``,
-    ``kc``) of ``a``: ``carve_smem``."""
+    ``kc``, ``sp``) of ``a``: ``carve_smem``. With ``sp`` (the L2 route) the
+    trials' state and the mask's row are not in shared memory, and phase 2
+    keeps one sub-panel of ``sp`` rows."""
     off = 0
 
     def take(n):
         nonlocal off
         off += -(-n // 4) * 4
 
-    xd, nfp, widths = a.xd, a.nfp, list(a.h)[:a.n_layers]
+    xd, nfp, widths, big = a.xd, a.nfp, list(a.h)[:a.n_layers], a.sp > 0
     rows, prow, tile = -(-a.B // cluster), -(-nfp // cluster), a.tile
     ldy, ldu, ldf = (a.yd + 3) // 4 * 4 + 4, (a.ud + 3) // 4 * 4 + 4, (nfp + 3) // 4 * 4 + 4
     ldg = (max(widths) + 3) // 4 * 4 + 4
     take(-(-HEADER_BYTES // 16) * 4)
-    for n in [rows * 2 * xd] + [rows * xd] * 4 + [8 * NTHREADS // 32, 32, 8]:
+    for n in ([] if big else [rows * 2 * xd] + [rows * xd] * 4) + [8 * NTHREADS // 32, 32, 8]:
         take(n)
-    if a.mask:
+    if a.mask and not big:
         take(a.B)
-    for n in [rows, nfp * xd] + ([nfp * a.ud] if a.ud else []) + [nfp, nfp, a.yd, xd] + widths:
+    for n in (([] if big else [rows]) + [nfp * xd] + ([nfp * a.ud] if a.ud else [])
+              + [nfp, nfp, a.yd, xd] + widths):
         take(n)
     for _ in range(2 if tile < rows else 1):
         take(tile * ldy)
@@ -68,31 +74,69 @@ def smem_floats(a: _Args, cluster: int) -> int:
         take(n)
     end1, off = off, mark
     take(2 * a.kc * nfp if a.kc < nfp else nfp * nfp)
-    take(prow * ldf)
-    take(prow * ldf)
-    take(_panel_ksplit(prow, nfp) * -(-prow // 4) * 4 * nfp)
-    for n in (prow * nfp, prow * xd, prow * xd, nfp * xd):
-        take(n)
+    if big:
+        take(a.sp * ldf)
+        take(_panel_ksplit(a.sp, nfp) * -(-a.sp // 4) * 4 * nfp)
+        for n in (prow * xd, prow * xd):
+            take(n)
+    else:
+        take(prow * ldf)
+        take(prow * ldf)
+        take(_panel_ksplit(prow, nfp) * -(-prow // 4) * 4 * nfp)
+        for n in (prow * nfp, prow * xd, prow * xd, nfp * xd):
+            take(n)
     return max(off, end1)
 
 
-def plan_of(a: _Args, cluster: Optional[int] = None) -> TilePlan:
-    """The tile plan of ``plan_tiles`` at the shapes
-    of ``a``: every trial of a block in one tile where its shared memory then
-    fits, else the largest multiple of ``TILE_QUANTUM`` trials that fits,
-    else the smallest tile (which the launch refuses); the right-hand matrix
-    of a panel product staged whole up to 128 padded features, in chunks of
-    ``STAGE_ROWS`` rows past that."""
-    cluster = cluster_size() if cluster is None else cluster
-    p = _Args.from_buffer_copy(a)
-    rows = -(-a.B // cluster)
-    p.kc = p.nfp if p.nfp <= 128 else STAGE_ROWS
+def _fits(p: _Args, cluster: int) -> bool:
+    return 4 * smem_floats(p, cluster) <= SMEM_LIMIT
+
+
+def _tile_search(p: _Args, cluster: int) -> None:
+    """``tile_search``: every trial of a block in one tile where it fits,
+    else the largest multiple of ``TILE_QUANTUM`` that fits, else (on the L2
+    route) half the quantum, then a quarter, else the smallest tile."""
+    rows = -(-p.B // cluster)
     p.tile = rows
     r = (rows - 1) // TILE_QUANTUM * TILE_QUANTUM
-    while r >= TILE_QUANTUM and 4 * smem_floats(p, cluster) > SMEM_LIMIT:
+    while r >= TILE_QUANTUM and not _fits(p, cluster):
         p.tile = r
         r -= TILE_QUANTUM
-    return TilePlan(p.tile, p.kc, 4 * smem_floats(p, cluster))
+    r = TILE_QUANTUM // 2
+    while p.sp and r >= TILE_QUANTUM // 4 and r < p.tile and not _fits(p, cluster):
+        p.tile = r
+        r //= 2
+
+
+def _plan(p: _Args, cluster: int) -> None:
+    """``plan_tiles`` on ``p`` in place."""
+    p.sp = 0
+    p.kc = kc0 = p.nfp if p.nfp <= 128 else STAGE_ROWS
+    _tile_search(p, cluster)
+    if _fits(p, cluster):
+        return
+    kc = kc0
+    while kc >= 4:
+        for sp in (SUB_ROWS, SUB_ROWS // 2, SUB_ROWS // 4):
+            p.kc, p.sp = kc, sp
+            _tile_search(p, cluster)
+            if _fits(p, cluster):
+                return
+        kc //= 2
+
+
+def plan_of(a: _Args, cluster: Optional[int] = None) -> TilePlan:
+    """The tile plan of ``plan_tiles`` at the shapes of ``a``. With the
+    trials' state and phase 2's panels resident: the tile of
+    :func:`_tile_search`, the right-hand matrix of a panel product staged
+    whole up to 128 padded features, in chunks of ``STAGE_ROWS`` rows past
+    that. Where no tile fits so, the L2 route: sub-panels of ``SUB_ROWS``
+    rows, halved with the chunk, then the sub-panel, down to 4 until a tile
+    fits; else the smallest plan (which the launch refuses)."""
+    cluster = cluster_size() if cluster is None else cluster
+    p = _Args.from_buffer_copy(a)
+    _plan(p, cluster)
+    return TilePlan(p.tile, p.kc, 4 * smem_floats(p, cluster), p.sp)
 
 
 def tile_plan(cfg: VJFConfig, n_batch: int, mask: bool = False, channel_mask: bool = False,

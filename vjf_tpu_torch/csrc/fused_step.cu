@@ -80,15 +80,24 @@
 //     iteration). P_new, the iterate and
 //     V_new stay in the block's shared memory; the carry's P, V, w rows are
 //     overwritten once, after the barrier behind the last reader.
+//   * Past a block's shared memory (the L2 route, plan_tiles sets sp; a third
+//     instantiation, BIG): every trial's state (posterior, noise, mask
+//     column) lives in the L2 workspace and phase 1 reads it there, the trial
+//     mask's row is read where it lies, P_new's and V_new's rows live in L2
+//     too, and each Newton-Schulz product stages its left operand in
+//     sub-panels of sp rows (cp.async) against the whole right-hand matrix
+//     (K split for a sub-panel's tiles, not a panel's).
 //   * The carry scalars (state and observation log-variance, their counts)
 //     are computed by every block from the same reduced sums, kept in
 //     registers from step to step, and written once at the end by block 0.
 //
 // Shapes: any multiple of 128 padded features, 1 to MAX_LAYERS hidden
 // layers of any width, any number of trials, as long as a block's shared
-// memory fits MAX_SMEM_BYTES at the smallest trial tile (plan_tiles). 512
-// padded features do not: phase 2's two row panels of P and of the iterate
-// take 132,096 bytes each at 64 rows a block.
+// memory fits MAX_SMEM_BYTES at the smallest plan (plan_tiles: on the L2
+// route tiles of 4 trials, chunks and sub-panels of 4 rows). Every number
+// of trials fits; at the flagship widths up to 1,792 padded features do;
+// only an input or a hidden layer far wider than any configuration of the
+// repository (a tile's activations and inputs alone) does not.
 //
 // wgmma is not used: a block's trials (32 at the flagship) are fewer than
 // its 64 rows, and it has no f32 input type for the feedback chain.
@@ -161,6 +170,7 @@
 #endif
 #define TILE_QUANTUM 16  // a trial tile smaller than the block's trials: a multiple of this
 #define STAGE_ROWS 16    // rows of a staged chunk past 128 padded features
+#define SUB_ROWS 16      // rows of a staged sub-panel where the panels live in L2
 
 #define NS_ITERS 3
 #define NS_TAU_THRESHOLD 0.25f
@@ -220,7 +230,8 @@ struct VJFArgs {
   // dims
   int T, B, yd, ud, xd, nfp, nf, n_layers;
   int h[MAX_LAYERS];
-  int tile, kc;        // set by plan_tiles: trials a phase-1 tile, rows a staged chunk
+  int tile, kc, sp;    // set by plan_tiles: trials a phase-1 tile, rows a staged chunk, rows
+                       // a staged sub-panel (0: the panels and the trials' state resident)
   // flags
   int sgd, update, warm_up, train_decoder, update_likelihood, update_transition;
   int poisson, trace_quirk, bf16, mega, ns_iters;
@@ -295,9 +306,17 @@ __host__ __device__ static SumsOff sums_offsets(const VJFArgs& a) {
   o.w_in_u = off, off += a.ud > 0 ? h0 * a.ud : 0;
   o.w_in_m = off, off += h0 * xd;
   o.w_in_lv = off, off += h0 * xd;
-  for (int i = 0; i < MAX_LAYERS - 1; ++i)
-    o.w_hidden[i] = off, off += i + 1 < a.n_layers ? (size_t)a.h[i + 1] * a.h[i] : 0;
-  for (int i = 0; i < MAX_LAYERS; ++i) o.b_hidden[i] = off, off += i < a.n_layers ? a.h[i] : 0;
+  // a branch, not a conditional expression: ptxas -O2/-O3 (CUDA 12.9) built
+  // the conditional form wrong in make_header, adding a product for one layer
+  // past n_layers at 3 and 4 hidden layers (scripts/torch_o3_probe.py)
+  for (int i = 0; i < MAX_LAYERS - 1; ++i) {
+    o.w_hidden[i] = off;
+    if (i + 1 < a.n_layers) off += (size_t)a.h[i + 1] * a.h[i];
+  }
+  for (int i = 0; i < MAX_LAYERS; ++i) {
+    o.b_hidden[i] = off;
+    if (i < a.n_layers) off += a.h[i];
+  }
   o.wm = off, off += xd * hl;
   o.wlv = off, off += xd * hl;
   o.blv = off, off += xd;
@@ -315,12 +334,15 @@ enum { SC_ELBO = 0 /* 7 sums */, SC_GRAD = 7, SC_FINITE = 8, SC_RESID = 9, SC_CM
 
 // The L2 workspace: one slab per block, the RLS target, the three
 // Newton-Schulz matrices other blocks read rows of, and every trial's
-// features and dx for the RLS statistics.
+// features and dx for the RLS statistics. Past a block's shared memory
+// (plan_tiles sets sp) also the rows of P_new and V_new and every trial's
+// state (trials: the noise, the two posterior pairs, the mask column).
 struct GWS {
   float* slab;
   size_t slab_stride;
   float *g_vec, *ns_a, *ns_b, *ns_t;
   float *feat, *dx;  // every trial's features (B, nfp) and x_t - x_s (B, xd)
+  float *p_new, *v_new, *trials;  // with sp: (nfp, nfp) each, and (B, 6 xd + 1)
   size_t total;
 };
 
@@ -336,6 +358,9 @@ __host__ __device__ static GWS carve_global(const VJFArgs& a, float* base) {
   g.ns_t = cv.take(nfp * nfp);
   g.feat = cv.take((size_t)a.B * nfp);
   g.dx = cv.take((size_t)a.B * a.xd);
+  g.p_new = a.sp ? cv.take(nfp * nfp) : nullptr;
+  g.v_new = a.sp ? cv.take(nfp * nfp) : nullptr;
+  g.trials = a.sp ? cv.take((size_t)a.B * (6 * a.xd + 1)) : nullptr;
   g.total = cv.off;
   return g;
 }
@@ -405,13 +430,19 @@ struct Header {
 };
 #define HEADER_FLOATS ((sizeof(Header) + 15) / 16 * 4)
 
-// Mirrored for the tests by tests/torch_tile_plan.py:smem_floats.
+// Mirrored for the tests by tests/torch_tile_plan.py:smem_floats. With sp
+// (past a block's shared memory) the trials' state (eps, q, mcol) lives in L2
+// (make_header points it at the block's rows of GWS.trials), the trial mask's
+// row is read where it lies, and phase 2 keeps one staged sub-panel of sp
+// rows: P_new's and V_new's rows live in L2, the iterate's rows and w are read
+// there.
 __host__ __device__ static SM carve_smem(const VJFArgs& a, float* base) {
   SM s;
   Carver cv{base, 0, 4};  // 16-byte aligned buffers
   cv.take(HEADER_FLOATS);
   const size_t xd = a.xd, nfp = a.nfp;
   const size_t rows = cdiv(a.B, VJF_CLUSTER), prow = cdiv(a.nfp, VJF_CLUSTER), tile = a.tile;
+  const bool big = a.sp > 0;
   const int nbuf = a.tile < (int)rows ? 2 : 1;
   int hmax = 0;
   for (int i = 0; i < a.n_layers; ++i) hmax = a.h[i] > hmax ? a.h[i] : hmax;
@@ -421,14 +452,14 @@ __host__ __device__ static SM carve_smem(const VJFArgs& a, float* base) {
   s.ldu = (a.ud + 3) / 4 * 4 + 4;
   s.ldf = (a.nfp + 3) / 4 * 4 + 4;
   s.ldg = (hmax + 3) / 4 * 4 + 4;
-  s.eps = cv.take(rows * 2 * xd);
+  s.eps = big ? nullptr : cv.take(rows * 2 * xd);
   for (int i = 0; i < 2; ++i)
-    for (int j = 0; j < 2; ++j) s.q[i][j] = cv.take(rows * xd);
+    for (int j = 0; j < 2; ++j) s.q[i][j] = big ? nullptr : cv.take(rows * xd);
   s.red = cv.take(8 * NWARPS);
   s.bc = cv.take(32);
   s.esum = cv.take(8);
-  s.mrow = a.mask ? cv.take(a.B) : nullptr;
-  s.mcol = cv.take(rows);
+  s.mrow = a.mask && !big ? cv.take(a.B) : nullptr;
+  s.mcol = big ? nullptr : cv.take(rows);
   s.cent_x = cv.take(nfp * xd);
   s.cent_u = a.ud > 0 ? cv.take(nfp * a.ud) : nullptr;
   s.c2 = cv.take(nfp);
@@ -468,34 +499,64 @@ __host__ __device__ static SM carve_smem(const VJFArgs& a, float* base) {
   // phase 2
   cv.off = mark;
   s.stage = cv.take(a.kc < a.nfp ? 2 * (size_t)a.kc * nfp : nfp * nfp);
-  s.pan_p = cv.take(prow * s.ldf);
-  s.pan_x = cv.take(prow * s.ldf);
-  s.part = cv.take((size_t)panel_ksplit((int)prow, a.nfp) * cdiv((int)prow, 4) * 4 * nfp);
-  s.vnew = cv.take(prow * nfp);
+  if (big) {
+    s.pan_p = cv.take((size_t)a.sp * s.ldf);  // a staged sub-panel of the left operand
+    s.pan_x = s.vnew = s.small = nullptr;
+    s.part = cv.take((size_t)panel_ksplit(a.sp, a.nfp) * cdiv(a.sp, 4) * 4 * nfp);
+  } else {
+    s.pan_p = cv.take(prow * s.ldf);
+    s.pan_x = cv.take(prow * s.ldf);
+    s.part = cv.take((size_t)panel_ksplit((int)prow, a.nfp) * cdiv((int)prow, 4) * 4 * nfp);
+    s.vnew = cv.take(prow * nfp);
+  }
   s.wnew = cv.take(prow * xd);
   s.gown = cv.take(prow * xd);
-  s.small = cv.take(nfp * xd);
+  if (!big) s.small = cv.take(nfp * xd);
   s.total = cv.off > end1 ? cv.off : end1;
   return s;
 }
 
-// The tiles of phase 1 and the staging of phase 2 at these shapes, which
-// vjf_smem_bytes and the launch both take: `tile` is every trial of a block
-// where the block's shared memory then fits (one tile, the bits of the
-// kernel before it had tiles), else the largest multiple of TILE_QUANTUM
-// that fits, else the smallest tile, which the launch refuses; `kc` stages
-// the right-hand matrix of a panel product whole up to 128 padded features,
-// in chunks of STAGE_ROWS rows past that. Mirrored by
-// tests/torch_tile_plan.py:plan_of.
-static VJFArgs plan_tiles(VJFArgs a) {
+static bool smem_fits(const VJFArgs& a) {
+  return carve_smem(a, nullptr).total * sizeof(float) <= MAX_SMEM_BYTES;
+}
+
+// Every trial of a block in one tile where the block's shared memory then
+// fits, else the largest multiple of TILE_QUANTUM that fits, else (on the L2
+// route, sp) half the quantum, then a quarter, else the smallest tile.
+static VJFArgs tile_search(VJFArgs a) {
   const int rows = cdiv(a.B, VJF_CLUSTER);
-  a.kc = a.nfp <= 128 ? a.nfp : STAGE_ROWS;
   a.tile = rows;
-  for (int r = (rows - 1) / TILE_QUANTUM * TILE_QUANTUM;
-       r >= TILE_QUANTUM && carve_smem(a, nullptr).total * sizeof(float) > MAX_SMEM_BYTES;
+  for (int r = (rows - 1) / TILE_QUANTUM * TILE_QUANTUM; r >= TILE_QUANTUM && !smem_fits(a);
        r -= TILE_QUANTUM)
     a.tile = r;
+  for (int r = TILE_QUANTUM / 2; a.sp && r >= TILE_QUANTUM / 4 && r < a.tile && !smem_fits(a);
+       r /= 2)
+    a.tile = r;
   return a;
+}
+
+// The tiles of phase 1 and the staging of phase 2 at these shapes, which
+// vjf_smem_bytes and the launch both take. With the trials' state and
+// phase 2's panels resident (sp 0): `tile` from tile_search (one tile keeps
+// the bits of the kernel before it had tiles), `kc` stages the right-hand
+// matrix of a panel product whole up to 128 padded features, in chunks of
+// STAGE_ROWS rows past that. Where no tile fits that way, the trials' state
+// and the panels move to L2 (sp > 0: sub-panels of SUB_ROWS rows, halved with
+// kc, then sp, down to 4, until a tile fits); the smallest plan where none
+// fits, which the launch refuses. Mirrored by tests/torch_tile_plan.py:plan_of.
+static VJFArgs plan_tiles(VJFArgs a) {
+  a.sp = 0;
+  a.kc = a.nfp <= 128 ? a.nfp : STAGE_ROWS;
+  VJFArgs p = tile_search(a);
+  if (smem_fits(p)) return p;
+  for (int kc = a.kc; kc >= 4; kc /= 2)
+    for (int sp = SUB_ROWS; sp >= 4; sp /= 2) {
+      a.kc = kc;
+      a.sp = sp;
+      p = tile_search(a);
+      if (smem_fits(p)) return p;
+    }
+  return p;
 }
 
 // ---------------------------------------------------------------------------
@@ -804,21 +865,28 @@ __device__ __forceinline__ void fetch_tile(const VJFArgs& a, const Ctx& c, int t
 
 // Starts the copy of step t's inputs of tile 0, the trial mask's whole row
 // (every block counts the step's valid trials) and the injected noise of
-// every trial of this block into shared memory.
-template <bool TILED>
+// every trial of this block into shared memory. BIG (the trials' state in
+// L2): the mask's row is read where it lies, and the noise is copied into
+// the trials' state here.
+template <bool TILED, bool BIG>
 __device__ __forceinline__ void fetch_inputs(const VJFArgs& a, const Ctx& c, int t) {
   const int nb = c.tr.n, xd = a.xd;
   const size_t row = (size_t)t * a.B + c.tr.first;
   fetch_tile(a, c, t, tile_of<TILED>(a, c, 0));
-  if (a.mask)
+  if (a.mask && !BIG)
     for (int i = threadIdx.x; i < a.B; i += NTHREADS)
       cp_async4(c.s.mrow + i, a.mask + (size_t)t * a.B + i);
   if (a.eps_s) {
     // the (rows, 2 xd) noise: columns [:xd] are eps_s, [xd:] eps_t
     for (int i = threadIdx.x; i < nb * xd; i += NTHREADS) {
       float* dst = c.s.eps + (size_t)(i / xd) * 2 * xd + i % xd;
-      cp_async4(dst, a.eps_s + row * xd + i);
-      cp_async4(dst + xd, a.eps_t + row * xd + i);
+      if (BIG) {
+        dst[0] = a.eps_s[row * xd + i];
+        dst[xd] = a.eps_t[row * xd + i];
+      } else {
+        cp_async4(dst, a.eps_s + row * xd + i);
+        cp_async4(dst + xd, a.eps_t + row * xd + i);
+      }
     }
   }
   cp_async_commit();
@@ -853,7 +921,7 @@ __device__ __forceinline__ void mask_tile(const VJFArgs& a, const Ctx& c, const 
 // entering the step. With masks: this block's 0/1 column of the trial mask,
 // tile 0's inputs masked (mask_tile), and the step's valid trials over the
 // whole batch, which it returns (B without a trial mask).
-template <bool TILED>
+template <bool TILED, bool BIG>
 __device__ __forceinline__ float step_begin(const VJFArgs& a, const Ctx& c, int t, int cur,
                                             uint32_t count) {
   const int nb = c.tr.n, xd = a.xd;
@@ -893,9 +961,10 @@ __device__ __forceinline__ float step_begin(const VJFArgs& a, const Ctx& c, int 
   float valid[1] = {0.f};
   if (a.mask) {
     // 0/1 sums are exact in any order: every block counts the same number
-    for (int i = threadIdx.x; i < a.B; i += NTHREADS) valid[0] += c.s.mrow[i] > 0.f ? 1.f : 0.f;
+    const float* mrow = BIG ? a.mask + (size_t)t * a.B : c.s.mrow;
+    for (int i = threadIdx.x; i < a.B; i += NTHREADS) valid[0] += mrow[i] > 0.f ? 1.f : 0.f;
     for (int b = threadIdx.x; b < nb; b += NTHREADS)
-      c.s.mcol[b] = c.s.mrow[c.tr.first + b] > 0.f ? 1.f : 0.f;
+      c.s.mcol[b] = mrow[c.tr.first + b] > 0.f ? 1.f : 0.f;
     block_sum<1>(c.s.red, valid);  // its barriers publish mcol
   } else {
     valid[0] = (float)a.B;
@@ -1252,7 +1321,7 @@ __device__ __forceinline__ void tile_forward_sums(const VJFArgs& a, const Ctx& c
 // masked trial's is its input) and xs, xt where asked; updates no carry
 // leaf. Tile k + 1's inputs are fetched while tile k computes. Ends with the
 // prefetch of step t + 1 and a cluster barrier that publishes the slabs.
-template <bool TILED>
+template <bool TILED, bool BIG>
 __device__ __forceinline__ void step_forward_sums(const VJFArgs& a, const Ctx& c,
                                                   const CarryScalars& cs, int t, int cur,
                                                   float inv_b, bool publish, bool freeze) {
@@ -1301,7 +1370,7 @@ __device__ __forceinline__ void step_forward_sums(const VJFArgs& a, const Ctx& c
     sc[SC_GRAD] = gc[0];
     sc[SC_CM] = s.esum[7];
   }
-  if (t + 1 < a.T) fetch_inputs<TILED>(a, c, t + 1);
+  if (t + 1 < a.T) fetch_inputs<TILED, BIG>(a, c, t + 1);
   cluster_sync();
 }
 
@@ -1376,24 +1445,23 @@ __device__ __forceinline__ void panel_tile(float (&acc)[4][4], const float* A, i
   }
 }
 
-// out rows [fr.first, fr.first + fr.n) of alpha * A B + diag * I, all in
-// full f32: A is this block's row panel in shared memory (fr.n x nfp,
-// leading dim lda), B the whole nfp x nfp matrix in global memory. B is
-// staged into shared memory with 16-byte cp.async: whole when kc is nfp (up
-// to 128 padded features), else in chunks of kc rows through two buffers
-// (chunk i + 1 arrives while chunk i is multiplied), each thread's tiles in
-// rounds when they outnumber the threads. Each thread takes a 4 x 4 tile of
-// the panel over one of `ks` slices of K and accumulates it in k order, over
-// the chunks too, so the chunking leaves the bits as they are; the slices
-// are added in order. The rows go to out_g (global, leading dim nfp) and, if
+// out rows [row0, row0 + n) of alpha * A B + diag * I, all in full f32: A
+// is a row panel in shared memory (n x nfp, leading dim lda, at most prow
+// rows), B the whole nfp x nfp matrix in global memory. B is staged into
+// shared memory with 16-byte cp.async: whole when kc is nfp (up to 128
+// padded features), else in chunks of kc rows through two buffers (chunk
+// i + 1 arrives while chunk i is multiplied), each thread's tiles in rounds
+// when they outnumber the threads. Each thread takes a 4 x 4 tile of the
+// panel over one of `ks` slices of K and accumulates it in k order, over the
+// chunks too, so the chunking leaves the bits as they are; the slices are
+// added in order. The rows go to out_g (global, leading dim nfp) and, if
 // given, to out_s (shared, leading dim lda; may be A itself). Ends with
-// __syncthreads(); the caller publishes out_g with a cluster barrier.
+// __syncthreads().
 template <bool TILED>
-__device__ __forceinline__ void panel_product(const Ctx& c, int nfp, int kc, const float* A,
-                                              int lda, const float* B, float alpha, float diag,
-                                              float* out_g, float* out_s) {
+__device__ __forceinline__ void panel_rows(const Ctx& c, int nfp, int kc, int n, int row0,
+                                           int prow, const float* A, int lda, const float* B,
+                                           float alpha, float diag, float* out_g, float* out_s) {
   const SM& s = c.s;
-  const int n = c.fr.n, prow = cdiv(nfp, VJF_CLUSTER);
   const int tiles_c = nfp / 4, tiles = cdiv(prow, 4) * tiles_c;
   const int ks = panel_ksplit(prow, nfp);
   const int kchunk = cdiv(cdiv(nfp, ks), 4) * 4;
@@ -1451,11 +1519,39 @@ __device__ __forceinline__ void panel_product(const Ctx& c, int nfp, int kc, con
     float v = s.part[idx];
     for (int slice = 1; slice < ks; ++slice) v += s.part[slice * pstride + idx];
     v = alpha * v;
-    if (c.fr.first + il == col) v += diag;
-    out_g[(size_t)(c.fr.first + il) * nfp + col] = v;
+    if (row0 + il == col) v += diag;
+    out_g[(size_t)(row0 + il) * nfp + col] = v;
     if (out_s) out_s[(size_t)il * lda + col] = v;
   }
   __syncthreads();
+}
+
+// This block's rows [fr.first, fr.first + fr.n) of alpha * A B + diag * I
+// (panel_rows), A this block's row panel (leading dim lda). Resident (not
+// BIG): A in shared memory, the rows also to out_s. BIG: A's rows in L2,
+// taken in sub-panels of sp rows, each staged into s.pan_p with 16-byte
+// cp.async (it arrives with B's first chunk) and multiplied against the
+// whole of B; the rows go to out_g only. The caller publishes out_g with a
+// cluster barrier.
+template <bool TILED, bool BIG>
+__device__ __forceinline__ void panel_product(const Ctx& c, int nfp, int kc, int sp,
+                                              const float* A, int lda, const float* B,
+                                              float alpha, float diag, float* out_g,
+                                              float* out_s) {
+  if (!BIG) {
+    panel_rows<TILED>(c, nfp, kc, c.fr.n, c.fr.first, cdiv(nfp, VJF_CLUSTER), A, lda, B, alpha,
+                      diag, out_g, out_s);
+    return;
+  }
+  const int q = nfp / 4;
+  for (int s0 = 0; s0 < c.fr.n; s0 += sp) {
+    const int n = c.fr.n - s0 < sp ? c.fr.n - s0 : sp;
+    for (int i = threadIdx.x; i < n * q; i += NTHREADS)
+      cp_async16(c.s.pan_p + (size_t)(i / q) * c.s.ldf + 4 * (i % q),
+                 A + (size_t)(s0 + i / q) * lda + 4 * (i % q));
+    panel_rows<TILED>(c, nfp, kc, n, c.fr.first + s0, sp, c.s.pan_p, c.s.ldf, B, alpha, diag,
+                      out_g, nullptr);
+  }
 }
 
 // This block's rows of the RLS raw statistics over every trial of the launch,
@@ -1474,8 +1570,10 @@ __device__ __forceinline__ void stat_rows(const VJFArgs& a, const Ctx& c, float*
 // the obs-noise running variance, RLS with Newton-Schulz tracking of V and
 // the state-noise running variance, all in place; then the scalar row of
 // step t. Every block has passed the barrier that ends phase 1. Ends behind
-// a cluster barrier: every carry leaf is published for the next step.
-template <bool TILED>
+// a cluster barrier: every carry leaf is published for the next step. BIG:
+// P_new's and V_new's rows in the L2 workspace, the iterate's rows, P's old
+// rows, w and g read where they lie (panel_product stages sub-panels).
+template <bool TILED, bool BIG>
 __device__ __forceinline__ void step_apply(const VJFArgs& a, const Ctx& c, CarryScalars& cs,
                                            const StepSums& p, int t, float inv_b) {
   const int tid = threadIdx.x;
@@ -1554,36 +1652,42 @@ __device__ __forceinline__ void step_apply(const VJFArgs& a, const Ctx& c, Carry
       const float lam = a.rls_shrink, jit = a.chol_jitter;
       const float inv_sv_u = expf(-slv);
       // this block's rows of P_new, of F^T dx / sv, and of the iterate V / lam
-      stat_rows(a, c, s.part, nfp, s.gown);
+      float* pan_p = BIG ? c.g.p_new + (size_t)fr0 * nfp : s.pan_p;
+      const int ldp = BIG ? nfp : s.ldf;
+      float* ftf = BIG ? pan_p : s.part;  // BIG: P_new replaces F^T F in place
+      stat_rows(a, c, ftf, nfp, s.gown);
       for (int idx = tid; idx < frn * nfp; idx += NTHREADS) {
         const int il = idx / nfp, col = idx % nfp, r = fr0 + il;
         const size_t gi = (size_t)r * nfp + col;
         // the fused multiply-add spelled out: left to the compiler, which
         // product it fuses changed with unrelated code around it, and with it
         // the last bit of P (and every later bit of V and w)
-        float pv = __fmaf_rn(lam, a.p_mat[gi], __fmul_rn(s.part[idx], inv_sv_u));
+        float pv = __fmaf_rn(lam, a.p_mat[gi], __fmul_rn(ftf[idx], inv_sv_u));
         if (lam != 1.0f || jit != 0.0f) {
           const float dg = r == col ? 1.f : 0.f;
           const float pad = r >= a.nf ? dg : 0.f;
           pv = pv + (1.0f - lam) * pad + jit * (dg - pad);
         }
-        s.pan_p[(size_t)il * s.ldf + col] = pv;
-        s.vnew[idx] = a.p_mat[gi];  // the old rows, for P w
+        pan_p[(size_t)il * ldp + col] = pv;
+        if (!BIG) s.vnew[idx] = a.p_mat[gi];  // the old rows, for P w
         const float x = lam != 1.0f ? a.v_mat[gi] / lam : a.v_mat[gi];
-        s.pan_x[(size_t)il * s.ldf + col] = x;
+        if (!BIG) s.pan_x[(size_t)il * s.ldf + col] = x;
         if (lam != 1.0f) c.g.ns_a[gi] = x;
       }
       for (int i = tid; i < frn * xd; i += NTHREADS) s.gown[i] = s.gown[i] * inv_sv_u;
-      for (int i = tid; i < nfp * xd; i += NTHREADS) s.small[i] = a.w_dyn[i];
+      if (!BIG)
+        for (int i = tid; i < nfp * xd; i += NTHREADS) s.small[i] = a.w_dyn[i];
       __syncthreads();
       // g = lam P w + F^T dx / sv, full f32
-      mm(frn, xd, nfp, rowmaj(s.vnew, nfp), rowmaj(s.small, xd), s.wnew, xd, false, false, true);
+      mm(frn, xd, nfp, rowmaj(BIG ? a.p_mat + (size_t)fr0 * nfp : s.vnew, nfp),
+         rowmaj(BIG ? a.w_dyn : s.small, xd), s.wnew, xd, false, false, true);
       for (int i = tid; i < frn * xd; i += NTHREADS)
         g_vec[(size_t)fr0 * xd + i] = lam * s.wnew[i] + s.gown[i];
       tau = p.fvf_sum * inv_sv_u / lam;
       // the mega segment skips the update at tau >= NS_TAU_MAX, so its
       // Newton-Schulz result would be discarded
       bool ns_ok = !(a.mega && !(tau < NS_TAU_MAX));
+      float* vnew = BIG ? c.g.v_new + (size_t)fr0 * nfp : s.vnew;
       cluster_sync();  // g_vec and the scaled iterate are whole
       if (ns_ok) {
         const float* x = lam != 1.0f ? c.g.ns_a : a.v_mat;
@@ -1594,23 +1698,28 @@ __device__ __forceinline__ void step_apply(const VJFArgs& a, const Ctx& c, Carry
         }
         for (int it = 0; it < iters; ++it) {
           // X <- X (2I - P X), every product full f32
-          panel_product<TILED>(c, nfp, a.kc, s.pan_p, s.ldf, x, -1.f, 2.f, c.g.ns_t, nullptr);
+          panel_product<TILED, BIG>(c, nfp, a.kc, a.sp, pan_p, ldp, x, -1.f, 2.f, c.g.ns_t,
+                                    nullptr);
           cluster_sync();
           float* nx = (x == c.g.ns_a) ? c.g.ns_b : c.g.ns_a;
-          panel_product<TILED>(c, nfp, a.kc, s.pan_x, s.ldf, c.g.ns_t, 1.f, 0.f, nx, s.pan_x);
+          panel_product<TILED, BIG>(c, nfp, a.kc, a.sp, BIG ? x + (size_t)fr0 * nfp : s.pan_x,
+                                    BIG ? nfp : s.ldf, c.g.ns_t, 1.f, 0.f, nx, s.pan_x);
           cluster_sync();
           x = nx;
         }
         // this block's rows of V_new = (X + X^T) / 2 and of w_new = V_new g
         for (int idx = tid; idx < frn * nfp; idx += NTHREADS) {
           const int il = idx / nfp, col = idx % nfp;
-          s.vnew[idx] =
-              0.5f * (s.pan_x[(size_t)il * s.ldf + col] + x[(size_t)col * nfp + fr0 + il]);
+          const float own = BIG ? x[(size_t)(fr0 + il) * nfp + col]
+                                : s.pan_x[(size_t)il * s.ldf + col];
+          vnew[idx] = 0.5f * (own + x[(size_t)col * nfp + fr0 + il]);
         }
-        for (int i = tid; i < nfp * xd; i += NTHREADS) s.small[i] = g_vec[i];
+        if (!BIG)
+          for (int i = tid; i < nfp * xd; i += NTHREADS) s.small[i] = g_vec[i];
         __syncthreads();
-        mm(frn, xd, nfp, rowmaj(s.vnew, nfp), rowmaj(s.small, xd), s.wnew, xd, false, false, true);
-        float fs[1] = {sum_of(s.vnew, (size_t)frn * nfp) + sum_of(s.wnew, (size_t)frn * xd)};
+        mm(frn, xd, nfp, rowmaj(vnew, nfp), rowmaj(BIG ? g_vec : s.small, xd), s.wnew, xd, false,
+           false, true);
+        float fs[1] = {sum_of(vnew, (size_t)frn * nfp) + sum_of(s.wnew, (size_t)frn * xd)};
         block_sum<1>(s.red, fs);
         if (tid == 0) c.slab[c.so.ftf + SC_FINITE] = fs[0];
         cluster_sync();
@@ -1622,8 +1731,8 @@ __device__ __forceinline__ void step_apply(const VJFArgs& a, const Ctx& c, Carry
       const bool p_keep = a.mega ? upd_ok : dyn_ok;
       for (int idx = tid; idx < frn * nfp; idx += NTHREADS) {
         const size_t gi = (size_t)fr0 * nfp + idx;
-        if (p_keep) a.p_mat[gi] = s.pan_p[(size_t)(idx / nfp) * s.ldf + idx % nfp];
-        if (upd_ok) a.v_mat[gi] = s.vnew[idx];
+        if (p_keep) a.p_mat[gi] = pan_p[(size_t)(idx / nfp) * ldp + idx % nfp];
+        if (upd_ok) a.v_mat[gi] = vnew[idx];
       }
       if (upd_ok)
         for (int i = tid; i < frn * xd; i += NTHREADS) a.w_dyn[(size_t)fr0 * xd + i] = s.wnew[i];
@@ -1745,6 +1854,15 @@ __device__ const Header& make_header(const VJFArgs& args, float* smem) {
     c.rank = cluster_rank();
     c.tr = block_of(a.B, c.rank);
     c.fr = block_of(a.nfp, c.rank);
+    if (a.sp) {
+      // past the shared memory: this block's trials' state in L2, the
+      // (rows, 2 xd) noise, the posterior pairs and the 0/1 mask column
+      const size_t B = a.B, xd = a.xd, f = c.tr.first;
+      c.s.eps = c.g.trials + f * 2 * xd;
+      for (int i = 0; i < 2; ++i)
+        for (int j = 0; j < 2; ++j) c.s.q[i][j] = c.g.trials + (2 + 2 * i + j) * B * xd + f * xd;
+      c.s.mcol = c.g.trials + 6 * B * xd + f;
+    }
     c.slab = c.g.slab + (size_t)c.rank * c.g.slab_stride;
     c.lr = a.lr ? a.lr[0] : 0.f;
     c.scale2 = a.scale2 ? a.scale2[0] : 0.f;
@@ -1787,7 +1905,7 @@ __device__ const Header& make_header(const VJFArgs& args, float* smem) {
 }
 
 // The fused kernels' body: T steps, the carry updated in place.
-template <bool TILED>
+template <bool TILED, bool BIG>
 __device__ __forceinline__ void vjf_steps(const VJFArgs& args, float* smem) {
   const Header& h = make_header(args, smem);
   const VJFArgs& a = h.a;
@@ -1795,14 +1913,14 @@ __device__ __forceinline__ void vjf_steps(const VJFArgs& args, float* smem) {
   CarryScalars cs{a.state_logvar[0], a.lik_logvar[0], a.dyn_n[0], a.lik_n[0]};
   const uint32_t count0 = (uint32_t)a.rng_count[0];
   const bool publish = a.update && a.update_transition;  // RLS: the statistics and the residual
-  fetch_inputs<TILED>(a, c, 0);
+  fetch_inputs<TILED, BIG>(a, c, 0);
   for (int t = 0; t < a.T; ++t) {
     const int cur = t & 1;
-    const float valid = step_begin<TILED>(a, c, t, cur, count0 + (uint32_t)t);
+    const float valid = step_begin<TILED, BIG>(a, c, t, cur, count0 + (uint32_t)t);
     const float inv_b = 1.0f / fmaxf(valid, 1.0f);  // 1 / B without a trial mask
-    step_forward_sums<TILED>(a, c, cs, t, cur, inv_b, publish, true);
+    step_forward_sums<TILED, BIG>(a, c, cs, t, cur, inv_b, publish, true);
     const StepSums p = reduce_scalars(a, c, cs, inv_b, valid);
-    step_apply<TILED>(a, c, cs, p, t, inv_b);
+    step_apply<TILED, BIG>(a, c, cs, p, t, inv_b);
   }
   // every block read these at its start, before the first barrier
   if (c.rank == 0 && threadIdx.x == 0) {
@@ -1818,15 +1936,16 @@ __device__ __forceinline__ void vjf_steps(const VJFArgs& args, float* smem) {
 // buffer and the q pack of this rank's B trials, with the caller's global
 // inv_b (under a trial mask, 1 / the global valid count) and row offset of the
 // noise; the q pack is not frozen. Reads the carry, writes none of it.
-template <bool TILED>
+template <bool TILED, bool BIG>
 __device__ __forceinline__ void vjf_sums(const VJFArgs& args, float* smem) {
   const Header& h = make_header(args, smem);
   const VJFArgs& a = h.a;
   const Ctx& c = h.c;
   const CarryScalars cs{a.state_logvar[0], a.lik_logvar[0], a.dyn_n[0], a.lik_n[0]};
-  fetch_inputs<TILED>(a, c, 0);
-  const float valid = step_begin<TILED>(a, c, 0, 0, (uint32_t)a.rng_count[0]);
-  step_forward_sums<TILED>(a, c, cs, 0, 0, a.inv_b, a.update && a.update_transition, false);
+  fetch_inputs<TILED, BIG>(a, c, 0);
+  const float valid = step_begin<TILED, BIG>(a, c, 0, 0, (uint32_t)a.rng_count[0]);
+  step_forward_sums<TILED, BIG>(a, c, cs, 0, 0, a.inv_b, a.update && a.update_transition,
+                                false);
   const StepSums p = reduce_scalars(a, c, cs, a.inv_b, valid);
   const Blk b = block_of((int)c.so.ftf, c.rank);
   for (int i = b.first + threadIdx.x; i < b.first + b.n; i += NTHREADS)
@@ -1854,14 +1973,14 @@ __device__ __forceinline__ void vjf_sums(const VJFArgs& args, float* smem) {
 
 extern __shared__ float4 vjf_smem[];
 
-template <bool TILED>
+template <bool TILED, bool BIG>
 __global__ void __launch_bounds__(NTHREADS, 1) vjf_kernel(VJFArgs a) {
-  vjf_steps<TILED>(a, reinterpret_cast<float*>(vjf_smem));
+  vjf_steps<TILED, BIG>(a, reinterpret_cast<float*>(vjf_smem));
 }
 
-template <bool TILED>
+template <bool TILED, bool BIG>
 __global__ void __launch_bounds__(NTHREADS, 1) vjf_sums_kernel(VJFArgs a) {
-  vjf_sums<TILED>(a, reinterpret_cast<float*>(vjf_smem));
+  vjf_sums<TILED, BIG>(a, reinterpret_cast<float*>(vjf_smem));
 }
 
 __global__ void philox_kernel(uint32_t seed, uint32_t count, int n_pairs, float* u1,
@@ -1880,17 +1999,21 @@ __global__ void philox_kernel(uint32_t seed, uint32_t count, int n_pairs, float*
 typedef void (*vjf_kernel_t)(VJFArgs);
 
 // A planned launch takes the one-pass instantiation where a block's trials
-// are one tile and the panel operand is staged whole.
+// are one tile and the panel operand is staged whole, the L2 one (BIG) where
+// the trials' state and the panels do not fit in shared memory (sp), else
+// the tiled one.
 static bool one_pass(const VJFArgs& a) {
-  return a.tile >= cdiv(a.B, VJF_CLUSTER) && a.kc == a.nfp;
+  return a.sp == 0 && a.tile >= cdiv(a.B, VJF_CLUSTER) && a.kc == a.nfp;
 }
 
 static vjf_kernel_t steps_kernel(const VJFArgs& a) {
-  return one_pass(a) ? vjf_kernel<false> : vjf_kernel<true>;
+  if (a.sp) return vjf_kernel<true, true>;
+  return one_pass(a) ? vjf_kernel<false, false> : vjf_kernel<true, false>;
 }
 
 static vjf_kernel_t sums_kernel(const VJFArgs& a) {
-  return one_pass(a) ? vjf_sums_kernel<false> : vjf_sums_kernel<true>;
+  if (a.sp) return vjf_sums_kernel<true, true>;
+  return one_pass(a) ? vjf_sums_kernel<false, false> : vjf_sums_kernel<true, false>;
 }
 
 // One cluster of VJF_CLUSTER blocks a member (n_members clusters along y) with
@@ -1935,14 +2058,21 @@ static int launch(bool sums, const VJFArgs& args, void* stream) {
 
 extern "C" {
 
-size_t vjf_workspace_floats(const VJFArgs* a) { return carve_global(*a, nullptr).total; }
+// Floats of a member's L2 workspace at the plan of plan_tiles.
+size_t vjf_workspace_floats(const VJFArgs* a) {
+  return carve_global(plan_tiles(*a), nullptr).total;
+}
 
 size_t vjf_args_size(void) { return sizeof(VJFArgs); }
+
+// The offset of VJFArgs's last field: with the size, what the ctypes mirror
+// checks (a field added before it can leave the size as it was).
+size_t vjf_args_tail(void) { return offsetof(VJFArgs, inv_b); }
 
 size_t vjf_sums_floats(const VJFArgs* a) { return sums_offsets(*a).total; }
 
 // Bytes of dynamic shared memory a block needs at these shapes, at the
-// tile plan_tiles chooses (the smallest where none fits); a launch is
+// plan plan_tiles chooses (the smallest where none fits); a launch is
 // refused above vjf_smem_limit().
 size_t vjf_smem_bytes(const VJFArgs* a) {
   return carve_smem(plan_tiles(*a), nullptr).total * sizeof(float);
@@ -1954,7 +2084,8 @@ size_t vjf_smem_limit(void) { return MAX_SMEM_BYTES; }
 // cluster, [1] threads per block, [2] dynamic shared memory bytes, [3]
 // clusters the card can hold at once, [4] registers per thread, [5] bytes of
 // local memory per thread (spills), [6] trials a phase-1 tile, [7] rows a
-// staged chunk of a panel product. Returns a cudaError.
+// staged chunk of a panel product, [8] rows a staged sub-panel (0: the
+// panels and the trials' state resident). Returns a cudaError.
 int vjf_cluster_info(const VJFArgs* args, int* out) {
   const VJFArgs a = plan_tiles(*args);
   const vjf_kernel_t kernel = steps_kernel(a);
@@ -1976,6 +2107,7 @@ int vjf_cluster_info(const VJFArgs* args, int* out) {
   out[5] = (int)fa.localSizeBytes;
   out[6] = a.tile;
   out[7] = a.kc;
+  out[8] = a.sp;
   return 0;
 }
 

@@ -33,10 +33,14 @@ points is whitened before it feeds the prediction and the RLS statistics,
 and the predictive log-variance adds the DTC correction ``max(scale^2 -
 |phi|^2, 0)``. The kernels take any multiple of 128 padded features, 1 to
 ``_MAX_LAYERS`` hidden layers of any width and any number of trials, as
-long as a block's shared memory fits the card's at the smallest trial tile
+long as a block's shared memory fits the card's at the smallest plan
 (:func:`kernel_limits`; ``plan_tiles`` in csrc/fused_step.cu: a block runs
 phase 1 over tiles of its trials where all of them do not fit, and stages
 the Newton-Schulz right-hand matrix in chunks past 128 padded features;
+where no tile fits so, the L2 route keeps every trial's posterior, noise and
+mask column and phase 2's P_new and V_new rows in the L2 workspace and
+stages the left operand of each Newton-Schulz product in sub-panels: at the
+flagship widths up to 1,792 padded features and any number of trials;
 :func:`cluster_info` reports the plan of a launch); under
 ``fused_step='auto'`` a configuration past a limit takes the autograd
 epoch.
@@ -1038,7 +1042,7 @@ class _Args(ctypes.Structure):
             "sums", "ws")]
         + [(n, ctypes.c_int) for n in ("T", "B", "yd", "ud", "xd", "nfp", "nf", "n_layers")]
         + [("h", ctypes.c_int * _MAX_LAYERS)]
-        + [(n, ctypes.c_int) for n in ("tile", "kc")]
+        + [(n, ctypes.c_int) for n in ("tile", "kc", "sp")]
         + [(n, ctypes.c_int) for n in (
             "sgd", "update", "warm_up", "train_decoder", "update_likelihood",
             "update_transition", "poisson", "trace_quirk", "bf16", "mega", "ns_iters",
@@ -1067,7 +1071,7 @@ def _library():
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.POINTER(_Args)]
             fn.restype = ctypes.c_size_t
-        for name in ("vjf_args_size", "vjf_smem_limit"):
+        for name in ("vjf_args_size", "vjf_args_tail", "vjf_smem_limit"):
             fn = getattr(lib, name)
             fn.argtypes = []
             fn.restype = ctypes.c_size_t
@@ -1075,7 +1079,7 @@ def _library():
         lib.vjf_cluster_info.restype = ctypes.c_int
         lib.vjf_philox_normals.argtypes = [ctypes.c_int] * 4 + [_P] * 4
         lib.vjf_philox_normals.restype = ctypes.c_int
-        if lib.vjf_args_size() != ctypes.sizeof(_Args):
+        if (lib.vjf_args_size(), lib.vjf_args_tail()) != (ctypes.sizeof(_Args), _Args.inv_b.offset):
             raise RuntimeError("VJFArgs layout differs between fused_step.cu and _Args")
         lib._vjf_bound = True
     return lib
@@ -1103,8 +1107,12 @@ def kernel_limits(cfg: VJFConfig, n_batch: int, on_card: bool = True, mask: bool
     exceeds, as a message, or None: 1 to ``_MAX_LAYERS`` hidden layers, and
     with ``on_card`` a block's shared memory within the card's at the
     kernels' tile plan (``vjf_smem_bytes`` against ``vjf_smem_limit``, which
-    builds the library; at the smallest trial tile where no tile fits),
-    counting the staging of a trial ``mask`` and of a ``channel_mask``.
+    builds the library; at the smallest trial tile, chunk and sub-panel of
+    the L2 route where no plan fits), counting the staging of a trial
+    ``mask`` and of a ``channel_mask``. Past the layer count only an input or
+    a hidden layer far wider than any configuration of the repository is
+    refused: trials and padded features up to 1,792 at the flagship widths
+    are taken.
     :func:`_launch` raises on it, and :func:`fused_enabled` routes away from
     it under ``fused_step='auto'``. The number of members of an ensemble
     launch has no limit: a member is one cluster, and those past what the
@@ -1120,7 +1128,8 @@ def kernel_limits(cfg: VJFConfig, n_batch: int, on_card: bool = True, mask: bool
         if need > limit:
             what = " with a channel mask" if channel_mask else ""
             return (f"{n_batch} trials over {cluster_size()} blocks at these widths{what} need "
-                    f"{need} bytes of shared memory a block at the smallest trial tile, over "
+                    f"{need} bytes of shared memory a block at the smallest trial tile and "
+                    f"sub-panel, over "
                     f"the card's {limit}")
     return None
 
@@ -1259,12 +1268,12 @@ def _launch(kernel: str, cfg, flags, carry: FusedCarry, qs_m, qs_lv, ys, us, eps
     if reason is not None:
         raise ValueError(f"the kernels do not take this configuration: {reason}")
     if kernel == "info":
-        out = (ctypes.c_int * 8)()
+        out = (ctypes.c_int * 9)()
         rc = lib.vjf_cluster_info(ctypes.byref(a), out)
         if rc != 0:
             raise RuntimeError(f"vjf_cluster_info failed: cudaError {rc}")
         return dict(zip(("cluster", "threads", "smem_bytes", "active_clusters", "registers",
-                         "local_bytes", "tile_rows", "stage_rows"), out))
+                         "local_bytes", "tile_rows", "stage_rows", "sub_rows"), out))
     if sums is not None:
         a.sums = c(sums, "sums", (lib.vjf_sums_floats(ctypes.byref(a)),))
     ws = torch.empty(max(n_mem, 1) * lib.vjf_workspace_floats(ctypes.byref(a)),
@@ -1284,7 +1293,8 @@ def cluster_info(cfg, flags, carry: FusedCarry, qs_m, qs_lv, ys, us, lr, mask=No
     shared memory a block, clusters the card holds at once, registers a
     thread, bytes of local memory a thread (register spills), and the tile
     plan of ``plan_tiles`` in csrc/fused_step.cu (trials a phase-1 tile,
-    rows a staged chunk), with the staging of ``mask`` and ``cmask`` where
+    rows a staged chunk, rows a staged sub-panel: 0 where the panels and the
+    trials' state are resident), with the staging of ``mask`` and ``cmask`` where
     given. With a stacked carry (see :func:`_launch`) also the members and
     the waves their clusters run in: a member is one cluster, and the card
     holds ``active_clusters`` of them at once."""
@@ -1733,10 +1743,15 @@ def fused_enabled(cfg: VJFConfig, state, n_batch: Optional[int] = None,
     state on a CUDA device (the JAX gate asks for a TPU backend) and a
     configuration within :func:`kernel_limits` at ``n_batch`` trials.
 
-    Deliberate deviation from the JAX package, whose TPU kernels take any
-    of these shapes: under 'auto' a configuration past a kernel limit takes
-    the autograd epoch, with one warning that names the limit; under 'on'
-    the launch raises ``ValueError``. As in the JAX package, SGP below
+    The kernels take every shape the JAX package's TPU kernels take but a
+    ninth hidden layer (``_MAX_LAYERS`` is a compile-time bound) and a block
+    past the card's shared memory at the smallest plan, which only an input
+    or a layer far wider than any configuration of the repository reaches
+    (:func:`kernel_limits`): every number of trials, and at the flagship
+    widths up to 1,792 padded features. Deliberate deviation from the JAX
+    package for those two: under 'auto' such a configuration takes the
+    autograd epoch, with one warning that names the limit; under 'on' the
+    launch raises ``ValueError``. As in the JAX package, SGP below
     ``cfg.sgp_fused_min_batch`` trials takes the autograd epoch under
     'auto': a tiny batch keeps the Newton-Schulz trace bound hot, and that
     route has the per-step exact-inverse fallback. ``mask`` and
