@@ -276,6 +276,15 @@ SHAPE_LIMITS = {("h64x4", "mega_epoch", "bfloat16"): {"q_logvar": 2.5e-3},
                 ("sgp400", "forward_sums", "bfloat16"): {"grad_check": 1e-2}}
 DEPTH_WIDTH = 8         # shapes.depths: the width of each of 1 to _MAX_LAYERS hidden layers
 DEPTH_WARM = 64         # shapes.depths: warm-up steps before the comparisons
+# shapes.depths off the one-pass instantiation: (trials, n_rbf, the launch's
+# plan as (tile_rows, stage_rows, sub_rows)) of a shape on each other route,
+# held at DEPTH_ROUTE_LAYERS in f32 (the matmul precision is a flag of the
+# launch, not of the instantiation): the tiled one, the L2 route, and the L2
+# route at a plan of 8 rows (1024 padded features). 3 and 4 layers are where
+# ptxas -O2/-O3 built the kernel before the L2 route wrong (ROADMAP Queue 3)
+DEPTH_ROUTES = {"tiled": (1024, None, (32, 128, 0)), "l2": (4096, 400, (16, 16, 16)),
+                "l2.tile8": (256, 1000, (8, 8, 8))}
+DEPTH_ROUTE_LAYERS = (3, 4)
 MULTI_XLA_STEPS = 64
 MULTI_XLA_TOL = 1e-3
 # multi.world2: two processes on one card over gloo, one deadline for both
@@ -1388,18 +1397,22 @@ def shape_limit(tag: str, kernel: str, mm: str, leaves: dict):
     return {**dict.fromkeys(leaves, TOL[mm]), **over} if over else TOL[mm]
 
 
-def depth_runs(n_layers: int, mm: str, dev, mega: bool = True) -> dict:
-    """The three kernels and their plain versions at the flagship with
-    ``n_layers`` hidden layers of DEPTH_WIDTH, on the same inputs from a
-    state after DEPTH_WARM warm-up steps: one step, one phase-1 launch and,
-    with ``mega``, a MEGA_STEPS mega segment, as ``{kernel: (plain, kernel,
-    start)}``, the arguments of ``compare``."""
+def depth_runs(n_layers: int, mm: str, dev, mega: bool = True, b: int = B,
+               n_rbf=None, plan=None) -> dict:
+    """The three kernels and their plain versions at the flagship (at ``b``
+    trials, and ``n_rbf`` where given) with ``n_layers`` hidden layers of
+    DEPTH_WIDTH, on the same inputs from a state after DEPTH_WARM warm-up
+    steps: one step, one phase-1 launch and, with ``mega``, a MEGA_STEPS mega
+    segment, as ``{kernel: (plain, kernel, start)}``, the arguments of
+    ``compare``. A ``plan`` dict is given the launch's ``cluster_info``."""
     cfg = flagship(mm).replace(hidden_sizes=(DEPTH_WIDTH,) * n_layers)
+    if n_rbf is not None:
+        cfg = cfg.replace(n_rbf=n_rbf)
     flags, t_len = StepFlags(), DEPTH_WARM + MEGA_STEPS
-    ys = spikes(t_len, B, cfg.ydim, dev, seed=90 + n_layers)
-    us = torch.zeros((t_len, B, 0), device=dev)
+    ys = spikes(t_len, b, cfg.ydim, dev, seed=90 + n_layers)
+    us = torch.zeros((t_len, b, 0), device=dev)
     lr = torch.tensor(cfg.lr, device=dev)
-    eps = torch.randn((2, MEGA_STEPS, B, cfg.xdim), device=dev,
+    eps = torch.randn((2, MEGA_STEPS, b, cfg.xdim), device=dev,
                       generator=torch.Generator(device=dev).manual_seed(91))
     warm = core.run_epoch(cfg, StepFlags(warm_up=True), core.init_state(0, cfg, device=dev),
                           ys[:DEPTH_WARM], us[:DEPTH_WARM], 92, lr)
@@ -1407,9 +1420,11 @@ def depth_runs(n_layers: int, mm: str, dev, mega: bool = True) -> dict:
     carry = F.pad_carry(cfg, warm.state)
     start = flatten(carry._asdict())
     y0, e_s, e_t = ys[DEPTH_WARM], eps[0, 0], eps[1, 0]
+    if plan is not None:
+        plan.update(F.cluster_info(cfg, flags, carry, qm, qlv, ys[DEPTH_WARM:], None, lr))
     step = [packed(prefix_step(fn, cfg, flags, clone(carry), qm, qlv, y0, e_s, e_t, lr))
             for fn in (F.fused_step_plain, F.fused_step_call)]
-    sums_args = (qm, qlv, y0, None, e_s, e_t, 1.0 / B)
+    sums_args = (qm, qlv, y0, None, e_s, e_t, 1.0 / b)
     sums = [sums_leaves(*fn(cfg, flags, carry, *sums_args), carry)
             for fn in (F.forward_sums_plain, F.forward_sums_call)]
     runs = {"fused_step": (*step, start), "forward_sums": (*sums, {})}
@@ -1429,8 +1444,11 @@ def check_depths(dev) -> dict:
     2.1e-3 to 3.0e-3 in the posterior means of a sound kernel at 3, 5, 7
     and 8 layers of 8 on an H100 (PERF.md); its code is the step kernel's,
     held here in bf16 at every depth, and the mega loop's own code is held
-    in f32. Returns the largest max abs diff of each kernel."""
+    in f32. Then the three kernels in f32 at DEPTH_ROUTE_LAYERS on each
+    route of DEPTH_ROUTES, the launch's plan checked to be that route's.
+    Returns the largest max abs diff of each kernel, and of each by route."""
     errs = dict.fromkeys(("fused_step", "forward_sums", "mega_epoch"), 0.0)
+    by_route = {}
     for n in range(1, F._MAX_LAYERS + 1):
         for mm in ("float32", "bfloat16"):
             runs = depth_runs(n, mm, dev, mega=mm == "float32")
@@ -1438,7 +1456,19 @@ def check_depths(dev) -> dict:
                 errs[kernel] = max(errs[kernel], compare(
                     f"shapes.depths.h{DEPTH_WIDTH}x{n}.{kernel}[{mm}]", ref, got, TOL[mm],
                     start))
-    return errs
+    for route, (b, n_rbf, want) in DEPTH_ROUTES.items():
+        r_errs = by_route[route] = dict.fromkeys(errs, 0.0)
+        for n in DEPTH_ROUTE_LAYERS:
+            plan = {}
+            runs = depth_runs(n, "float32", dev, b=b, n_rbf=n_rbf, plan=plan)
+            got_plan = tuple(plan[k] for k in ("tile_rows", "stage_rows", "sub_rows"))
+            check(got_plan == want, f"shapes.depths.{route}.h{DEPTH_WIDTH}x{n}: the launch's "
+                  f"plan {got_plan}, not {want}")
+            for kernel, (ref, got, start) in runs.items():
+                r_errs[kernel] = max(r_errs[kernel], compare(
+                    f"shapes.depths.{route}.h{DEPTH_WIDTH}x{n}.{kernel}[float32]", ref, got,
+                    TOL["float32"], start))
+    return {**errs, "by_route": by_route}
 
 
 def check_shape(tag, cfg, b, masked, rls_epochs, dev, group, smi) -> dict:
@@ -3814,6 +3844,8 @@ def main() -> int:
     t_depths = time.perf_counter()
     depths = check_depths(dev)
     phase("shapes.depths", layers=list(range(1, F._MAX_LAYERS + 1)), width=DEPTH_WIDTH,
+          routes={r: {"trials": b, "n_rbf": n or flagship().n_rbf, "plan": plan,
+                      "layers": DEPTH_ROUTE_LAYERS} for r, (b, n, plan) in DEPTH_ROUTES.items()},
           max_abs_err=depths, seconds=time.perf_counter() - t_depths)
 
     # ---------------- bounds: the least time one card could take ----------------

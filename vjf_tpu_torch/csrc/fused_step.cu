@@ -168,7 +168,8 @@
 #ifndef MAX_SMEM_BYTES
 #define MAX_SMEM_BYTES 232448  // what one block may use on sm_90
 #endif
-#define TILE_QUANTUM 16  // a trial tile smaller than the block's trials: a multiple of this
+#define TILE_QUANTUM 16  // a smaller trial tile: a multiple of this, or on the L2 route
+                         // half or a quarter of it (tile_search)
 #define STAGE_ROWS 16    // rows of a staged chunk past 128 padded features
 #define SUB_ROWS 16      // rows of a staged sub-panel where the panels live in L2
 
@@ -306,9 +307,6 @@ __host__ __device__ static SumsOff sums_offsets(const VJFArgs& a) {
   o.w_in_u = off, off += a.ud > 0 ? h0 * a.ud : 0;
   o.w_in_m = off, off += h0 * xd;
   o.w_in_lv = off, off += h0 * xd;
-  // a branch, not a conditional expression: ptxas -O2/-O3 (CUDA 12.9) built
-  // the conditional form wrong in make_header, adding a product for one layer
-  // past n_layers at 3 and 4 hidden layers (scripts/torch_o3_probe.py)
   for (int i = 0; i < MAX_LAYERS - 1; ++i) {
     o.w_hidden[i] = off;
     if (i + 1 < a.n_layers) off += (size_t)a.h[i + 1] * a.h[i];

@@ -25,12 +25,16 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "vjf_tpu_torch"
 # csrc/fused_step.cu. 8 is the largest portable size; the environment
 # variable VJF_CLUSTER builds another (4 or 16) to compare.
 CLUSTER = int(os.environ.get("VJF_CLUSTER", "8"))
-# ptxas at its default -O3: csrc/fused_step.cu:sums_offsets walks the layers
-# with a branch where ptxas -O2/-O3 built a conditional expression wrong (one
-# layer's product past n_layers at 3 and 4 hidden layers; ROADMAP Queue 3);
-# chip_smoke.py's "shapes.depths" holds every depth the kernels take
+# ptxas at -O1: at -O2 and -O3 (the default) ptxas built the kernels of the
+# source before the L2 route wrong at 3 and 4 hidden layers (the flat buffer's
+# offsets, computed on the device from the launch's arguments, one hidden
+# layer's product past the host's), with the same PTX right at -O1; no smaller
+# kernel shows it and this source does not, so the cause is not pinned down
+# (scripts/torch_o3_repro.py, ROADMAP Queue 3). chip_smoke.py's "shapes.depths"
+# holds every depth on each of the kernels' three instantiations
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", f"-DVJF_CLUSTER={CLUSTER}"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-Xptxas", "-O1",
+              f"-DVJF_CLUSTER={CLUSTER}"]
 
 
 class BuildInfo(NamedTuple):
