@@ -22,18 +22,23 @@ against their plain versions with the whitening and the DTC correction
 (each of the two faults planted must be rejected), a sharded SGP epoch,
 the main path (``run_epochs``: warm-up, bootstrap, two RLS epochs) and a
 blocked ``fit`` with hyperparameter adaptation. ``route`` drives a
-configuration past the kernels' limits (a ninth hidden layer): the autograd
-epoch under ``fused_step='auto'``, ``ValueError`` under ``'on'``. The
-``shapes`` phases close the script: shapes the kernels take since phase 1
-runs over tiles of a block's trials (512 and 1024 trials, 512 with both
-masks, 256 padded features for RBF and SGP, hidden (64, 64, 64, 64) and
-(128,)) and since the L2 route (512 padded features for RBF and SGP, 256
-with both masks, 4096 trials), each with a main path under ``'auto'`` (no
+configuration past the kernels' limits (a block past the card's shared
+memory at the smallest plan: ydim 2500, 256 padded features, a channel
+mask): the autograd epoch under ``fused_step='auto'``, ``ValueError`` under
+``'on'``. The ``shapes`` phases close the script: shapes the kernels take
+since phase 1 runs over tiles of a block's trials (512 and 1024 trials, 512
+with both masks, 256 padded features for RBF and SGP, hidden (64, 64, 64,
+64) and (128,)), since the L2 route (512 padded features for RBF and SGP,
+256 with both masks, 4096 trials) and since the layer table (hidden (32,) x
+9), each with a main path under ``'auto'`` (no
 routing warning, the step and mega kernels launched), the three kernels
 against their plain versions in both matmul modes with the planted faults,
 the tile plan
 against the library's, the times beside the autograd epoch's, and 16
-sharded steps. The ``mask`` phases
+sharded steps; the two loosened bf16 limits (``SHAPE_LIMITS``) beside a
+float64 plain version; then every hidden-layer count on each of the kernels'
+three instantiations (``shapes.depths``) and every tile plan the L2 route
+admits (``shapes.plans``). The ``mask`` phases
 run ragged trials and missing channels at the flagship widths (trial
 lengths in [T/2, T], 10% of y dropped, 8 channels dead over a quarter of the
 epoch, NaN at every masked entry): the three launchers with either mask and
@@ -271,20 +276,56 @@ SHAPE_SHARD_T = 16      # shapes.*.sharded: sharded steps at each shape, world s
 # inducing points: grad_check, the sum of the ~4,300 gradient entries (only its
 # finiteness gates SGD), reads about 5.2, so the entries' own bf16 differences
 # (at most 5.4e-4 by leaf on an H100, within TOL) read 5.663e-3 there, where
-# the other matmul precision reads 5.802e-2 (PERF.md, PR 15).
+# the other matmul precision reads 5.802e-2 (PERF.md §6). The bf16 step at
+# hidden (32,) x 9: the first layers' gradients vanish through nine tanh
+# layers, so one step moves their weights little, and a rounding of one
+# updated weight that two versions take apart (their bf16 gradients differ in
+# the last bits) is a sizeable share of that move (shapes.depths prints the
+# move in ulps where it is smallest); the plain version on the card and on the
+# CPU, two sound versions, differ by 4.1e-3 in w_in_y and 4.6e-3 in
+# w_hidden.1 there, the kernel reads 8.209e-3 in w_in_y and at most 2.62e-3 in
+# the other three, and the other matmul precision 7.86e-3 to 8.65e-3 in
+# w_in_lv, w_hidden.0 and w_in_y: the limits of those three sit between,
+# w_in_y's above both (every other leaf, within TOL, rejects the other
+# precision there). check_shape gates each leaf of SHAPE_LIMITS against a
+# float64 plain version (vs_float64): the kernel is no farther from it than
+# the plain bf16 version (PERF.md §6).
 SHAPE_LIMITS = {("h64x4", "mega_epoch", "bfloat16"): {"q_logvar": 2.5e-3},
-                ("sgp400", "forward_sums", "bfloat16"): {"grad_check": 1e-2}}
-DEPTH_WIDTH = 8         # shapes.depths: the width of each of 1 to _MAX_LAYERS hidden layers
+                ("sgp400", "forward_sums", "bfloat16"): {"grad_check": 1e-2},
+                ("h32x9", "fused_step", "bfloat16"): {"w_in_y": 1e-2, "w_in_lv": 5e-3,
+                                                      "w_hidden.0": 5e-3, "w_hidden.1": 5e-3}}
+DEPTH_WIDTH = 8         # shapes.depths: the width of each hidden layer
+DEPTH_LAYERS = tuple(range(1, 13)) + (16,)  # shapes.depths: on the one-pass instantiation
+DEPTH_BF16_STEP_LAYERS = 8  # shapes.depths: the bf16 step gated up to this depth (check_depths)
+DEPTH_ON_LAYERS = (9, 12, 16)  # shapes.depths.on: layers of 32 under fused_step='on'
 DEPTH_WARM = 64         # shapes.depths: warm-up steps before the comparisons
 # shapes.depths off the one-pass instantiation: (trials, n_rbf, the launch's
 # plan as (tile_rows, stage_rows, sub_rows)) of a shape on each other route,
 # held at DEPTH_ROUTE_LAYERS in f32 (the matmul precision is a flag of the
 # launch, not of the instantiation): the tiled one, the L2 route, and the L2
 # route at a plan of 8 rows (1024 padded features). 3 and 4 layers are where
-# ptxas -O2/-O3 built the kernel before the L2 route wrong (ROADMAP Queue 3)
+# ptxas -O2/-O3 built the kernel before the L2 route wrong (ROADMAP Queue 3),
+# 9 the first depth past the layer arrays the layer table replaced
 DEPTH_ROUTES = {"tiled": (1024, None, (32, 128, 0)), "l2": (4096, 400, (16, 16, 16)),
                 "l2.tile8": (256, 1000, (8, 8, 8))}
-DEPTH_ROUTE_LAYERS = (3, 4)
+DEPTH_ROUTE_LAYERS = (3, 4, 9)
+# shapes.plans: one shape for each tile plan (tile_rows, stage_rows,
+# sub_rows) of the L2 route that no other phase runs, at the flagship's
+# other widths in f32 (xdim 10, Poisson, hidden (32,), B 256) as (ydim,
+# n_rbf = padded features, masks: "" / "mask" / "cmask" / "both"); the
+# plans come from tests/torch_tile_plan.py and each launch's is checked
+PLAN_ROWS = {
+    (16, 16, 8): (200, 768, ""), (8, 16, 16): (200, 640, "cmask"),
+    (8, 16, 8): (200, 768, "cmask"), (8, 16, 4): (200, 896, ""), (8, 8, 4): (200, 1280, ""),
+    (8, 4, 4): (200, 1408, "cmask"), (8, 8, 8): (200, 1024, "both"),
+    (4, 128, 16): (2500, 128, ""), (4, 16, 16): (2500, 256, ""),
+    (4, 16, 16, "mask"): (2500, 256, "mask"), (4, 32, 4): (2500, 128, "cmask"),
+    (4, 16, 4): (200, 896, "cmask"), (4, 8, 8): (200, 1152, "cmask"),
+    (4, 4, 8): (2500, 896, ""), (4, 8, 4): (200, 1408, ""), (4, 4, 4): (200, 1664, "cmask"),
+}
+PLAN_WARM = 4           # shapes.plans: warm-up steps through the kernels
+PLAN_STEPS = 8          # shapes.plans: steps of the mega segment held against its plain version
+PLAN_TAU0 = 0.5         # shapes.plans: the first step's tau (the weight posterior reset)
 MULTI_XLA_STEPS = 64
 MULTI_XLA_TOL = 1e-3
 # multi.world2: two processes on one card over gloo, one deadline for both
@@ -1250,15 +1291,21 @@ def check_fit_sgp(ys, smi) -> None:
 
 
 def check_route(ys, us, lr) -> None:
-    """A configuration past the kernels' limits (a ninth hidden layer: the
-    layer count is a compile-time bound of the kernel's arguments): under
-    ``fused_step='auto'`` 8 steps take the autograd epoch, with one warning
-    naming the limit and no launch; under ``'on'`` the launch raises
-    ValueError."""
-    cfg = flagship().replace(hidden_sizes=(32,) * (F._MAX_LAYERS + 1))
-    state = core.init_state(0, cfg, device=ys.device)
-    reason = F.kernel_limits(cfg, ys.shape[1])
-    check(reason is not None, "route: a ninth hidden layer is within the kernels' limits")
+    """A configuration past the kernels' limits, a block past the card's
+    shared memory at the smallest plan (the flagship at ydim 2500 and 256
+    padded features with a channel mask: a tile's inputs and their channel
+    mask alone): under ``fused_step='auto'`` 8 steps take the autograd epoch,
+    with one warning naming the limit and no launch; under ``'on'`` the
+    launch raises ValueError."""
+    b, dev = ys.shape[1], ys.device
+    cfg = flagship().replace(ydim=2500, n_rbf=200)
+    ys = spikes(8, b, cfg.ydim, dev, seed=80)
+    g = torch.Generator(device=dev).manual_seed(81)
+    cmask = (torch.rand(ys.shape, generator=g, device=dev) >= MASK_DROP).float()
+    ys, us = holes(ys, None, cmask), us[:8]
+    state = core.init_state(0, cfg, device=dev)
+    reason = F.kernel_limits(cfg, b, channel_mask=True)
+    check(reason is not None, "route: ydim 2500 with a channel mask is within the kernels' limits")
     seen = []
     handler = logging.Handler()
     handler.emit = lambda rec: seen.append(rec.getMessage())
@@ -1266,9 +1313,9 @@ def check_route(ys, us, lr) -> None:
     F._routed_away.discard(reason)
     try:
         F.reset_launches()
-        res, secs = synced(lambda: core.run_epoch(cfg, StepFlags(), state, ys[:8], us[:8], 3,
-                                                  lr))
-        res2 = core.run_epoch(cfg, StepFlags(), state, ys[:8], us[:8], 3, lr)
+        res, secs = synced(lambda: core.run_epoch(cfg, StepFlags(), state, ys, us, 3, lr,
+                                                  channel_mask=cmask))
+        res2 = core.run_epoch(cfg, StepFlags(), state, ys, us, 3, lr, channel_mask=cmask)
     finally:
         F.logger.removeHandler(handler)
     check(res.metrics.tau is None and sum(F.launches.values()) == 0,
@@ -1279,15 +1326,16 @@ def check_route(ys, us, lr) -> None:
     warned = [m for m in seen if reason in m]
     check(len(warned) == 1, f"route: {len(warned)} warnings naming the limit: {seen}")
     try:
-        core.run_epoch(cfg.replace(fused_step="on"), StepFlags(), state, ys[:8], us[:8], 3, lr)
+        core.run_epoch(cfg.replace(fused_step="on"), StepFlags(), state, ys, us, 3, lr,
+                       channel_mask=cmask)
     except ValueError as e:
         raised = str(e)
     else:
         raised = None
     check(raised is not None and reason in raised, f"route: 'on' did not raise ({raised})")
-    phase("route", config=f"flagship, {F._MAX_LAYERS + 1} hidden layers of 32", limit=reason,
-          auto="autograd, 8 steps",
-          autograd_us_per_step=1e6 * secs / 8, warnings=len(warned), on_raised=raised)
+    phase("route", config="flagship at ydim 2500, n_rbf 200, B %d, a channel mask" % b,
+          limit=reason, auto="autograd, 8 steps", autograd_us_per_step=1e6 * secs / 8,
+          warnings=len(warned), on_raised=raised)
 
 
 # ---------------------------------------------------------------------------
@@ -1301,8 +1349,10 @@ def check_route(ys, us, lr) -> None:
 
 def shape_cases() -> dict:
     """Each shape of the "shapes" phase: (config, trials, both masks, RLS
-    epochs of its main path). The last four take the L2 route; their main
-    path's RLS epoch of SHAPE_T steps lies in the exact-inverse prefix."""
+    epochs of its main path). ``nrbf400`` to ``b4096`` take the L2 route;
+    their main path's RLS epoch of SHAPE_T steps lies in the exact-inverse
+    prefix. ``h32x9`` has more hidden layers than the kernels' arrays held
+    before the layer table."""
     return {
         "b512": (flagship(), 512, False, 1),
         "b1024": (flagship(), 1024, False, 2),
@@ -1315,6 +1365,7 @@ def shape_cases() -> dict:
         "sgp400": (sgp_flagship().replace(n_inducing=400), 256, False, 1),
         "nrbf200.cmask": (flagship().replace(n_rbf=200), 256, True, 1),
         "b4096": (flagship(), 4096, False, 1),
+        "h32x9": (flagship().replace(hidden_sizes=(32,) * 9), 256, False, 1),
     }
 
 
@@ -1390,6 +1441,39 @@ def shape_bounds(cfg, b, carry, qm, qlv, y0, e_s, e_t, lr, stepped, flat, seg_ta
     }
 
 
+def as_f64(x):
+    """A carry, a tuple of operands or a tensor with every floating-point
+    tensor in float64 (a copy)."""
+    if isinstance(x, torch.Tensor):
+        return x.double() if x.is_floating_point() else x.clone()
+    if hasattr(x, "_asdict"):
+        return x._replace(**{k: as_f64(v) for k, v in x._asdict().items()})
+    if isinstance(x, tuple):
+        return tuple(as_f64(v) for v in x)
+    return x
+
+
+def vs_float64(name: str, ref64: dict, kernel: dict, plain: dict, start: dict,
+               loosened: dict) -> dict:
+    """The kernel and the plain version with bf16 products, each held
+    against the plain version in float64 from the same start: every leaf's
+    normalised error (``compare_errs``) for both, printed ungated. For each
+    leaf of ``loosened`` (a SHAPE_LIMITS entry) the kernel must be no farther
+    from float64 than the plain bf16 version is, up to 5%: farther would be
+    a fault of the kernel, not bf16 rounding."""
+    k_errs, _ = compare_errs(ref64, kernel, start)
+    p_errs, _ = compare_errs(ref64, plain, start)
+    phase(f"{name}.vs_float64", loosened=loosened,
+          kernel={k: float(f"{v:.3e}") for k, v in k_errs.items()},
+          plain_bf16={k: float(f"{v:.3e}") for k, v in p_errs.items()},
+          kernel_worst=max(k_errs.values()), plain_bf16_worst=max(p_errs.values()))
+    for leaf in loosened:
+        check(k_errs[leaf] <= 1.05 * p_errs[leaf],
+              f"{name}: the kernel's {leaf} is {k_errs[leaf]:.3e} from float64, the plain bf16 "
+              f"version's {p_errs[leaf]:.3e}")
+    return {"kernel": k_errs, "plain_bf16": p_errs}
+
+
 def shape_limit(tag: str, kernel: str, mm: str, leaves: dict):
     """``compare``'s limit for a kernel at a shape: TOL, or TOL by leaf with
     the leaves of SHAPE_LIMITS replaced."""
@@ -1436,26 +1520,62 @@ def depth_runs(n_layers: int, mm: str, dev, mega: bool = True, b: int = B,
 
 
 def check_depths(dev) -> dict:
-    """Every hidden-layer count the kernels take, 1 to ``_MAX_LAYERS``, at
-    DEPTH_WIDTH (:func:`depth_runs`), each kernel held against its plain
-    version within TOL: the step and phase-1 kernels in both matmul
-    precisions, the mega kernel in f32. A bf16 mega segment through several
+    """The hidden-layer counts DEPTH_LAYERS at DEPTH_WIDTH (:func:`depth_runs`)
+    on the one-pass instantiation (the launch's plan checked to be one tile
+    and the whole operand), each kernel held against its plain version
+    within TOL: the step and phase-1 kernels in both matmul precisions, the
+    mega kernel in f32. A bf16 mega segment through several
     tanh layers is no test at TOL: rounding flips grow over its 64 steps to
     2.1e-3 to 3.0e-3 in the posterior means of a sound kernel at 3, 5, 7
     and 8 layers of 8 on an H100 (PERF.md); its code is the step kernel's,
-    held here in bf16 at every depth, and the mega loop's own code is held
-    in f32. Then the three kernels in f32 at DEPTH_ROUTE_LAYERS on each
-    route of DEPTH_ROUTES, the launch's plan checked to be that route's.
-    Returns the largest max abs diff of each kernel, and of each by route."""
+    held here in bf16 up to DEPTH_BF16_STEP_LAYERS layers, and the mega
+    loop's own code is held in f32. Past DEPTH_BF16_STEP_LAYERS layers the bf16 step is printed,
+    ungated, with how far the plain version moved w_in_y in f32 ulps of its
+    largest entry: the first layers' gradients vanish with depth, so one
+    step moves them a few ulps and a single rounding of the updated weight
+    that the two versions take apart (their bf16 gradients differ in the
+    last bits) reads up to 1/(moved + 4) (2.837e-2 in w_in_y at 12 layers of
+    8 on an H100, where the phase-1 kernel's gradients read 1.4e-6 in bf16:
+    PERF.md §6); the phase-1 kernel holds those gradients in bf16 at
+    every depth, and the step's own code is held in f32. Then the three
+    kernels in f32 at DEPTH_ROUTE_LAYERS on each route of DEPTH_ROUTES, the
+    launch's plan checked to be that route's. Also 8 steps of ``run_epoch``
+    under ``fused_step='on'`` at DEPTH_ON_LAYERS layers of 32: the step
+    kernel launches. Returns the largest max abs diff of each kernel, and of
+    each by route."""
     errs = dict.fromkeys(("fused_step", "forward_sums", "mega_epoch"), 0.0)
     by_route = {}
-    for n in range(1, F._MAX_LAYERS + 1):
+    one_pass = (-(-B // F.cluster_size()), 128, 0)
+    for n in DEPTH_LAYERS:
         for mm in ("float32", "bfloat16"):
-            runs = depth_runs(n, mm, dev, mega=mm == "float32")
+            plan = {}
+            runs = depth_runs(n, mm, dev, mega=mm == "float32", b=B, plan=plan)
+            got_plan = tuple(plan[k] for k in ("tile_rows", "stage_rows", "sub_rows"))
+            check(got_plan == one_pass, f"shapes.depths.h{DEPTH_WIDTH}x{n}: the launch's plan "
+                  f"{got_plan}, not {one_pass}")
             for kernel, (ref, got, start) in runs.items():
-                errs[kernel] = max(errs[kernel], compare(
-                    f"shapes.depths.h{DEPTH_WIDTH}x{n}.{kernel}[{mm}]", ref, got, TOL[mm],
-                    start))
+                name = f"shapes.depths.h{DEPTH_WIDTH}x{n}.{kernel}[{mm}]"
+                if kernel == "fused_step" and mm == "bfloat16" and n > DEPTH_BF16_STEP_LAYERS:
+                    found, _ = compare_errs(ref, got, start)
+                    worst = max(found, key=found.get)
+                    w0 = start["w_in_y"].double()
+                    moved = float((ref["w_in_y"].double() - w0).abs().max())
+                    phase(name, gated=False, max_err=found[worst], worst_leaf=worst,
+                          w_in_y_moved_ulps=moved / (F32_ULP * float(w0.abs().max())))
+                    continue
+                errs[kernel] = max(errs[kernel], compare(name, ref, got, TOL[mm], start))
+    # under fused_step='on' at the flagship's width of 32: 8 steps launch
+    for n in DEPTH_ON_LAYERS:
+        cfg = flagship().replace(hidden_sizes=(32,) * n, fused_step="on")
+        ys = spikes(8, B, cfg.ydim, dev, seed=95)
+        F.reset_launches()
+        res = core.run_epoch(cfg, StepFlags(), core.init_state(0, cfg, device=dev), ys,
+                             torch.zeros((8, B, 0), device=dev), 96,
+                             torch.tensor(cfg.lr, device=dev))
+        launched = dict(F.launches)
+        check(launched["fused_step"] == 8 and bool(torch.isfinite(res.metrics.loss).all()),
+              f"shapes.depths.on.h32x{n}: launches {launched}")
+        phase(f"shapes.depths.on.h32x{n}", fused_step="on", steps=8, launches=launched)
     for route, (b, n_rbf, want) in DEPTH_ROUTES.items():
         r_errs = by_route[route] = dict.fromkeys(errs, 0.0)
         for n in DEPTH_ROUTE_LAYERS:
@@ -1469,6 +1589,118 @@ def check_depths(dev) -> dict:
                     f"shapes.depths.{route}.h{DEPTH_WIDTH}x{n}.{kernel}[float32]", ref, got,
                     TOL["float32"], start))
     return {**errs, "by_route": by_route}
+
+
+def check_plans(dev) -> dict:
+    """Each tile plan of the L2 route in PLAN_ROWS at its shape: the launch's
+    plan (tile_rows, stage_rows, sub_rows) from ``cluster_info`` checked
+    against the row and against the tests' mirror
+    (``tests/torch_tile_plan.py:tile_plan``); then, from a state after
+    PLAN_WARM warm-up steps through the kernels with its weight posterior
+    reset so that the first step's tau is PLAN_TAU0 (the Newton-Schulz
+    iterations run in every launch, as the main path's do past its first
+    epoch), one step with the exact fallback, one phase-1 launch and a mega
+    segment of PLAN_STEPS steps through the kernels against their plain
+    versions at TOL (f32), each with its planted faults rejected. Returns
+    the largest max abs diff of each kernel by plan."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import torch_tile_plan as TP
+
+    flags, t_len, tol = StepFlags(), PLAN_WARM + PLAN_STEPS, TOL["float32"]
+    lo, seg = PLAN_WARM, slice(PLAN_WARM, PLAN_WARM + PLAN_STEPS)
+    out = {}
+    for key, (ydim, n_rbf, masks) in PLAN_ROWS.items():
+        # 16x16x8, or 4x16x16.mask for a key with a fourth entry
+        tag, want = "x".join(map(str, key[:3])) + "".join(f".{k}" for k in key[3:]), key[:3]
+        t0 = time.perf_counter()
+        cfg = flagship("float32").replace(ydim=ydim, n_rbf=n_rbf)
+        ys = spikes(t_len, B, ydim, dev, seed=100)
+        us = torch.zeros((t_len, B, 0), device=dev)
+        lr = torch.tensor(cfg.lr, device=dev)
+        eps = torch.randn((2, PLAN_STEPS, B, cfg.xdim), device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(101))
+        mask = cmask = None
+        if masks:
+            _, _, m, cm, _ = masked_data(ys, seed=102)
+            mask = m if masks in ("mask", "both") else None
+            cmask = cm if masks in ("cmask", "both") else None
+            ys = holes(ys, mask, cmask)
+
+        def mk(rows):
+            return {k: v[rows] for k, v in (("mask", mask), ("channel_mask", cmask))
+                    if v is not None}
+
+        warm = core.run_epoch(cfg, StepFlags(warm_up=True), core.init_state(0, cfg, device=dev),
+                              ys[:lo], us[:lo], 103, lr, **mk(slice(0, lo)))
+        qm, qlv = warm.q_means[-1].contiguous(), warm.q_logvars[-1].contiguous()
+        m0 = None if mask is None else mask[lo]
+        c0 = None if cmask is None else cmask[lo]
+        m_seg = None if mask is None else mask[seg]
+        c_seg = None if cmask is None else cmask[seg]
+        s_args = (qm, qlv, ys[lo], eps[0, 0], eps[1, 0], lr)
+
+        def reset(c):
+            d = warm.state.dynamics
+            eye = torch.eye(d.blr.precision.shape[0], device=dev)
+            blr = d.blr._replace(w_mean=torch.zeros_like(d.blr.w_mean), precision=c * eye,
+                                 cov=eye / c)
+            return F.pad_carry(cfg, warm.state._replace(dynamics=d._replace(blr=blr)))
+
+        # tau falls as 1 / c: one plain step at a first guess sets c
+        c = B / (PLAN_TAU0 * float(torch.exp(warm.state.dynamics.logvar)))
+        probe = F.fused_step_plain(cfg, flags, reset(c), qm, qlv, ys[lo], None, *s_args[3:],
+                                   mask=m0, cmask=c0)
+        carry = reset(c * float(probe.scal[0, 4]) / PLAN_TAU0)
+        start = flatten(carry._asdict())
+        info = F.cluster_info(cfg, flags, carry, qm, qlv, ys[seg], None, lr, mask=m_seg,
+                              cmask=c_seg)
+        got_plan = tuple(info[k] for k in ("tile_rows", "stage_rows", "sub_rows"))
+        mirror = TP.tile_plan(cfg, B, mask is not None, cmask is not None)
+        check(got_plan == want == (mirror.tile, mirror.kc, mirror.sp),
+              f"shapes.plans.{tag}: the launch's plan {got_plan}, the mirror's {mirror}")
+        errs = out[tag] = {}
+        ref = masked_prefix_step(F.fused_step_plain, cfg, flags, clone(carry), *s_args, mask=m0,
+                                 cmask=c0)
+        got = masked_prefix_step(F.fused_step_call, cfg, flags, clone(carry), *s_args, mask=m0,
+                                 cmask=c0)
+        errs["fused_step"] = compare(f"shapes.plans.{tag}.step", packed(ref), packed(got), tol,
+                                     start)
+        for fault, (fcfg, fflags) in faults(cfg, flags).items():
+            bad = masked_prefix_step(F.fused_step_call, fcfg, fflags, clone(carry), *s_args,
+                                     mask=m0, cmask=c0)
+            compare(f"shapes.plans.{tag}.step.fault.{fault}", packed(ref), packed(bad), tol,
+                    start, reject=True)
+        inv_b = 1.0 / (float(m0.sum()) if m0 is not None else B)
+        sums_args = (qm, qlv, ys[lo], None, *s_args[3:5], inv_b)
+        s_ref = sums_leaves(*F.forward_sums_plain(cfg, flags, carry, *sums_args, mask=m0,
+                                                  cmask=c0), carry, c0 is not None)
+        s_got = sums_leaves(*F.forward_sums_call(cfg, flags, carry, *sums_args, mask=m0,
+                                                 cmask=c0), carry, c0 is not None)
+        errs["forward_sums"] = compare(f"shapes.plans.{tag}.forward_sums", s_ref, s_got, tol, {})
+        for fault, (fcfg, fflags) in (("other_precision", (cfg.replace(
+                matmul_dtype="bfloat16"), flags)),
+                ("no_sgd", (cfg, dataclasses.replace(flags, sgd=False)))):
+            bad = sums_leaves(*F.forward_sums_call(fcfg, fflags, carry, *sums_args, mask=m0,
+                                                   cmask=c0), carry, c0 is not None)
+            compare(f"shapes.plans.{tag}.forward_sums.fault.{fault}", s_ref, bad, tol, {},
+                    reject=True)
+        m_args = (qm, qlv, ys[seg], None, eps[0], eps[1], lr)
+        m_ref = F.mega_epoch_plain(cfg, flags, clone(carry), *m_args, mask=m_seg, cmask=c_seg)
+        m_got = F.mega_epoch_call(cfg, flags, clone(carry), *m_args, mask=m_seg, cmask=c_seg)
+        errs["mega_epoch"] = compare(f"shapes.plans.{tag}.mega", segment(*m_ref),
+                                     segment(*m_got), tol, start)
+        for fault, (fcfg, fflags) in faults(cfg, flags).items():
+            bad = F.mega_epoch_call(fcfg, fflags, clone(carry), *m_args, mask=m_seg, cmask=c_seg)
+            compare(f"shapes.plans.{tag}.mega.fault.{fault}", segment(*m_ref), segment(*bad),
+                    tol, start, reject=True)
+        torch.cuda.synchronize()
+        phase(f"shapes.plans.{tag}", plan=list(got_plan), ydim=ydim, padded_features=n_rbf,
+              masks=masks or "none", trials=B, smem_bytes=info["smem_bytes"],
+              registers=info["registers"], local_bytes=info["local_bytes"],
+              step_tau=float(got.scal[0, 4]), mega_tau=[float(m_got[2][:, 4].min()),
+                                                       float(m_got[2][:, 4].max())],
+              max_abs_err=errs, seconds=time.perf_counter() - t0)
+    return out
 
 
 def check_shape(tag, cfg, b, masked, rls_epochs, dev, group, smi) -> dict:
@@ -1559,7 +1791,6 @@ def check_shape(tag, cfg, b, masked, rls_epochs, dev, group, smi) -> dict:
     errs = dict.fromkeys(("fused_step", "mega_epoch", "forward_sums"), 0.0)
     for mm in ("float32", "bfloat16"):
         c = cfg.replace(matmul_dtype=mm)
-        tol = TOL[mm]
         carry = F.pad_carry(c, check_state)
         start = flatten(carry._asdict())
         s_args = (qm_w, qlv_w, y0, e_s, e_t, lr)
@@ -1569,12 +1800,19 @@ def check_shape(tag, cfg, b, masked, rls_epochs, dev, group, smi) -> dict:
                                  cmask=c0)
         phase(f"shapes.{tag}.step[{mm}].tau", plain=float(ref.scal[0, 4]),
               kernel=float(got.scal[0, 4]))
+        st_tol = shape_limit(tag, "fused_step", mm, packed(ref))
         errs["fused_step"] = max(errs["fused_step"], compare(
-            f"shapes.{tag}.step[{mm}]", packed(ref), packed(got), tol, start))
+            f"shapes.{tag}.step[{mm}]", packed(ref), packed(got), st_tol, start))
+        if (tag, "fused_step", mm) in SHAPE_LIMITS:
+            f64 = c.replace(dtype="float64", matmul_dtype="float32")
+            st_64 = masked_prefix_step(F.fused_step_plain, f64, flags, as_f64(carry),
+                                       *as_f64(s_args), mask=m0, cmask=c0)
+            vs_float64(f"shapes.{tag}.step[{mm}]", packed(st_64), packed(got), packed(ref),
+                       start, SHAPE_LIMITS[(tag, "fused_step", mm)])
         for fault, (fcfg, fflags) in faults(c, flags).items():
             bad = masked_prefix_step(F.fused_step_call, fcfg, fflags, clone(carry), *s_args,
                                      mask=m0, cmask=c0)
-            compare(f"shapes.{tag}.step[{mm}].fault.{fault}", packed(ref), packed(bad), tol,
+            compare(f"shapes.{tag}.step[{mm}].fault.{fault}", packed(ref), packed(bad), st_tol,
                     start, reject=True)
         sums_args = (qm_w, qlv_w, y0, None, e_s, e_t, inv_b)
         s_ref = sums_leaves(*F.forward_sums_plain(c, flags, carry, *sums_args, mask=m0,
@@ -1584,6 +1822,12 @@ def check_shape(tag, cfg, b, masked, rls_epochs, dev, group, smi) -> dict:
         s_tol = shape_limit(tag, "forward_sums", mm, s_ref)
         errs["forward_sums"] = max(errs["forward_sums"], compare(
             f"shapes.{tag}.forward_sums[{mm}]", s_ref, s_got, s_tol, {}))
+        if (tag, "forward_sums", mm) in SHAPE_LIMITS:
+            f64 = c.replace(dtype="float64", matmul_dtype="float32")
+            s_64 = sums_leaves(*F.forward_sums_plain(f64, flags, as_f64(carry), *as_f64(sums_args),
+                                                     mask=m0, cmask=c0), carry, c0 is not None)
+            vs_float64(f"shapes.{tag}.forward_sums[{mm}]", s_64, s_got, s_ref, {},
+                       SHAPE_LIMITS[(tag, "forward_sums", mm)])
         for fault, (fcfg, fflags) in (("other_precision", (c.replace(
                 matmul_dtype=other_precision(mm)), flags)),
                 ("no_sgd", (c, dataclasses.replace(flags, sgd=False)))):
@@ -1602,6 +1846,12 @@ def check_shape(tag, cfg, b, masked, rls_epochs, dev, group, smi) -> dict:
         m_tol = shape_limit(tag, "mega_epoch", mm, segment(*m_ref))
         errs["mega_epoch"] = max(errs["mega_epoch"], compare(
             f"shapes.{tag}.mega[{mm}]", segment(*m_ref), segment(*m_got), m_tol, start))
+        if (tag, "mega_epoch", mm) in SHAPE_LIMITS:
+            f64 = c.replace(dtype="float64", matmul_dtype="float32")
+            m_64 = F.mega_epoch_plain(f64, flags, as_f64(carry), *as_f64(m_args), mask=m_seg,
+                                      cmask=c_seg)
+            vs_float64(f"shapes.{tag}.mega[{mm}]", segment(*m_64), segment(*m_got),
+                       segment(*m_ref), start, SHAPE_LIMITS[(tag, "mega_epoch", mm)])
         for fault, (fcfg, fflags) in faults(c, flags).items():
             bad = F.mega_epoch_call(fcfg, fflags, clone(carry), *m_args, mask=m_seg, cmask=c_seg)
             compare(f"shapes.{tag}.mega[{mm}].fault.{fault}", segment(*m_ref), segment(*bad),
@@ -3843,10 +4093,15 @@ def main() -> int:
     shapes = check_shapes(dev, smi)
     t_depths = time.perf_counter()
     depths = check_depths(dev)
-    phase("shapes.depths", layers=list(range(1, F._MAX_LAYERS + 1)), width=DEPTH_WIDTH,
+    phase("shapes.depths", layers=list(DEPTH_LAYERS), width=DEPTH_WIDTH,
           routes={r: {"trials": b, "n_rbf": n or flagship().n_rbf, "plan": plan,
                       "layers": DEPTH_ROUTE_LAYERS} for r, (b, n, plan) in DEPTH_ROUTES.items()},
           max_abs_err=depths, seconds=time.perf_counter() - t_depths)
+    t_plans = time.perf_counter()
+    plans = check_plans(dev)
+    phase("shapes.plans", plans=list(plans), trials=B, warm_up_steps=PLAN_WARM,
+          mega_steps=PLAN_STEPS, max_abs_err={k: max(v.values()) for k, v in plans.items()},
+          seconds=time.perf_counter() - t_plans)
 
     # ---------------- bounds: the least time one card could take ----------------
     # each input read once and each output written once (step_mega_bounds)

@@ -119,7 +119,7 @@ def worker(dest: Path, depths: bool) -> None:
                      if "vjf_" in ln and "Compiling" in ln or "spill" in ln]}
     if depths and hasattr(cs, "depth_runs"):
         found = {}
-        for n in range(1, F._MAX_LAYERS + 1):
+        for n in range(1, 9):   # the depths every tree since the trial tiles takes
             for mm in ("float32", "bfloat16"):
                 for kernel, (ref, got, start) in cs.depth_runs(n, mm, dev).items():
                     errs, _ = cs.compare_errs(ref, got, start)

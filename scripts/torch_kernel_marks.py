@@ -50,8 +50,8 @@ MARKS = [
     (2, "F V, F w, first layer", "before",
      "for (int b = tid >> 5; b < nb; b += NWARPS) {  // a warp per trial"),
     (3, "fvf, tanh", "before",
-     "for (int l = 1; l < L; ++l) {\n    const int hi = a.h[l], hp = a.h[l - 1];\n"
-     "    mm(nb, hi, hp, rowmaj(s.hs[l - 1]"),
+     "for (int l = 1; l < L; ++l) {\n    const int hi = a.widths[l], hp = a.widths[l - 1];\n"
+     "    mm(nb, hi, hp, rowmaj(ly[l - 1].hs"),
     (4, "hidden layers, heads", "before",
      "{\n    float* qp = a.q_pack"),
     (5, "posterior elementwise, q_pack", "before",

@@ -1,9 +1,11 @@
 """Reproduces the fault ptxas -O2/-O3 built into csrc/fused_step.cu at 3 and 4 hidden layers.
 
-    python3 scripts/torch_o3_repro.py [--tree DIR] [--variants OPT[+cond|+branch],...]
+    python3 scripts/torch_o3_repro.py --tree DIR [--variants OPT[+cond|+branch],...]
 
-Each variant is a copy of the tree's ``vjf_tpu_torch`` and ``chip_smoke.py``
-(the repository by default), one directory a tree and variant under the
+DIR is a source tree whose kernel holds the hidden layers in arrays of eight
+(``MAX_LAYERS``; the tree before the layer table, 76821d2, or earlier). Each
+variant is a copy of the tree's ``vjf_tpu_torch`` and ``chip_smoke.py``, one
+directory a tree and variant under the
 git-ignored ``build/o3repro/``, built with ptxas at the level OPT (all builds at
 once, one nvcc each), with one audit added to the kernel: thread 0 of each
 block of member 0 saves the block's shared-memory header (the arguments and
@@ -253,7 +255,7 @@ def worker(dest: Path) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--variants", default="3,1")
-    ap.add_argument("--tree", default=str(ROOT))
+    ap.add_argument("--tree", required=True)
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:

@@ -2,9 +2,14 @@
 (``cluster_rows``), and what the kernels rely on: phase 1 on the blocks'
 ragged trial slices, each with its row offset and the whole batch's 1/B,
 summed in rank order, is phase 1 on the whole batch. Also what ``_launch``
-refuses without a card. The JAX package's phase 1 is the reference for the
+takes and refuses without a card. The JAX package's phase 1 is the reference for the
 summed slices."""
+import contextlib
+import ctypes
 import dataclasses
+import sys
+import types
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -160,57 +165,131 @@ def test_launch_refuses_a_cpu_tensor():
         TF._launch("mega_epoch", *_launch_args(_cfg(dtype="float32")))
 
 
+class _RecordingLib(TP.MirrorLib):
+    """The mirror's size queries, and launchers that record what they are
+    given: the arguments, and the layer table the kernel would copy."""
+
+    def __init__(self):
+        self.calls = []
+
+    def vjf_workspace_floats(self, args):
+        return 1
+
+    def vjf_mega_epoch(self, args, stream):
+        a = args._obj
+        table = torch.frombuffer((ctypes.c_int64 * (3 * a.n_layers)).from_address(a.layers),
+                                 dtype=torch.int64).reshape(a.n_layers, 3).clone()
+        self.calls.append((a.n_layers, a.widths[:a.n_layers], table))
+        return 0
+
+
 @pytest.mark.parametrize("kw, what", [
-    (dict(hidden_sizes=(8,) * 9), "hidden layers"),
-    (dict(hidden_sizes=(3,) * 16), "hidden layers"),
+    (dict(hidden_sizes=(8,) * 9), None),
+    (dict(hidden_sizes=(3,) * 16), None),
     (dict(hidden_sizes=(16000,)), "shared memory"),
 ])
 def test_launch_refuses_a_shape_the_kernel_does_not_take(kw, what, monkeypatch):
-    """More hidden layers than the kernel unrolls, or a block past the
-    card's shared memory at the smallest plan (a hidden layer of 16,000: a
-    tile's activations alone; 512 padded features, refused until the panels
-    could live in L2, are taken), with host tensors standing in for the
-    card's."""
-    monkeypatch.setattr(TF, "_library", lambda: TP.MirrorLib())
+    """A block past the card's shared memory at the smallest plan (a hidden
+    layer of 16,000: a tile's activations alone; 512 padded features,
+    refused until the panels could live in L2, are taken) is refused; nine
+    and sixteen hidden layers, refused until the layer table replaced the
+    kernel's arrays of eight, reach the library's launch with every layer in
+    the table (weights, bias, width). Host tensors stand in for the card's."""
+    lib = _RecordingLib()
+    monkeypatch.setattr(TF, "_library", lambda: lib)
     monkeypatch.setattr(TF, "_ptr", lambda t, *a, **k: None if t is None else t.data_ptr())
-    with pytest.raises(ValueError, match=what):
-        TF._launch("mega_epoch", *_launch_args(_cfg(dtype="float32", **kw)))
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda d=None: types.SimpleNamespace(
+        cuda_stream=0))
+    args = _launch_args(_cfg(dtype="float32", **kw))
+    if what is not None:
+        with pytest.raises(ValueError, match=what):
+            TF._launch("mega_epoch", *args)
+        assert not lib.calls
+        return
+    TF._launch("mega_epoch", *args)
+    widths, carry = list(kw["hidden_sizes"]), args[2]
+    assert [(n, w) for n, w, _ in lib.calls] == [(len(widths), widths)]
+    table = lib.calls[0][2]
+    assert table[:, 2].tolist() == widths
+    assert table[0, 0] == 0 and table[1:, 0].tolist() == [w.data_ptr() for w in carry.w_hidden]
+    assert table[:, 1].tolist() == [b.data_ptr() for b in carry.b_hidden]
 
 
+# (config, trials, trial mask, channel mask, the plan recorded: tile_rows,
+# stage_rows, sub_rows); the last rows are chip_smoke.py's "shapes.plans"
 MIRROR_SHAPES = [
-    (dict(), 256, False, False), (dict(), 256, True, True), (dict(), 512, False, False),
-    (dict(), 1024, False, False), (dict(), 512, True, True), (dict(n_rbf=200), 256, False, True),
-    (dict(dynamics="sgp", n_inducing=200), 256, False, False),
-    (dict(hidden_sizes=(64, 64, 64, 64)), 256, False, False),
-    (dict(hidden_sizes=(128,)), 256, False, False), (dict(hidden_sizes=(8,) * 8), 300, True, False),
-    (dict(udim=3, hidden_sizes=(32, 16)), 2048, False, False), (dict(n_rbf=400), 256, False, False),
-    (dict(dynamics="sgp", n_inducing=400), 256, False, False), (dict(n_rbf=200), 256, True, True),
-    (dict(), 4096, False, False), (dict(), 8192, True, True), (dict(n_rbf=1000), 256, True, True),
-]
+    (dict(), 256, False, False, (32, 128, 0)), (dict(), 256, True, True, (32, 128, 0)),
+    (dict(), 512, False, False, (32, 128, 0)), (dict(), 1024, False, False, (32, 128, 0)),
+    (dict(), 512, True, True, (16, 128, 0)), (dict(n_rbf=200), 256, False, True, (32, 16, 16)),
+    (dict(dynamics="sgp", n_inducing=200), 256, False, False, (32, 16, 0)),
+    (dict(hidden_sizes=(64, 64, 64, 64)), 256, False, False, (32, 128, 0)),
+    (dict(hidden_sizes=(128,)), 256, False, False, (32, 128, 0)),
+    (dict(hidden_sizes=(8,) * 8), 300, True, False, (38, 128, 0)),
+    (dict(udim=3, hidden_sizes=(32, 16)), 2048, False, False, (16, 128, 0)),
+    (dict(n_rbf=400), 256, False, False, (16, 16, 16)),
+    (dict(dynamics="sgp", n_inducing=400), 256, False, False, (16, 16, 16)),
+    (dict(n_rbf=200), 256, True, True, (32, 16, 16)), (dict(), 4096, False, False, (48, 128, 16)),
+    (dict(), 8192, True, True, (32, 128, 16)), (dict(n_rbf=1000), 256, True, True, (8, 8, 8)),
+    (dict(hidden_sizes=(32,) * 9), 256, False, False, (32, 128, 0)),
+    (dict(hidden_sizes=(3,) * 16), 256, True, True, (32, 128, 0)),
+    (dict(hidden_sizes=(32,) * 16), 4096, False, True, (16, 128, 16)),
+] + [(dict(ydim=yd, n_rbf=n_rbf), 256, m in ("mask", "both"), m in ("cmask", "both"), plan[:3])
+     for plan, (yd, n_rbf, m) in [
+         ((16, 16, 8), (200, 768, "")), ((8, 16, 16), (200, 640, "cmask")),
+         ((8, 16, 8), (200, 768, "cmask")), ((8, 16, 4), (200, 896, "")),
+         ((8, 8, 4), (200, 1280, "")), ((8, 4, 4), (200, 1408, "cmask")),
+         ((8, 8, 8), (200, 1024, "both")), ((4, 128, 16), (2500, 128, "")),
+         ((4, 16, 16), (2500, 256, "")), ((4, 16, 16), (2500, 256, "mask")),
+         ((4, 32, 4), (2500, 128, "cmask")), ((4, 16, 4), (200, 896, "cmask")),
+         ((4, 8, 8), (200, 1152, "cmask")), ((4, 4, 8), (2500, 896, "")),
+         ((4, 8, 4), (200, 1408, "")), ((4, 4, 4), (200, 1664, "cmask"))]]
+_MIRROR_BASE = dict(ydim=200, xdim=10, n_rbf=100, hidden_sizes=(32,), likelihood="poisson",
+                    dtype="float32", rls_backend="nsv")
+
+
+@pytest.mark.parametrize("kw, b, mask, cmask, plan", MIRROR_SHAPES)
+def test_mirror_plans_are_the_recorded_ones(kw, b, mask, cmask, plan):
+    """The mirror's plan of each shape is the one recorded here (and, for
+    the shapes.plans rows, the plan chip_smoke.py names the row by), within
+    the card's shared memory: a change to the head of a block's shared
+    memory or to the plan that moves one shows here."""
+    cfg = tcfg.VJFConfig(**{**_MIRROR_BASE, **kw})
+    got = TP.tile_plan(cfg, b, mask, cmask, cluster=8)
+    assert (got.tile, got.kc, got.sp) == plan and got.smem_bytes <= TP.SMEM_LIMIT
+
+
+def test_chip_smoke_plan_rows_are_the_mirrors():
+    """Every row of chip_smoke.py's PLAN_ROWS is a MIRROR_SHAPES row with the
+    plan it is keyed by."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    rows = {(kw.get("ydim"), kw.get("n_rbf"), m, c): p for kw, _, m, c, p in MIRROR_SHAPES}
+    for key, (yd, n_rbf, masks) in chip_smoke.PLAN_ROWS.items():
+        m, c = masks in ("mask", "both"), masks in ("cmask", "both")
+        assert rows[(yd, n_rbf, m, c)] == key[:3], key
 
 
 @pytest.mark.card
-@pytest.mark.parametrize("kw, b, mask, cmask", MIRROR_SHAPES)
-def test_tile_plan_mirror_matches_the_library(kw, b, mask, cmask):
+@pytest.mark.parametrize("kw, b, mask, cmask, plan", MIRROR_SHAPES)
+def test_tile_plan_mirror_matches_the_library(kw, b, mask, cmask, plan):
     """The tests' mirror of the kernels' tile plan and shared-memory layout
     (``tests/torch_tile_plan.py``) against the library's own answers:
     ``vjf_smem_bytes`` and the tile, chunk and sub-panel of
-    ``vjf_cluster_info``."""
+    ``vjf_cluster_info``, which must be the plan recorded."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the library's size queries)")
-    import ctypes
-
-    base = dict(ydim=200, xdim=10, n_rbf=100, hidden_sizes=(32,), likelihood="poisson",
-                dtype="float32", rls_backend="nsv")
-    cfg = tcfg.VJFConfig(**{**base, **kw})
+    cfg = tcfg.VJFConfig(**{**_MIRROR_BASE, **kw})
     lib = TF._library()
     a = TF._dims(cfg, b, mask=mask, cmask=cmask)
-    plan = TP.plan_of(a)
-    assert lib.vjf_smem_bytes(ctypes.byref(a)) == plan.smem_bytes
-    if plan.smem_bytes <= lib.vjf_smem_limit():
+    got = TP.plan_of(a)
+    assert lib.vjf_smem_bytes(ctypes.byref(a)) == got.smem_bytes
+    if got.smem_bytes <= lib.vjf_smem_limit():
         out = (ctypes.c_int * 9)()
         assert lib.vjf_cluster_info(ctypes.byref(a), out) == 0
-        assert (out[2], out[6], out[7], out[8]) == (plan.smem_bytes, plan.tile, plan.kc, plan.sp)
+        assert (out[2], out[6], out[7], out[8]) == (got.smem_bytes, got.tile, got.kc, got.sp)
+        assert (out[6], out[7], out[8]) == plan
 
 
 @pytest.mark.card

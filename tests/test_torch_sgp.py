@@ -663,8 +663,9 @@ def test_sgp_routes_small_batches_as_the_reference_does(on_card):
 
 
 # Shapes the TPU kernels take that the CUDA kernels refused until phase 1
-# ran in trial tiles and the Newton-Schulz operand was staged in chunks, and
-# (the last three) until the panels and the trials' state could live in L2
+# ran in trial tiles and the Newton-Schulz operand was staged in chunks,
+# until the panels and the trials' state could live in L2 (n_rbf=400 to
+# B=65536), and until the layer table replaced the arrays of eight layers
 LIMIT_CASES = {
     "n_rbf=200": (dict(n_rbf=200), 8),
     "n_inducing=200": (dict(dynamics="sgp", n_inducing=200), 8),
@@ -673,6 +674,8 @@ LIMIT_CASES = {
     "n_rbf=400": (dict(n_rbf=400), 8),
     "n_inducing=400": (dict(dynamics="sgp", n_inducing=400), 8),
     "B=65536": (dict(), 65536),
+    "nine_layers": (dict(hidden_sizes=(5,) * 9), 8),
+    "sixteen_layers": (dict(hidden_sizes=(3,) * 16), 8),
 }
 
 
@@ -694,12 +697,13 @@ def test_kernel_limits_gate_agrees_with_launch(case, on_card, caplog):
     assert not caplog.records
 
 
-# Configurations still past the kernels' limits: more layers than the kernel
-# unrolls, and a block past the card's shared memory at the smallest plan of
-# the L2 route (one trial a tile, chunks and sub-panels of 4 rows), which
-# only an input or a layer far wider than any configuration reaches
+# Configurations still past the kernels' limits: a block past the card's
+# shared memory at the smallest plan of the L2 route (one trial a tile,
+# chunks and sub-panels of 4 rows), which only an input or a layer far wider
+# than any configuration reaches, at any depth (nine layers, the last one
+# that wide: any number of layers is taken, their activations counted)
 REFUSED_CASES = {
-    "nine_layers": (dict(hidden_sizes=(5,) * 9), 8),
+    "nine_layers": (dict(hidden_sizes=(5,) * 8 + (16000,)), 8),
     "ydim=20000": (dict(ydim=20000), 8),
     "hidden=(16000,)": (dict(hidden_sizes=(16000,)), 8),
 }
@@ -716,10 +720,9 @@ def test_kernel_limits_refuse_past_the_smallest_tile(case, on_card, caplog, monk
     on_card(None)
     reason = TF.kernel_limits(cfg, b)
     assert reason is not None
-    if case != "nine_layers":
-        assert TF.kernel_limits(cfg, b, on_card=False) is None
-        assert "shared memory" in reason and "smallest trial tile" in reason
-        assert str(TP.tile_plan(cfg, b).smem_bytes) in reason
+    assert TF.kernel_limits(cfg, b, on_card=False) is None
+    assert "shared memory" in reason and "smallest trial tile" in reason
+    assert str(TP.tile_plan(cfg, b).smem_bytes) in reason
     state = tcore.init_state(0, cfg, device="cpu")
     with caplog.at_level(logging.WARNING, logger=TF.__name__):
         assert not TF.fused_enabled(cfg, state, n_batch=b)

@@ -3,7 +3,10 @@ phase 1 over tiles of a block's trials and stage the Newton-Schulz operand
 in chunks: 256 padded features (RBF and SGP), a hidden layer of width 96 and
 four hidden layers; and since the L2 route (the trials' state and phase 2's
 panels in the L2 workspace, the Newton-Schulz left operand staged in
-sub-panels): 384 and 512 padded features (RBF and SGP). The port's plain
+sub-panels): 384 and 512 padded features (RBF and SGP); and since the
+layer table (the hidden layers' weights, biases and widths copied into each
+block's shared memory in place of arrays of eight): nine and twelve hidden
+layers, and the state of nine layers through ``convert``. The port's plain
 versions of the three kernels at those shapes against the JAX package's
 Pallas kernels in interpret mode, on the same numpy inputs and injected
 noise; one epoch through ``run_epoch(fused_step='on')`` at 256 padded
@@ -46,6 +49,8 @@ SHAPES = {
     "n_inducing=300": dict(dynamics="sgp", n_inducing=300),
     "n_rbf=400": dict(n_rbf=400),
     "n_inducing=400": dict(dynamics="sgp", n_inducing=400),
+    "nine_layers": dict(hidden_sizes=(8,) * 9),
+    "twelve_layers": dict(hidden_sizes=(4, 5, 6, 7, 8, 4, 5, 6, 7, 8, 6, 5)),
 }
 # padded features of the shapes that set them; the L2 route past 256
 PADDED = {"n_rbf=200": 256, "n_inducing=200": 256, "n_rbf=300": 384, "n_inducing=300": 384,
@@ -178,6 +183,28 @@ def test_forward_sums_plain_matches_the_pallas_kernel(shape_runs, name):
                 {"qt_m": np.asarray(rqm), "qt_lv": np.asarray(rqlv)})
 
 
+def test_convert_carries_nine_hidden_layers_both_ways():
+    """A JAX state of nine hidden layers through ``state_from_numpy`` and
+    back (``state_to_numpy``), leaf for leaf and bit for bit, and its
+    ensemble form (``ensemble_from_numpy``/``ensemble_to_numpy``)."""
+    cfg = _cfg(hidden_sizes=(3, 4, 5, 6, 7, 8, 7, 6, 5))
+    tc = _port_cfg(cfg)
+    state = jax.tree.map(np.asarray, _j_init_state(jax.random.PRNGKey(3), cfg))
+    tstate = convert.state_from_numpy(tc, state, device="cpu")
+    assert [lin.weight.shape[0] for lin in tstate.params.recognition.layers] == [3, 4, 5, 6, 7,
+                                                                                8, 7, 6, 5]
+    want, got = _flat_jax(state), convert.flatten(convert.state_to_numpy(tstate))
+    assert sum("recognition.layers." in k for k in got) == 18
+    assert got.keys() == want.keys()
+    for k in want:
+        assert np.array_equal(got[k], want[k]), k
+    stacked = jax.tree.map(lambda *x: np.stack(x), state, state)
+    members = convert.ensemble_from_numpy(tc, stacked, device="cpu")
+    back = convert.flatten(convert.ensemble_to_numpy(members))
+    for k, v in _flat_jax(stacked).items():
+        assert np.array_equal(back[k], v), k
+
+
 def test_fused_epoch_at_256_padded_features_matches_jax():
     """``run_epoch(fused_step='on')`` at n_rbf 200 on CPU tensors (the plain
     versions: the per-step prefix with the exact fallback, then the mega
@@ -247,8 +274,8 @@ def test_tile_plan_keeps_one_tile_where_the_parent_layout_fits(name):
             plan = TP.tile_plan(cfg, b, mask, cmask)
             assert plan.tile == -(-b // 8) and plan.kc == TF._round_up(cfg.feature_dim)
             # the parent's layout, with the head grown from 1,440 bytes to
-            # _HEADER_BYTES (8 layers, the plan) and the 8 ELBO sums
-            assert plan.smem_bytes <= old + TP.HEADER_BYTES - 1440 + 32
+            # head_bytes (the layer table, the plan) and the 8 ELBO sums
+            assert plan.smem_bytes <= old + TP.head_bytes(len(cfg.hidden_sizes)) - 1440 + 32
             seen += 1
     assert seen > 0 or name == "n_rbf=200"
 
@@ -307,6 +334,7 @@ CARD_SHAPES = {
     "n_inducing=400": (_flagship(dynamics="sgp", n_inducing=400), 256, False, False),
     "n_rbf=200,masks": (_flagship(n_rbf=200), 256, True, True),
     "B=4096": (_flagship(), 4096, False, False),
+    "hidden=(32,)*9": (_flagship(hidden_sizes=(32,) * 9), 256, False, False),
 }
 # the card shapes that take the L2 route
 L2_SHAPES = ("n_rbf=400", "n_inducing=400", "n_rbf=200,masks", "B=4096")
@@ -334,6 +362,20 @@ def test_card_shapes_take_the_kernels(name, monkeypatch, caplog):
     assert (plan.sp > 0) == (name in L2_SHAPES)
     if not plan.sp:
         assert (plan.tile < -(-b // 8)) == (b > 256)
+
+
+@pytest.mark.parametrize("n_layers", [9, 12, 16])
+def test_kernel_limits_take_any_number_of_layers(n_layers, monkeypatch):
+    """The flagship at 9, 12 and 16 hidden layers of 32 and 256 trials is
+    within the kernels' limits (the shared-memory query answered by the
+    mirror; the arrays of eight layers refused a ninth), on one tile, the
+    whole operand staged."""
+    monkeypatch.setattr(TF, "_library", lambda: TP.MirrorLib())
+    cfg = _flagship(hidden_sizes=(32,) * n_layers)
+    assert TF.kernel_limits(cfg, 256, on_card=False) is None
+    assert TF.kernel_limits(cfg, 256) is None
+    plan = TP.tile_plan(cfg, 256)
+    assert (plan.tile, plan.kc, plan.sp) == (32, 128, 0)
 
 
 # ---------------------------------------------------------------------------

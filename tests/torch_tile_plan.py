@@ -13,12 +13,16 @@ from typing import NamedTuple, Optional
 from vjf_tpu_torch.config import VJFConfig
 from vjf_tpu_torch.ops.fused_step import _Args, _dims, _round_up, cluster_size
 
-# What ``carve_smem`` and ``plan_tiles`` need beyond the shapes:
-# sizeof(Header) (the head of a block's shared memory), the threads of a
-# block, the card's shared memory a block, the trial tile's quantum, the
-# rows of a staged chunk past 128 padded features and the rows of a staged
-# sub-panel on the L2 route.
-HEADER_BYTES = 1936
+# What ``carve_smem`` and ``plan_tiles`` need beyond the shapes: the head
+# of a block's shared memory (``head_floats``: sizeof(Header) and the 9
+# other SGD leaves of 16 bytes, then a Layer of 56 bytes and a width of 4
+# for each hidden layer, at least HEAD_MIN_BYTES), the threads of a block,
+# the card's shared memory a block, the trial tile's quantum, the rows of a
+# staged chunk past 128 padded features and the rows of a staged sub-panel
+# on the L2 route.
+HEAD_FIXED_BYTES = 1136 + 9 * 16
+HEAD_LAYER_BYTES = 56 + 4
+HEAD_MIN_BYTES = 1936
 NTHREADS = 512
 SMEM_LIMIT = 232448
 TILE_QUANTUM = 16
@@ -38,6 +42,13 @@ def _panel_ksplit(prow: int, nfp: int) -> int:
     return min(max(NTHREADS // max(tiles, 1), 1), 8)
 
 
+def head_bytes(n_layers: int) -> int:
+    """Bytes of the head of a block's shared memory at ``n_layers`` hidden
+    layers (``head_floats``): 1936 up to ten layers, as it was with the
+    eight-layer arrays, so that those shapes keep their plans."""
+    return -(-max(HEAD_FIXED_BYTES + HEAD_LAYER_BYTES * n_layers, HEAD_MIN_BYTES) // 16) * 16
+
+
 def smem_floats(a: _Args, cluster: int) -> int:
     """Floats of a block's shared memory at the shapes and plan (``tile``,
     ``kc``, ``sp``) of ``a``: ``carve_smem``. With ``sp`` (the L2 route) the
@@ -49,11 +60,11 @@ def smem_floats(a: _Args, cluster: int) -> int:
         nonlocal off
         off += -(-n // 4) * 4
 
-    xd, nfp, widths, big = a.xd, a.nfp, list(a.h)[:a.n_layers], a.sp > 0
+    xd, nfp, widths, big = a.xd, a.nfp, a.widths[:a.n_layers], a.sp > 0
     rows, prow, tile = -(-a.B // cluster), -(-nfp // cluster), a.tile
     ldy, ldu, ldf = (a.yd + 3) // 4 * 4 + 4, (a.ud + 3) // 4 * 4 + 4, (nfp + 3) // 4 * 4 + 4
     ldg = (max(widths) + 3) // 4 * 4 + 4
-    take(-(-HEADER_BYTES // 16) * 4)
+    take(head_bytes(a.n_layers) // 4)
     for n in ([] if big else [rows * 2 * xd] + [rows * xd] * 4) + [8 * NTHREADS // 32, 32, 8]:
         take(n)
     if a.mask and not big:

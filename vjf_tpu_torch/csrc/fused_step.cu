@@ -91,13 +91,16 @@
 //     are computed by every block from the same reduced sums, kept in
 //     registers from step to step, and written once at the end by block 0.
 //
-// Shapes: any multiple of 128 padded features, 1 to MAX_LAYERS hidden
-// layers of any width, any number of trials, as long as a block's shared
-// memory fits MAX_SMEM_BYTES at the smallest plan (plan_tiles: on the L2
-// route tiles of 4 trials, chunks and sub-panels of 4 rows). Every number
-// of trials fits; at the flagship widths up to 1,792 padded features do;
-// only an input or a hidden layer far wider than any configuration of the
-// repository (a tile's activations and inputs alone) does not.
+// Shapes: any multiple of 128 padded features, any number of hidden layers
+// of any width, any number of trials, as long as a block's shared memory
+// fits MAX_SMEM_BYTES at the smallest plan (plan_tiles: on the L2 route
+// tiles of 4 trials, chunks and sub-panels of 4 rows). Every number of
+// trials fits; at the flagship widths up to 1,792 padded features do; only
+// an input or a hidden layer far wider than any configuration of the
+// repository (a tile's activations and inputs alone), or hundreds of hidden
+// layers (each keeps a tile's activations for the backward), do not. The
+// hidden layers come as a table (LayerArg) that each block copies into the
+// head of its shared memory (make_header).
 //
 // wgmma is not used: a block's trials (32 at the flagship) are fewer than
 // its 64 rows, and it has no f32 input type for the feedback chain.
@@ -164,7 +167,6 @@
 #ifndef VJF_CLUSTER
 #define VJF_CLUSTER 8
 #endif
-#define MAX_LAYERS 8
 #ifndef MAX_SMEM_BYTES
 #define MAX_SMEM_BYTES 232448  // what one block may use on sm_90
 #endif
@@ -181,6 +183,15 @@
 #define N_SUM_SCALARS 9  // scalar leaves of FusedSums, then cm_sum with a channel mask
 #define N_SLAB_SCALARS 16
 
+// One hidden layer as the launch gives it (ops/fused_step.py:_layer_table, a
+// (n_layers, 3) int64 tensor on the card): its weights from the layer before
+// (h x h_prev, row-major; null for the first layer), its bias, its width.
+struct LayerArg {
+  float* w;
+  float* b;
+  long long h;
+};
+
 // Must match vjf_tpu_torch/ops/fused_step.py:_Args field for field.
 struct VJFArgs {
   // carry (updated in place)
@@ -188,8 +199,9 @@ struct VJFArgs {
   float* w_in_u;
   float* w_in_m;
   float* w_in_lv;
-  float* w_hidden[MAX_LAYERS - 1];
-  float* b_hidden[MAX_LAYERS];
+  const LayerArg* layers;  // (n_layers) the hidden layers, in device memory
+  const int* widths;       // (n_layers) their widths: in host memory at the C interface (the
+                           // plan and the size queries), in shared memory inside a block
   float* w_mean;
   float* w_logvar;
   float* b_logvar;
@@ -230,7 +242,6 @@ struct VJFArgs {
   float* ws;           // vjf_workspace_floats() floats
   // dims
   int T, B, yd, ud, xd, nfp, nf, n_layers;
-  int h[MAX_LAYERS];
   int tile, kc, sp;    // set by plan_tiles: trials a phase-1 tile, rows a staged chunk, rows
                        // a staged sub-panel (0: the panels and the trials' state resident)
   // flags
@@ -288,32 +299,48 @@ struct Carver {
   }
 };
 
+// One hidden layer as a block uses it, in the layer table at the head of its
+// shared memory (make_header): the weights and bias of LayerArg (moved to the
+// block's member), where its bias (loaded every step) and a tile's
+// activations (leading dim ldh) lie in shared memory (carve_smem), and where
+// its weight and bias gradients lie in the flat FusedSums buffer
+// (sums_offsets). The first layer has no w or gw.
+struct Layer {
+  float *w, *b;
+  float *bs, *hs;
+  size_t gw, gb;
+  int ldh;
+};
+
 // Offsets of the leaves of the flat FusedSums buffer, in pack_sums's order
 // (ops/fused_step.py: the array leaves in field order, then N_SUM_SCALARS
-// scalars). A slab is the gradient part of one such buffer (what lies before
-// ftf) followed by N_SLAB_SCALARS raw per-block scalars.
+// scalars); the hidden layers' weights, then their biases, start at `hidden`
+// (each layer's in its Layer). A slab is the gradient part of one such
+// buffer (what lies before ftf) followed by N_SLAB_SCALARS raw per-block
+// scalars.
 struct SumsOff {
-  size_t w_in_y, w_in_u, w_in_m, w_in_lv;
-  size_t w_hidden[MAX_LAYERS - 1];
-  size_t b_hidden[MAX_LAYERS];
+  size_t w_in_y, w_in_u, w_in_m, w_in_lv, hidden;
   size_t wm, wlv, blv, w_dec, b_dec, ftf, fxd, scalars, total;
 };
 
-__host__ __device__ static SumsOff sums_offsets(const VJFArgs& a) {
+// With `ly`, also each layer's gw and gb.
+__host__ __device__ static SumsOff sums_offsets(const VJFArgs& a, Layer* ly = nullptr) {
   SumsOff o;
   size_t off = 0;
-  const size_t xd = a.xd, nfp = a.nfp, yd = a.yd, h0 = a.h[0], hl = a.h[a.n_layers - 1];
+  const int* h = a.widths;
+  const size_t xd = a.xd, nfp = a.nfp, yd = a.yd, h0 = h[0], hl = h[a.n_layers - 1];
   o.w_in_y = off, off += h0 * yd;
   o.w_in_u = off, off += a.ud > 0 ? h0 * a.ud : 0;
   o.w_in_m = off, off += h0 * xd;
   o.w_in_lv = off, off += h0 * xd;
-  for (int i = 0; i < MAX_LAYERS - 1; ++i) {
-    o.w_hidden[i] = off;
-    if (i + 1 < a.n_layers) off += (size_t)a.h[i + 1] * a.h[i];
+  o.hidden = off;
+  for (int i = 1; i < a.n_layers; ++i) {
+    if (ly) ly[i].gw = off;
+    off += (size_t)h[i] * h[i - 1];
   }
-  for (int i = 0; i < MAX_LAYERS; ++i) {
-    o.b_hidden[i] = off;
-    if (i < a.n_layers) off += a.h[i];
+  for (int i = 0; i < a.n_layers; ++i) {
+    if (ly) ly[i].gb = off;
+    off += h[i];
   }
   o.wm = off, off += xd * hl;
   o.wlv = off, off += xd * hl;
@@ -376,39 +403,39 @@ __host__ __device__ static inline int panel_ksplit(int prow, int nfp) {
 // tile of phase 1 (tile 0 of step t + 1 arrives while phase 2 of step t
 // runs; with several tiles a second buffer takes tile k + 1 while tile k
 // computes); phase 1's temporaries, for one tile, and phase 2's scratch
-// overlay each other.
+// overlay each other. The hidden layers' biases and activations are in the
+// layer table (Layer.bs, Layer.hs).
 struct SM {
   float *eps, *q[2][2], *red, *bc, *esum;  // esum: the ELBO sums over the tiles
   float *mrow, *mcol;                         // the trial mask's row, this block's 0/1 column
   float *cent_x, *cent_u, *c2, *inv_w2;        // the RBF constants (centroids transposed)
-  float *b_dec, *b_logvar, *b_hid[MAX_LAYERS];  // the biases, loaded every step
+  float *b_dec, *b_logvar;                     // the biases, loaded every step
   float *y[2], *u[2], *cm[2];                  // a tile's inputs; [1] with several tiles only
   float *feat, *tmp, *xs, *xt, *x2, *z, *fvf, *ptlv, *pt_m, *raw, *py, *g_xt, *g_qm, *g_qlv;
-  float *g_h, *g_a, *hs[MAX_LAYERS];
+  float *g_h, *g_a;
   float *stage, *pan_p, *pan_x, *part, *vnew, *wnew, *gown, *small;
   int ldy, ldu, ldf, ldg;
-  int ldh[MAX_LAYERS];
   size_t total;
 };
 
-// The parameter leaves SGD updates, by their place in the flat buffer.
-#define MAX_LEAVES (9 + 2 * MAX_LAYERS)
-struct Leaves {
-  int n;
-  int off[MAX_LEAVES], len[MAX_LEAVES];
-  float* p[MAX_LEAVES];
-  __host__ __device__ void add(float* ptr, size_t o, int l) {
-    p[n] = ptr, off[n] = (int)o, len[n] = l;
-    ++n;
-  }
+// A parameter leaf SGD updates, by its place in the flat buffer.
+struct Leaf {
+  float* p;
+  int off, len;
 };
+
+// The leaves other than the hidden layers' (the layer table holds those):
+// w_in_y, w_in_u, w_in_m, w_in_lv, w_mean, w_logvar, b_logvar, w_dec, b_dec.
+#define MAX_LEAVES 9
 
 // What a block knows for the whole launch.
 struct Ctx {
   SM s;
   GWS g;
   SumsOff so;
-  Leaves lv;
+  const Layer* ly;  // the layer table, behind the Header
+  const Leaf* lv;   // the other leaves SGD updates, behind the layer table
+  int n_leaves;
   int rank;
   Blk tr;       // this block's trials
   Blk fr;       // this block's rows of P, V, w
@@ -426,24 +453,37 @@ struct Header {
   VJFArgs a;
   Ctx c;
 };
-#define HEADER_FLOATS ((sizeof(Header) + 15) / 16 * 4)
+
+// The head of a block's shared memory takes at least the bytes it took while
+// the Header held the hidden layers in arrays of eight, so that every shape
+// of up to ten layers keeps the plan and the bits it had then.
+#define HEAD_MIN_BYTES 1936
+
+// The head of a block's shared memory: the Header, the layer table (a Layer
+// a hidden layer), the other SGD leaves and the widths, 16-byte aligned.
+__host__ __device__ static inline size_t head_floats(int n_layers) {
+  const size_t bytes = sizeof(Header) + n_layers * sizeof(Layer) + MAX_LEAVES * sizeof(Leaf) +
+                       n_layers * sizeof(int);
+  return ((bytes > HEAD_MIN_BYTES ? bytes : HEAD_MIN_BYTES) + 15) / 16 * 4;
+}
 
 // Mirrored for the tests by tests/torch_tile_plan.py:smem_floats. With sp
 // (past a block's shared memory) the trials' state (eps, q, mcol) lives in L2
 // (make_header points it at the block's rows of GWS.trials), the trial mask's
 // row is read where it lies, and phase 2 keeps one staged sub-panel of sp
 // rows: P_new's and V_new's rows live in L2, the iterate's rows and w are read
-// there.
-__host__ __device__ static SM carve_smem(const VJFArgs& a, float* base) {
+// there. With `ly`, also each layer's bs, hs and ldh.
+__host__ __device__ static SM carve_smem(const VJFArgs& a, float* base, Layer* ly = nullptr) {
   SM s;
   Carver cv{base, 0, 4};  // 16-byte aligned buffers
-  cv.take(HEADER_FLOATS);
+  cv.take(head_floats(a.n_layers));
   const size_t xd = a.xd, nfp = a.nfp;
   const size_t rows = cdiv(a.B, VJF_CLUSTER), prow = cdiv(a.nfp, VJF_CLUSTER), tile = a.tile;
   const bool big = a.sp > 0;
   const int nbuf = a.tile < (int)rows ? 2 : 1;
+  const int* h = a.widths;
   int hmax = 0;
-  for (int i = 0; i < a.n_layers; ++i) hmax = a.h[i] > hmax ? a.h[i] : hmax;
+  for (int i = 0; i < a.n_layers; ++i) hmax = h[i] > hmax ? h[i] : hmax;
   // leading dimensions: a multiple of 4 floats (16-byte rows) plus 4, so that
   // the rows of a fragment fall into different banks
   s.ldy = (a.yd + 3) / 4 * 4 + 4;
@@ -464,7 +504,10 @@ __host__ __device__ static SM carve_smem(const VJFArgs& a, float* base) {
   s.inv_w2 = cv.take(nfp);
   s.b_dec = cv.take(a.yd);
   s.b_logvar = cv.take(xd);
-  for (int i = 0; i < MAX_LAYERS; ++i) s.b_hid[i] = i < a.n_layers ? cv.take(a.h[i]) : nullptr;
+  for (int i = 0; i < a.n_layers; ++i) {
+    float* bs = cv.take(h[i]);
+    if (ly) ly[i].bs = bs;
+  }
   for (int i = 0; i < 2; ++i) {
     const bool on = i < nbuf;
     s.y[i] = on ? cv.take(tile * s.ldy) : nullptr;
@@ -489,9 +532,10 @@ __host__ __device__ static SM carve_smem(const VJFArgs& a, float* base) {
   s.g_qlv = cv.take(tile * xd);
   s.g_h = cv.take(tile * s.ldg);
   s.g_a = cv.take(tile * s.ldg);
-  for (int i = 0; i < MAX_LAYERS; ++i) {
-    s.ldh[i] = i < a.n_layers ? (a.h[i] + 3) / 4 * 4 + 4 : 0;
-    s.hs[i] = i < a.n_layers ? cv.take(tile * s.ldh[i]) : nullptr;
+  for (int i = 0; i < a.n_layers; ++i) {
+    const int ldh = (h[i] + 3) / 4 * 4 + 4;
+    float* hs = cv.take(tile * ldh);
+    if (ly) ly[i].ldh = ldh, ly[i].hs = hs;
   }
   const size_t end1 = cv.off;
   // phase 2
@@ -933,7 +977,7 @@ __device__ __forceinline__ float step_begin(const VJFArgs& a, const Ctx& c, int 
   // the biases as the last step's SGD left them, all leaves in one pass (a
   // thread's loads from L2 overlap instead of waiting leaf by leaf)
   int nbias = a.yd + xd;
-  for (int l = 0; l < a.n_layers; ++l) nbias += a.h[l];
+  for (int l = 0; l < a.n_layers; ++l) nbias += a.widths[l];
   for (int i = threadIdx.x; i < nbias; i += NTHREADS) {
     if (i < a.yd) {
       c.s.b_dec[i] = a.b_dec[i];
@@ -941,8 +985,8 @@ __device__ __forceinline__ float step_begin(const VJFArgs& a, const Ctx& c, int 
       c.s.b_logvar[i - a.yd] = a.b_logvar[i - a.yd];
     } else {
       int j = i - a.yd - xd, l = 0;
-      while (j >= a.h[l]) j -= a.h[l++];
-      c.s.b_hid[l][j] = a.b_hidden[l][j];
+      while (j >= a.widths[l]) j -= a.widths[l++];
+      c.ly[l].bs[j] = c.ly[l].b[j];
     }
   }
   if (!a.eps_s) {
@@ -1052,7 +1096,8 @@ __device__ __forceinline__ void tile_forward_sums(const VJFArgs& a, const Ctx& c
   const int nb = k.n, first = c.tr.first + k.r0;
   const bool acc = TILED && k.r0 > 0;
   const int yd = a.yd, ud = a.ud, xd = a.xd, nfp = a.nfp, L = a.n_layers;
-  const int h0 = a.h[0], hl = a.h[L - 1];
+  const int h0 = a.widths[0], hl = a.widths[L - 1];
+  const Layer* ly = c.ly;
   const bool bf = a.bf16 != 0;
   float* y = s.y[k.buf];
   const float* u = ud > 0 ? s.u[k.buf] : nullptr;
@@ -1123,12 +1168,14 @@ __device__ __forceinline__ void tile_forward_sums(const VJFArgs& a, const Ctx& c
   mm(nb, xd, nfp, feat, rowmaj(a.w_dyn, xd), s.pt_m, xd, false, bf, false);
   // first layer, weights split by input segment; its tiles start behind F w's
   const int wf = cdiv(nb, 16) * cdiv(xd, 8);
-  mm(nb, h0, yd, rowmaj(y, s.ldy), trans(a.w_in_y, yd), s.hs[0], s.ldh[0], false, bf, false, wf);
-  mm(nb, h0, xd, rowmaj(qs_m, xd), trans(a.w_in_m, xd), s.hs[0], s.ldh[0], true, bf, false, wf);
-  mm(nb, h0, xd, rowmaj(qs_lv, xd), trans(a.w_in_lv, xd), s.hs[0], s.ldh[0], true, bf, false,
+  mm(nb, h0, yd, rowmaj(y, s.ldy), trans(a.w_in_y, yd), ly[0].hs, ly[0].ldh, false, bf, false, wf);
+  mm(nb, h0, xd, rowmaj(qs_m, xd), trans(a.w_in_m, xd), ly[0].hs, ly[0].ldh, true, bf, false,
+     wf);
+  mm(nb, h0, xd, rowmaj(qs_lv, xd), trans(a.w_in_lv, xd), ly[0].hs, ly[0].ldh, true, bf, false,
      wf);
   if (u)
-    mm(nb, h0, ud, rowmaj(u, s.ldu), trans(a.w_in_u, ud), s.hs[0], s.ldh[0], true, bf, false, wf);
+    mm(nb, h0, ud, rowmaj(u, s.ldu), trans(a.w_in_u, ud), ly[0].hs, ly[0].ldh, true, bf, false,
+       wf);
   __syncthreads();
   for (int b = tid >> 5; b < nb; b += NWARPS) {  // a warp per trial
     float v = 0.f, ff = 0.f;
@@ -1152,24 +1199,24 @@ __device__ __forceinline__ void tile_forward_sums(const VJFArgs& a, const Ctx& c
   }
   for (int b = tid >> 5; b < nb; b += NWARPS) {
     for (int j = tid & 31; j < h0; j += 32) {
-      float* hp = s.hs[0] + (size_t)b * s.ldh[0] + j;
-      *hp = tanhf(*hp + s.b_hid[0][j]);
+      float* hp = ly[0].hs + (size_t)b * ly[0].ldh + j;
+      *hp = tanhf(*hp + ly[0].bs[j]);
     }
   }
   __syncthreads();
   for (int l = 1; l < L; ++l) {
-    const int hi = a.h[l], hp = a.h[l - 1];
-    mm(nb, hi, hp, rowmaj(s.hs[l - 1], s.ldh[l - 1]), trans(a.w_hidden[l - 1], hp), s.hs[l],
-       s.ldh[l], false, bf, true);
+    const int hi = a.widths[l], hp = a.widths[l - 1];
+    mm(nb, hi, hp, rowmaj(ly[l - 1].hs, ly[l - 1].ldh), trans(ly[l].w, hp), ly[l].hs, ly[l].ldh,
+       false, bf, true);
     for (int b = tid >> 5; b < nb; b += NWARPS) {
       for (int j = tid & 31; j < hi; j += 32) {
-        float* p = s.hs[l] + (size_t)b * s.ldh[l] + j;
-        *p = tanhf(*p + s.b_hid[l][j]);
+        float* p = ly[l].hs + (size_t)b * ly[l].ldh + j;
+        *p = tanhf(*p + ly[l].bs[j]);
       }
     }
     __syncthreads();
   }
-  const Mat h_last = rowmaj(s.hs[L - 1], s.ldh[L - 1]);
+  const Mat h_last = rowmaj(ly[L - 1].hs, ly[L - 1].ldh);
   mm(nb, xd, hl, h_last, trans(a.w_mean, hl), qt_m, xd, false, bf, false);
   mm(nb, xd, hl, h_last, trans(a.w_logvar, hl), s.raw, xd, false, bf, true, wf);
   {
@@ -1281,27 +1328,26 @@ __device__ __forceinline__ void tile_forward_sums(const VJFArgs& a, const Ctx& c
     col_sum(s.g_qlv, xd, nb, xd, slab + c.so.blv, acc);
     __syncthreads();
     for (int l = L - 1; l >= 1; --l) {  // layers n..1
-      const int hi = a.h[l], hp = a.h[l - 1];
+      const int hi = a.widths[l], hp = a.widths[l - 1];
       for (int i = tid; i < nb * hi; i += NTHREADS) {
         const int b = i / hi, j = i % hi;
-        const float hv = s.hs[l][(size_t)b * s.ldh[l] + j];
+        const float hv = ly[l].hs[(size_t)b * ly[l].ldh + j];
         s.g_a[(size_t)b * s.ldg + j] = s.g_h[(size_t)b * s.ldg + j] * (1.0f - hv * hv);
       }
       __syncthreads();
-      mm(hi, hp, nb, trans(s.g_a, s.ldg), rowmaj(s.hs[l - 1], s.ldh[l - 1]),
-         slab + c.so.w_hidden[l - 1], hp, acc, bf, false);
-      col_sum(s.g_a, s.ldg, nb, hi, slab + c.so.b_hidden[l], acc);
-      mm(nb, hp, hi, rowmaj(s.g_a, s.ldg), rowmaj(a.w_hidden[l - 1], hp), s.g_h, s.ldg, false,
-         bf, true);
+      mm(hi, hp, nb, trans(s.g_a, s.ldg), rowmaj(ly[l - 1].hs, ly[l - 1].ldh), slab + ly[l].gw, hp,
+         acc, bf, false);
+      col_sum(s.g_a, s.ldg, nb, hi, slab + ly[l].gb, acc);
+      mm(nb, hp, hi, rowmaj(s.g_a, s.ldg), rowmaj(ly[l].w, hp), s.g_h, s.ldg, false, bf, true);
     }
     for (int i = tid; i < nb * h0; i += NTHREADS) {
       const int b = i / h0, j = i % h0;
-      const float hv = s.hs[0][(size_t)b * s.ldh[0] + j];
+      const float hv = ly[0].hs[(size_t)b * ly[0].ldh + j];
       s.g_a[(size_t)b * s.ldg + j] = s.g_h[(size_t)b * s.ldg + j] * (1.0f - hv * hv);
     }
     __syncthreads();
     const Mat g_at = trans(s.g_a, s.ldg);
-    col_sum(s.g_a, s.ldg, nb, h0, slab + c.so.b_hidden[0], acc);
+    col_sum(s.g_a, s.ldg, nb, h0, slab + ly[0].gb, acc);
     if (u) mm(h0, ud, nb, g_at, rowmaj(u, s.ldu), slab + c.so.w_in_u, ud, acc, bf, false);
     mm(h0, yd, nb, g_at, rowmaj(y, s.ldy), slab + c.so.w_in_y, yd, acc, bf, false);
     mm(h0, xd, nb, g_at, rowmaj(qs_m, xd), slab + c.so.w_in_m, xd, acc, bf, false);
@@ -1398,20 +1444,32 @@ __device__ __forceinline__ StepSums reduce_scalars(const VJFArgs& a, const Ctx& 
   return r;
 }
 
+// The parameter that element i of the flat buffer's gradient part updates,
+// or null (a leaf the flags leave out): a hidden layer's weight or bias from
+// the layer table, any other from the leaves.
+__device__ __forceinline__ float* leaf_at(const VJFArgs& a, const Ctx& c, int i) {
+  if (i >= (int)c.so.hidden && i < (int)c.so.wm) {
+    for (int l = 0; l < a.n_layers; ++l) {
+      const Layer& y = c.ly[l];
+      if (l > 0 && i >= (int)y.gw && i < (int)y.gw + a.widths[l] * a.widths[l - 1])
+        return y.w + (i - (int)y.gw);
+      if (i >= (int)y.gb && i < (int)y.gb + a.widths[l]) return y.b + (i - (int)y.gb);
+    }
+    return nullptr;
+  }
+  for (int l = 0; l < c.n_leaves; ++l)
+    if (i >= c.lv[l].off && i < c.lv[l].off + c.lv[l].len) return c.lv[l].p + (i - c.lv[l].off);
+  return nullptr;
+}
+
 // Clipped SGD of this block's contiguous share of the gradient part of the
 // flat buffer: p -= lr * clip(sum over the slabs), whatever leaf an element
 // belongs to, so that every load of a thread's elements is in flight at once.
 __device__ __forceinline__ void sgd_slice(const VJFArgs& a, const Ctx& c) {
-  const Leaves& lv = c.lv;
   const Blk b = block_of((int)c.so.ftf, c.rank);
   for (int i = b.first + threadIdx.x; i < b.first + b.n; i += NTHREADS) {
-    for (int l = 0; l < lv.n; ++l) {
-      if (i >= lv.off[l] && i < lv.off[l] + lv.len[l]) {
-        float* p = lv.p[l] + (i - lv.off[l]);
-        *p = *p - c.lr * clampf(rank_sum(c, (size_t)i), -a.clip, a.clip);
-        break;
-      }
-    }
+    float* p = leaf_at(a, c, i);
+    if (p) *p = *p - c.lr * clampf(rank_sum(c, (size_t)i), -a.clip, a.clip);
   }
 }
 
@@ -1786,21 +1844,19 @@ __device__ __forceinline__ void member_shift(P*& p, size_t per_member, int m) {
   if (p) p += (size_t)m * per_member;
 }
 
-// Moves every per-member pointer of `a` to member m's slice. Each leaf's size
+// Moves every per-member pointer of `a` but the hidden layers' (make_header
+// moves those in the layer table) to member m's slice. Each leaf's size
 // follows from the dims, so the caller passes only n_members and the shared
 // bits. The members never wait on each other: clusters past what the card
 // holds at once run in a later wave.
 __device__ void to_member(VJFArgs& a, int m) {
   if (m == 0) return;
   const size_t T = a.T, B = a.B, yd = a.yd, ud = a.ud, xd = a.xd, nfp = a.nfp;
-  const size_t h0 = a.h[0], hl = a.h[a.n_layers - 1];
+  const size_t h0 = a.widths[0], hl = a.widths[a.n_layers - 1];
   member_shift(a.w_in_y, h0 * yd, m);
   member_shift(a.w_in_u, h0 * ud, m);
   member_shift(a.w_in_m, h0 * xd, m);
   member_shift(a.w_in_lv, h0 * xd, m);
-  for (int i = 0; i + 1 < a.n_layers; ++i)
-    member_shift(a.w_hidden[i], (size_t)a.h[i + 1] * a.h[i], m);
-  for (int i = 0; i < a.n_layers; ++i) member_shift(a.b_hidden[i], (size_t)a.h[i], m);
   member_shift(a.w_mean, xd * hl, m);
   member_shift(a.w_logvar, xd * hl, m);
   member_shift(a.b_logvar, xd, m);
@@ -1836,19 +1892,40 @@ __device__ void to_member(VJFArgs& a, int m) {
   member_shift(a.ws, carve_global(a, nullptr).total, m);
 }
 
-// What every kernel sets up: the arguments and the context in the head of
-// the block's shared memory (thread 0 writes them), this block's slab
-// zeroed (a leaf the flags leave uncomputed stays 0), the RBF constants.
+__device__ __forceinline__ void add_leaf(Leaf* lv, int& n, float* p, size_t off, int len) {
+  lv[n++] = Leaf{p, (int)off, len};
+}
+
+// What every kernel sets up: the arguments, the context, the layer table, the
+// SGD leaves and the widths in the head of the block's shared memory (thread
+// 0 writes them; carve_smem's head_floats), this block's slab zeroed (a leaf
+// the flags leave uncomputed stays 0), the RBF constants.
 __device__ const Header& make_header(const VJFArgs& args, float* smem) {
   Header* h = reinterpret_cast<Header*>(smem);
+  const int L = args.n_layers;
+  Layer* ly = reinterpret_cast<Layer*>(h + 1);
+  Leaf* lv = reinterpret_cast<Leaf*>(ly + L);
+  int* widths = reinterpret_cast<int*>(lv + MAX_LEAVES);
   if (threadIdx.x == 0) {
+    const int m = blockIdx.y;
+    for (int l = 0; l < L; ++l) {
+      const LayerArg in = args.layers[l];
+      widths[l] = (int)in.h;
+      ly[l].w = in.w;
+      ly[l].b = in.b;
+      if (l > 0) member_shift(ly[l].w, (size_t)widths[l] * widths[l - 1], m);
+      member_shift(ly[l].b, (size_t)widths[l], m);
+    }
     h->a = args;
-    to_member(h->a, blockIdx.y);
+    h->a.widths = widths;
+    to_member(h->a, m);
     const VJFArgs& a = h->a;
     Ctx& c = h->c;
-    c.s = carve_smem(a, smem);
+    c.ly = ly;
+    c.lv = lv;
+    c.s = carve_smem(a, smem, ly);
     c.g = carve_global(a, a.ws);
-    c.so = sums_offsets(a);
+    c.so = sums_offsets(a, ly);
     c.rank = cluster_rank();
     c.tr = block_of(a.B, c.rank);
     c.fr = block_of(a.nfp, c.rank);
@@ -1865,23 +1942,20 @@ __device__ const Header& make_header(const VJFArgs& args, float* smem) {
     c.lr = a.lr ? a.lr[0] : 0.f;
     c.scale2 = a.scale2 ? a.scale2[0] : 0.f;
     c.seed = (uint32_t)a.rng_seed[0];
-    const int L = a.n_layers, h0 = a.h[0], hl = a.h[L - 1];
-    Leaves& lv = c.lv;
-    lv.n = 0;
-    lv.add(a.w_in_y, c.so.w_in_y, h0 * a.yd);
-    if (a.ud > 0) lv.add(a.w_in_u, c.so.w_in_u, h0 * a.ud);
-    lv.add(a.w_in_m, c.so.w_in_m, h0 * a.xd);
-    lv.add(a.w_in_lv, c.so.w_in_lv, h0 * a.xd);
-    for (int l = 1; l < L; ++l)
-      lv.add(a.w_hidden[l - 1], c.so.w_hidden[l - 1], a.h[l] * a.h[l - 1]);
-    for (int l = 0; l < L; ++l) lv.add(a.b_hidden[l], c.so.b_hidden[l], a.h[l]);
-    lv.add(a.w_mean, c.so.wm, a.xd * hl);
-    lv.add(a.w_logvar, c.so.wlv, a.xd * hl);
-    lv.add(a.b_logvar, c.so.blv, a.xd);
+    const int h0 = widths[0], hl = widths[L - 1];
+    int n = 0;
+    add_leaf(lv, n, a.w_in_y, c.so.w_in_y, h0 * a.yd);
+    if (a.ud > 0) add_leaf(lv, n, a.w_in_u, c.so.w_in_u, h0 * a.ud);
+    add_leaf(lv, n, a.w_in_m, c.so.w_in_m, h0 * a.xd);
+    add_leaf(lv, n, a.w_in_lv, c.so.w_in_lv, h0 * a.xd);
+    add_leaf(lv, n, a.w_mean, c.so.wm, a.xd * hl);
+    add_leaf(lv, n, a.w_logvar, c.so.wlv, a.xd * hl);
+    add_leaf(lv, n, a.b_logvar, c.so.blv, a.xd);
     if (a.train_decoder) {
-      lv.add(a.w_dec, c.so.w_dec, a.yd * a.xd);
-      lv.add(a.b_dec, c.so.b_dec, a.yd);
+      add_leaf(lv, n, a.w_dec, c.so.w_dec, a.yd * a.xd);
+      add_leaf(lv, n, a.b_dec, c.so.b_dec, a.yd);
     }
+    c.n_leaves = n;
   }
   __syncthreads();
   const VJFArgs& a = h->a;
@@ -2062,6 +2136,9 @@ size_t vjf_workspace_floats(const VJFArgs* a) {
 }
 
 size_t vjf_args_size(void) { return sizeof(VJFArgs); }
+
+// The bytes of one entry of the layer table (ops/fused_step.py:_layer_table).
+size_t vjf_layer_arg_size(void) { return sizeof(LayerArg); }
 
 // The offset of VJFArgs's last field: with the size, what the ctypes mirror
 // checks (a field added before it can leave the size as it was).

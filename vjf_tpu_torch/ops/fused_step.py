@@ -31,9 +31,9 @@ With SGP dynamics (``cfg.dynamics='sgp'``) the carry holds the whitener
 ``w_white = scale^2 W`` and ``scale2``: the unit SE response at the inducing
 points is whitened before it feeds the prediction and the RLS statistics,
 and the predictive log-variance adds the DTC correction ``max(scale^2 -
-|phi|^2, 0)``. The kernels take any multiple of 128 padded features, 1 to
-``_MAX_LAYERS`` hidden layers of any width and any number of trials, as
-long as a block's shared memory fits the card's at the smallest plan
+|phi|^2, 0)``. The kernels take any multiple of 128 padded features, any
+number of hidden layers of any width and any number of trials, as long as a
+block's shared memory fits the card's at the smallest plan
 (:func:`kernel_limits`; ``plan_tiles`` in csrc/fused_step.cu: a block runs
 phase 1 over tiles of its trials where all of them do not fit, and stages
 the Newton-Schulz right-hand matrix in chunks past 128 padded features;
@@ -57,6 +57,7 @@ input sees the decoder's prediction there (:func:`step_forward_sums`).
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import logging
@@ -1006,7 +1007,6 @@ def forward_sums_plain(cfg, flags, carry, qs_m, qs_lv, y, u, eps_s, eps_t, inv_b
 # ---------------------------------------------------------------------------
 
 _P = ctypes.c_void_p
-_MAX_LAYERS = 8         # MAX_LAYERS of csrc/fused_step.cu
 
 
 def cluster_size() -> int:
@@ -1032,8 +1032,8 @@ class _Args(ctypes.Structure):
     """Mirror of ``struct VJFArgs`` in ``csrc/fused_step.cu``."""
 
     _fields_ = (
-        [(n, _P) for n in ("w_in_y", "w_in_u", "w_in_m", "w_in_lv")]
-        + [("w_hidden", _P * (_MAX_LAYERS - 1)), ("b_hidden", _P * _MAX_LAYERS)]
+        [(n, _P) for n in ("w_in_y", "w_in_u", "w_in_m", "w_in_lv", "layers")]
+        + [("widths", ctypes.POINTER(ctypes.c_int))]
         + [(n, _P) for n in (
             "w_mean", "w_logvar", "b_logvar", "w_dec", "b_dec", "cent_x", "cent_u",
             "c2", "inv_w2", "w_white", "scale2", "p_mat", "v_mat", "w_dyn", "state_logvar",
@@ -1041,7 +1041,6 @@ class _Args(ctypes.Structure):
             "eps_s", "eps_t", "mask", "cmask", "lr", "q_pack", "scal", "g_vec", "xt", "xs",
             "sums", "ws")]
         + [(n, ctypes.c_int) for n in ("T", "B", "yd", "ud", "xd", "nfp", "nf", "n_layers")]
-        + [("h", ctypes.c_int * _MAX_LAYERS)]
         + [(n, ctypes.c_int) for n in ("tile", "kc", "sp")]
         + [(n, ctypes.c_int) for n in (
             "sgd", "update", "warm_up", "train_decoder", "update_likelihood",
@@ -1071,7 +1070,7 @@ def _library():
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.POINTER(_Args)]
             fn.restype = ctypes.c_size_t
-        for name in ("vjf_args_size", "vjf_args_tail", "vjf_smem_limit"):
+        for name in ("vjf_args_size", "vjf_args_tail", "vjf_layer_arg_size", "vjf_smem_limit"):
             fn = getattr(lib, name)
             fn.argtypes = []
             fn.restype = ctypes.c_size_t
@@ -1081,6 +1080,8 @@ def _library():
         lib.vjf_philox_normals.restype = ctypes.c_int
         if (lib.vjf_args_size(), lib.vjf_args_tail()) != (ctypes.sizeof(_Args), _Args.inv_b.offset):
             raise RuntimeError("VJFArgs layout differs between fused_step.cu and _Args")
+        if lib.vjf_layer_arg_size() != 8 * _LAYER_WORDS:
+            raise RuntimeError("LayerArg differs between fused_step.cu and _layer_table")
         lib._vjf_bound = True
     return lib
 
@@ -1096,31 +1097,30 @@ def _dims(cfg: VJFConfig, n_batch: int, t_total: int = 1, mask: bool = False,
     a.T, a.B, a.yd, a.ud, a.xd = t_total, n_batch, cfg.ydim, cfg.udim, cfg.xdim
     a.nfp, a.nf = _round_up(cfg.feature_dim), cfg.feature_dim
     a.n_layers = len(cfg.hidden_sizes)
-    for i, wd in enumerate(cfg.hidden_sizes[:_MAX_LAYERS]):
-        a.h[i] = wd
+    a.widths = (ctypes.c_int * a.n_layers)(*cfg.hidden_sizes)   # kept alive by ``a``
     return a
 
 
 def kernel_limits(cfg: VJFConfig, n_batch: int, on_card: bool = True, mask: bool = False,
                   channel_mask: bool = False) -> Optional[str]:
     """The first limit of the kernels that ``cfg`` at ``n_batch`` trials
-    exceeds, as a message, or None: 1 to ``_MAX_LAYERS`` hidden layers, and
-    with ``on_card`` a block's shared memory within the card's at the
-    kernels' tile plan (``vjf_smem_bytes`` against ``vjf_smem_limit``, which
-    builds the library; at the smallest trial tile, chunk and sub-panel of
-    the L2 route where no plan fits), counting the staging of a trial
-    ``mask`` and of a ``channel_mask``. Past the layer count only an input or
-    a hidden layer far wider than any configuration of the repository is
-    refused: trials and padded features up to 1,792 at the flagship widths
-    are taken.
+    exceeds, as a message, or None: with ``on_card`` a block's shared memory
+    within the card's at the kernels' tile plan (``vjf_smem_bytes`` against
+    ``vjf_smem_limit``, which builds the library; at the smallest trial tile,
+    chunk and sub-panel of the L2 route where no plan fits), counting the
+    staging of a trial ``mask`` and of a ``channel_mask`` and every hidden
+    layer's activations. Only an input or a hidden layer far wider than any
+    configuration of the repository, or hundreds of hidden layers, are
+    refused: any number of trials, and padded features up to 1,792 at the
+    flagship widths, are taken. The recognition network has at least one
+    hidden layer (its first takes the inputs).
     :func:`_launch` raises on it, and :func:`fused_enabled` routes away from
     it under ``fused_step='auto'``. The number of members of an ensemble
     launch has no limit: a member is one cluster, and those past what the
     card holds at once (:func:`cluster_info`'s ``active_clusters``) run in a
     later wave."""
-    widths = list(cfg.hidden_sizes)
-    if not 1 <= len(widths) <= _MAX_LAYERS:
-        return f"{len(widths)} hidden layers, the kernels take 1 to {_MAX_LAYERS}"
+    if not cfg.hidden_sizes:
+        return "no hidden layer: the kernels' first layer takes the inputs"
     if on_card:
         lib = _library()
         dims = _dims(cfg, n_batch, mask=mask, cmask=channel_mask)
@@ -1152,6 +1152,31 @@ def _ptr(t: Optional[torch.Tensor], name: str, shape=None, dtype=torch.float32,
 
 _LAUNCHERS = {"fused_step": "vjf_fused_step", "mega_epoch": "vjf_mega_epoch",
               "forward_sums": "vjf_forward_sums"}
+
+# ``LayerArg`` of csrc/fused_step.cu: weights pointer (0 for the first layer),
+# bias pointer, width, one int64 each
+_LAYER_WORDS = 3
+_TABLES: "collections.OrderedDict[tuple, torch.Tensor]" = collections.OrderedDict()
+_TABLES_KEPT = 64
+
+
+def _layer_table(layers, device) -> torch.Tensor:
+    """The kernels' table of hidden layers, ``(n_layers, 3)`` int64 on
+    ``device``: each layer's weights and bias pointers and its width (every
+    block copies it into its shared memory). The kernels update the carry in
+    place, so its pointers stay the same from launch to launch: the table is
+    copied to the card once for each content and kept (the last
+    ``_TABLES_KEPT``), not once a launch."""
+    key = (str(device), tuple(layers))
+    table = _TABLES.get(key)
+    if table is None:
+        table = torch.tensor(layers, dtype=torch.int64).to(device)
+        _TABLES[key] = table
+        while len(_TABLES) > _TABLES_KEPT:
+            _TABLES.popitem(last=False)
+    else:
+        _TABLES.move_to_end(key)
+    return table
 
 
 def _launch(kernel: str, cfg, flags, carry: FusedCarry, qs_m, qs_lv, ys, us, eps_s,
@@ -1213,10 +1238,9 @@ def _launch(kernel: str, cfg, flags, carry: FusedCarry, qs_m, qs_lv, ys, us, eps
     a.w_in_u = c(carry.w_in_u, "w_in_u", (h0, ud))
     a.w_in_m = c(carry.w_in_m, "w_in_m", (h0, xd))
     a.w_in_lv = c(carry.w_in_lv, "w_in_lv", (h0, xd))
-    for i, w in enumerate(carry.w_hidden):
-        a.w_hidden[i] = c(w, f"w_hidden[{i}]", (widths[i + 1], widths[i]))
-    for i, bb in enumerate(carry.b_hidden):
-        a.b_hidden[i] = c(bb, f"b_hidden[{i}]", (1, widths[i]))
+    layers = [(0 if i == 0 else c(carry.w_hidden[i - 1], f"w_hidden[{i - 1}]", (wd, widths[i - 1])),
+               c(carry.b_hidden[i], f"b_hidden[{i}]", (1, wd)), wd)
+              for i, wd in enumerate(widths)]
     a.w_mean = c(carry.w_mean, "w_mean", (xd, hl))
     a.w_logvar = c(carry.w_logvar, "w_logvar", (xd, hl))
     a.b_logvar = c(carry.b_logvar, "b_logvar", (1, xd))
@@ -1279,6 +1303,7 @@ def _launch(kernel: str, cfg, flags, carry: FusedCarry, qs_m, qs_lv, ys, us, eps
     ws = torch.empty(max(n_mem, 1) * lib.vjf_workspace_floats(ctypes.byref(a)),
                      dtype=torch.float32, device=dev)
     a.ws = ws.data_ptr()
+    a.layers = _layer_table(layers, dev).data_ptr()
     fn = getattr(lib, _LAUNCHERS[kernel])
     with torch.cuda.device(dev):
         rc = fn(ctypes.byref(a), torch.cuda.current_stream(dev).cuda_stream)
@@ -1744,12 +1769,12 @@ def fused_enabled(cfg: VJFConfig, state, n_batch: Optional[int] = None,
     configuration within :func:`kernel_limits` at ``n_batch`` trials.
 
     The kernels take every shape the JAX package's TPU kernels take but a
-    ninth hidden layer (``_MAX_LAYERS`` is a compile-time bound) and a block
-    past the card's shared memory at the smallest plan, which only an input
-    or a layer far wider than any configuration of the repository reaches
-    (:func:`kernel_limits`): every number of trials, and at the flagship
-    widths up to 1,792 padded features. Deliberate deviation from the JAX
-    package for those two: under 'auto' such a configuration takes the
+    block past the card's shared memory at the smallest plan, which only an
+    input or a layer far wider than any configuration of the repository, or
+    hundreds of hidden layers, reach (:func:`kernel_limits`): every number
+    of trials and of hidden layers, and at the flagship widths up to 1,792
+    padded features. Deliberate deviation from the JAX package for such a
+    block: under 'auto' such a configuration takes the
     autograd epoch, with one warning that names the limit; under 'on' the
     launch raises ``ValueError``. As in the JAX package, SGP below
     ``cfg.sgp_fused_min_batch`` trials takes the autograd epoch under
