@@ -1,0 +1,2 @@
+"""prefix_ms.train, read in epochs with the 512-step prefix."""
+from readers import prefix_ms as read  # noqa: F401
