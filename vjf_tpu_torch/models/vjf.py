@@ -33,6 +33,7 @@ from torch import nn
 from ..config import StepFlags, VJFConfig
 from ..gp import sgp as _sgp
 from ..ops import fused_step as _fused
+from ..ops import trace as _trace
 from ..ops.functional import (
     all_finite,
     finite_or_zero,
@@ -397,25 +398,27 @@ def run_epoch(
     (see :func:`filter_step` for what they do). ``warm_gate``: a member's
     phase in an ensemble epoch whose members are in different phases (see
     :func:`filter_step`); a gated epoch always takes the autograd route, the
-    kernels fix the phase by their flags.
+    kernels fix the phase by their flags. A call is the span ``vjf.epoch``
+    (:mod:`..ops.trace`).
     """
-    if ys.dtype != cfg.tdtype:
-        ys = ys.to(cfg.tdtype)
-    if us.dtype != cfg.tdtype:
-        us = us.to(cfg.tdtype)
-    mask = _promote_mask(mask, ys.shape[0], ys.shape[1], ys.dtype, ys.device)
-    channel_mask = _promote_channel_mask(channel_mask, ys.shape, ys.dtype, ys.device)
-    if warm_gate is None and _fused.fused_enabled(
-            cfg, state, n_batch=ys.shape[1], mask=mask is not None,
-            channel_mask=channel_mask is not None):
-        with torch.no_grad():
-            return _fused.run_epoch_fused(cfg, flags, state, ys, us, epoch_seed(seed), lr,
-                                          noise=noise, q0=q0, mask=mask,
-                                          channel_mask=channel_mask)
-    if warm_gate is not None:
-        warm_gate = torch.as_tensor(warm_gate, dtype=ys.dtype, device=ys.device)
-    return _run_epoch_autograd(cfg, flags, state, ys, us, seed, lr, noise, q0, mask,
-                               channel_mask, warm_gate)
+    with _trace.span(_trace.EPOCH):
+        if ys.dtype != cfg.tdtype:
+            ys = ys.to(cfg.tdtype)
+        if us.dtype != cfg.tdtype:
+            us = us.to(cfg.tdtype)
+        mask = _promote_mask(mask, ys.shape[0], ys.shape[1], ys.dtype, ys.device)
+        channel_mask = _promote_channel_mask(channel_mask, ys.shape, ys.dtype, ys.device)
+        if warm_gate is None and _fused.fused_enabled(
+                cfg, state, n_batch=ys.shape[1], mask=mask is not None,
+                channel_mask=channel_mask is not None):
+            with torch.no_grad():
+                return _fused.run_epoch_fused(cfg, flags, state, ys, us, epoch_seed(seed), lr,
+                                              noise=noise, q0=q0, mask=mask,
+                                              channel_mask=channel_mask)
+        if warm_gate is not None:
+            warm_gate = torch.as_tensor(warm_gate, dtype=ys.dtype, device=ys.device)
+        return _run_epoch_autograd(cfg, flags, state, ys, us, seed, lr, noise, q0, mask,
+                                   channel_mask, warm_gate)
 
 
 @_fused.full_f32_matmul()

@@ -61,12 +61,15 @@ import collections
 import contextlib
 import ctypes
 import logging
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from ..config import StepFlags, VJFConfig
 from . import rng as _rng
+from . import trace as _trace
+from .trace import launches, reset_launches, steps  # noqa: F401  (the launch counters)
 
 NS_ITERS = 3
 NS_TAU_THRESHOLD = 0.25
@@ -76,19 +79,6 @@ NS_TAU_ESCALATE = 0.05
 NS_ONE_ITER_MIN_BATCH = 64
 
 logger = logging.getLogger(__name__)
-
-# kernel launches, one count per launcher and form (``.ensemble``: N members
-# in one launch); only the CUDA branch of a wrapper adds to its count
-launches = {"fused_step": 0, "mega_epoch": 0, "forward_sums": 0,
-            "fused_step.ensemble": 0, "mega_epoch.ensemble": 0}
-# timesteps those launches ran (a mega launch runs a whole segment; an
-# ensemble launch counts member-steps)
-steps = dict.fromkeys(launches, 0)
-
-
-def reset_launches() -> None:
-    for k in launches:
-        launches[k] = steps[k] = 0
 
 
 def prefix_free_next(current: bool, hot_max: float, tau_max: float) -> bool:
@@ -1152,6 +1142,7 @@ def _ptr(t: Optional[torch.Tensor], name: str, shape=None, dtype=torch.float32,
 
 _LAUNCHERS = {"fused_step": "vjf_fused_step", "mega_epoch": "vjf_mega_epoch",
               "forward_sums": "vjf_forward_sums"}
+_LAUNCH_SPANS = {k: f"vjf.launch.{k}" for k in _LAUNCHERS}
 
 # ``LayerArg`` of csrc/fused_step.cu: weights pointer (0 for the first layer),
 # bias pointer, width, one int64 each
@@ -1199,116 +1190,121 @@ def _launch(kernel: str, cfg, flags, carry: FusedCarry, qs_m, qs_lv, ys, us, eps
     members, N clusters. Every carry leaf, output, ``qs_m``/``qs_lv`` and
     ``eps_*`` then has a leading member axis; ``ys`` and ``us`` have one
     too, or are given without it as one copy that every member reads
-    (stride 0); ``mask``, ``cmask`` and ``lr`` are one for all."""
-    dev = carry.p_mat.device
-    t_total, b, yd = ys.shape[-3:]
-    reason = kernel_limits(cfg, b, on_card=False)
-    if reason is not None:
-        raise ValueError(f"the kernels do not take this configuration: {reason}")
-    xd, nfp = cfg.xdim, _round_up(cfg.feature_dim)
-    ud = 0 if us is None else us.shape[-1]
-    n_mem = n_members(carry)
-    lead = (n_mem,) if n_mem else ()
-    widths = list(cfg.hidden_sizes)
-    if len(carry.b_hidden) != len(widths):
-        raise ValueError(f"a carry of {len(carry.b_hidden)} hidden layers, cfg has {widths}")
-    sgp = cfg.dynamics == "sgp"
-    if (carry.w_white is not None, carry.scale2 is not None) != (sgp, sgp):
-        raise ValueError(f"dynamics={cfg.dynamics!r}: w_white and scale2 are given "
-                         "exactly for SGP")
-    if (ud > 0) != (carry.w_in_u is not None) or ud != cfg.udim:
-        raise ValueError(f"controls of width {ud} do not match udim={cfg.udim}")
-    if (eps_s is None) != (eps_t is None):
-        raise ValueError("eps_s and eps_t are given together or not at all")
-    h0, hl = widths[0], widths[-1]
+    (stride 0); ``mask``, ``cmask`` and ``lr`` are one for all.
 
-    def c(t, name, shape, dtype=torch.float32):
-        return _ptr(t, name, lead + tuple(shape), dtype, dev)
+    A launch, from the operands' checks through the library's call, is the
+    span ``vjf.launch.<kernel>`` (:mod:`.trace`)."""
+    with _trace.NULL if kernel == "info" else _trace.span(_LAUNCH_SPANS[kernel]):
+        dev = carry.p_mat.device
+        t_total, b, yd = ys.shape[-3:]
+        reason = kernel_limits(cfg, b, on_card=False)
+        if reason is not None:
+            raise ValueError(f"the kernels do not take this configuration: {reason}")
+        xd, nfp = cfg.xdim, _round_up(cfg.feature_dim)
+        ud = 0 if us is None else us.shape[-1]
+        n_mem = n_members(carry)
+        lead = (n_mem,) if n_mem else ()
+        widths = list(cfg.hidden_sizes)
+        if len(carry.b_hidden) != len(widths):
+            raise ValueError(f"a carry of {len(carry.b_hidden)} hidden layers, cfg has {widths}")
+        sgp = cfg.dynamics == "sgp"
+        if (carry.w_white is not None, carry.scale2 is not None) != (sgp, sgp):
+            raise ValueError(f"dynamics={cfg.dynamics!r}: w_white and scale2 are given "
+                             "exactly for SGP")
+        if (ud > 0) != (carry.w_in_u is not None) or ud != cfg.udim:
+            raise ValueError(f"controls of width {ud} do not match udim={cfg.udim}")
+        if (eps_s is None) != (eps_t is None):
+            raise ValueError("eps_s and eps_t are given together or not at all")
+        h0, hl = widths[0], widths[-1]
 
-    a = _dims(cfg, b, t_total)
-    a.n_members = n_mem
+        def c(t, name, shape, dtype=torch.float32):
+            return _ptr(t, name, lead + tuple(shape), dtype, dev)
 
-    def d(t, name, shape):
-        """Data: per member, or in an ensemble launch one copy for all."""
-        if n_mem and t is not None and t.dim() == len(shape):
-            a.shared |= _SHARED[name]
-            return _ptr(t, name, shape, device=dev)
-        return c(t, name, shape)
-    a.w_in_y = c(carry.w_in_y, "w_in_y", (h0, yd))
-    a.w_in_u = c(carry.w_in_u, "w_in_u", (h0, ud))
-    a.w_in_m = c(carry.w_in_m, "w_in_m", (h0, xd))
-    a.w_in_lv = c(carry.w_in_lv, "w_in_lv", (h0, xd))
-    layers = [(0 if i == 0 else c(carry.w_hidden[i - 1], f"w_hidden[{i - 1}]", (wd, widths[i - 1])),
-               c(carry.b_hidden[i], f"b_hidden[{i}]", (1, wd)), wd)
-              for i, wd in enumerate(widths)]
-    a.w_mean = c(carry.w_mean, "w_mean", (xd, hl))
-    a.w_logvar = c(carry.w_logvar, "w_logvar", (xd, hl))
-    a.b_logvar = c(carry.b_logvar, "b_logvar", (1, xd))
-    a.w_dec = c(carry.w_dec, "w_dec", (yd, xd))
-    a.b_dec = c(carry.b_dec, "b_dec", (1, yd))
-    a.cent_x = c(carry.cent_x, "cent_x", (nfp, xd))
-    a.cent_u = c(carry.cent_u, "cent_u", (nfp, ud))
-    a.c2 = c(carry.c2, "c2", (1, nfp))
-    a.inv_w2 = c(carry.inv_w2, "inv_w2", (1, nfp))
-    a.w_white = c(carry.w_white, "w_white", (nfp, nfp))
-    a.scale2 = c(carry.scale2, "scale2", (1, 1))
-    a.p_mat = c(carry.p_mat, "p_mat", (nfp, nfp))
-    a.v_mat = c(carry.v_mat, "v_mat", (nfp, nfp))
-    a.w_dyn = c(carry.w_dyn, "w_dyn", (nfp, xd))
-    for n in ("state_logvar", "lik_logvar", "dyn_n", "lik_n"):
-        setattr(a, n, c(getattr(carry, n), n, (1, 1)))
-    a.rng_seed = c(carry.rng_seed, "rng_seed", (1, 1), torch.int32)
-    a.rng_count = c(carry.rng_count, "rng_count", (1, 1), torch.int32)
-    a.qs_m = c(qs_m, "qs_m", (b, xd))
-    a.qs_lv = c(qs_lv, "qs_lv", (b, xd))
-    a.y = d(ys, "y", (t_total, b, yd))
-    a.u = d(us, "u", (t_total, b, ud))
-    a.eps_s = c(eps_s, "eps_s", (t_total, b, xd))
-    a.eps_t = c(eps_t, "eps_t", (t_total, b, xd))
-    a.mask = _ptr(mask, "mask", (t_total, b), device=dev)
-    a.cmask = _ptr(cmask, "cmask", (t_total, b, yd), device=dev)
-    a.lr = _ptr(lr, "lr", (), torch.float32, dev)
-    a.q_pack = c(q_pack, "q_pack", (t_total, 2, b, xd) if q_pack.dim() == 4 + len(lead)
-                 else (2, b, xd))
-    a.scal = c(scal, "scal", (t_total, 8))
-    a.row0, a.inv_b = int(row0), float(inv_b)
-    a.g_vec = c(g_vec, "g_vec", (nfp, xd))
-    a.xt = c(xt, "xt", (b, xd))
-    a.xs = c(xs, "xs", (b, xd))
-    a.sgd, a.update, a.warm_up = int(flags.sgd), int(flags.update), int(flags.warm_up)
-    a.train_decoder = int(flags.train_decoder)
-    a.update_likelihood = int(flags.update_likelihood)
-    a.update_transition = int(flags.update_transition)
-    a.poisson = int(cfg.likelihood == "poisson")
-    a.trace_quirk = int(cfg.trace_quirk)
-    a.bf16 = int(cfg.matmul_dtype == "bfloat16")
-    a.ns_iters = int(ns_iters)
-    a.leak, a.poisson_clamp, a.logvar_clamp = cfg.leak, cfg.poisson_clamp, cfg.logvar_clamp
-    a.clip, a.rls_shrink, a.chol_jitter = cfg.clip, cfg.rls_shrink, cfg.chol_jitter
-    a.obs_var_cap, a.state_var_cap = float(cfg.obs_var_cap), float(cfg.state_var_cap)
+        a = _dims(cfg, b, t_total)
+        a.n_members = n_mem
 
-    lib = _library()
-    reason = kernel_limits(cfg, b, mask=mask is not None, channel_mask=cmask is not None)
-    if reason is not None:
-        raise ValueError(f"the kernels do not take this configuration: {reason}")
-    if kernel == "info":
-        out = (ctypes.c_int * 9)()
-        rc = lib.vjf_cluster_info(ctypes.byref(a), out)
+        def d(t, name, shape):
+            """Data: per member, or in an ensemble launch one copy for all."""
+            if n_mem and t is not None and t.dim() == len(shape):
+                a.shared |= _SHARED[name]
+                return _ptr(t, name, shape, device=dev)
+            return c(t, name, shape)
+        a.w_in_y = c(carry.w_in_y, "w_in_y", (h0, yd))
+        a.w_in_u = c(carry.w_in_u, "w_in_u", (h0, ud))
+        a.w_in_m = c(carry.w_in_m, "w_in_m", (h0, xd))
+        a.w_in_lv = c(carry.w_in_lv, "w_in_lv", (h0, xd))
+        layers = [(0 if i == 0 else c(carry.w_hidden[i - 1], f"w_hidden[{i - 1}]",
+                                      (wd, widths[i - 1])),
+                   c(carry.b_hidden[i], f"b_hidden[{i}]", (1, wd)), wd)
+                  for i, wd in enumerate(widths)]
+        a.w_mean = c(carry.w_mean, "w_mean", (xd, hl))
+        a.w_logvar = c(carry.w_logvar, "w_logvar", (xd, hl))
+        a.b_logvar = c(carry.b_logvar, "b_logvar", (1, xd))
+        a.w_dec = c(carry.w_dec, "w_dec", (yd, xd))
+        a.b_dec = c(carry.b_dec, "b_dec", (1, yd))
+        a.cent_x = c(carry.cent_x, "cent_x", (nfp, xd))
+        a.cent_u = c(carry.cent_u, "cent_u", (nfp, ud))
+        a.c2 = c(carry.c2, "c2", (1, nfp))
+        a.inv_w2 = c(carry.inv_w2, "inv_w2", (1, nfp))
+        a.w_white = c(carry.w_white, "w_white", (nfp, nfp))
+        a.scale2 = c(carry.scale2, "scale2", (1, 1))
+        a.p_mat = c(carry.p_mat, "p_mat", (nfp, nfp))
+        a.v_mat = c(carry.v_mat, "v_mat", (nfp, nfp))
+        a.w_dyn = c(carry.w_dyn, "w_dyn", (nfp, xd))
+        for n in ("state_logvar", "lik_logvar", "dyn_n", "lik_n"):
+            setattr(a, n, c(getattr(carry, n), n, (1, 1)))
+        a.rng_seed = c(carry.rng_seed, "rng_seed", (1, 1), torch.int32)
+        a.rng_count = c(carry.rng_count, "rng_count", (1, 1), torch.int32)
+        a.qs_m = c(qs_m, "qs_m", (b, xd))
+        a.qs_lv = c(qs_lv, "qs_lv", (b, xd))
+        a.y = d(ys, "y", (t_total, b, yd))
+        a.u = d(us, "u", (t_total, b, ud))
+        a.eps_s = c(eps_s, "eps_s", (t_total, b, xd))
+        a.eps_t = c(eps_t, "eps_t", (t_total, b, xd))
+        a.mask = _ptr(mask, "mask", (t_total, b), device=dev)
+        a.cmask = _ptr(cmask, "cmask", (t_total, b, yd), device=dev)
+        a.lr = _ptr(lr, "lr", (), torch.float32, dev)
+        a.q_pack = c(q_pack, "q_pack", (t_total, 2, b, xd) if q_pack.dim() == 4 + len(lead)
+                     else (2, b, xd))
+        a.scal = c(scal, "scal", (t_total, 8))
+        a.row0, a.inv_b = int(row0), float(inv_b)
+        a.g_vec = c(g_vec, "g_vec", (nfp, xd))
+        a.xt = c(xt, "xt", (b, xd))
+        a.xs = c(xs, "xs", (b, xd))
+        a.sgd, a.update, a.warm_up = int(flags.sgd), int(flags.update), int(flags.warm_up)
+        a.train_decoder = int(flags.train_decoder)
+        a.update_likelihood = int(flags.update_likelihood)
+        a.update_transition = int(flags.update_transition)
+        a.poisson = int(cfg.likelihood == "poisson")
+        a.trace_quirk = int(cfg.trace_quirk)
+        a.bf16 = int(cfg.matmul_dtype == "bfloat16")
+        a.ns_iters = int(ns_iters)
+        a.leak, a.poisson_clamp, a.logvar_clamp = cfg.leak, cfg.poisson_clamp, cfg.logvar_clamp
+        a.clip, a.rls_shrink, a.chol_jitter = cfg.clip, cfg.rls_shrink, cfg.chol_jitter
+        a.obs_var_cap, a.state_var_cap = float(cfg.obs_var_cap), float(cfg.state_var_cap)
+
+        lib = _library()
+        reason = kernel_limits(cfg, b, mask=mask is not None, channel_mask=cmask is not None)
+        if reason is not None:
+            raise ValueError(f"the kernels do not take this configuration: {reason}")
+        if kernel == "info":
+            out = (ctypes.c_int * 9)()
+            rc = lib.vjf_cluster_info(ctypes.byref(a), out)
+            if rc != 0:
+                raise RuntimeError(f"vjf_cluster_info failed: cudaError {rc}")
+            return dict(zip(("cluster", "threads", "smem_bytes", "active_clusters", "registers",
+                             "local_bytes", "tile_rows", "stage_rows", "sub_rows"), out))
+        if sums is not None:
+            a.sums = c(sums, "sums", (lib.vjf_sums_floats(ctypes.byref(a)),))
+        ws = torch.empty(max(n_mem, 1) * lib.vjf_workspace_floats(ctypes.byref(a)),
+                         dtype=torch.float32, device=dev)
+        a.ws = ws.data_ptr()
+        a.layers = _layer_table(layers, dev).data_ptr()
+        fn = getattr(lib, _LAUNCHERS[kernel])
+        with torch.cuda.device(dev):
+            rc = fn(ctypes.byref(a), torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
-            raise RuntimeError(f"vjf_cluster_info failed: cudaError {rc}")
-        return dict(zip(("cluster", "threads", "smem_bytes", "active_clusters", "registers",
-                         "local_bytes", "tile_rows", "stage_rows", "sub_rows"), out))
-    if sums is not None:
-        a.sums = c(sums, "sums", (lib.vjf_sums_floats(ctypes.byref(a)),))
-    ws = torch.empty(max(n_mem, 1) * lib.vjf_workspace_floats(ctypes.byref(a)),
-                     dtype=torch.float32, device=dev)
-    a.ws = ws.data_ptr()
-    a.layers = _layer_table(layers, dev).data_ptr()
-    fn = getattr(lib, _LAUNCHERS[kernel])
-    with torch.cuda.device(dev):
-        rc = fn(ctypes.byref(a), torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{kernel} kernel launch failed: cudaError {rc}")
+            raise RuntimeError(f"{kernel} kernel launch failed: cudaError {rc}")
 
 
 def cluster_info(cfg, flags, carry: FusedCarry, qs_m, qs_lv, ys, us, lr, mask=None,
@@ -1696,32 +1692,34 @@ def exact_v_fallback(cfg: VJFConfig, out, prev_carry: FusedCarry,
     An ensemble step's output (:func:`fused_step_call` on a stacked carry)
     is taken as it is, each member's branch selected by its own tau;
     ``mask`` is then one copy for all members, ``u`` stacked or one copy.
+    A call is the span ``vjf.fallback`` (:mod:`.trace`).
     """
-    c = out.carry
-    m_col = None if mask is None else _mask_col(mask, out.xt.dtype)
-    b = out.xt.shape[-2] if m_col is None else torch.sum(m_col)
-    if m_col is not None and u is not None:
-        u = torch.where(m_col > 0, u, torch.zeros_like(u))
+    with _trace.span("vjf.fallback"):
+        c = out.carry
+        m_col = None if mask is None else _mask_col(mask, out.xt.dtype)
+        b = out.xt.shape[-2] if m_col is None else torch.sum(m_col)
+        if m_col is not None and u is not None:
+            u = torch.where(m_col > 0, u, torch.zeros_like(u))
 
-    def mse_fn(w_new):
-        x2 = torch.sum(out.xs * out.xs, dim=-1, keepdim=True)
-        cross = _member_mm(out.xs, c.cent_x.mT)
-        if u is not None and u.shape[-1] > 0:
-            x2 = x2 + torch.sum(u * u, dim=-1, keepdim=True)
-            cross = cross + _member_mm(u, c.cent_u.mT)
-        d2 = torch.clamp(x2 + c.c2 - 2.0 * cross, min=0.0)
-        feat = torch.exp(-0.5 * d2 * c.inv_w2)
-        if c.w_white is not None:
-            feat = _member_mm(feat, c.w_white)          # SGP whitening
-        resid = (out.xt - out.xs) - _member_mm(feat, w_new)
-        if m_col is not None:
-            return (torch.sum(resid * resid * m_col, dim=(-2, -1))
-                    / (torch.clamp(b, min=1.0) * resid.shape[-1]))
-        return torch.mean(resid * resid, dim=(-2, -1))
+        def mse_fn(w_new):
+            x2 = torch.sum(out.xs * out.xs, dim=-1, keepdim=True)
+            cross = _member_mm(out.xs, c.cent_x.mT)
+            if u is not None and u.shape[-1] > 0:
+                x2 = x2 + torch.sum(u * u, dim=-1, keepdim=True)
+                cross = cross + _member_mm(u, c.cent_u.mT)
+            d2 = torch.clamp(x2 + c.c2 - 2.0 * cross, min=0.0)
+            feat = torch.exp(-0.5 * d2 * c.inv_w2)
+            if c.w_white is not None:
+                feat = _member_mm(feat, c.w_white)          # SGP whitening
+            resid = (out.xt - out.xs) - _member_mm(feat, w_new)
+            if m_col is not None:
+                return (torch.sum(resid * resid * m_col, dim=(-2, -1))
+                        / (torch.clamp(b, min=1.0) * resid.shape[-1]))
+            return torch.mean(resid * resid, dim=(-2, -1))
 
-    exact = _exact_inverse_repair(cfg, c, prev_carry, out.g_vec, b, mse_fn)
-    tau = out.scal.tau[0, 0] if isinstance(out, StepOut) else out.scal[..., 0, 4]
-    return out._replace(carry=_select_exact(c, exact, tau))
+        exact = _exact_inverse_repair(cfg, c, prev_carry, out.g_vec, b, mse_fn)
+        tau = out.scal.tau[0, 0] if isinstance(out, StepOut) else out.scal[..., 0, 4]
+        return out._replace(carry=_select_exact(c, exact, tau))
 
 
 def _select_exact(c: FusedCarry, exact, tau: torch.Tensor) -> FusedCarry:
@@ -1902,19 +1900,20 @@ def run_epoch_fused(cfg, flags, state, ys, us, seed, lr, noise=None,
         return None if x is None else at(x, t, t + 1)[..., 0, :, :]
 
     q_segs, scal_segs = [], []
-    for t in range(prefix):
-        prev = carry._replace(dyn_n=carry.dyn_n.clone(),
-                              state_logvar=carry.state_logvar.clone())
-        m_t = None if mask3 is None else mask3[t]
-        out = fused_step_call(cfg, flags, carry, qm, qlv, now(ys, t), now(us, t),
-                              now(eps_s, t), now(eps_t, t), lr, mask=m_t,
-                              cmask=None if cmask3 is None else cmask3[t])
-        if do_fallback:
-            out = exact_v_fallback(cfg, out, prev, now(us, t), mask=m_t)
-        carry = out.carry
-        qm, qlv = out.q_pack[..., 0, :, :].contiguous(), out.q_pack[..., 1, :, :].contiguous()
-        q_segs.append(out.q_pack.unsqueeze(-4))
-        scal_segs.append(out.scal)
+    with _trace.span("vjf.prefix") if prefix else _trace.NULL:
+        for t in range(prefix):
+            prev = carry._replace(dyn_n=carry.dyn_n.clone(),
+                                  state_logvar=carry.state_logvar.clone())
+            m_t = None if mask3 is None else mask3[t]
+            out = fused_step_call(cfg, flags, carry, qm, qlv, now(ys, t), now(us, t),
+                                  now(eps_s, t), now(eps_t, t), lr, mask=m_t,
+                                  cmask=None if cmask3 is None else cmask3[t])
+            if do_fallback:
+                out = exact_v_fallback(cfg, out, prev, now(us, t), mask=m_t)
+            carry = out.carry
+            qm, qlv = (out.q_pack[..., i, :, :].contiguous() for i in (0, 1))
+            q_segs.append(out.q_pack.unsqueeze(-4))
+            scal_segs.append(out.scal)
     if prefix < t_len:
         carry, q_seq, scal = mega_epoch_call(
             cfg, flags, carry, qm, qlv, at(ys, prefix, t_len), at(us, prefix, t_len),
@@ -1925,8 +1924,30 @@ def run_epoch_fused(cfg, flags, state, ys, us, seed, lr, noise=None,
         q_segs.append(q_seq)
         scal_segs.append(scal)
 
-    return epoch_result(cfg, carry, states if members else states[0],
-                        torch.cat(q_segs, dim=-4), torch.cat(scal_segs, dim=-2))
+    q_seq, scal_seq = torch.cat(q_segs, dim=-4), torch.cat(scal_segs, dim=-2)
+    bands = _trace.tau_bands(dev)
+    if bands is not None:
+        tau = scal_seq[..., 4]
+        if do_fallback and prefix:
+            bands[0].add_(tau_band_counts(tau[..., :prefix]))
+        if prefix < t_len:
+            bands[1].add_(tau_band_counts(tau[..., prefix:]))
+    return epoch_result(cfg, carry, states if members else states[0], q_seq, scal_seq)
+
+
+def tau_band_counts(tau: torch.Tensor) -> torch.Tensor:
+    """The steps of ``tau`` (any shape: steps, members) in each band of the
+    Newton-Schulz bound, (4,) int64 on its device: below
+    ``NS_TAU_ESCALATE`` (the base iterations), up to ``NS_TAU_THRESHOLD``
+    (one more), up to ``NS_TAU_MAX`` (three more; the prefix selects the
+    exact fallback), and the rest with every tau that is not finite (the
+    mega kernel skips the update; the prefix selects the fallback). Reads
+    nothing back to the host."""
+    t = torch.nan_to_num(tau.reshape(-1), nan=math.inf, neginf=math.inf)
+    at_least = [(t >= x).sum() for x in (-math.inf, NS_TAU_ESCALATE, NS_TAU_THRESHOLD,
+                                           NS_TAU_MAX)]
+    at_least = torch.stack(at_least + [torch.zeros_like(at_least[0])])
+    return at_least[:-1] - at_least[1:]
 
 
 def epoch_result(cfg: VJFConfig, carry: FusedCarry, state, q_seq: torch.Tensor,

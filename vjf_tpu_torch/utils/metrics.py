@@ -77,7 +77,11 @@ def multiplex(*callbacks: Callable) -> Callable:
 def profiler_trace(logdir: Optional[str]):
     """A ``torch.profiler`` scope (host and, where there is one, the card)
     that writes ``trace.json`` (Chrome trace format) into ``logdir``; a
-    no-op when ``logdir`` is None."""
+    no-op when ``logdir`` is None. Under this or any other ``torch.profiler``
+    session the port records its ``vjf.*`` spans (the epoch, the prefix,
+    the exact fallback, each launch) into the trace and into memory, with
+    the steps in each band of the Newton-Schulz bound: read them with
+    ``vjf_tpu_torch.ops.trace.read()``."""
     if logdir is None:
         yield
         return
