@@ -8,7 +8,12 @@ the same comparison; also that two runs give the same bits, and that a batch
 the cluster does not divide is split right), drives the main path (the flagship config of
 ``bench.py``: one warm-up epoch, then RLS-active epochs at full width,
 T = 2048 per epoch) through the kernels, times each kernel beside its plain
-version, and profiles one RLS epoch. The ``sharded`` phases then drive the
+version, and profiles one RLS epoch. The ``fallback`` phases hold the
+exact fallback's kernel against its plain version and a float64 evaluation
+of it on synthetic inputs (tau on each side of the threshold, at it and not
+finite; the three gates; 128 to 512 padded features, 1 to 4,096 trials, a
+trial mask with controls, SGP; 8 members, each bit for bit against its solo
+launch) and time it skipped and taken. The ``sharded`` phases then drive the
 exact-sync sharded epoch (``parallel.sharded``) at world size 1 over NCCL
 through its phase-1 kernel and hold it against the single-device epoch. The
 last phases hold the autograd epoch (``fused_step='off'``, the route a
@@ -50,9 +55,9 @@ member) against their plain versions, on per-member y and on one shared y,
 member m of a launch bit for bit against a solo launch of member m, the
 planted member faults (a stride one member short, a per-member posterior
 read as shared), ``fit_ensemble`` per epoch and blocked beside the same
-members' solo fits, that per-epoch fit again with a batched exact
-fallback in place of the member-by-member one (its times, how far its
-members end from the shipped ones), a phase-mixed epoch
+members' solo fits, that per-epoch fit again with the plain exact
+fallback in place of the kernel (its times, how far its members end from
+the shipped ones), a phase-mixed epoch
 (``warm_gate``) against each member's static-flag epoch, and a forced hot
 member re-run alone while the others keep their bits. The ``smooth``
 phases drive post-hoc smoothing and co-smoothing evaluation: the
@@ -287,13 +292,35 @@ SHAPE_SHARD_T = 16      # shapes.*.sharded: sharded steps at each shape, world s
 # the other three, and the other matmul precision 7.86e-3 to 8.65e-3 in
 # w_in_lv, w_hidden.0 and w_in_y: the limits of those three sit between,
 # w_in_y's above both (every other leaf, within TOL, rejects the other
-# precision there). check_shape gates each leaf of SHAPE_LIMITS against a
-# float64 plain version (vs_float64): the kernel is no farther from it than
-# the plain bf16 version (PERF.md §6).
+# precision there). The bf16 mega segments at B 1,024 (w_dyn) and at hidden
+# (32,) x 9 (q_mean, q_logvar): their start state comes from a prefix epoch
+# whose exact fallback steps (346 and 277 of 512) the fallback kernel
+# computes, which rounds otherwise than the library's Cholesky. From that
+# start the sound kernel reads 2.189e-3 in w_dyn, 2.462e-3 in q_mean and
+# 2.168e-3 in q_logvar (every run the same bits; from the library's start
+# w_dyn read 3.781e-4, the other two within TOL). Both bf16 versions are then
+# about equally far from float64 (w_dyn 2.425e-3 the kernel, 1.833e-3 the
+# plain version, and 2.323e-3, 2.234e-3 from the library's start; q_mean
+# 3.267e-3 and q_logvar 2.842e-3 both), so the difference is bf16's own
+# rounding. The other matmul precision reads 1.807e-3 in w_dyn, under the
+# sound kernel (dyn, 7.787e-3, and q_mean, 2.442e-3, reject it), 3.267e-3 in
+# q_mean and 2.838e-3 in q_logvar; a planted fault reads at least 4.19e-2 in
+# w_dyn at B 1,024, 1.166e-2 in q_mean and 7.548e-3 in q_logvar at (32,) x 9:
+# the limits sit between. check_shape gates each leaf of SHAPE_LIMITS against
+# a float64 plain version (vs_float64): the kernel is no farther from it than
+# SHAPE_F64_RATIO times the plain bf16 version, 1.05 where the entry names
+# none. The two mega entries take 2: the sound kernel read 1.323 times the
+# plain version in w_dyn above, and a planted fault that moves w_dyn 4.19e-2
+# from the plain version is some 20 times the plain version's 1.833e-3
+# (PERF.md §6).
 SHAPE_LIMITS = {("h64x4", "mega_epoch", "bfloat16"): {"q_logvar": 2.5e-3},
                 ("sgp400", "forward_sums", "bfloat16"): {"grad_check": 1e-2},
                 ("h32x9", "fused_step", "bfloat16"): {"w_in_y": 1e-2, "w_in_lv": 5e-3,
-                                                      "w_hidden.0": 5e-3, "w_hidden.1": 5e-3}}
+                                                      "w_hidden.0": 5e-3, "w_hidden.1": 5e-3},
+                ("b1024", "mega_epoch", "bfloat16"): {"w_dyn": 3e-3},
+                ("h32x9", "mega_epoch", "bfloat16"): {"q_mean": 2.8e-3, "q_logvar": 2.5e-3}}
+SHAPE_F64_RATIO = {("b1024", "mega_epoch", "bfloat16"): 2.0,
+                   ("h32x9", "mega_epoch", "bfloat16"): 2.0}
 DEPTH_WIDTH = 8         # shapes.depths: the width of each hidden layer
 DEPTH_LAYERS = tuple(range(1, 13)) + (16,)  # shapes.depths: on the one-pass instantiation
 DEPTH_BF16_STEP_LAYERS = 8  # shapes.depths: the bf16 step gated up to this depth (check_depths)
@@ -328,6 +355,27 @@ PLAN_STEPS = 8          # shapes.plans: steps of the mega segment held against i
 PLAN_TAU0 = 0.5         # shapes.plans: the first step's tau (the weight posterior reset)
 MULTI_XLA_STEPS = 64
 MULTI_XLA_TOL = 1e-3
+# fallback.*: the exact fallback's kernel against its plain version on
+# synthetic inputs. Taus on each side of NS_TAU_THRESHOLD, at it and not
+# finite; shapes (features as n_rbf or n_inducing, trials, SGP, controls,
+# a trial mask); the gates planted: P not positive definite, g (so w) not
+# finite, the variance not finite (the pre-step log-variance at 1e30)
+FB_TAUS = {"below": 0.2499, "at": 0.25, "above": 0.3, "inf": math.inf, "nan": math.nan}
+FB_SHAPES = {"n128.b1": (100, 1, False, 0, False), "n128.b256": (100, 256, False, 0, False),
+             "n128.b1024": (100, 1024, False, 0, False),
+             "n128.b4096": (100, 4096, False, 0, False),
+             "n256.b256": (200, 256, False, 0, False), "n512.b256": (400, 256, False, 0, False),
+             "n128.b256.mask_u": (100, 256, False, 2, True),
+             "sgp200.b256": (200, 256, True, 0, False)}
+FB_GATES = ("not_pd", "w_inf", "var_inf")
+FB_MEMBER_TAUS = (0.3, 0.1, math.inf, 0.25, math.nan, 0.2, 0.5, 0.26)
+FB_COND = 1e4           # condition number of the synthetic P's real block
+# a taken leaf's error against the plain version in float64 may be at most
+# FB_RATIO times the plain f32 version's, or FB_RATIO times FB_FLOOR where
+# the plain version is within a few ulps of float64 (it cannot be halved)
+FB_RATIO = 2.0
+FB_FLOOR = 8 * F32_ULP
+FB_LEAVES = ("v_mat", "w_dyn", "state_logvar", "dyn_n")
 # multi.world2: two processes on one card over gloo, one deadline for both
 WORLD2_DEADLINE = 240.0
 WORLD2_ENS_EPOCHS = 2        # ensemble.fit's workload cut to 1 warm-up + 1 RLS epoch
@@ -472,11 +520,17 @@ def segment(carry, q_pack, scal) -> dict:
     return dict(flatten(carry._asdict()), **outputs(q_pack, scal))
 
 
+def fallback_of(step_fn):
+    """The exact fallback that follows ``step_fn``: the plain version after
+    the plain step, the kernel after the kernel (on CUDA tensors)."""
+    return F.exact_v_fallback_plain if step_fn is F.fused_step_plain else F.exact_v_fallback
+
+
 def prefix_step(step_fn, cfg, flags, carry, qm, qlv, y, e_s, e_t, lr):
     """One exact-inverse prefix step: a fused step, then the fallback."""
     prev = carry._replace(dyn_n=carry.dyn_n.clone(), state_logvar=carry.state_logvar.clone())
     out = step_fn(cfg, flags, carry, qm, qlv, y, None, e_s, e_t, lr)
-    return F.exact_v_fallback(cfg, out, prev, None)
+    return fallback_of(step_fn)(cfg, out, prev, None)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -530,6 +584,238 @@ def check_step(post_warm, qm, qlv, y, e_s, e_t, lr) -> float:
             compare(f"step[{mm}].fault.{fault}", packed(ref), packed(bad), TOL[mm], start,
                     reject=True)
     return err
+
+
+def fallback_case(shape: tuple, taus, dev, seed: int, gate=None):
+    """Operands of the exact fallback at ``shape`` (a value of FB_SHAPES:
+    features, trials, SGP, controls, trial mask): a step's
+    output and the pre-step snapshot, with ``len(taus)`` members stacked
+    (one: solo). Member m's state is ``init_state(seed + m)``'s; its P is
+    symmetric positive definite with eigenvalues log-spaced over
+    [1, FB_COND] in a random basis (one of them -1 under ``gate="not_pd"``),
+    the identity on the pad; g is P w for a w of scale 0.1, so the exact w
+    is of that scale; V is the inverse perturbed by 1e-3 (the step's
+    Newton-Schulz iterate); xs and xt are drawn near the RBF centroids'
+    scale. Under a trial mask the masked trials' controls are NaN. Returns
+    ``(cfg, out, prev, u, mask)``."""
+    nf, b, sgp, ud, masked = shape
+    cfg = (sgp_flagship if sgp else flagship)("float32").replace(
+        udim=ud, **({"n_inducing": nf} if sgp else {"n_rbf": nf}))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    f64 = torch.float64
+
+    def randn(*shape_):
+        return torch.randn(shape_, device=dev, generator=g, dtype=f64)
+
+    carries, rows = [], []
+    for m, tau in enumerate(taus):
+        c = F.pad_carry(cfg, core.init_state(seed + m, cfg, device=dev))
+        nfp, xd = c.p_mat.shape[-1], cfg.xdim
+        q, _ = torch.linalg.qr(randn(nf, nf))
+        lam = torch.logspace(0, math.log10(FB_COND), nf, device=dev, dtype=f64)
+        if gate == "not_pd":
+            lam[nf // 2] = -1.0
+        p = torch.eye(nfp, device=dev, dtype=f64)
+        p[:nf, :nf] = (q * lam) @ q.T
+        p = 0.5 * (p + p.T)
+        w = torch.zeros((nfp, xd), device=dev, dtype=f64)
+        w[:nf] = 0.1 * randn(nf, xd)
+        g_vec = p @ w
+        if gate == "w_inf":
+            g_vec[0, 0] = math.inf
+        xs = 0.7 * randn(b, xd)
+        scal = torch.zeros((1, 8), device=dev)
+        scal[0, 4] = tau
+        carries.append(c._replace(
+            p_mat=p.float(), v_mat=(torch.linalg.inv(p) * (1 + 1e-3 * randn(nfp, nfp))).float()
+            .contiguous(),
+            w_dyn=(w + 1e-3 * randn(nfp, xd)).float(),
+            state_logvar=torch.full((1, 1), -1.51, device=dev),
+            dyn_n=torch.full((1, 1), 5000.0 + b, device=dev)))
+        rows.append((torch.zeros((2, b, xd), device=dev), g_vec.float(), (xs + 0.05 * randn(
+            b, xd)).float(), xs.float(), scal))
+    one = len(taus) == 1
+    carry = carries[0] if one else F.stack_carries(carries)
+    out = F.PackedStepOut(carry, *(r[0] if one else torch.stack(r) for r in zip(*rows)))
+    lead = carry.dyn_n.shape
+    prev = carry._replace(dyn_n=torch.full(lead, 5000.0, device=dev), state_logvar=torch.full(
+        lead, 1e30 if gate == "var_inf" else -1.5, device=dev))
+    u = mask = None
+    if masked:
+        mask = (torch.rand(b, device=dev, generator=g) > 0.3).float()
+    if ud:
+        u = torch.randn((b, ud), device=dev, generator=g)
+        if mask is not None:
+            u[mask == 0] = math.nan
+    return cfg, out, prev, u, mask
+
+
+def fallback_leaves(out) -> dict:
+    return {k: getattr(out.carry, k) for k in FB_LEAVES}
+
+
+def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """max |got - ref| over max |ref|, in float64."""
+    scale = float(ref.double().abs().max())
+    d = float((got.double() - ref.double()).abs().max())
+    return d / scale if scale > 0 else d
+
+
+def check_fallback_case(name: str, cfg, out, prev, u, mask, taus, gate=None) -> dict:
+    """The fallback kernel against its plain version on one case: two
+    kernel runs bit for bit; every carry leaf but the four it may write
+    untouched; per member, where the branch is skipped or a gate fails, the
+    four leaves' bits unchanged (by the plain version too); where it is
+    taken, each leaf's error against the plain version in float64 at most
+    FB_RATIO times the plain f32 version's (FB_FLOOR at least). Returns the
+    errors by leaf, kernel and plain, over the taken members."""
+    def run():
+        return F.exact_v_fallback(cfg, out._replace(carry=clone(out.carry)), prev, u, mask=mask)
+
+    kern, again = run(), run()
+    plain = F.exact_v_fallback_plain(cfg, out, prev, u, mask)
+    ref = F.exact_v_fallback_plain(cfg, as_f64(out), as_f64(prev), None if u is None
+                                   else u.double(), mask)
+    kc, ac = flatten(kern.carry._asdict()), flatten(again.carry._asdict())
+    differ = [k for k in kc if not torch.equal(kc[k], ac[k])]
+    check(not differ, f"{name}: two runs differ in {differ}")
+    sc = flatten(out.carry._asdict())
+    touched = [k for k in kc if k not in FB_LEAVES and not torch.equal(kc[k], sc[k])]
+    check(not touched, f"{name}: the kernel wrote {touched}")
+    start, K, P, R = (fallback_leaves(x) for x in (out, kern, plain, ref))
+    errs = {"kernel": dict.fromkeys(FB_LEAVES, 0.0), "plain": dict.fromkeys(FB_LEAVES, 0.0)}
+    taken = []
+    for m, tau in enumerate(taus):
+        pick = (lambda x: x) if len(taus) == 1 else (lambda x: x[m])
+        take = not tau < F.NS_TAU_THRESHOLD
+        taken.append(take)
+        for k in FB_LEAVES:
+            s0, kv, pv = pick(start[k]), pick(K[k]), pick(P[k])
+            if not take or gate is not None:
+                check(torch.equal(kv, s0) and torch.equal(pv, s0),
+                      f"{name}: member {m} {k} moved (tau {tau}, gate {gate})")
+                continue
+            rv = pick(R[k])
+            ek, ep = rel_err(kv, rv), rel_err(pv, rv)
+            errs["kernel"][k] = max(errs["kernel"][k], ek)
+            errs["plain"][k] = max(errs["plain"][k], ep)
+            check(ek <= FB_RATIO * max(ep, FB_FLOOR),
+                  f"{name}: member {m} {k} {ek:.3e} from float64, the plain version {ep:.3e}")
+        if take and gate is None:
+            check(not torch.equal(pick(K["v_mat"]), pick(start["v_mat"])),
+                  f"{name}: member {m} taken but V unchanged")
+    phase(name, taus=[str(t) for t in taus], taken=taken, gate=gate, deterministic=True,
+          err_vs_float64={w: {k: float(f"{v:.3e}") for k, v in e.items()}
+                          for w, e in errs.items()})
+    return errs
+
+
+def check_fallback_members(cfg, out, prev, u, mask) -> None:
+    """Each member of a stacked fallback launch bit for bit against a solo
+    launch of that member."""
+    both = F.exact_v_fallback(cfg, out._replace(carry=clone(out.carry)), prev, u, mask=mask)
+    differ = []
+    for m in range(both.carry.v_mat.shape[0]):
+        solo = F.PackedStepOut(clone(F.member_carry(out.carry, m)), *(x[m] for x in out[1:]))
+        solo = F.exact_v_fallback(cfg, solo, F.member_carry(prev, m), u, mask=mask)
+        differ += [f"{m}.{k}" for k, v in fallback_leaves(solo).items()
+                   if not torch.equal(v, getattr(both.carry, k)[m])]
+    check(not differ, f"fallback.members_vs_solo: leaves differ: {differ}")
+
+
+def fallback_ops(cfg, nfp: int, b: int) -> tuple:
+    """(operations, bytes) that one taken fallback needs, whatever the
+    algorithm: the Cholesky factor of P, one triangular inverse and V = X^T X
+    (n^3 / 6 multiply-adds each), w = V g (and w_white w for SGP), the
+    residual's features and products; P, g, xs, xt, u and the RBF constants
+    read once, V and w written once. The kernel's Newton iterations spend
+    some 2 ceil(log2 n) triangular products on the inverse where n^3 / 6
+    would do; they are not counted."""
+    xd, ud = cfg.xdim, cfg.udim
+    sgp = cfg.dynamics == "sgp"
+    fma = 3 * nfp ** 3 / 6 + nfp * nfp * xd * (1 + sgp) + b * nfp * (2 * xd + ud)
+    read = 2 * nfp * nfp * sgp
+    byts = 4 * (2 * nfp * nfp + 2 * nfp * xd + b * (2 * xd + ud) + nfp * (xd + ud + 2) + read)
+    return 2 * fma, byts
+
+
+def fallback_device_us(fn, reps: int) -> float:
+    """Device microseconds a launch of the fallback kernel, from the
+    profiler's kernel records over ``reps`` calls of ``fn`` (the mean over
+    the records it kept: a session can miss one)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+          and "vjf_fallback_kernel" in e.key]
+    check(len(ev) == 1 and 0 < ev[0].count <= reps, f"fallback: kernel records {ev}")
+    return ev[0].self_device_time_total / ev[0].count
+
+
+def fallback_times(dev, smi) -> dict:
+    """Per call at the flagship (B 256, 1024) and at B 1: the kernel's
+    device time skipped and taken, its host time, the plain version's time
+    (CUDA events), the library's Cholesky (``cholesky_ex``) on the same P,
+    and the taken call's bound."""
+    out = {}
+    for shape in ("n128.b256", "n128.b1024", "n128.b1"):
+        row = {}
+        for what, tau in (("skipped", 0.1), ("taken", 0.3)):
+            cfg, st, prev, u, mask = fallback_case(FB_SHAPES[shape], (tau,), dev, seed=90)
+            run = lambda: F.exact_v_fallback(cfg, st, prev, u, mask=mask)  # noqa: E731
+            row[f"{what}_us"] = fallback_device_us(run, 20)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                run()
+            row[f"{what}_host_us"] = 1e6 * (time.perf_counter() - t0) / 20
+            torch.cuda.synchronize()
+        row["plain_us"] = 1e3 * cuda_ms(lambda: F.exact_v_fallback_plain(cfg, st, prev, u,
+                                                                         mask), 10)
+        row["library_us"] = 1e3 * cuda_ms(lambda: torch.linalg.cholesky_ex(st.carry.p_mat), 20)
+        ops, byts = fallback_ops(cfg, st.carry.p_mat.shape[-1], st.xs.shape[0])
+        bnd = bound(cfg, byts, (ops, 0))
+        row["bound_us"], row["bound_by"] = 1e3 * bnd[0], bnd[1]
+        check(row["skipped_us"] <= 10.0, f"fallback.times[{shape}]: skipped {row['skipped_us']}")
+        check(row["taken_us"] < 2000.0, f"fallback.times[{shape}]: taken {row['taken_us']}")
+        out[shape] = row
+    phase("fallback.times", unit="us per call", **out, card=smi)
+    return out
+
+
+def check_fallback(dev, smi) -> dict:
+    """The fallback kernel (``csrc/exact_fallback.cu``) against its plain
+    version on synthetic inputs (:func:`fallback_case`): each tau of FB_TAUS
+    at the flagship shape, each gate planted at a taken tau, every shape of
+    FB_SHAPES taken, 8 stacked members with mixed taus (each member bit for
+    bit against its solo launch); then the times. Returns the worst errors
+    and the times."""
+    worst = {"kernel": 0.0, "plain": 0.0}
+
+    def note(errs):
+        for w in worst:
+            worst[w] = max(worst[w], max(errs[w].values()))
+
+    for i, (tag, tau) in enumerate(FB_TAUS.items()):
+        note(check_fallback_case(f"fallback.tau[{tag}]", *fallback_case(
+            FB_SHAPES["n128.b256"], (tau,), dev, 100 + i), (tau,)))
+    for i, gate in enumerate(FB_GATES):
+        note(check_fallback_case(f"fallback.gate[{gate}]", *fallback_case(
+            FB_SHAPES["n128.b256"], (0.3,), dev, 110 + i, gate=gate), (0.3,), gate=gate))
+    for i, shape in enumerate(FB_SHAPES):
+        note(check_fallback_case(f"fallback.shape[{shape}]", *fallback_case(
+            FB_SHAPES[shape], (0.3,), dev, 120 + i), (0.3,)))
+    case = fallback_case(FB_SHAPES["n128.b256"], FB_MEMBER_TAUS, dev, 140)
+    note(check_fallback_case("fallback.members", *case, FB_MEMBER_TAUS))
+    check_fallback_members(*case)
+    phase("fallback.members_vs_solo", members=len(FB_MEMBER_TAUS), bit_identical=True)
+    return {"worst": worst, "times": fallback_times(dev, smi)}
 
 
 def check_mega(name, cfg, flags, carry, qm, qlv, ys, e_s, e_t, lr, planted=True):
@@ -1454,21 +1740,21 @@ def as_f64(x):
 
 
 def vs_float64(name: str, ref64: dict, kernel: dict, plain: dict, start: dict,
-               loosened: dict) -> dict:
+               loosened: dict, ratio: float = 1.05) -> dict:
     """The kernel and the plain version with bf16 products, each held
     against the plain version in float64 from the same start: every leaf's
     normalised error (``compare_errs``) for both, printed ungated. For each
     leaf of ``loosened`` (a SHAPE_LIMITS entry) the kernel must be no farther
-    from float64 than the plain bf16 version is, up to 5%: farther would be
-    a fault of the kernel, not bf16 rounding."""
+    from float64 than ``ratio`` times the plain bf16 version: farther would
+    be a fault of the kernel, not bf16 rounding."""
     k_errs, _ = compare_errs(ref64, kernel, start)
     p_errs, _ = compare_errs(ref64, plain, start)
-    phase(f"{name}.vs_float64", loosened=loosened,
+    phase(f"{name}.vs_float64", loosened=loosened, ratio=ratio,
           kernel={k: float(f"{v:.3e}") for k, v in k_errs.items()},
           plain_bf16={k: float(f"{v:.3e}") for k, v in p_errs.items()},
           kernel_worst=max(k_errs.values()), plain_bf16_worst=max(p_errs.values()))
     for leaf in loosened:
-        check(k_errs[leaf] <= 1.05 * p_errs[leaf],
+        check(k_errs[leaf] <= ratio * p_errs[leaf],
               f"{name}: the kernel's {leaf} is {k_errs[leaf]:.3e} from float64, the plain bf16 "
               f"version's {p_errs[leaf]:.3e}")
     return {"kernel": k_errs, "plain_bf16": p_errs}
@@ -1851,7 +2137,8 @@ def check_shape(tag, cfg, b, masked, rls_epochs, dev, group, smi) -> dict:
             m_64 = F.mega_epoch_plain(f64, flags, as_f64(carry), *as_f64(m_args), mask=m_seg,
                                       cmask=c_seg)
             vs_float64(f"shapes.{tag}.mega[{mm}]", segment(*m_64), segment(*m_got),
-                       segment(*m_ref), start, SHAPE_LIMITS[(tag, "mega_epoch", mm)])
+                       segment(*m_ref), start, SHAPE_LIMITS[(tag, "mega_epoch", mm)],
+                       SHAPE_F64_RATIO.get((tag, "mega_epoch", mm), 1.05))
         for fault, (fcfg, fflags) in faults(c, flags).items():
             bad = F.mega_epoch_call(fcfg, fflags, clone(carry), *m_args, mask=m_seg, cmask=c_seg)
             compare(f"shapes.{tag}.mega[{mm}].fault.{fault}", segment(*m_ref), segment(*bad),
@@ -1964,7 +2251,7 @@ def masked_prefix_step(step_fn, cfg, flags, carry, qm, qlv, y, e_s, e_t, lr, mas
     fallback over the valid rows."""
     prev = carry._replace(dyn_n=carry.dyn_n.clone(), state_logvar=carry.state_logvar.clone())
     out = step_fn(cfg, flags, carry, qm, qlv, y, None, e_s, e_t, lr, mask=mask, cmask=cmask)
-    return F.exact_v_fallback(cfg, out, prev, None, mask=mask)
+    return fallback_of(step_fn)(cfg, out, prev, None, mask=mask)
 
 
 def check_mask_kernels(post_warm, qm, qlv, post_prefix, data, eps, lr, smi) -> dict:
@@ -2861,8 +3148,8 @@ def check_ensemble_kernels(cfg, ys, lr, smi) -> dict:
 
     def step(fn, c, y, m, lv):
         prev = c._replace(dyn_n=c.dyn_n.clone(), state_logvar=c.state_logvar.clone())
-        return F.exact_v_fallback(cfg, fn(cfg, flags, c, m, lv, y, None, None, None, lr),
-                                  prev, None)
+        return fallback_of(fn)(cfg, fn(cfg, flags, c, m, lv, y, None, None, None, lr), prev,
+                               None)
 
     ref = step(F.fused_step_plain, clone(carry), y0, qm, qlv)
     got = step(F.fused_step_call, clone(carry), y0, qm, qlv)
@@ -3031,35 +3318,33 @@ def check_ensemble_fit(cfg, dev, smi) -> dict:
 
 
 def check_ensemble_fallback(cfg, dev, smi, shipped: dict) -> None:
-    """What the exact fallback's member loop costs: "ensemble.fit"'s
-    per-epoch fit again, with a batched fallback (one batched Cholesky and
-    batched products over the stack) in place of the shipped one (each
-    member's P factored and its thin products run alone, so that a member
-    keeps the bits of its solo fit): its RLS epochs' seconds beside the
-    shipped fit's, and how far its members' finals end from the shipped
-    ones (``compare``'s normalised errors, not gated: the fit is not
-    determined in float32 once the bootstrap has run)."""
+    """What the exact fallback costs in an ensemble fit: "ensemble.fit"'s
+    per-epoch fit again with the plain fallback (``exact_v_fallback_plain``:
+    the branch computed on every prefix step and selected, each member's P
+    factored alone by the library's Cholesky) in place of the shipped kernel
+    (one launch for all members, the branch taken on the device): its RLS
+    epochs' seconds beside the shipped fit's, and how far its members'
+    finals end from the shipped ones (``compare``'s normalised errors, not
+    gated: the fit is not determined in float32 once the bootstrap has
+    run)."""
     cfg = ensemble_cfg(cfg).replace(ns_prefix_free="off")
     y = spikes(ENS_T, ENS_B, cfg.ydim, dev, seed=60)
     states = init_ensemble(0, cfg, ENS_N, device=dev)
-    batched = {"_member_cholesky": linalg.cholesky_f32, "_member_mm": lambda a, b: a @ b}
-    own = {k: getattr(F, k) for k in batched}
-    for k, fn in batched.items():
-        setattr(F, k, fn)
+    own = F.exact_v_fallback
+    F.exact_v_fallback = F.exact_v_fallback_plain
     try:
         with ensemble_dispatches() as log:
             res, secs = synced(lambda: fit_ensemble(cfg, states, y, seeds=shipped["seeds"],
                                                     max_iter=ENS_FIT_EPOCHS))
     finally:
-        for k, fn in own.items():
-            setattr(F, k, fn)
+        F.exact_v_fallback = own
     ref = shipped["result"]
     errs = [compare_errs(state_leaves(ref.states[m]), state_leaves(res.states[m]),
                          state_leaves(states[m]))[0] for m in range(ENS_N)]
     phase("ensemble.fallback", members=ENS_N, batch=ENS_B, steps=ENS_T,
-          prefix=cfg.ns_prefix, rls_epoch_s_per_member=shipped["rls_epoch_s"],
-          rls_epoch_s_batched=[e["seconds"] for e in log if not e["warm_up"]],
-          fit_s_per_member=shipped["seconds"], fit_s_batched=secs,
+          prefix=cfg.ns_prefix, rls_epoch_s_kernel=shipped["rls_epoch_s"],
+          rls_epoch_s_plain=[e["seconds"] for e in log if not e["warm_up"]],
+          fit_s_kernel=shipped["seconds"], fit_s_plain=secs,
           finite=bool(np.isfinite(res.loss).all()),
           w_mean_err_vs_shipped=[e["dynamics.blr.w_mean"] for e in errs],
           max_err_vs_shipped=[max(e.values()) for e in errs], card=smi)
@@ -3898,6 +4183,7 @@ def main() -> int:
     mask_data = masked_data(ys[:MASK_T], seed=40)
 
     step_err = check_step(post_warm, qm0, qlv0, ys[-1], eps[0, 0], eps[1, 0], lr)
+    fallback = check_fallback(dev, smi)
     sums_err = check_forward_sums(post_warm, qm0, qlv0, ys[-1], eps[0, 0], eps[1, 0])
     check_shard_sum(cfg, post_warm, qm0, qlv0, ys[-1])
 
@@ -3980,6 +4266,8 @@ def main() -> int:
     check(max_tau < 0.7, f"Newton-Schulz never contracted (tau={max_tau})")
     check(hot < 0.01, f"dropped {100 * hot:.1f}% of RLS updates")
     check(launches["fused_step"] > 0 and launches["mega_epoch"] > 0, f"launches {launches}")
+    check(launches["exact_fallback"] == launches["fused_step"],
+          f"main: a prefix step without its fallback launch: {launches}")
     check(tuple(out.q_means.shape) == (T_EPOCH, b, cfg.xdim)
           and bool(torch.isfinite(out.q_means).all()), "main: posterior not finite")
     check(bool(torch.isfinite(out.epoch_loss).all()), "main: epoch losses not finite")
@@ -4157,6 +4445,7 @@ def main() -> int:
 
     # library_ms: no single PyTorch call computes a VJF step or its phase 1
     src = "vjf_tpu_torch/csrc/fused_step.cu"
+    fb_t = fallback["times"]["n128.b256"]
 
     def row(name, replaces, launches_, steps_, err, ms, plain_ms, bnd):
         return {"name": name, "route": "cuda", "source": src,
@@ -4207,6 +4496,13 @@ def main() -> int:
             sync["steps"]["fused_step"], step_err, step_ms, step_plain_ms, step_bound),
         row("mega_epoch.sync_every", 1767, sync["launches"]["mega_epoch"],
             sync["steps"]["mega_epoch"], mega_err, mega_ms, mega_plain_ms, mega_bound),
+        # the fallback taken at the flagship shape; the library's Cholesky beside it
+        dict(row("exact_fallback", 1357, launches["exact_fallback"],
+                 steps_by_kernel["exact_fallback"], fallback["worst"]["kernel"],
+                 fb_t["taken_us"] / 1e3, fb_t["plain_us"] / 1e3,
+                 (fb_t["bound_us"] / 1e3, fb_t["bound_by"])),
+             source="vjf_tpu_torch/csrc/exact_fallback.cu", library_ms=fb_t["library_us"] / 1e3,
+             skipped_ms=fb_t["skipped_us"] / 1e3),
     ] + [
         # the shapes: the step and mega launches from each shape's main path, the
         # phase-1 launches from its sharded steps

@@ -1,6 +1,6 @@
-"""Runs the CUDA kernels of ``vjf_tpu_torch/csrc/fused_step.cu`` on the CPU,
-where there is no card: an emulation for checking a change to the kernel
-before it reaches the card.
+"""Runs the CUDA kernels of ``vjf_tpu_torch/csrc/fused_step.cu`` and
+``exact_fallback.cu`` on the CPU, where there is no card: an emulation for
+checking a change to a kernel before it reaches the card.
 
     python3 scripts/kernel_emu/emu.py [--threads 512] [--cluster 8] [--smem BYTES]
         [--asan] [--opt -O2] [CASE ...]
@@ -21,7 +21,10 @@ small shapes); ``--asan`` builds with AddressSanitizer at -O1 (run with
 ``LD_PRELOAD`` of g++'s ``libasan.so`` and ``ASAN_OPTIONS=detect_leaks=0``).
 512 threads and a cluster of 8 (the card's geometry) take seconds a launch;
 ``--threads 128 --cluster 4`` is quicker. The emulated tensor-core product
-sums in f32 in k order, so bits differ from the card's.
+sums in f32 in k order, so bits differ from the card's. The ``fb.*`` cases
+run the fallback kernel (``emu_fallback.cpp``, built into the same library)
+through ``chip_smoke.check_fallback_case`` on synthetic inputs, and an
+ensemble case's members bit for bit against their solo launches.
 """
 from __future__ import annotations
 
@@ -50,21 +53,39 @@ CASES = {
 }
 
 
+# the fallback kernel: name: (features, trials, SGP, controls, trial mask), the
+# members' taus, a planted gate; through chip_smoke's fallback checks
+INF, NAN = float("inf"), float("nan")
+FALLBACK = {
+    "fb.taus": ((100, 16, False, 0, False), (0.2499, 0.25, 0.3, INF, NAN, 0.1), None),
+    "fb.b1": ((30, 1, False, 0, False), (0.3,), None),
+    "fb.mask_u": ((30, 16, False, 2, True), (0.3,), None),
+    "fb.sgp": ((30, 16, True, 0, False), (0.3,), None),
+    "fb.n256": ((200, 8, False, 0, False), (0.3,), None),
+    "fb.not_pd": ((30, 16, False, 0, False), (0.3,), "not_pd"),
+    "fb.w_inf": ((30, 16, False, 0, False), (0.3,), "w_inf"),
+    "fb.var_inf": ((30, 16, False, 0, False), (0.3,), "var_inf"),
+}
+
+
 def build(args) -> Path:
-    """The emulated library of this tree's kernel file at the given geometry."""
-    src = (ROOT / "vjf_tpu_torch" / "csrc" / "fused_step.cu").read_text().splitlines(True)
-    cut = next(i for i, ln in enumerate(src) if "Kernels and the C interface" in ln)
+    """The emulated library of this tree's kernel files at the given geometry."""
     out = ROOT / "build" / "kernel_emu" / f"t{args.threads}_c{args.cluster}_s{args.smem}" \
         f"{'_asan' if args.asan else ''}"
     out.mkdir(parents=True, exist_ok=True)
-    (out / "fused_step_cut.cu").write_text("".join(src[:cut - 1]))
+    for name in ("fused_step", "exact_fallback"):
+        src = (ROOT / "vjf_tpu_torch" / "csrc" / f"{name}.cu").read_text().splitlines(True)
+        cut = next(i for i, ln in enumerate(src) if "Kernels and the C interface" in ln)
+        (out / f"{name}_cut.cu").write_text("".join(src[:cut - 1]))
     lib = out / "libvjf_emu.so"
     flags = [f"-DNTHREADS={args.threads}", f"-DVJF_CLUSTER={args.cluster}",
              f"-DMAX_SMEM_BYTES={args.smem}"]
     flags += ["-O1", "-g", "-fsanitize=address", "-fno-omit-frame-pointer"] if args.asan \
         else [args.opt]
-    subprocess.run(["g++", "-std=c++20", "-shared", "-fPIC", f"-I{out}", f"-I{HERE}", *flags,
-                    str(HERE / "emu.cpp"), "-o", str(lib), "-lpthread"], check=True)
+    subprocess.run(["g++", "-std=c++20", "-shared", "-fPIC", f"-I{out}", f"-I{HERE}",
+                    f"-I{ROOT / 'vjf_tpu_torch' / 'csrc'}", *flags,
+                    str(HERE / "emu.cpp"), str(HERE / "emu_fallback.cpp"), "-o", str(lib),
+                    "-lpthread"], check=True)
     return lib
 
 
@@ -146,9 +167,23 @@ def run(name, hidden, b, mm, n_rbf, ydim, masks, warm=24, seg=8) -> float:
     return max(e for _, e in worst.values())
 
 
+def run_fallback(name, shape, taus, gate) -> float:
+    """The fallback kernel against its plain version (chip_smoke's
+    ``check_fallback_case``), and each member bit for bit against its solo
+    launch."""
+    import chip_smoke as cs
+
+    cs.phase = lambda n, **kw: print(n, kw, flush=True)
+    case = cs.fallback_case(shape, taus, "cpu", 7, gate=gate)
+    errs = cs.check_fallback_case(name, *case, taus, gate=gate)
+    if len(taus) > 1:
+        cs.check_fallback_members(*case)
+    return max(errs["kernel"].values())
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("cases", nargs="*", default=list(CASES))
+    ap.add_argument("cases", nargs="*", default=list(CASES) + list(FALLBACK))
     ap.add_argument("--threads", type=int, default=128)
     ap.add_argument("--cluster", type=int, default=4)
     ap.add_argument("--smem", type=int, default=232448)
@@ -156,7 +191,8 @@ def main() -> int:
     ap.add_argument("--asan", action="store_true")
     args = ap.parse_args()
     load(build(args), args.cluster)
-    worst = max(run(c, *CASES[c]) for c in args.cases)
+    worst = max(run_fallback(c, *FALLBACK[c]) if c in FALLBACK else run(c, *CASES[c])
+                for c in args.cases)
     print("worst", worst)
     return 0
 

@@ -1,6 +1,7 @@
 """The port's plain fused step (``step_math`` + ``exact_v_fallback``) against
 the JAX package's on the same numpy inputs, and the state carried across."""
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -138,3 +139,62 @@ def test_state_and_carry_round_trip_exactly():
     back = convert.flatten(convert.state_to_numpy(TF.unpad_carry(tc, carry, tstate)))
     for k in a:
         np.testing.assert_array_equal(back[k], a[k], err_msg=k)
+
+
+# The rule the fallback kernel (csrc/exact_fallback.cu) is held to: which tau
+# takes the exact branch, and that each gate keeps the step's leaves.
+FALLBACK_CASES = {
+    "below": (0.2499, None), "at": (0.25, None), "above": (0.4, None),
+    "inf": (float("inf"), None), "nan": (float("nan"), None),
+    "gate_info": (0.4, "not_pd"), "gate_finite_w": (0.4, "w_inf"),
+    "gate_finite_var": (0.4, "var_inf"),
+}
+
+
+def _fallback_inputs(tau, gate):
+    """``chip_smoke.fallback_case``'s operands at 30 features and B trials in
+    float64 (a step's output and the pre-step snapshot: P symmetric positive
+    definite, one eigenvalue -1 under ``not_pd``; g = P w; the pre-step
+    log-variance at 1e30 under ``var_inf``), and the exact w they imply."""
+    import chip_smoke
+
+    cfg, out, prev, _, _ = chip_smoke.fallback_case((30, B, False, 0, False), (tau,), "cpu",
+                                                    5, gate=gate)
+    out, prev = chip_smoke.as_f64(out), chip_smoke.as_f64(prev)
+    w = torch.linalg.solve(out.carry.p_mat, out.g_vec)
+    return cfg.replace(dtype="float64"), out, prev, w
+
+
+@pytest.mark.parametrize("case", list(FALLBACK_CASES))
+def test_exact_fallback_branch_and_gates(case):
+    """The exact branch is taken where tau >= NS_TAU_THRESHOLD, inf or NaN
+    (exactly the steps ``tau_band_counts`` puts in its two upper bands), and
+    there it replaces V, w, the state log-variance and its count with the
+    exact values; below the threshold, or where the factorisation fails, w
+    or the variance is not finite, the four leaves keep their bits."""
+    tau, gate = FALLBACK_CASES[case]
+    tc, out, prev, w = _fallback_inputs(tau, gate)
+    got = TF.exact_v_fallback(tc, out, prev, None).carry
+    assert convert.flatten(got._asdict()).keys() == convert.flatten(out.carry._asdict()).keys()
+    taken = not tau < TF.NS_TAU_THRESHOLD
+    bands = TF.tau_band_counts(out.scal[..., 4]).tolist()
+    assert sum(bands[2:]) == int(taken) and sum(bands) == 1
+    leaves = ("v_mat", "w_dyn", "state_logvar", "dyn_n")
+    if not taken or gate is not None:
+        for k in leaves:
+            assert torch.equal(getattr(got, k), getattr(out.carry, k)), k
+        return
+    np.testing.assert_allclose(got.v_mat.numpy(), torch.linalg.inv(out.carry.p_mat).numpy(),
+                               rtol=1e-9, atol=1e-9)
+    np.testing.assert_allclose(got.w_dyn.numpy(), w.numpy(), rtol=1e-9, atol=1e-9)
+    n = min(float(prev.dyn_n), tc.state_var_cap)
+    assert float(got.dyn_n) == n + B
+    resid = float(torch.mean(((out.xt - out.xs) - _features(got, out.xs) @ got.w_dyn) ** 2))
+    var = n / (n + B) * math.exp(float(prev.state_logvar)) + B / (n + B) * resid
+    assert float(got.state_logvar) == pytest.approx(math.log(var), rel=1e-12)
+
+
+def _features(carry, xs):
+    d2 = torch.clamp(torch.sum(xs * xs, -1, keepdim=True) + carry.c2 - 2.0 * xs @ carry.cent_x.T,
+                     min=0.0)
+    return torch.exp(-0.5 * d2 * carry.inv_w2)

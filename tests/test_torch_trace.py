@@ -195,3 +195,25 @@ def test_capacity_drops_and_counts(monkeypatch):
     s = trace.read()
     assert [(x.name, x.parent) for x in s.spans] == [("a", -1), ("b", 0)]
     assert s.dropped == 2 and all(x.end_ns for x in s.spans)
+
+
+@pytest.mark.parametrize("prefix", [1, PREFIX])
+def test_prefix_calls_the_fallback_by_attribute(inputs, monkeypatch, prefix):
+    """A prefix of n steps calls ``exact_v_fallback`` through the module
+    attribute (what the benchmark's wrapper replaces) n times, each call
+    one ``vjf.fallback`` span inside ``vjf.prefix``."""
+    calls = []
+    own = F.exact_v_fallback
+
+    def counted(*a, **k):
+        calls.append(1)
+        return own(*a, **k)
+
+    monkeypatch.setattr(F, "exact_v_fallback", counted)
+    st, ys, us = inputs
+    profiled(lambda: core.run_epoch(CFG.replace(ns_prefix=prefix), StepFlags(), st, ys, us, 3,
+                                    1e-3))
+    spans = trace.read().spans
+    fallbacks = [x for x in spans if x.name == "vjf.fallback"]
+    assert len(calls) == prefix and len(fallbacks) == prefix
+    assert all(spans[x.parent].name == "vjf.prefix" for x in fallbacks)

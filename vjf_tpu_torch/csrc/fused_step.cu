@@ -158,15 +158,9 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "vjf_defs.cuh"
 #include "vjf_hopper.cuh"
 
-#ifndef NTHREADS
-#define NTHREADS 512
-#endif
-#define NWARPS (NTHREADS / 32)
-#ifndef VJF_CLUSTER
-#define VJF_CLUSTER 8
-#endif
 #ifndef MAX_SMEM_BYTES
 #define MAX_SMEM_BYTES 232448  // what one block may use on sm_90
 #endif
@@ -176,7 +170,6 @@
 #define SUB_ROWS 16      // rows of a staged sub-panel where the panels live in L2
 
 #define NS_ITERS 3
-#define NS_TAU_THRESHOLD 0.25f
 #define NS_TAU_MAX 0.7f
 #define NS_EXTRA_ITERS 2
 #define NS_TAU_ESCALATE 0.05f

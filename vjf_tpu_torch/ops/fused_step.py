@@ -15,6 +15,10 @@ their plain PyTorch versions (counterpart of
   ``vjf_forward_sums``) or raises; on a CPU tensor each runs its plain
   version. Each kernel runs as one thread-block cluster that splits the
   trials and the rows of P, V and w (:func:`cluster_rows` mirrors the split).
+* :func:`exact_v_fallback` runs the exact-inverse fallback of a prefix step:
+  on a CUDA tensor one launch of ``vjf_fallback_kernel``
+  (``csrc/exact_fallback.cu``), which takes the branch on the device; on a
+  CPU tensor its plain version :func:`exact_v_fallback_plain`.
 * :func:`run_epoch_fused` pads the state once, runs the prefix (per-step
   kernel plus :func:`exact_v_fallback`) and the mega segment, and unpads.
   The sharded epoch, ``parallel.sharded.run_epoch_fused_sharded``, runs
@@ -1047,6 +1051,19 @@ class _Args(ctypes.Structure):
 _SHARED = {"y": 1, "u": 2}
 
 
+class _FallbackArgs(ctypes.Structure):
+    """Mirror of ``struct FallbackArgs`` in ``csrc/exact_fallback.cu``."""
+
+    _fields_ = (
+        [(n, _P) for n in (
+            "v_mat", "w_dyn", "state_logvar", "dyn_n", "p_mat", "g_vec", "xs", "xt", "u", "mask",
+            "cent_x", "cent_u", "c2", "inv_w2", "w_white", "prev_slv", "prev_dyn_n", "scal",
+            "ws")]
+        + [(n, ctypes.c_int) for n in ("B", "xd", "ud", "nfp", "n_members", "shared_u")]
+        + [(n, ctypes.c_float) for n in ("logvar_clamp", "state_var_cap")]
+    )
+
+
 def _library():
     from . import _build
 
@@ -1072,6 +1089,17 @@ def _library():
             raise RuntimeError("VJFArgs layout differs between fused_step.cu and _Args")
         if lib.vjf_layer_arg_size() != 8 * _LAYER_WORDS:
             raise RuntimeError("LayerArg differs between fused_step.cu and _layer_table")
+        lib.vjf_exact_fallback.argtypes = [ctypes.POINTER(_FallbackArgs), _P]
+        lib.vjf_exact_fallback.restype = ctypes.c_int
+        lib.vjf_fallback_workspace_floats.argtypes = [ctypes.POINTER(_FallbackArgs)]
+        lib.vjf_fallback_workspace_floats.restype = ctypes.c_size_t
+        for name in ("vjf_fallback_args_size", "vjf_fallback_args_tail"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = ctypes.c_size_t
+        if ((lib.vjf_fallback_args_size(), lib.vjf_fallback_args_tail())
+                != (ctypes.sizeof(_FallbackArgs), _FallbackArgs.state_var_cap.offset)):
+            raise RuntimeError("FallbackArgs differs between exact_fallback.cu and "
+                               "_FallbackArgs")
         lib._vjf_bound = True
     return lib
 
@@ -1675,51 +1703,141 @@ def exact_v_fallback(cfg: VJFConfig, out, prev_carry: FusedCarry,
                      u: Optional[torch.Tensor] = None, mask=None):
     """Replace the NS-tracked V with the exact Cholesky inverse where the
     step's tau says Newton-Schulz had not contracted (tau >=
-    ``NS_TAU_THRESHOLD``).
+    ``NS_TAU_THRESHOLD``, inf or NaN), with w, the state log-variance and
+    its count refreshed from it, each where the factorisation succeeded and
+    the results are finite (:func:`exact_v_fallback_plain` has the rule).
 
-    The JAX package branches with ``lax.cond``; here the exact branch is
-    computed every call and selected with ``torch.where`` on the device, so
-    the prefix never syncs with the host. ``prev_carry`` needs only the
-    pre-step ``dyn_n`` and ``state_logvar`` (the per-step kernel updates the
-    carry in place, so the caller snapshots those two). Under the step's
-    trial ``mask`` the residual mse and the sample count run over the valid
-    rows (a step without one reports tau 0, so the branch is never taken),
-    and the features see the masked rows' controls as 0, as the step did.
-    Deliberate deviation from the JAX package, whose fallback reads the
+    On CUDA tensors: ONE launch of ``vjf_fallback_kernel``
+    (``csrc/exact_fallback.cu``), which reads tau on the device, returns at
+    once where the branch is not taken, and otherwise writes the four
+    leaves IN PLACE into ``out.carry`` (the carry :func:`fused_step_call`
+    updated); ``out`` is returned as it is, and the host never syncs. The
+    counterpart of the JAX package's ``lax.cond``. ``out`` must be
+    :func:`fused_step_call`'s output; anything else raises. On CPU tensors:
+    :func:`exact_v_fallback_plain`.
+
+    ``prev_carry`` needs only the pre-step ``dyn_n`` and ``state_logvar``
+    (the per-step kernel updates the carry in place, so the caller
+    snapshots those two). ``u`` and ``mask`` as in
+    :func:`exact_v_fallback_plain`. A stacked carry: every member in the
+    one launch, each by its own tau, member k with the bits of its solo
+    launch. A call is the span ``vjf.fallback`` (:mod:`.trace`).
+    """
+    with _trace.span("vjf.fallback"):
+        if not _on_cuda(out.carry.p_mat):
+            return exact_v_fallback_plain(cfg, out, prev_carry, u, mask)
+        _fallback_launch(cfg, out, prev_carry, u, mask)
+        return out
+
+
+def _fallback_launch(cfg: VJFConfig, out, prev: FusedCarry, u, mask) -> None:
+    """Check the operands and launch ``vjf_exact_fallback`` on the current
+    stream. Lean on the host: every operand's device, dtype, shape and
+    contiguity, nothing else."""
+    if not isinstance(out, PackedStepOut):
+        raise ValueError("the fallback kernel takes fused_step_call's output (PackedStepOut)")
+    c = out.carry
+    dev = c.p_mat.device
+    n_mem = n_members(c)
+    lead = (n_mem,) if n_mem else ()
+    nfp, xd = c.p_mat.shape[-1], cfg.xdim
+    b = out.xs.shape[-2]
+    ud = 0 if u is None else u.shape[-1]
+    shared_u = n_mem and u is not None and u.dim() == 2
+
+    def p(t, name, shape, own=True):
+        if t is None:
+            return None
+        shape = (lead + shape) if own else shape
+        if t.device != dev or t.dtype != torch.float32 or t.shape != shape:
+            raise ValueError(f"{name}: expected float32 {tuple(shape)} on {dev}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: the kernel takes contiguous tensors")
+        return t.data_ptr()
+
+    a = _FallbackArgs()
+    a.v_mat = p(c.v_mat, "v_mat", (nfp, nfp))
+    a.w_dyn = p(c.w_dyn, "w_dyn", (nfp, xd))
+    a.state_logvar = p(c.state_logvar, "state_logvar", (1, 1))
+    a.dyn_n = p(c.dyn_n, "dyn_n", (1, 1))
+    a.p_mat = p(c.p_mat, "p_mat", (nfp, nfp))
+    a.g_vec = p(out.g_vec, "g_vec", (nfp, xd))
+    a.xs = p(out.xs, "xs", (b, xd))
+    a.xt = p(out.xt, "xt", (b, xd))
+    a.u = p(u, "u", (b, ud), own=not shared_u) if ud else None
+    m = _kernel_mask(mask, (b,))           # held until the launch: it may be a copy
+    a.mask = p(m, "mask", (b,), own=False)
+    a.cent_x = p(c.cent_x, "cent_x", (nfp, xd))
+    a.cent_u = p(c.cent_u, "cent_u", (nfp, ud)) if ud else None
+    a.c2 = p(c.c2, "c2", (1, nfp))
+    a.inv_w2 = p(c.inv_w2, "inv_w2", (1, nfp))
+    a.w_white = p(c.w_white, "w_white", (nfp, nfp))
+    a.prev_slv = p(prev.state_logvar, "prev.state_logvar", (1, 1))
+    a.prev_dyn_n = p(prev.dyn_n, "prev.dyn_n", (1, 1))
+    a.scal = p(out.scal, "scal", (1, 8))
+    a.B, a.xd, a.ud, a.nfp = b, xd, ud, nfp
+    a.n_members, a.shared_u = n_mem, int(bool(shared_u))
+    a.logvar_clamp, a.state_var_cap = cfg.logvar_clamp, float(cfg.state_var_cap)
+    lib = _library()
+    ws = torch.empty(max(n_mem, 1) * lib.vjf_fallback_workspace_floats(ctypes.byref(a)),
+                     dtype=torch.float32, device=dev)
+    a.ws = ws.data_ptr()
+    with torch.cuda.device(dev):
+        rc = lib.vjf_exact_fallback(ctypes.byref(a), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"exact_fallback kernel launch failed: cudaError {rc}")
+    _count("exact_fallback", c, 1)
+
+
+def exact_v_fallback_plain(cfg: VJFConfig, out, prev_carry: FusedCarry,
+                           u: Optional[torch.Tensor] = None, mask=None):
+    """Plain version of the fallback kernel, the exact branch computed and
+    then selected with ``torch.where`` on the device (no host sync): the
+    Cholesky factor of the step's P (``info != 0`` gates it out), the
+    triangular inverse by Newton iteration, ``V = X^T X``, ``w = V g``, the
+    post-update residual's mse over the batch and the state noise's running
+    variance from the pre-step ``dyn_n`` and ``state_logvar`` of
+    ``prev_carry``; the four leaves take the exact values where tau >=
+    ``NS_TAU_THRESHOLD`` (or is not finite) and the factorisation, the
+    finiteness of V and w and of the variance all pass. ``out``: a
+    ``StepOut`` or :func:`fused_step_call`'s ``PackedStepOut``. Under the
+    step's trial ``mask`` the residual mse and the sample count run over the
+    valid rows (a step without one reports tau 0, so the branch is never
+    taken), and the features see the masked rows' controls as 0, as the step
+    did. Deliberate deviation from the JAX package, whose fallback reads the
     controls as given: there a NaN-padded control makes the residual NaN
     and the exact inverse is skipped on every step with a masked trial.
 
     An ensemble step's output (:func:`fused_step_call` on a stacked carry)
     is taken as it is, each member's branch selected by its own tau;
     ``mask`` is then one copy for all members, ``u`` stacked or one copy.
-    A call is the span ``vjf.fallback`` (:mod:`.trace`).
     """
-    with _trace.span("vjf.fallback"):
-        c = out.carry
-        m_col = None if mask is None else _mask_col(mask, out.xt.dtype)
-        b = out.xt.shape[-2] if m_col is None else torch.sum(m_col)
-        if m_col is not None and u is not None:
-            u = torch.where(m_col > 0, u, torch.zeros_like(u))
+    c = out.carry
+    m_col = None if mask is None else _mask_col(mask, out.xt.dtype)
+    b = out.xt.shape[-2] if m_col is None else torch.sum(m_col)
+    if m_col is not None and u is not None:
+        u = torch.where(m_col > 0, u, torch.zeros_like(u))
 
-        def mse_fn(w_new):
-            x2 = torch.sum(out.xs * out.xs, dim=-1, keepdim=True)
-            cross = _member_mm(out.xs, c.cent_x.mT)
-            if u is not None and u.shape[-1] > 0:
-                x2 = x2 + torch.sum(u * u, dim=-1, keepdim=True)
-                cross = cross + _member_mm(u, c.cent_u.mT)
-            d2 = torch.clamp(x2 + c.c2 - 2.0 * cross, min=0.0)
-            feat = torch.exp(-0.5 * d2 * c.inv_w2)
-            if c.w_white is not None:
-                feat = _member_mm(feat, c.w_white)          # SGP whitening
-            resid = (out.xt - out.xs) - _member_mm(feat, w_new)
-            if m_col is not None:
-                return (torch.sum(resid * resid * m_col, dim=(-2, -1))
-                        / (torch.clamp(b, min=1.0) * resid.shape[-1]))
-            return torch.mean(resid * resid, dim=(-2, -1))
+    def mse_fn(w_new):
+        x2 = torch.sum(out.xs * out.xs, dim=-1, keepdim=True)
+        cross = _member_mm(out.xs, c.cent_x.mT)
+        if u is not None and u.shape[-1] > 0:
+            x2 = x2 + torch.sum(u * u, dim=-1, keepdim=True)
+            cross = cross + _member_mm(u, c.cent_u.mT)
+        d2 = torch.clamp(x2 + c.c2 - 2.0 * cross, min=0.0)
+        feat = torch.exp(-0.5 * d2 * c.inv_w2)
+        if c.w_white is not None:
+            feat = _member_mm(feat, c.w_white)          # SGP whitening
+        resid = (out.xt - out.xs) - _member_mm(feat, w_new)
+        if m_col is not None:
+            return (torch.sum(resid * resid * m_col, dim=(-2, -1))
+                    / (torch.clamp(b, min=1.0) * resid.shape[-1]))
+        return torch.mean(resid * resid, dim=(-2, -1))
 
-        exact = _exact_inverse_repair(cfg, c, prev_carry, out.g_vec, b, mse_fn)
-        tau = out.scal.tau[0, 0] if isinstance(out, StepOut) else out.scal[..., 0, 4]
-        return out._replace(carry=_select_exact(c, exact, tau))
+    exact = _exact_inverse_repair(cfg, c, prev_carry, out.g_vec, b, mse_fn)
+    tau = out.scal.tau[0, 0] if isinstance(out, StepOut) else out.scal[..., 0, 4]
+    return out._replace(carry=_select_exact(c, exact, tau))
 
 
 def _select_exact(c: FusedCarry, exact, tau: torch.Tensor) -> FusedCarry:

@@ -35,8 +35,8 @@ import torch
 
 # kernel launches, one count per launcher and form (``.ensemble``: N members
 # in one launch); only the CUDA branch of a wrapper adds to its count
-launches = {"fused_step": 0, "mega_epoch": 0, "forward_sums": 0,
-            "fused_step.ensemble": 0, "mega_epoch.ensemble": 0}
+launches = {"fused_step": 0, "mega_epoch": 0, "forward_sums": 0, "exact_fallback": 0,
+            "fused_step.ensemble": 0, "mega_epoch.ensemble": 0, "exact_fallback.ensemble": 0}
 # timesteps those launches ran (a mega launch runs a whole segment; an
 # ensemble launch counts member-steps)
 steps = dict.fromkeys(launches, 0)
